@@ -1,0 +1,332 @@
+"""On-card smoke test of the PyTorch port (grove_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+  1. device: CUDA must be available; prints the card's name and power limit.
+  2. build: compiles the fill kernel (csrc/fill.cu, sm_90a) from the sources.
+  3. kernel vs plain version on the card at the wave solver's fill shape
+     (C=32 gangs, P=3 groups, N=5120 nodes, R=2 resources): shared and
+     per-gang capacity, masks 0/50/100% dense, zero demands and zero counts;
+     alloc, placed and free_after must be equal bit for bit. Times the kernel
+     and the plain version (median device time of 50 calls, CUDA events).
+  4. main path at full width: three requests through the sidecar's solve
+     (solve_decoded): the 10,240-gang x 5,120-node stress batch, 2,048 more
+     stress gangs against the capacity it left, and a non-uniform batch of
+     multi-group gangs with required/preferred pack keys. Each result must
+     be valid (usage <= capacity, floors met, required packs in one
+     domain); fill launch counts are reset just before and read just after.
+  5. kernel inside the path vs the plain fill inside the path, on reduced
+     problems (1,024 nodes x 2,048 gangs): every result field bit-equal.
+  6. prints the kernels line, the card line, and last the ok line.
+
+Imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def _fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        _fail("CUDA is not available: chip_smoke.py needs an NVIDIA GPU")
+    from grove_tpu_torch.utils.platform import card_info
+
+    line = ", ".join(card_info())  # as nvidia-smi prints name,power.limit
+    print(f"[device] {torch.cuda.get_device_name(0)} | torch {torch.__version__}"
+          f" cuda {torch.version.cuda} | nvidia-smi: {line}", flush=True)
+    return line
+
+
+def phase_build() -> None:
+    from grove_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load("fill")
+    print(f"[build] fill.cu built+loaded in {time.perf_counter() - t0:.3f} s", flush=True)
+    log = _build.BUILD_LOGS.get("fill", "(prebuilt library reused)")
+    for ln in log.strip().splitlines():
+        if "registers" in ln or "spill" in ln:
+            print(f"[build]   {ln.strip()}", flush=True)
+
+
+def _fill_inputs(rng, c, p, n, r, shared, density):
+    free = rng.integers(0, 129, (n, r) if shared else (c, n, r)).astype(np.float32)
+    mask = rng.random((c, n)) < density
+    demand = rng.integers(0, 9, (c, p, r)).astype(np.float32)
+    demand[rng.random((c, p, r)) < 0.2] = 0.0  # zero demand = no limit
+    count = rng.integers(0, 40, (c, p)).astype(np.int32)
+    count[rng.random((c, p)) < 0.2] = 0  # zero counts
+    return [torch.from_numpy(a).cuda() for a in (free, mask, demand, count)]
+
+
+def _median_ms(fn, reps=50, warmup=5, tries=4):
+    """Median device time of one call of fn, in ms, over `reps` calls. Each
+    call is enqueued between a pair of CUDA events while a spin kernel ahead
+    of it keeps the card busy, so the pair brackets device work only, not
+    the host's launch latency. The spin is sized from the host's own time
+    per call, at the card's highest clock (2 GHz bounds an H100). A pair
+    whose enqueue outran the spin (a stall of the shared host) is thrown
+    away and measured again behind a spin twice as long; only `tries`
+    misses in a row fail."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    spin_s = 3.0 * (time.perf_counter() - t0) / warmup + 1e-3
+    torch.cuda.synchronize()
+    times = []
+    misses = 0
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * 2.0e9))
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        enqueue_s = time.perf_counter() - t0
+        end.synchronize()
+        if enqueue_s <= spin_s:
+            times.append(start.elapsed_time(end))
+            misses = 0
+            continue
+        misses += 1
+        print(f"[timing] host stall: enqueue {enqueue_s:.4f} s outran the spin"
+              f" {spin_s:.4f} s; measuring that call again", flush=True)
+        if misses >= tries:
+            _fail(f"timing: the host fell behind the card {tries} times in a row")
+        spin_s *= 2.0
+    return statistics.median(times)
+
+
+def _fill_bound(args):
+    """Least time for one fill at these inputs: each input read once, each
+    output written once, over HBM bandwidth; operations (per gang, group,
+    node and resource: divide, floor, compare, min, multiply, subtract, plus
+    the clip and prefix add per node) over the fp32 rate. Returns (ms, by)."""
+    free, mask, demand, count = args
+    c, p, r = demand.shape
+    n = mask.shape[-1]
+    read = free.numel() * 4 + mask.numel() + demand.numel() * 4 + count.numel() * 4
+    written = c * p * n * 4 + c * p * 4 + c * n * r * 4
+    ops = c * p * n * (6 * r + 4)
+    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernel_vs_plain() -> dict:
+    from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
+
+    rng = np.random.default_rng(0)
+    c, p, n, r = 32, 3, 5120, 2
+    max_err = 0.0
+    for shared in (True, False):
+        for density in (0.0, 0.5, 1.0):
+            args = _fill_inputs(rng, c, p, n, r, shared, density)
+            out = fill_batch(*args)
+            torch.cuda.synchronize()
+            ref = fill_batch_ref(*args)
+            for name, a, b in zip(("alloc", "placed", "free_after"), out, ref):
+                if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                    _fail(f"fill kernel != plain ({name}, shared={shared}, density={density})")
+                max_err = max(max_err, float((a.double() - b.double()).abs().max()) if a.numel() else 0.0)
+            placed_total = int(out[1].sum())
+            print(f"[kernel] shared={shared!s:5} density={density:.1f}: equal bit for bit"
+                  f" (placed {placed_total})", flush=True)
+    args = _fill_inputs(rng, c, p, n, r, True, 0.5)
+    ms = _median_ms(lambda: fill_batch(*args))
+    plain_ms = _median_ms(lambda: fill_batch_ref(*args))
+    bound_ms, bound_by = _fill_bound(args)
+    print(f"[kernel] fill_batch C={c} P={p} N={n} R={r}: kernel {ms * 1e3:.2f} us,"
+          f" plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({bound_by})"
+          " (median device time of 50 calls, CUDA event pairs)", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": max_err}
+
+
+def nonuniform_specs(n_gangs: int, seed: int):
+    """Multi-group gangs with floors below counts (min_count < count) and
+    pack keys: required slice + preferred ici-block, preferred ici-block
+    only, preferred host only."""
+    rng = np.random.default_rng(seed)
+    keys = [
+        ("cloud.google.com/gke-tpu-slice", "cloud.google.com/gke-tpu-ici-block"),
+        (None, "cloud.google.com/gke-tpu-ici-block"),
+        (None, "kubernetes.io/hostname"),
+    ]
+    specs = []
+    for i in range(n_gangs):
+        groups = []
+        for q in range(int(rng.integers(2, 4))):
+            count = int(rng.integers(2, 7))
+            groups.append({
+                "name": f"n{i}-{q}",
+                "demand": {"tpu": float(rng.integers(1, 3)), "cpu": float(rng.integers(1, 9))},
+                "count": count,
+                "min_count": int(rng.integers(1, count)),
+            })
+        required, preferred = keys[i % 3]
+        specs.append({"name": f"n{i}", "groups": groups, "required_key": required,
+                      "preferred_key": preferred, "priority": 0})
+    return specs
+
+
+def check_valid(tag, nodes, specs, capacity, response) -> dict:
+    """Usage <= capacity on every node, floors met by every admitted gang,
+    every required-pack gang inside one domain; scores finite in [0, 1].
+    Returns the capacity left per node."""
+    spec_by_name = {s["name"]: s for s in specs}
+    left = {name: dict(cap) for name, cap in capacity.items()}
+    labels = {nd.name: nd.labels for nd in nodes}
+    placements = response["placements"]
+    if len(placements) != len(specs):
+        _fail(f"{tag}: {len(placements)} placements for {len(specs)} gangs")
+    for pl in placements:
+        score = pl["placement_score"]
+        if not (np.isfinite(score) and 0.0 <= score <= 1.0):
+            _fail(f"{tag}: gang {pl['gang']} score {score}")
+        if not pl["admitted"]:
+            if pl["assignments"]:
+                _fail(f"{tag}: rejected gang {pl['gang']} has assignments")
+            continue
+        spec = spec_by_name[pl["gang"]]
+        demand = {g["name"]: g["demand"] for g in spec["groups"]}
+        per_group = {}
+        for group, node, count in pl["assignments"]:
+            per_group[group] = per_group.get(group, 0) + count
+            for res, qty in demand[group].items():
+                left[node][res] = left[node].get(res, 0.0) - qty * count
+        for g in spec["groups"]:
+            if per_group.get(g["name"], 0) < g["min_count"]:
+                _fail(f"{tag}: gang {pl['gang']} group {g['name']} below its floor")
+        key = spec.get("required_key")
+        if key:
+            domains = {labels[node][key] for _, node, _ in pl["assignments"]}
+            if len(domains) > 1:
+                _fail(f"{tag}: gang {pl['gang']} spans {len(domains)} domains of {key}")
+    for name, res in left.items():
+        for r, v in res.items():
+            if v < -1e-6 * max(1.0, capacity[name].get(r, 0.0)):
+                _fail(f"{tag}: node {name} over capacity on {r} ({v})")
+    return left
+
+
+def phase_main_path() -> dict:
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.cluster.grpcsolver import solve_decoded
+    from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, stress_gang_specs
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.sim.cluster import make_nodes
+    from grove_tpu_torch.solver.encode import StickyGroupPad
+
+    topology = ClusterTopology()
+    pad = StickyGroupPad()  # the endpoint's sticky group padding
+    nodes = make_nodes(5120, dict(STRESS_CAPACITY), 8, 8)
+    full = {nd.name: dict(nd.capacity) for nd in nodes}
+    requests = [
+        ("a: stress 10240 gangs x 5120 nodes", stress_gang_specs(10240, seed=0), None),
+        ("b: stress 2048 more gangs on what (a) left", stress_gang_specs(2048, seed=1), "left"),
+        ("c: non-uniform 4096 multi-group gangs, pack keys", nonuniform_specs(4096, seed=2), None),
+    ]
+    summary = {}
+    left = None
+    fill_batch.launches = 0
+    counts = []
+    for tag, specs, cap_from in requests:
+        capacity = left if cap_from == "left" else full
+        before = fill_batch.launches
+        t0 = time.perf_counter()
+        response = solve_decoded(nodes, specs, topology, device="cuda",
+                                 free_capacity=capacity, pad_groups=pad)
+        wall = time.perf_counter() - t0
+        launches = fill_batch.launches - before
+        counts.append(launches)
+        new_left = check_valid(tag, nodes, specs, capacity, response)
+        if cap_from is None and left is None:
+            left = new_left
+        admitted = sum(p["admitted"] for p in response["placements"])
+        s = response["solve_seconds"]
+        print(f"[main] {tag}: solve_seconds {s:.3f} (wall incl. encode {wall:.3f}),"
+              f" admitted {admitted}/{len(specs)}, {len(specs) / s:.1f} gangs/s,"
+              f" fill launches {launches}; valid", flush=True)
+        summary[tag[0]] = {"solve_seconds": s, "admitted": admitted, "gangs": len(specs),
+                           "fill_launches": launches}
+    total = fill_batch.launches
+    if total == 0 or min(counts) == 0:
+        _fail(f"main path did not launch the fill kernel (launches {counts})")
+    summary["launches"] = total
+    return summary
+
+
+def phase_path_kernel_vs_plain() -> None:
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, stress_gang_specs
+    from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
+    from grove_tpu_torch.sim.cluster import make_nodes
+    from grove_tpu_torch.solver.encode import build_problem
+    from grove_tpu_torch.solver.kernel import solve_waves
+
+    nodes = make_nodes(1024, dict(STRESS_CAPACITY), 8, 8)
+    for tag, specs in (("stress", stress_gang_specs(2048, seed=3)),
+                       ("non-uniform", nonuniform_specs(2048, seed=4))):
+        problem = build_problem(nodes, specs, ClusterTopology())
+        kern = solve_waves(problem, device="cuda", fill=fill_batch)
+        plain = solve_waves(problem, device="cuda", fill=fill_batch_ref)
+        for field in ("admitted", "placed", "score", "chosen_level", "alloc", "free_after"):
+            a, b = getattr(kern, field), getattr(plain, field)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                _fail(f"path with kernel != path with plain fill ({tag}: {field})")
+        print(f"[path] {tag} 1024 nodes x 2048 gangs: kernel path == plain path on every"
+              f" field (admitted {int(kern.admitted.sum())}; kernel {kern.solve_seconds:.3f} s,"
+              f" plain {plain.solve_seconds:.3f} s)", flush=True)
+
+
+def main() -> int:
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    card = phase_device()
+    phase_build()
+    timing = phase_kernel_vs_plain()
+    main_path = phase_main_path()
+    phase_path_kernel_vs_plain()
+    kernel = {
+        "name": "fill_batch",
+        "route": "cuda",
+        "source": "grove_tpu_torch/csrc/fill.cu",
+        "replaces": "grove_tpu/ops/pallas_fill.py:69",
+        "launches": main_path["launches"],
+        "max_abs_err": timing["max_abs_err"],
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": None,
+    }
+    print(json.dumps({"kernels": [kernel], "main_path": {k: v for k, v in main_path.items() if k != "launches"}}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

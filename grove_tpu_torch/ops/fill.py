@@ -1,0 +1,179 @@
+"""The batched gang fill: a hand-written Hopper kernel and its plain version.
+
+Replaces the TPU kernel ``grove_tpu/ops/pallas_fill.py::pallas_fill_batch``
+(``_fill_kernel``), whose function is ``grove_tpu/ops/packing.py::_fill``,
+batched over a chunk of C gangs. ``fill_batch`` launches
+``csrc/fill.cu`` for CUDA tensors and runs ``fill_batch_ref`` for CPU
+tensors; a build or launch failure raises (no fallback). Both return
+``(alloc [C,P,N] i32, placed [C,P] i32, free_after [C,N,R] f32)`` — the
+Pallas kernel has no ``free_after``, the port chains fills through it.
+
+This module also holds the two primitives the fill shares with
+``ops.packing``: the capped per-node fit count and the fixed-association
+prefix sum.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from grove_tpu_torch.ops import _build
+
+_INT_CAP = 1 << 20  # cap on pods-per-node fit counts (avoid inf→int wrap)
+
+# Segment count of the fixed-association prefix sums (the JAX package picks
+# 64 so every mesh shard owns whole segments).
+_SCAN_SEGMENTS = 64
+
+
+def _seg_cumsum(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inclusive prefix sum with the JAX package's association: the axis is
+    cut into S ≤ 64 equal segments (S the largest power of two dividing
+    it), each is scanned locally, and the segment offsets come from the
+    segment totals. Integer inputs are exact under any association (and
+    wrap like int32); float offsets use the same strictly-upper-triangular
+    product as ``grove_tpu/ops/packing.py::_seg_cumsum``."""
+    a = a.movedim(dim, -1)
+    n = a.shape[-1]
+    s = _SCAN_SEGMENTS
+    while s > 1 and n % s:
+        s //= 2
+    if s <= 1:
+        out = torch.cumsum(a, -1, dtype=a.dtype)
+    else:
+        parts = a.reshape(a.shape[:-1] + (s, n // s))
+        # a one-element segment is its own prefix; skipping the scan matters
+        # on CUDA: scanning the commit's [N, R, 32, 1] rows took ~0.6 ms a
+        # call on an H100 (scripts/torch_solve_profile.py)
+        local = parts if n == s else torch.cumsum(parts, -1, dtype=a.dtype)
+        totals = parts.sum(-1, dtype=a.dtype)  # [..., S]
+        if a.dtype.is_floating_point:
+            tri = torch.triu(
+                torch.ones((s, s), dtype=a.dtype, device=a.device), diagonal=1
+            )
+            offs = totals @ tri
+        else:
+            # integer matmul has no CUDA kernel; exclusive cumsum is the
+            # same value (integers are exact under any association)
+            offs = torch.cumsum(totals, -1, dtype=a.dtype) - totals
+        out = (local + offs.unsqueeze(-1)).reshape(a.shape)
+    return out.movedim(-1, dim)
+
+
+def _pods_fit_per_node(free: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
+    """k[..., n] = pods of one group that fit on node n: ``free [..., N, R]``
+    against ``demand [..., R]`` (broadcast), min over resources with demand
+    > 0 of floor(free / demand), clipped to [0, _INT_CAP] before the int32
+    cast (``inf`` for all-zero demand)."""
+    positive = demand > 0
+    safe = torch.where(positive, demand, torch.ones_like(demand))
+    ratio = torch.floor(free / safe.unsqueeze(-2))
+    ratio = torch.where(positive.unsqueeze(-2), ratio, torch.inf)
+    k = ratio.amin(-1)
+    return k.clamp(0, _INT_CAP).to(torch.int32)
+
+
+def fill_batch_ref(free, mask, demand, count):
+    """Plain PyTorch fill of C gangs: ``free`` shared ``[N,R]`` or per-gang
+    ``[C,N,R]``, ``mask [C,N]`` bool, ``demand [C,P,R]`` f32, ``count
+    [C,P]`` i32. Each group in order takes pods node by node inside the
+    mask (exclusive prefix of capped fits) and debits free."""
+    c, p_dim, r = demand.shape
+    n = mask.shape[-1]
+    free_c = free.expand(c, n, r) if free.dim() == 2 else free
+    mask = mask.to(torch.bool)
+    allocs, placed = [], []
+    for p in range(p_dim):
+        d = demand[:, p]  # [C, R]
+        cnt = count[:, p : p + 1]  # [C, 1]
+        k = _pods_fit_per_node(free_c, d)  # [C, N]
+        # cap at the group's own count: bounds the int32 prefix sum below
+        # at count*N (a zero-demand group would otherwise contribute
+        # _INT_CAP per node and wrap it negative)
+        k = torch.minimum(torch.where(mask, k, 0), cnt)
+        cum = _seg_cumsum(k) - k  # exclusive prefix
+        take = torch.minimum(torch.clamp(cnt - cum, min=0), k)
+        free_c = free_c - take.unsqueeze(-1).to(free_c.dtype) * d.unsqueeze(1)
+        allocs.append(take)
+        placed.append(take.sum(-1, dtype=torch.int32))
+    return torch.stack(allocs, 1), torch.stack(placed, 1), free_c.contiguous()
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype:
+        raise TypeError(f"fill_batch: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"fill_batch: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"fill_batch: {name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"fill_batch: {name} must be contiguous")
+
+
+_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_longlong]
+    + [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 5
+    + [ctypes.c_void_p]
+)
+
+
+def _kernel():
+    lib = _build.load("fill")
+    fn = lib.grove_fill_batch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.grove_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.grove_cuda_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _fill_batch_cuda(free, mask, demand, count):
+    c, p_dim, r = demand.shape
+    n = mask.shape[-1]
+    device = demand.device
+    if mask.dtype == torch.bool:
+        mask = mask.view(torch.uint8)
+    shared = free.dim() == 2
+    _check("free", free, torch.float32, (n, r) if shared else (c, n, r), device)
+    _check("mask", mask, torch.uint8, (c, n), device)
+    _check("demand", demand, torch.float32, (c, p_dim, r), device)
+    _check("count", count, torch.int32, (c, p_dim), device)
+    alloc = torch.empty((c, p_dim, n), dtype=torch.int32, device=device)
+    placed = torch.empty((c, p_dim), dtype=torch.int32, device=device)
+    free_after = torch.empty((c, n, r), dtype=torch.float32, device=device)
+    threads = min(1024, max(32, (n + 31) // 32 * 32))
+    lib, fn = _kernel()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(
+            free.data_ptr(), 0 if shared else n * r,
+            mask.data_ptr(), demand.data_ptr(), count.data_ptr(),
+            alloc.data_ptr(), placed.data_ptr(), free_after.data_ptr(),
+            c, p_dim, n, r, threads, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "fill_batch kernel launch failed: "
+            + lib.grove_cuda_error_string(err).decode()
+        )
+    fill_batch.launches += 1
+    return alloc, placed, free_after
+
+
+def fill_batch(free, mask, demand, count):
+    """The fill of C gangs on the tensors' device: the CUDA kernel for CUDA
+    tensors, :func:`fill_batch_ref` for CPU tensors. Same arguments and
+    results as :func:`fill_batch_ref`."""
+    if demand.device.type == "cuda":
+        return _fill_batch_cuda(free, mask, demand, count)
+    if demand.device.type == "cpu":
+        return fill_batch_ref(free, mask, demand, count)
+    raise ValueError(f"fill_batch: unsupported device {demand.device}")
+
+
+# kernel launches since the last reset (the plain CPU path never counts)
+fill_batch.launches = 0

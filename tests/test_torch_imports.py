@@ -1,0 +1,76 @@
+"""The PyTorch port imports neither JAX nor anything of the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "grove_tpu")
+
+
+def _port_modules():
+    pkg = REPO / "grove_tpu_torch"
+    mods = []
+    for path in sorted(pkg.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _blocked(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def test_port_modules_import_with_jax_and_grove_tpu_blocked():
+    mods = _port_modules()
+    assert "grove_tpu_torch.ops.packing" in mods and len(mods) >= 20
+    script = textwrap.dedent(
+        f"""
+        import sys
+        BLOCKED = {BLOCKED!r}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {str(REPO)!r})
+        import importlib
+        for mod in {mods!r} + ["chip_smoke"]:
+            importlib.import_module(mod)
+        leaked = [m for m in sys.modules
+                  if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+        assert not leaked, leaked
+        print("ok", len({mods!r}))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True,
+        timeout=120, cwd=str(REPO),
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_sources_name_no_blocked_module():
+    """Static check: no import statement of the port or of chip_smoke.py
+    names jax, jaxlib or grove_tpu (lazy imports inside functions too)."""
+    files = sorted((REPO / "grove_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad = [n for n in names if _blocked(n)]
+            assert not bad, f"{path}: imports {bad}"

@@ -12,6 +12,12 @@ Phases (any failure raises and the script exits non-zero):
      per-gang capacity, masks 0/50/100% dense, zero demands and zero counts;
      alloc, placed and free_after must be equal bit for bit. Times the kernel
      and the plain version (median device time of 50 calls, CUDA events).
+  3b. kernel at the main path's own shapes: the fill calls of one
+     chunk-wave, recorded by a `fill=` passed to solve_waves — (a)'s level
+     fill (shared free, one-domain masks) and spill fill (per-gang free,
+     all nodes, mostly zero counts, no free_after) and (c)'s floors->extras
+     pair; each bit for bit against the plain version, then timed beside
+     its bound.
   4. main path at full width: three requests through the sidecar's solve
      (solve_decoded): the 10,240-gang x 5,120-node stress batch, 2,048 more
      stress gangs against the capacity it left, and a non-uniform batch of
@@ -117,20 +123,50 @@ def _median_ms(fn, reps=50, warmup=5, tries=4):
     return statistics.median(times)
 
 
-def _fill_bound(args):
-    """Least time for one fill at these inputs: each input read once, each
-    output written once, over HBM bandwidth; operations (per gang, group,
-    node and resource: divide, floor, compare, min, multiply, subtract, plus
-    the clip and prefix add per node) over the fp32 rate. Returns (ms, by)."""
+def _fill_bound(args, with_free_after=True):
+    """Least time for one fill at these inputs, from what the outputs need:
+    the counts; a gang's mask only where one of its counts is nonzero; its
+    free and demands only then, or when free_after is asked for (a zero
+    take still debits a -0.0 demand) — each read once; alloc and placed,
+    and free_after when asked for, written once; over HBM bandwidth.
+    Operations (per group with a nonzero count and node inside the gang's
+    mask: divide, floor, compare, min, multiply, subtract per resource, plus
+    the clip, cap, prefix add and take) over the fp32 rate. Returns
+    (ms, by)."""
     free, mask, demand, count = args
     c, p, r = demand.shape
     n = mask.shape[-1]
-    read = free.numel() * 4 + mask.numel() + demand.numel() * 4 + count.numel() * 4
-    written = c * p * n * 4 + c * p * 4 + c * n * r * 4
-    ops = c * p * n * (6 * r + 4)
+    active = count != 0  # [C, P]
+    gangs = int(active.any(1).sum())  # gangs that take anything
+    free_gangs = c if with_free_after else gangs
+    if free.dim() == 2:
+        free_bytes = n * r * 4 if free_gangs else 0
+    else:
+        free_bytes = free_gangs * n * r * 4
+    demand_bytes = (c * p if with_free_after else int(active.sum())) * r * 4
+    read = free_bytes + gangs * n + demand_bytes + count.numel() * 4
+    written = c * p * n * 4 + c * p * 4 + (c * n * r * 4 if with_free_after else 0)
+    inside = mask.to(torch.bool).sum(1)  # [C]
+    ops = int((active.sum(1) * inside).sum()) * (6 * r + 4)
     t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _check_equal(tag, out, ref):
+    """alloc, placed and free_after (or None on both sides) bit for bit;
+    returns the largest absolute difference (0.0 when they are equal)."""
+    max_err = 0.0
+    for name, a, b in zip(("alloc", "placed", "free_after"), out, ref):
+        if a is None or b is None:
+            if a is not b:
+                _fail(f"fill kernel != plain ({tag}: {name} is None on one side only)")
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            _fail(f"fill kernel != plain ({tag}: {name})")
+        if a.numel():
+            max_err = max(max_err, float((a.double() - b.double()).abs().max()))
+    return max_err
 
 
 def phase_kernel_vs_plain() -> dict:
@@ -144,11 +180,8 @@ def phase_kernel_vs_plain() -> dict:
             args = _fill_inputs(rng, c, p, n, r, shared, density)
             out = fill_batch(*args)
             torch.cuda.synchronize()
-            ref = fill_batch_ref(*args)
-            for name, a, b in zip(("alloc", "placed", "free_after"), out, ref):
-                if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
-                    _fail(f"fill kernel != plain ({name}, shared={shared}, density={density})")
-                max_err = max(max_err, float((a.double() - b.double()).abs().max()) if a.numel() else 0.0)
+            tag = f"shared={shared}, density={density}"
+            max_err = max(max_err, _check_equal(tag, out, fill_batch_ref(*args)))
             placed_total = int(out[1].sum())
             print(f"[kernel] shared={shared!s:5} density={density:.1f}: equal bit for bit"
                   f" (placed {placed_total})", flush=True)
@@ -157,10 +190,88 @@ def phase_kernel_vs_plain() -> dict:
     plain_ms = _median_ms(lambda: fill_batch_ref(*args))
     bound_ms, bound_by = _fill_bound(args)
     print(f"[kernel] fill_batch C={c} P={p} N={n} R={r}: kernel {ms * 1e3:.2f} us,"
-          f" plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({bound_by})"
+          f" plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({bound_by}),"
+          f" {100 * bound_ms / ms:.1f} % of bound"
           " (median device time of 50 calls, CUDA event pairs)", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": max_err}
+
+
+class _Captured(Exception):
+    """Ends a solve once the recording fill holds the calls it was after."""
+
+
+def capture_fill_calls(problem, n_calls):
+    """The arguments of the first `n_calls` fill calls of `problem`'s first
+    chunk-wave on the card, recorded by a `fill=` passed to solve_waves
+    (each call still runs the kernel so the solve proceeds as usual)."""
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.solver.kernel import solve_waves
+
+    calls = []
+
+    def recording_fill(free, mask, demand, count, with_free_after=True):
+        args = tuple(t.clone() for t in (free, mask, demand, count))
+        calls.append((args, {"with_free_after": with_free_after}))
+        out = fill_batch(free, mask, demand, count, with_free_after=with_free_after)
+        if len(calls) == n_calls:
+            raise _Captured
+        return out
+
+    try:
+        solve_waves(problem, device="cuda", fill=recording_fill)
+    except _Captured:
+        return calls
+    _fail(f"the solve made fewer than {n_calls} fill calls")
+
+
+def path_fill_cases():
+    """Fill calls of one chunk-wave of the main path at full width:
+    (a)'s level fill and spill fill, and (c)'s floors->extras pair."""
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, stress_gang_specs
+    from grove_tpu_torch.sim.cluster import make_nodes
+    from grove_tpu_torch.solver.encode import StickyGroupPad, build_problem
+
+    topology = ClusterTopology()
+    nodes = make_nodes(5120, dict(STRESS_CAPACITY), 8, 8)
+    cases = []
+    for specs, names in (
+        (stress_gang_specs(10240, seed=0), ("a_level", "a_spill")),
+        (nonuniform_specs(4096, seed=2), ("c_floors", "c_extras")),
+    ):
+        problem = build_problem(nodes, specs, topology,
+                                pad_groups=StickyGroupPad().grow(specs))
+        for name, call in zip(names, capture_fill_calls(problem, len(names))):
+            cases.append((name, *call))
+    return cases
+
+
+def phase_path_shapes() -> list:
+    """The kernel at the main path's own fill shapes: bit for bit against
+    the plain version, then its median device time beside its bound."""
+    from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
+
+    results = []
+    for name, args, kw in path_fill_cases():
+        out = fill_batch(*args, **kw)
+        torch.cuda.synchronize()
+        err = _check_equal(name, out, fill_batch_ref(*args, **kw))
+        ms = _median_ms(lambda: fill_batch(*args, **kw))
+        bound_ms, bound_by = _fill_bound(args, **kw)
+        free, mask, demand, count = args
+        c, p, r = demand.shape
+        share = bound_ms / ms
+        print(f"[shapes] {name}: C={c} P={p} N={mask.shape[-1]} R={r}"
+              f" free {'shared' if free.dim() == 2 else 'per-gang'},"
+              f" mask {float(mask.float().mean()):.4f} dense,"
+              f" nonzero counts {int((count != 0).sum())}/{count.numel()},"
+              f" free_after {'yes' if kw['with_free_after'] else 'no'}: equal bit for bit;"
+              f" kernel {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({bound_by}),"
+              f" {100 * share:.1f} % of bound", flush=True)
+        results.append({"case": name, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "share_of_bound": share, "max_abs_err": err})
+    return results
 
 
 def nonuniform_specs(n_gangs: int, seed: int):
@@ -305,6 +416,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     timing = phase_kernel_vs_plain()
+    cases = phase_path_shapes()
     main_path = phase_main_path()
     phase_path_kernel_vs_plain()
     kernel = {
@@ -313,12 +425,13 @@ def main() -> int:
         "source": "grove_tpu_torch/csrc/fill.cu",
         "replaces": "grove_tpu/ops/pallas_fill.py:69",
         "launches": main_path["launches"],
-        "max_abs_err": timing["max_abs_err"],
+        "max_abs_err": max([timing["max_abs_err"]] + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
+        "cases": [{k: v for k, v in cs.items() if k != "max_abs_err"} for cs in cases],
     }
     print(json.dumps({"kernels": [kernel], "main_path": {k: v for k, v in main_path.items() if k != "launches"}}))
     print(card)

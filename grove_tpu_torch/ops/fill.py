@@ -6,7 +6,10 @@ batched over a chunk of C gangs. ``fill_batch`` launches
 ``csrc/fill.cu`` for CUDA tensors and runs ``fill_batch_ref`` for CPU
 tensors; a build or launch failure raises (no fallback). Both return
 ``(alloc [C,P,N] i32, placed [C,P] i32, free_after [C,N,R] f32)`` — the
-Pallas kernel has no ``free_after``, the port chains fills through it.
+Pallas kernel has no ``free_after``, the port chains fills through it; a
+caller that does not chain passes ``with_free_after=False`` and gets None
+(the kernel then writes nothing there). The kernel runs one thread-block
+cluster per gang; ``_launch_shape`` picks its size.
 
 This module also holds the two primitives the fill shares with
 ``ops.packing``: the capped per-node fit count and the fixed-association
@@ -16,6 +19,7 @@ prefix sum.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -75,11 +79,12 @@ def _pods_fit_per_node(free: torch.Tensor, demand: torch.Tensor) -> torch.Tensor
     return k.clamp(0, _INT_CAP).to(torch.int32)
 
 
-def fill_batch_ref(free, mask, demand, count):
+def fill_batch_ref(free, mask, demand, count, with_free_after=True):
     """Plain PyTorch fill of C gangs: ``free`` shared ``[N,R]`` or per-gang
     ``[C,N,R]``, ``mask [C,N]`` bool, ``demand [C,P,R]`` f32, ``count
     [C,P]`` i32. Each group in order takes pods node by node inside the
-    mask (exclusive prefix of capped fits) and debits free."""
+    mask (exclusive prefix of capped fits) and debits free. With
+    ``with_free_after=False`` the third result is None."""
     c, p_dim, r = demand.shape
     n = mask.shape[-1]
     free_c = free.expand(c, n, r) if free.dim() == 2 else free
@@ -98,7 +103,8 @@ def fill_batch_ref(free, mask, demand, count):
         free_c = free_c - take.unsqueeze(-1).to(free_c.dtype) * d.unsqueeze(1)
         allocs.append(take)
         placed.append(take.sum(-1, dtype=torch.int32))
-    return torch.stack(allocs, 1), torch.stack(placed, 1), free_c.contiguous()
+    free_after = free_c.contiguous() if with_free_after else None
+    return torch.stack(allocs, 1), torch.stack(placed, 1), free_after
 
 
 def _check(name, t, dtype, shape, device):
@@ -115,9 +121,59 @@ def _check(name, t, dtype, shape, device):
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong]
     + [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 5
+    + [ctypes.c_int] * 7
     + [ctypes.c_void_p]
 )
+
+# Launch shape of the kernel (csrc/fill.cu): one cluster of K CTAs per gang.
+_SMS = 132  # streaming multiprocessors of an H100 (and an H200)
+_CTAS_PER_SM = 2  # CTAs of one launch an SM takes at once
+_MAX_CLUSTER = 8  # the largest portable cluster size
+# dynamic shared memory a CTA may opt into (227 KB), less the kernel's
+# static shared memory (at most 4 KB) and a margin
+_MAX_SMEM = 227 * 1024 - 5 * 1024
+_NODES_PER_THREAD = 2
+_MAX_RUN = 16  # nodes per thread the kernel is built for
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_shape(c, p, n, r, sms=_SMS):
+    """(cluster size K, threads per CTA, slice, shared bytes per CTA) of the
+    fill kernel for C gangs of P groups over N nodes and R resources. K is
+    the largest of 1, 2, 4, 8 with C*K CTAs still running at once, two to
+    an SM (one wave of CTAs, each gang's prefix spread over K CTAs), raised
+    where a CTA's slice (a multiple of 4 nodes) would need more than 16
+    nodes per thread or more shared memory than a CTA has; a thread owns
+    about 2 nodes. Raises ``ValueError`` when even K=8 does not do."""
+    k = 1
+    while k < _MAX_CLUSTER and 2 * k * c <= _CTAS_PER_SM * sms:
+        k *= 2
+    while True:
+        per_cta = -(-n // k)
+        slice_ = -(-per_cta // 4) * 4
+        smem = slice_ * (4 * r + 1) + p * (48 + 4 * r)
+        if smem <= _MAX_SMEM and slice_ <= 1024 * _MAX_RUN:
+            break
+        if k == _MAX_CLUSTER:
+            raise ValueError(
+                f"fill_batch: N={n} nodes with R={r} resources and P={p} groups need"
+                f" {smem} bytes of shared memory and {-(-slice_ // 1024)} nodes per"
+                f" thread per CTA even at {k} CTAs per gang; the CUDA kernel takes at"
+                f" most {_MAX_SMEM} bytes and {_MAX_RUN} nodes per thread"
+            )
+        k *= 2
+    threads = min(1024, max(32, -(-slice_ // (32 * _NODES_PER_THREAD)) * 32))
+    return k, threads, slice_, smem
+
+
+_SM_COUNTS = {}
+
+
+def _sm_count(device):
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
 
 
 def _kernel():
@@ -131,7 +187,7 @@ def _kernel():
     return lib, fn
 
 
-def _fill_batch_cuda(free, mask, demand, count):
+def _fill_batch_cuda(free, mask, demand, count, with_free_after):
     c, p_dim, r = demand.shape
     n = mask.shape[-1]
     device = demand.device
@@ -142,18 +198,21 @@ def _fill_batch_cuda(free, mask, demand, count):
     _check("mask", mask, torch.uint8, (c, n), device)
     _check("demand", demand, torch.float32, (c, p_dim, r), device)
     _check("count", count, torch.int32, (c, p_dim), device)
+    cluster, threads, slice_, _ = _launch_shape(c, p_dim, n, r, _sm_count(device))
     alloc = torch.empty((c, p_dim, n), dtype=torch.int32, device=device)
     placed = torch.empty((c, p_dim), dtype=torch.int32, device=device)
-    free_after = torch.empty((c, n, r), dtype=torch.float32, device=device)
-    threads = min(1024, max(32, (n + 31) // 32 * 32))
+    free_after = (
+        torch.empty((c, n, r), dtype=torch.float32, device=device) if with_free_after else None
+    )
     lib, fn = _kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(
             free.data_ptr(), 0 if shared else n * r,
             mask.data_ptr(), demand.data_ptr(), count.data_ptr(),
-            alloc.data_ptr(), placed.data_ptr(), free_after.data_ptr(),
-            c, p_dim, n, r, threads, stream,
+            alloc.data_ptr(), placed.data_ptr(),
+            free_after.data_ptr() if with_free_after else None,
+            c, p_dim, n, r, cluster, threads, slice_, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -164,14 +223,14 @@ def _fill_batch_cuda(free, mask, demand, count):
     return alloc, placed, free_after
 
 
-def fill_batch(free, mask, demand, count):
+def fill_batch(free, mask, demand, count, with_free_after=True):
     """The fill of C gangs on the tensors' device: the CUDA kernel for CUDA
     tensors, :func:`fill_batch_ref` for CPU tensors. Same arguments and
     results as :func:`fill_batch_ref`."""
     if demand.device.type == "cuda":
-        return _fill_batch_cuda(free, mask, demand, count)
+        return _fill_batch_cuda(free, mask, demand, count, with_free_after)
     if demand.device.type == "cpu":
-        return fill_batch_ref(free, mask, demand, count)
+        return fill_batch_ref(free, mask, demand, count, with_free_after)
     raise ValueError(f"fill_batch: unsupported device {demand.device}")
 
 

@@ -56,31 +56,39 @@ class GangInputs(NamedTuple):
     uidx: Optional[torch.Tensor] = None
 
 
-def _fill_floors_first(free, mask, demand, count, min_count, uniform, fill):
+def _fill_floors_first(
+    free, mask, demand, count, min_count, uniform, fill, with_free_after=True
+):
     """Two-phase fill: every group's admission FLOOR first, then the
     best-effort extras (an early group's extras must never starve a later
     group's floor). Floors are clamped to the count and extras to >= 0.
     `uniform` (min_count == count for every gang of the problem): extras
     are zero everywhere, so one fill does. Returns (alloc [C,P,N],
-    placed [C,P], placed_min [C,P], free_after [C,N,R])."""
+    placed [C,P], placed_min [C,P], free_after [C,N,R]); free_after is None
+    with ``with_free_after=False`` (only the chain's last fill drops it:
+    the floors fill's capacity feeds the extras fill)."""
     if uniform:
         alloc, placed, free_after = fill(
-            free, mask, demand, torch.minimum(min_count, count)
+            free, mask, demand, torch.minimum(min_count, count),
+            with_free_after=with_free_after,
         )
         return alloc, placed, placed, free_after
     floors = torch.minimum(min_count, count)
     extras = torch.clamp(count - min_count, min=0)
     alloc_min, placed_min, free1 = fill(free, mask, demand, floors)
-    alloc_ext, placed_ext, free2 = fill(free1, mask, demand, extras)
+    alloc_ext, placed_ext, free2 = fill(
+        free1, mask, demand, extras, with_free_after=with_free_after
+    )
     return alloc_min + alloc_ext, placed_min + placed_ext, placed_min, free2
 
 
-def _dispatch_with_spread(free, mask, gang: GangInputs, uniform, fill):
+def _dispatch_with_spread(free, mask, gang: GangInputs, uniform, fill, with_free_after=True):
     """The ``spread=False`` (and ``grouped=False``) form of the JAX
     dispatch: the floors-first fill, no spread-level domains used.
     Returns (alloc, placed, placed_min, free_after)."""
     return _fill_floors_first(
-        free, mask, gang.demand, gang.count, gang.min_count, uniform, fill
+        free, mask, gang.demand, gang.count, gang.min_count, uniform, fill,
+        with_free_after,
     )
 
 
@@ -282,9 +290,11 @@ def gang_select_single(
         torch.where(spill.unsqueeze(-1), gang.count - placed, 0),
     )
     rescue_min = torch.where(cluster_rescue.unsqueeze(-1), gang.min_count, 0)
+    # the capacity this fill leaves is not used: it is not written
     alloc2, placed2, placed2_min, _ = _dispatch_with_spread(
         base_free.contiguous(), all_nodes,
         gang._replace(count=remaining, min_count=rescue_min), uniform, fill,
+        with_free_after=False,
     )
     rescue_ok = (
         cluster_rescue

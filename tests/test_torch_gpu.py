@@ -29,9 +29,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _fill_inputs(seed, shared, density):
+def _fill_inputs(seed, shared, density, c=32, p=3, n=5120, r=2):
     rng = np.random.default_rng(seed)
-    c, p, n, r = 32, 3, 5120, 2
     free = rng.integers(0, 129, (n, r) if shared else (c, n, r)).astype(np.float32)
     mask = rng.random((c, n)) < density
     demand = rng.integers(0, 9, (c, p, r)).astype(np.float32)
@@ -41,17 +40,101 @@ def _fill_inputs(seed, shared, density):
     return free, mask, demand, count
 
 
+def _zero_counts(free, mask, demand, count):
+    """Every count 0; some demands -0.0 (a zero take then turns a -0.0 of
+    free into +0.0, so those groups must still be debited) beside -0.0s in
+    free."""
+    demand[:, ::2, 0] = -0.0
+    free.reshape(-1)[::7] = -0.0
+    count[:] = 0
+
+
+def _fractional(free, mask, demand, count):
+    """Capacities and demands over nine and six decades, not integers, so
+    the fits' quotients land anywhere between floats."""
+    rng = np.random.default_rng(11)
+    free[:] = (10.0 ** rng.uniform(-3, 6, free.shape)).astype(np.float32)
+    demand[:] = (10.0 ** rng.uniform(-3, 3, demand.shape)).astype(np.float32)
+    count[:] = rng.integers(1, 5000, count.shape)
+
+
+def _near_integer(free, mask, demand, count):
+    """Per-gang capacities within two ulps of a whole multiple (0 to 299,
+    and 2^20 - 2 to 2^20 + 2 on 1 % of nodes) of group 0's non-integer
+    demand: each quotient lies next to an integer, where its floor depends
+    on the last bit of the IEEE quotient. The count is never reached, so
+    every fit shows in alloc."""
+    rng = np.random.default_rng(12)
+    demand[:] = (10.0 ** rng.uniform(-3, 3, demand.shape)).astype(np.float32)
+    multiple = rng.integers(0, 300, free.shape)
+    near_cap = rng.random(free.shape) < 0.01
+    multiple[near_cap] = rng.integers((1 << 20) - 2, (1 << 20) + 3, int(near_cap.sum()))
+    exact = (multiple * demand[:, :1, :].astype(np.float64)).astype(np.float32)
+    nudge = rng.integers(-2, 3, free.shape).astype(np.int32)
+    bits = np.where(exact == 0, np.abs(nudge), exact.view(np.int32) + nudge)
+    free[:] = bits.astype(np.int32).view(np.float32)
+    count[:] = 1 << 30
+
+
+def _wrap(free, mask, demand, count):
+    """Group 0 has no demand and a count of 2^30 on every node: its capped
+    fits are 2^20 each, so the int32 prefix passes 2^31 and wraps."""
+    mask[:] = True
+    demand[:, 0] = 0.0
+    count[:, 0] = 1 << 30
+
+
+# (id, c, p, n, r, shared, density, with_free_after, change to the inputs)
+KERNEL_CASES = [
+    pytest.param(32, 3, 5120, 2, shared, density, True, None,
+                 id=f"{'shared' if shared else 'per_gang'}-{density}")
+    for shared in (True, False) for density in (0.0, 0.5, 1.0)
+] + [
+    # N not a multiple of K * blockDim (K=8, 320 threads, slices of 628)
+    pytest.param(32, 3, 5000, 2, False, 0.5, True, None, id="ragged"),
+    pytest.param(1, 2, 3, 2, True, 1.0, True, None, id="n_below_cluster"),  # K=8
+    pytest.param(4, 2, 1, 1, False, 1.0, True, None, id="one_node"),
+    pytest.param(1, 3, 5120, 2, True, 0.5, True, None, id="one_gang"),
+    pytest.param(33, 3, 5120, 2, False, 0.5, True, None, id="33_gangs"),
+    pytest.param(32, 1, 2048, 1, True, 0.7, True, None, id="p1_r1"),
+    pytest.param(32, 4, 4096, 4, True, 0.7, True, None, id="p4_r4"),
+    pytest.param(32, 3, 5120, 2, False, 0.5, True, _zero_counts, id="zero_counts"),
+    pytest.param(8, 2, 5120, 2, True, 1.0, True, _wrap, id="int32_wrap"),
+    pytest.param(32, 3, 5120, 2, False, 0.7, True, _fractional, id="fractional_r2"),
+    pytest.param(32, 3, 5120, 3, True, 0.7, True, _fractional, id="fractional_r3"),
+    pytest.param(32, 1, 5120, 1, False, 1.0, True, _near_integer, id="near_integer"),
+    # K=1 and 54 KB of shared memory per CTA (above the 48 KB default)
+    pytest.param(200, 3, 6144, 2, True, 0.5, True, None, id="smem_above_48k"),
+    # K=1: 46 KB of dynamic and 2 KB of static shared memory
+    pytest.param(133, 3, 5120, 2, False, 0.5, True, None, id="smem_48k_with_static"),
+    # K=8 with 1,024 threads of 16 nodes each (the largest run)
+    pytest.param(1, 2, 131072, 2, False, 0.5, True, None, id="run_16"),
+    pytest.param(32, 3, 5120, 2, False, 0.5, False, None, id="no_free_after"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
-@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_gang"])
-def test_cuda_kernel_matches_plain_version(cuda, shared, density):
-    args = [torch.from_numpy(a).to(cuda) for a in _fill_inputs(5, shared, density)]
+@pytest.mark.parametrize("c,p,n,r,shared,density,with_free_after,change", KERNEL_CASES)
+def test_cuda_kernel_matches_plain_version(cuda, c, p, n, r, shared, density,
+                                           with_free_after, change):
+    arrays = _fill_inputs(5, shared, density, c, p, n, r)
+    if change is not None:
+        change(*arrays)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
     before = fill_batch.launches
-    got = fill_batch(*args)
+    got = fill_batch(*args, with_free_after=with_free_after)
     torch.cuda.synchronize()
     assert fill_batch.launches == before + 1
-    for a, b in zip(got, fill_batch_ref(*args)):
+    want = fill_batch_ref(*args, with_free_after=with_free_after)
+    for a, b in zip(got[:2], want[:2]):
         assert a.dtype == b.dtype and torch.equal(a, b)
+    if not with_free_after:
+        assert got[2] is None and want[2] is None
+    else:  # bit for bit, so -0.0 and +0.0 differ
+        assert got[2].dtype == want[2].dtype
+        assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
+    if change is _wrap:  # the case really wraps: group 0's placed sum is negative
+        assert bool((want[1][:, 0] < 0).all())
 
 
 @pytest.mark.gpu
@@ -60,6 +143,17 @@ def test_cuda_kernel_rejects_wrong_dtype(cuda):
     args = [torch.from_numpy(a).to(cuda) for a in (free, mask, demand, count.astype(np.int64))]
     with pytest.raises(TypeError, match="count"):
         fill_batch(*args)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_shape_beyond_shared_memory(cuda):
+    """120,000 nodes of 4 resources do not fit 8 CTAs' shared memory."""
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _fill_inputs(7, True, 0.5, c=1, p=1, n=120_000, r=4)]
+    before = fill_batch.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fill_batch(*args)
+    assert fill_batch.launches == before
 
 
 @pytest.mark.gpu

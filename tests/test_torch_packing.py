@@ -67,6 +67,41 @@ def test_pods_fit_per_node_matches():
         np.testing.assert_array_equal(got, want)
 
 
+_J_FLOORS_FIRST = {
+    uniform: jax.jit(jax.vmap(
+        lambda f, m, d, k, mn, u=uniform: jp._fill_floors_first(f, m, d, k, mn, uniform=u),
+        in_axes=(None, 0, 0, 0, 0),
+    ))
+    for uniform in (True, False)
+}
+
+
+@pytest.mark.parametrize("with_free_after", [True, False], ids=["free_after", "no_free_after"])
+@pytest.mark.parametrize("uniform", [True, False], ids=["uniform", "nonuniform"])
+def test_fill_floors_first_matches(uniform, with_free_after):
+    """The floors->extras chain with the flag threaded: only its last fill
+    may drop free_after, so alloc, placed and placed_min stay the JAX
+    package's."""
+    rng = np.random.default_rng(5)
+    free = rng.integers(0, 24, (96, 2)).astype(np.float32)
+    mask = rng.random((6, 96)) < 0.6
+    demand, count, min_count = _gang_arrays(6)
+    if uniform:
+        min_count = count.copy()
+    want = _J_FLOORS_FIRST[uniform](*[jnp.asarray(a) for a in (free, mask, demand, count, min_count)])
+    got = tp._fill_floors_first(
+        _t(free), _t(mask), _t(demand), _t(count), _t(min_count), uniform,
+        tp.fill_batch, with_free_after=with_free_after,
+    )
+    assert np.asarray(want[1]).sum() > 0
+    for name, w, g in zip(("alloc", "placed", "placed_min"), want[:3], got[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    if with_free_after:
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    else:
+        assert got[3] is None
+
+
 def _gang_arrays(seed, c=6, p=3, r=2):
     rng = np.random.default_rng(seed)
     demand = rng.integers(0, 5, (c, p, r)).astype(np.float32)

@@ -16,16 +16,25 @@ Phases (any failure raises and the script exits non-zero):
      chunk-wave, recorded by a `fill=` passed to solve_waves — (a)'s level
      fill (shared free, one-domain masks) and spill fill (per-gang free,
      all nodes, mostly zero counts, no free_after) and (c)'s floors->extras
-     pair; each bit for bit against the plain version, then timed beside
-     its bound.
-  4. main path at full width: three requests through the sidecar's solve
+     pair, and (d)'s per-group fills (P=1: a floors fill on shared free,
+     one on per-gang free, an extras fill, the rescue's last extras fill
+     without free_after); each bit for bit against the plain version, then
+     timed beside its bound.
+  4. main path at full width: five requests through the sidecar's solve
      (solve_decoded): the 10,240-gang x 5,120-node stress batch, 2,048 more
-     stress gangs against the capacity it left, and a non-uniform batch of
-     multi-group gangs with required/preferred pack keys. Each result must
-     be valid (usage <= capacity, floors met, required packs in one
-     domain); fill launch counts are reset just before and read just after.
+     stress gangs against the capacity it left, a non-uniform batch of
+     multi-group gangs with required/preferred pack keys, a disaggregated
+     batch with a per-group ici-block pack on every group (d), and a
+     spread + recovery batch (e: hard spread over ici-blocks with
+     survivors, soft spread over hosts, gang and group recovery pins).
+     Each result must be valid (usage <= capacity, floors met, required
+     packs of gangs and of groups in one domain, pinned gangs and groups
+     inside their pin's domain, required spreads over enough domains);
+     fill launch counts are set to 0 just before each request and read
+     just after it.
   5. kernel inside the path vs the plain fill inside the path, on reduced
-     problems (1,024 nodes x 2,048 gangs): every result field bit-equal.
+     problems (1,024 nodes x 2,048 gangs; grouped, pinned and spread
+     problems at 1,024 x 1,024): every result field bit-equal.
   6. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
@@ -227,7 +236,10 @@ def capture_fill_calls(problem, n_calls):
 
 def path_fill_cases():
     """Fill calls of one chunk-wave of the main path at full width:
-    (a)'s level fill and spill fill, and (c)'s floors->extras pair."""
+    (a)'s level fill and spill fill, (c)'s floors->extras pair, and (d)'s
+    P=1 fills: the first group's floors (shared free), the second group's
+    floors (per-gang free), the first group's extras, and the rescue
+    pass's last extras fill (no free_after)."""
     from grove_tpu_torch.api.topology import ClusterTopology
     from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, stress_gang_specs
     from grove_tpu_torch.sim.cluster import make_nodes
@@ -244,6 +256,13 @@ def path_fill_cases():
                                 pad_groups=StickyGroupPad().grow(specs))
         for name, call in zip(names, capture_fill_calls(problem, len(names))):
             cases.append((name, *call))
+    specs = disagg_specs(4096, seed=5)
+    problem = build_problem(nodes, specs, topology, pad_groups=StickyGroupPad().grow(specs))
+    p = problem.max_groups  # 2P fills in each of the chunk-wave's two dispatches
+    calls = capture_fill_calls(problem, 4 * p)
+    for name, index in (("d_floors_g0", 0), ("d_floors_g1", 1), ("d_extras_g0", p),
+                        ("d_rescue_extras_last", 4 * p - 1)):
+        cases.append((name, *calls[index]))
     return cases
 
 
@@ -301,10 +320,92 @@ def nonuniform_specs(n_gangs: int, seed: int):
     return specs
 
 
+SLICE = "cloud.google.com/gke-tpu-slice"
+BLOCK = "cloud.google.com/gke-tpu-ici-block"
+HOST = "kubernetes.io/hostname"
+
+
+def _groups(rng, prefix, n_groups, count_lo, count_hi):
+    """Groups of `count_lo`..`count_hi` pods, 1 <= floor <= count, demand
+    {tpu: 1-2, cpu: 1-8}."""
+    groups = []
+    for q in range(n_groups):
+        count = int(rng.integers(count_lo, count_hi + 1))
+        groups.append({
+            "name": f"{prefix}-{q}",
+            "demand": {"tpu": float(rng.integers(1, 3)), "cpu": float(rng.integers(1, 9))},
+            "count": count,
+            "min_count": int(rng.integers(1, count + 1)),
+        })
+    return groups
+
+
+def disagg_specs(n_gangs: int, seed: int):
+    """(d) Disaggregated serving: 2-4 scaling groups of 2-6 pods per gang,
+    every group packed inside one ici-block (samples/multinode-
+    disaggregated.yaml: packDomain ici-block per scaling group); half the
+    gangs also pack the whole gang inside one slice."""
+    rng = np.random.default_rng(seed)
+    specs = []
+    for i in range(n_gangs):
+        groups = _groups(rng, f"d{i}", int(rng.integers(2, 5)), 2, 6)
+        for grp in groups:
+            grp["required_key"] = BLOCK
+        specs.append({"name": f"d{i}", "groups": groups, "required_key": SLICE if i % 2 else None,
+                      "preferred_key": None, "priority": 0})
+    return specs
+
+
+def spread_recovery_specs(n_gangs: int, seed: int, n_nodes: int,
+                          kinds=("spread", "soft", "recovery")):
+    """(e) Fault-tolerant serving and recovery, the kinds in turn:
+    spread — samples/spread-serving.yaml: pack one slice, hard spread over
+    >= 3 ici-blocks, 2-3 groups of 2-4 pods; one gang in four carries two
+    survivors inside one block. soft — soft spread over >= 4 hosts, no
+    pack. recovery — a delta-solve after a node failure: half pin the
+    whole gang to a survivor's slice, half pin an ici-block-packed group to
+    its survivor's block; pin nodes drawn over the whole cluster."""
+    rng = np.random.default_rng(seed)
+    specs = []
+    for i in range(n_gangs):
+        kind = kinds[i % len(kinds)]
+        spec = {"name": f"e{i}", "required_key": None, "preferred_key": None, "priority": 0}
+        if kind == "spread":
+            spec["groups"] = _groups(rng, f"e{i}", int(rng.integers(2, 4)), 2, 4)
+            spec.update(required_key=SLICE, spread_key=BLOCK, spread_min_domains=3,
+                        spread_required=True)
+            if i % 4 == 0:
+                first = 8 * int(rng.integers(0, n_nodes // 8))  # 8 hosts per block
+                spec["spread_survivor_nodes"] = [f"node-{first}", f"node-{first + 1}"]
+        elif kind == "soft":
+            spec["groups"] = _groups(rng, f"e{i}", int(rng.integers(1, 4)), 2, 4)
+            spec.update(spread_key=HOST, spread_min_domains=4, spread_required=False)
+        else:
+            spec["groups"] = _groups(rng, f"e{i}", int(rng.integers(1, 4)), 1, 4)
+            pin = f"node-{int(rng.integers(0, n_nodes))}"
+            if (i // len(kinds)) % 2 == 0:
+                spec.update(required_key=SLICE, gang_pinned_node=pin)
+            else:
+                spec["groups"][0].update(required_key=BLOCK, pinned_node=pin)
+        specs.append(spec)
+    return specs
+
+
+def _one_domain(tag, what, labels, nodes_used, key, pin=None):
+    domains = {labels[node][key] for node in nodes_used}
+    if len(domains) > 1:
+        _fail(f"{tag}: {what} spans {len(domains)} domains of {key}")
+    if pin is not None and domains and domains != {labels[pin][key]}:
+        _fail(f"{tag}: {what} lies outside its pin's domain of {key}")
+
+
 def check_valid(tag, nodes, specs, capacity, response) -> dict:
-    """Usage <= capacity on every node, floors met by every admitted gang,
-    every required-pack gang inside one domain; scores finite in [0, 1].
-    Returns the capacity left per node."""
+    """Usage <= capacity on every node, floors met by every admitted gang;
+    every required pack (of a gang or of a group) inside one domain of its
+    key, a pinned gang or group inside its pin node's domain there, a
+    required spread over at least min(spread_min, live pods) domains of its
+    key (survivors counted); scores finite in [0, 1]. Returns the capacity
+    left per node."""
     spec_by_name = {s["name"]: s for s in specs}
     left = {name: dict(cap) for name, cap in capacity.items()}
     labels = {nd.name: nd.labels for nd in nodes}
@@ -329,11 +430,22 @@ def check_valid(tag, nodes, specs, capacity, response) -> dict:
         for g in spec["groups"]:
             if per_group.get(g["name"], 0) < g["min_count"]:
                 _fail(f"{tag}: gang {pl['gang']} group {g['name']} below its floor")
-        key = spec.get("required_key")
-        if key:
-            domains = {labels[node][key] for _, node, _ in pl["assignments"]}
-            if len(domains) > 1:
-                _fail(f"{tag}: gang {pl['gang']} spans {len(domains)} domains of {key}")
+        used_nodes = [node for _, node, _ in pl["assignments"]]
+        if spec.get("required_key"):
+            _one_domain(tag, f"gang {pl['gang']}", labels, used_nodes, spec["required_key"],
+                        spec.get("gang_pinned_node"))
+        for g in spec["groups"]:
+            if g.get("required_key"):
+                _one_domain(tag, f"group {g['name']}", labels,
+                            [node for grp, node, _ in pl["assignments"] if grp == g["name"]],
+                            g["required_key"], g.get("pinned_node"))
+        if spec.get("spread_required"):
+            survivors = spec.get("spread_survivor_nodes") or []
+            key = spec["spread_key"]
+            spanned = {labels[node][key] for node in used_nodes + survivors}
+            live = sum(per_group.values()) + len(survivors)
+            if len(spanned) < min(spec.get("spread_min_domains", 2), live):
+                _fail(f"{tag}: gang {pl['gang']} spreads over {len(spanned)} domains of {key}")
     for name, res in left.items():
         for r, v in res.items():
             if v < -1e-6 * max(1.0, capacity[name].get(r, 0.0)):
@@ -357,19 +469,21 @@ def phase_main_path() -> dict:
         ("a: stress 10240 gangs x 5120 nodes", stress_gang_specs(10240, seed=0), None),
         ("b: stress 2048 more gangs on what (a) left", stress_gang_specs(2048, seed=1), "left"),
         ("c: non-uniform 4096 multi-group gangs, pack keys", nonuniform_specs(4096, seed=2), None),
+        ("d: disaggregated 4096 gangs, ici-block pack per group", disagg_specs(4096, seed=5), None),
+        ("e: spread + recovery 2048 gangs", spread_recovery_specs(2048, seed=6, n_nodes=5120),
+         None),
     ]
     summary = {}
     left = None
-    fill_batch.launches = 0
     counts = []
     for tag, specs, cap_from in requests:
         capacity = left if cap_from == "left" else full
-        before = fill_batch.launches
+        fill_batch.launches = 0
         t0 = time.perf_counter()
         response = solve_decoded(nodes, specs, topology, device="cuda",
                                  free_capacity=capacity, pad_groups=pad)
         wall = time.perf_counter() - t0
-        launches = fill_batch.launches - before
+        launches = fill_batch.launches
         counts.append(launches)
         new_left = check_valid(tag, nodes, specs, capacity, response)
         if cap_from is None and left is None:
@@ -381,8 +495,8 @@ def phase_main_path() -> dict:
               f" fill launches {launches}; valid", flush=True)
         summary[tag[0]] = {"solve_seconds": s, "admitted": admitted, "gangs": len(specs),
                            "fill_launches": launches}
-    total = fill_batch.launches
-    if total == 0 or min(counts) == 0:
+    total = sum(counts)
+    if min(counts) == 0:
         _fail(f"main path did not launch the fill kernel (launches {counts})")
     summary["launches"] = total
     return summary
@@ -398,15 +512,22 @@ def phase_path_kernel_vs_plain() -> None:
 
     nodes = make_nodes(1024, dict(STRESS_CAPACITY), 8, 8)
     for tag, specs in (("stress", stress_gang_specs(2048, seed=3)),
-                       ("non-uniform", nonuniform_specs(2048, seed=4))):
+                       ("non-uniform", nonuniform_specs(2048, seed=4)),
+                       ("grouped", disagg_specs(1024, seed=7)),
+                       ("pinned", spread_recovery_specs(1024, 8, 1024, kinds=("recovery",))),
+                       ("spread", spread_recovery_specs(1024, 9, 1024, kinds=("spread", "soft")))):
         problem = build_problem(nodes, specs, ClusterTopology())
+        flag = {"grouped": problem.group_req, "pinned": problem.gang_pin,
+                "spread": problem.spread_level}.get(tag)
+        if flag is not None and not (flag >= 0).any():
+            _fail(f"the {tag} problem sets no {tag} constraint")
         kern = solve_waves(problem, device="cuda", fill=fill_batch)
         plain = solve_waves(problem, device="cuda", fill=fill_batch_ref)
         for field in ("admitted", "placed", "score", "chosen_level", "alloc", "free_after"):
             a, b = getattr(kern, field), getattr(plain, field)
             if a.dtype != b.dtype or not np.array_equal(a, b):
                 _fail(f"path with kernel != path with plain fill ({tag}: {field})")
-        print(f"[path] {tag} 1024 nodes x 2048 gangs: kernel path == plain path on every"
+        print(f"[path] {tag} 1024 nodes x {len(specs)} gangs: kernel path == plain path on every"
               f" field (admitted {int(kern.admitted.sum())}; kernel {kern.solve_seconds:.3f} s,"
               f" plain {plain.solve_seconds:.3f} s)", flush=True)
 

@@ -7,11 +7,12 @@ port writes the chunk axis C out as the leading dimension of every tensor:
 the fill kernel's grid IS the chunk axis, and ``torch.func.vmap`` has no
 batching rule for it.
 
-This slice covers the flagless problems: no per-group packs (``grouped``),
-no recovery pins (``pinned``), no spread constraints (``spread``), and the
-eager spill/rescue second fill (``lazy_rescue=False``). Solving a problem
-that sets one of those flags raises ``NotImplementedError`` in
-``solver.kernel.solve_waves``.
+The three static flags of the JAX package are ported: per-group pack
+constraints (``grouped``: ``_fill_grouped``, each inner fill a P=1 call
+of ``fill``), recovery pins (``pinned``: per-gang capacity views) and
+topology spread constraints (``spread``: the balanced water-filling fill,
+plain torch, computed beside the plain dispatch and selected per gang).
+The spill/rescue second fill is the eager one (``lazy_rescue=False``).
 
 Semantics (the PodGang contract):
 - a gang is ADMITTED iff every group places >= min_count pods; extra pods up
@@ -43,7 +44,9 @@ _CLUSTER_RETRY = -2
 
 
 class GangInputs(NamedTuple):
-    """One chunk of gangs, chunk axis first."""
+    """One chunk of gangs, chunk axis first. The constraint fields stay None
+    where a problem has no such constraint; ``solve_wave_chunk`` fills them
+    with the JAX package's sentinels."""
 
     demand: torch.Tensor  # [C, P, R] f32
     count: torch.Tensor  # [C, P] i32
@@ -54,6 +57,23 @@ class GangInputs(NamedTuple):
     # chunk's shared `cs_pair [U, N+1]` capped-fit prefix table for this
     # group's (demand, count) pair; row 0 is the all-zero pair
     uidx: Optional[torch.Tensor] = None
+    # per-GROUP required pack level (-1 none): such a group must land inside
+    # ONE domain at that level, chosen per group inside the gang's mask
+    group_req: Optional[torch.Tensor] = None  # [C, P] i32
+    # pinned domain id per group at its required level (-1 none): recovery
+    # replacements rejoin the domain where the group's survivors live
+    group_pin: Optional[torch.Tensor] = None  # [C, P] i32
+    # pinned domain id of the WHOLE gang at req_level (-1 none)
+    gang_pin: Optional[torch.Tensor] = None  # [C] i32
+    # topology SPREAD: the level whose domains the gang's pods are balanced
+    # across (-1 none), the distinct domains it must span (effective floor
+    # min(spread_min, live pods)), hard (rejects) or soft (scores only)
+    spread_level: Optional[torch.Tensor] = None  # [C] i32
+    spread_min: Optional[torch.Tensor] = None  # [C] i32
+    spread_required: Optional[torch.Tensor] = None  # [C] bool
+    # recovery seed: SURVIVOR pods per spread-level domain; the zero-width
+    # [C, 0] placeholder means "no seeds" (a static decision)
+    spread_seed: Optional[torch.Tensor] = None  # [C, D] i32
 
 
 def _fill_floors_first(
@@ -82,25 +102,282 @@ def _fill_floors_first(
     return alloc_min + alloc_ext, placed_min + placed_ext, placed_min, free2
 
 
-def _dispatch_with_spread(free, mask, gang: GangInputs, uniform, fill, with_free_after=True):
-    """The ``spread=False`` (and ``grouped=False``) form of the JAX
-    dispatch: the floors-first fill, no spread-level domains used.
+def _fill_grouped(
+    free, mask, demand, count, min_count, group_req, group_pin,
+    topo, seg_starts, seg_ends, seed, fill, with_free_after=True,
+):
+    """Floors-first fill honoring per-GROUP pack constraints: a group with
+    group_req >= 0 lands inside ONE domain at that level (chosen inside
+    `mask`, or its recovery pin); other groups use `mask` itself. Floors of
+    ALL groups place before any group's extras, and a constrained group's
+    extras stay inside its own mask. Every fill is a P=1 call of `fill`:
+    2P calls, free shared for the first and per gang after it.
+    `seg_starts`/`seg_ends` are the padded ``[L, D]`` int64 tables.
+    Returns (alloc [C,P,N], placed [C,P], placed_min [C,P], free_after)."""
+    p_dim = demand.shape[1]
+    floors = torch.minimum(min_count, count)
+    extras = torch.clamp(count - min_count, min=0)
+    h = _strided_hash(seed)
+    topo_t = topo.t()
+
+    def group_mask(free_c, p):
+        """Group p's domain at its required level (inside mask), [C,N]."""
+        k = _pods_fit_per_node(free_c, demand[:, p])  # [C, N]
+        k = torch.minimum(torch.where(mask, k, 0), torch.clamp(floors[:, p : p + 1], min=1))
+        cs = torch.cat([torch.zeros_like(k[:, :1]), _seg_cumsum(k, -1)], -1)
+        any_req = group_req[:, p] >= 0
+        lvl = torch.where(any_req, group_req[:, p], 0).long()
+        starts, ends = seg_starts[lvl], seg_ends[lvl]  # [C, D]
+        K = cs.gather(1, ends) - cs.gather(1, starts)  # pods fitting per domain
+        feas = (K >= floors[:, p : p + 1]) & (ends > starts)
+        # capacity-weighted strided pick; argmax of a bool needs a cast
+        w = torch.where(feas, K, 0).to(torch.float32)
+        cum_w = _seg_cumsum(w, -1)
+        total_w = cum_w[:, -1]
+        best = (cum_w > (h * total_w).unsqueeze(-1)).to(torch.int32).argmax(1)
+        best = torch.where(total_w > 0, best, feas.to(torch.int32).argmax(1))
+        ok_any = feas.any(1)
+        # recovery pin: rejoin the survivors' domain unconditionally (the
+        # fill decides whether the floor still fits there)
+        pinned = group_pin[:, p] >= 0
+        best = torch.where(pinned, group_pin[:, p].long(), best)
+        ok_any = ok_any | pinned
+        slab = topo_t[lvl] == best.unsqueeze(-1)
+        return torch.where(
+            any_req.unsqueeze(-1), slab & mask & ok_any.unsqueeze(-1), mask
+        )
+
+    free_c = free
+    masks, allocs, floor_placed, extra_placed = [], [], [], []
+    for p in range(p_dim):  # floors first
+        mask_p = group_mask(free_c, p)
+        masks.append(mask_p)
+        a, pl, free_c = fill(
+            free_c, mask_p, demand[:, p : p + 1].contiguous(),
+            floors[:, p : p + 1].contiguous(),
+        )
+        allocs.append(a[:, 0])
+        floor_placed.append(pl[:, 0])
+    for p in range(p_dim):  # then extras, inside each group's own mask
+        a, pl, free_c = fill(
+            free_c, masks[p], demand[:, p : p + 1].contiguous(),
+            extras[:, p : p + 1].contiguous(),
+            with_free_after=with_free_after or p < p_dim - 1,
+        )
+        allocs[p] = allocs[p] + a[:, 0]
+        extra_placed.append(pl[:, 0])
+    placed_min = torch.stack(floor_placed, 1)
+    placed = placed_min + torch.stack(extra_placed, 1)
+    return torch.stack(allocs, 1), placed, placed_min, free_c
+
+
+def _fill_dispatch(
+    grouped, free, mask, gang: GangInputs, topo, seg_starts, seg_ends, seed,
+    uniform, fill, with_free_after=True,
+):
+    """Static dispatch: problems with no group-level constraints take the
+    two-phase fill; the grouped fill is only paid when used.
     Returns (alloc, placed, placed_min, free_after)."""
+    if grouped:
+        return _fill_grouped(
+            free, mask, gang.demand, gang.count, gang.min_count,
+            gang.group_req, gang.group_pin, topo, seg_starts, seg_ends, seed,
+            fill, with_free_after,
+        )
     return _fill_floors_first(
         free, mask, gang.demand, gang.count, gang.min_count, uniform, fill,
         with_free_after,
     )
 
 
-def _spread_admit(gang: GangInputs) -> bool:
-    """``spread=False`` form: no gang carries a hard spread, every
-    placement passes."""
-    return True
+def _spread_defaults(c, device, spread_level, spread_min, spread_required, spread_seed):
+    """Unset spread tensors get their sentinels (no constraint). The seed
+    defaults to the zero-width [C, 0] placeholder, not [C, D]."""
+    if spread_level is None:
+        spread_level = torch.full((c,), -1, dtype=torch.int32, device=device)
+    if spread_min is None:
+        spread_min = torch.zeros((c,), dtype=torch.int32, device=device)
+    if spread_required is None:
+        spread_required = torch.zeros((c,), dtype=torch.bool, device=device)
+    if spread_seed is None:
+        spread_seed = torch.zeros((c, 0), dtype=torch.int32, device=device)
+    return spread_level, spread_min, spread_required, spread_seed
 
 
-def _spread_score(coloc: torch.Tensor) -> torch.Tensor:
-    """``spread=False`` form: the PlacementScore is the co-location score."""
-    return coloc
+def _seed_or_none(spread_seed):
+    """The [.., 0] placeholder means "no seed" (a static shape check)."""
+    if spread_seed is None or spread_seed.shape[-1] == 0:
+        return None
+    return spread_seed
+
+
+def _water_level(K: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """Per row, the smallest integer t in [0, 2*_INT_CAP] with
+    sum(min(K, t)) >= cnt (2*_INT_CAP when there is none): the value the
+    JAX package's 22-step bisection converges to, found exactly from the
+    sorted K. f(t) = sum(min(K, t)) at the sorted breakpoints k_j is
+    (sum of k_i, i < j) + (D - j) * k_j; the first breakpoint j that
+    reaches cnt bounds t from above, and on that linear piece
+    t = ceil((cnt - sum_{i<j} k_i) / (D - j)). int64 inside, int32 out."""
+    d = K.shape[-1]
+    ks = torch.sort(K, -1).values.long()
+    below = torch.cumsum(ks, -1) - ks
+    j = torch.arange(d, device=K.device)
+    c64 = cnt.long().unsqueeze(-1)
+    reach = (below + (d - j) * ks) >= c64
+    first = reach.to(torch.int32).argmax(-1, keepdim=True)
+    need = c64 - below.gather(-1, first)
+    t = -torch.div(-need, d - first, rounding_mode="floor")  # ceil
+    t = torch.clamp(t.squeeze(-1), 0, 2 * _INT_CAP)
+    return torch.where(reach.any(-1), t, 2 * _INT_CAP).to(torch.int32)
+
+
+def _spread_quota(K: torch.Tensor, cnt: torch.Tensor, load: torch.Tensor) -> torch.Tensor:
+    """Balanced (water-filling) per-domain quota ``[C, D]``: q <= K,
+    sum(q) = min(cnt, sum(K)), max(q) minimized. The overshoot of the water
+    level t is shaved off the MOST-LOADED water-level domains (`load`: pods
+    this gang already placed per domain), ties toward the highest index —
+    ``jnp.lexsort((-arange(d), -load_eff))`` as two stable sorts."""
+    d = K.shape[-1]
+    t = _water_level(K, cnt).unsqueeze(-1)
+    q0 = torch.minimum(K, t)
+    excess = q0.sum(-1, dtype=torch.int32) - torch.minimum(
+        cnt, K.sum(-1, dtype=torch.int32)
+    )
+    at_level = K >= t
+    load_eff = torch.where(at_level, load, -1)
+    # stable ascending sort of -load over the reversed domains = load
+    # descending, then index descending
+    order = torch.sort(-load_eff.flip(-1), dim=-1, stable=True).indices
+    perm = (d - 1) - order
+    ranks = torch.arange(d, device=K.device).expand_as(perm)
+    rank = torch.empty_like(perm).scatter_(-1, perm, ranks)
+    shave = at_level & (rank < excess.unsqueeze(-1))
+    return q0 - shave.to(torch.int32)
+
+
+def _fill_spread(free, mask, demand, count, topo_col, starts_l, ends_l, load0=None):
+    """Fill each group inside `mask`, BALANCING its pods across the domains
+    of one level per gang (`topo_col [C,N]`, `starts_l`/`ends_l [C,D]`,
+    int64): per-group water-filled quotas (load-aware, so the groups
+    jointly span the most domains), then an in-domain exclusive prefix
+    take against each domain's quota. Plain torch (an XLA program in the
+    JAX package, not a Pallas kernel).
+    Returns (alloc [C,P,N], placed [C,P], free_after [C,N,R], load [C,D])."""
+    c, p_dim = count.shape
+    device = count.device
+    if load0 is None:
+        load0 = torch.zeros(starts_l.shape, dtype=torch.int32, device=device)
+    zero = torch.zeros((c, 1), dtype=torch.int32, device=device)
+    dom_start = starts_l.gather(1, topo_col)  # [C, N] first node of n's domain
+    free_c, load = free, load0
+    allocs, placed = [], []
+    for p in range(p_dim):
+        demand_p = demand[:, p]
+        k = _pods_fit_per_node(free_c, demand_p)
+        k = torch.minimum(torch.where(mask, k, 0), count[:, p : p + 1])
+        cs = torch.cat([zero, _seg_cumsum(k, -1)], -1)
+        K = cs.gather(1, ends_l) - cs.gather(1, starts_l)  # [C, D]
+        q = _spread_quota(K, count[:, p], load)
+        in_dom = cs[:, :-1] - cs.gather(1, dom_start)
+        take = torch.minimum(torch.clamp(q.gather(1, topo_col) - in_dom, min=0), k)
+        free_c = free_c - take.unsqueeze(-1).to(free_c.dtype) * demand_p.unsqueeze(1)
+        cs_t = torch.cat([zero, _seg_cumsum(take, -1)], -1)
+        load = load + (cs_t.gather(1, ends_l) - cs_t.gather(1, starts_l))
+        allocs.append(take)
+        placed.append(take.sum(-1, dtype=torch.int32))
+    return torch.stack(allocs, 1), torch.stack(placed, 1), free_c, load
+
+
+def _fill_spread_floors_first(
+    free, mask, demand, count, min_count, topo_col, starts_l, ends_l, load0=None
+):
+    """Floors-first two-phase spread fill plus the count of distinct domains
+    the placement spans at the spread level (survivor domains of `load0`
+    included). Returns (alloc, placed, placed_min, free_after, used [C])."""
+    floors = torch.minimum(min_count, count)
+    extras = torch.clamp(count - min_count, min=0)
+    alloc_min, placed_min, free1, load1 = _fill_spread(
+        free, mask, demand, floors, topo_col, starts_l, ends_l, load0
+    )
+    alloc_ext, placed_ext, free2, load2 = _fill_spread(
+        free1, mask, demand, extras, topo_col, starts_l, ends_l, load1
+    )
+    used = (load2 > 0).sum(-1, dtype=torch.int32)
+    return alloc_min + alloc_ext, placed_min + placed_ext, placed_min, free2, used
+
+
+def _spread_select(gang: GangInputs, seg_starts, seg_ends, topo):
+    """Per-gang spread-level views (level 0 where unset): (spread_on [C],
+    topo_col [C,N], starts [C,D], ends [C,D]), indices int64."""
+    sl = torch.clamp(gang.spread_level, min=0).long()
+    return gang.spread_level >= 0, topo.t()[sl].long(), seg_starts[sl], seg_ends[sl]
+
+
+def _dispatch_with_spread(
+    spread, grouped, free, mask, gang: GangInputs, topo, seg_starts, seg_ends,
+    seed, uniform, fill, with_free_after=True,
+):
+    """Fill dispatch for problems that may mix spread and non-spread gangs:
+    with the static `spread` flag off, the plain dispatch alone; with it on,
+    the spread fill as well, selected per gang.
+    Returns (alloc, placed, placed_min, free_after, used, spread_on); used
+    and spread_on are None with the flag off."""
+    alloc, placed, placed_min, free_after = _fill_dispatch(
+        grouped, free, mask, gang, topo, seg_starts, seg_ends, seed, uniform,
+        fill, with_free_after,
+    )
+    if not spread:
+        return alloc, placed, placed_min, free_after, None, None
+    spread_on, topo_col, starts_l, ends_l = _spread_select(gang, seg_starts, seg_ends, topo)
+    a_s, p_s, pm_s, f_s, used = _fill_spread_floors_first(
+        free, mask, gang.demand, gang.count, gang.min_count,
+        topo_col, starts_l, ends_l, _seed_or_none(gang.spread_seed),
+    )
+    on2, on3 = spread_on.unsqueeze(-1), spread_on[:, None, None]
+    if with_free_after:
+        free_after = torch.where(on3, f_s, free_after)
+    return (
+        torch.where(on3, a_s, alloc),
+        torch.where(on2, p_s, placed),
+        torch.where(on2, pm_s, placed_min),
+        free_after,
+        used,
+        spread_on,
+    )
+
+
+def _live_total(gang: GangInputs, placed_total):
+    """Pods of the LIVE gang: this solve's placements plus recovery
+    survivors (the seed) — the spread target is judged against both."""
+    seed = _seed_or_none(gang.spread_seed)
+    if seed is None:
+        return placed_total
+    return placed_total + seed.sum(-1, dtype=torch.int32)
+
+
+def _spread_floor(gang: GangInputs, placed_total):
+    return torch.minimum(torch.clamp(gang.spread_min, min=1), _live_total(gang, placed_total))
+
+
+def _spread_admit(gang: GangInputs, spread_on, used, placed_total):
+    """Hard-spread admission: a required spread rejects placements spanning
+    fewer than min(spread_min, live pods) distinct domains (`used` counts
+    survivor domains through the seed load). True with the flag off."""
+    if spread_on is None:
+        return True
+    eff = _spread_floor(gang, placed_total)
+    return torch.where(spread_on & gang.spread_required, used >= eff, True)
+
+
+def _spread_score(gang: GangInputs, spread_on, used, placed_total, coloc):
+    """A spread gang's PlacementScore is its domain coverage toward the
+    spread target (1.0 = met), replacing the co-location score."""
+    if spread_on is None:
+        return coloc
+    eff = _spread_floor(gang, placed_total)
+    cover = used.to(torch.float32) / torch.clamp(eff, min=1).to(torch.float32)
+    return torch.where(spread_on, torch.clamp(cover, 0.0, 1.0), coloc)
 
 
 def _strided_hash(seed: torch.Tensor) -> torch.Tensor:
@@ -118,39 +395,54 @@ def _level_weights(num_levels: int, device) -> torch.Tensor:
     return w / w.sum()
 
 
-def _gang_pin_mask(free: torch.Tensor, n_nodes: int):
-    """``pinned=False`` form: every node is visible and the capacity view is
-    the shared snapshot. Returns (pin_mask [N] bool, free_vis)."""
-    return torch.ones((n_nodes,), dtype=torch.bool, device=free.device), free
+def _gang_pin_mask(free: torch.Tensor, topo: torch.Tensor, gang: GangInputs, pinned: bool):
+    """Node mask confining a pinned gang to its survivors' domain at
+    req_level (all nodes when unpinned), and the capacity view with the
+    nodes outside it zeroed, so the aggregate checks and the domain pick
+    never look outside the pin. `pinned` is the problem's static flag:
+    without it the mask is ``[N]`` and the view is the shared snapshot;
+    with it they are per gang, ``[C,N]`` and ``[C,N,R]``."""
+    if not pinned:
+        return torch.ones(topo.shape[:1], dtype=torch.bool, device=free.device), free
+    pin = gang.gang_pin
+    if pin is None:
+        pin = torch.full_like(gang.req_level, -1)
+    pin_on = (pin >= 0) & (gang.req_level >= 0)
+    rq = torch.clamp(gang.req_level, min=0).long()
+    pin_mask = torch.where(pin_on.unsqueeze(-1), topo.t()[rq] == pin.unsqueeze(-1), True)
+    free_vis = torch.where(pin_mask.unsqueeze(-1), free, 0.0)
+    return pin_mask, free_vis
 
 
 def _aggregate_tables(free: torch.Tensor, gang: GangInputs, cs_pair=None):
     """Shared prelude of the selector: capped per-node fit counts and their
     prefix sums ``cs_k [C,P,N+1]`` (None on the dedup path, where the level
     loop gathers from ``cs_pair`` instead), the free-capacity prefix
-    ``cs_free [N+1,R]`` (one snapshot for the whole chunk), its float
-    tolerance, and the admission floor's joint demand ``[C,R]``."""
+    ``cs_free`` with its float tolerance, and the admission floor's joint
+    demand ``[C,R]``. `free` is one snapshot ``[N,R]`` for the whole chunk
+    (``cs_free [N+1,R]``, ``free_tol [R]``) or a view per gang ``[C,N,R]``
+    under recovery pins (``[C,N+1,R]``, ``[C,R]``)."""
     active = gang.count > 0
     if cs_pair is not None and gang.uidx is not None:
         cs_k = None
     else:
-        # free [N,R] against demand [C,P,R] → [C,P,N]; cap per-node fits at
-        # the group count (keeps the int32 prefix sums exact)
-        k_all = _pods_fit_per_node(free, gang.demand)
+        # free against demand [C,P,R] → [C,P,N]; cap per-node fits at the
+        # group count (keeps the int32 prefix sums exact)
+        k_all = _pods_fit_per_node(free.unsqueeze(1) if free.dim() == 3 else free, gang.demand)
         k_all = torch.minimum(k_all, gang.count.unsqueeze(-1))
         zero_col = torch.zeros(k_all.shape[:2] + (1,), dtype=k_all.dtype, device=k_all.device)
         cs_k = torch.cat([zero_col, _seg_cumsum(k_all, -1)], -1)
     min_demand = (gang.min_count.unsqueeze(-1).to(free.dtype) * gang.demand).sum(1)
     cs_free = torch.cat(
         [
-            torch.zeros((1, free.shape[1]), dtype=free.dtype, device=free.device),
-            _seg_cumsum(free, 0),
+            torch.zeros(free.shape[:-2] + (1, free.shape[-1]), dtype=free.dtype, device=free.device),
+            _seg_cumsum(free, -2),
         ],
-        0,
+        -2,
     )
     # float32 prefix sums of byte-scale capacity accumulate rounding error;
     # slack the joint check so it can only false-KEEP (the fill is exact)
-    free_tol = 1e-5 * cs_free[-1]
+    free_tol = 1e-5 * cs_free[..., -1, :]
     return active, cs_k, cs_free, free_tol, min_demand
 
 
@@ -175,7 +467,8 @@ def _coloc_score(alloc, placed_total, seg_starts, seg_ends, weights, ok, seg_lis
 
 def gang_select_single(
     free, topo, seg_starts, seg_ends, gang: GangInputs, narrow_cap, seed,
-    cs_pair=None, seg_list=None, uniform: bool = False, fill=fill_batch,
+    cs_pair=None, seg_list=None, grouped: bool = False, pinned: bool = False,
+    spread: bool = False, uniform: bool = False, fill=fill_batch,
 ):
     """Decide a chunk of gangs against one capacity snapshot ``free [N,R]``.
 
@@ -185,7 +478,9 @@ def gang_select_single(
     best-effort extras cluster-wide or, when the level fill missed the
     floor and no broader feasible level remains, rescues the gang
     cluster-wide. A fill that misses the floor lowers `narrow_cap` for the
-    next wave (fallback_cap).
+    next wave (fallback_cap). `grouped`, `pinned` and `spread` are the
+    problem's static flags; `seg_starts`/`seg_ends` are the padded int64
+    tables (the grouped and spread fills index them per gang).
 
     Returns (alloc [C,P,N], placed [C,P], ok [C], chosen [C] (level index,
     n_levels for cluster-wide, -1 when nothing allowed), score [C],
@@ -196,7 +491,7 @@ def gang_select_single(
     device = free.device
     weights = _level_weights(n_levels, device)
 
-    pin_mask, free_vis = _gang_pin_mask(free, n_nodes)
+    pin_mask, free_vis = _gang_pin_mask(free, topo, gang, pinned)
     active, cs_k, cs_free, free_tol, min_demand = _aggregate_tables(
         free_vis, gang, cs_pair
     )
@@ -215,12 +510,12 @@ def gang_select_single(
             K = cs_pair[row, ends] - cs_pair[row, starts]  # [C, P, D]
         else:
             K = cs_k[:, :, ends] - cs_k[:, :, starts]
-        free_agg = cs_free[ends] - cs_free[starts]  # [D, R]
+        free_agg = cs_free[..., ends, :] - cs_free[..., starts, :]  # [D,R] or [C,D,R]
+        if free_agg.dim() == 2:
+            free_agg = free_agg.unsqueeze(0)
         act = active.unsqueeze(-1)
         feas = torch.where(act, K >= gang.min_count.unsqueeze(-1), True).all(1)
-        feas = feas & (
-            free_agg.unsqueeze(0) >= (min_demand - free_tol).unsqueeze(1)
-        ).all(-1)
+        feas = feas & (free_agg >= (min_demand - free_tol).unsqueeze(1)).all(-1)
         feas = feas & (ends > starts).unsqueeze(0)
         feas = feas & any_active.unsqueeze(-1)
         # STRIDED choice: gangs deciding in parallel must not all pick the
@@ -249,6 +544,13 @@ def gang_select_single(
         & (lv <= narrow_cap.unsqueeze(-1))
     )
     pref_eff = torch.where(gang.pref_level >= 0, gang.pref_level, n_levels - 1)
+    if spread:
+        # a spread gang gets ONE fill attempt per wave, at its required pack
+        # level (else the broadest); with no required pack it goes straight
+        # to the cluster-wide fill, which sees every spread-level domain
+        s_on = gang.spread_level >= 0
+        pref_eff = torch.where(s_on, torch.clamp(req, min=0), pref_eff)
+        allowed = allowed & ~(s_on & (req < 0)).unsqueeze(-1)
     dist = (lv - pref_eff.unsqueeze(-1)).abs()
     level_rank = 2 * (n_levels - dist) + (lv > pref_eff.unsqueeze(-1)).long()
     has_level = allowed.any(1)
@@ -261,14 +563,15 @@ def gang_select_single(
     packed_mask = (topo.t()[chosen_level] == best_sel) & pin_mask
     mask = torch.where(has_level.unsqueeze(-1), packed_mask, use_cluster.unsqueeze(-1))
 
-    alloc, placed, placed_min, free_after = _dispatch_with_spread(
-        free, mask.contiguous(), gang, uniform, fill
+    alloc, placed, placed_min, free_after, used, spread_on = _dispatch_with_spread(
+        spread, grouped, free, mask.contiguous(), gang, topo, seg_starts, seg_ends,
+        seed, uniform, fill,
     )
     level_fill_ok = (
         had_candidate
         & any_active
         & torch.where(active, placed_min >= gang.min_count, True).all(1)
-        & _spread_admit(gang)
+        & _spread_admit(gang, spread_on, used, placed.sum(1, dtype=torch.int32))
     )
 
     # when the level fill fails, the retry cap jumps straight to the next
@@ -278,33 +581,45 @@ def gang_select_single(
 
     # Second fill doubles as both paths:
     # - level fill met the floor → best-effort extras spill cluster-wide
+    #   (spread gangs never spill: the balanced fill placed all they get)
     # - level fill missed the floor AND no broader feasible level remains
     #   (and no required pack) → cluster-wide scatter as a last resort
+    #   (never a spread gang: without a required pack it takes no level, so
+    #   this pass's spread fill reaches no result; it runs for the flag)
     no_req = req < 0
     cluster_rescue = has_level & ~level_fill_ok & no_req & (fallback_cap < 0) & any_active
     spill = level_fill_ok & has_level & no_req
+    if spread_on is not None:
+        spill = spill & ~spread_on
     base_free = torch.where(cluster_rescue[:, None, None], free, free_after)
+    # extras of a group-constrained group stay inside its chosen domain:
+    # only unconstrained groups spill
+    spill_p = spill.unsqueeze(-1)
+    if gang.group_req is not None:
+        spill_p = spill_p & (gang.group_req < 0)
     remaining = torch.where(
         cluster_rescue.unsqueeze(-1),
         gang.count,
-        torch.where(spill.unsqueeze(-1), gang.count - placed, 0),
+        torch.where(spill_p, gang.count - placed, 0),
     )
     rescue_min = torch.where(cluster_rescue.unsqueeze(-1), gang.min_count, 0)
     # the capacity this fill leaves is not used: it is not written
-    alloc2, placed2, placed2_min, _ = _dispatch_with_spread(
-        base_free.contiguous(), all_nodes,
-        gang._replace(count=remaining, min_count=rescue_min), uniform, fill,
-        with_free_after=False,
+    alloc2, placed2, placed2_min, _, used2, _ = _dispatch_with_spread(
+        spread, grouped, base_free.contiguous(), all_nodes,
+        gang._replace(count=remaining, min_count=rescue_min), topo, seg_starts,
+        seg_ends, seed, uniform, fill, with_free_after=False,
     )
     rescue_ok = (
         cluster_rescue
         & torch.where(active, placed2_min >= gang.min_count, True).all(1)
-        & _spread_admit(gang)
+        & _spread_admit(gang, spread_on, used2, placed2.sum(1, dtype=torch.int32))
     )
     r3, s3 = rescue_ok[:, None, None], spill[:, None, None]
     alloc = torch.where(r3, alloc2, torch.where(s3, alloc + alloc2, alloc))
     r2, s2 = rescue_ok.unsqueeze(-1), spill.unsqueeze(-1)
     placed = torch.where(r2, placed2, torch.where(s2, placed + placed2, placed))
+    if spread_on is not None:
+        used = torch.where(rescue_ok, used2, used)
     fill_ok = level_fill_ok | rescue_ok
     chosen_level = torch.where(rescue_ok, n_levels, chosen_level)
     has_level = has_level & ~rescue_ok
@@ -314,7 +629,11 @@ def gang_select_single(
     alloc = torch.where(fill_ok[:, None, None], alloc, 0)
     placed = torch.where(fill_ok.unsqueeze(-1), placed, 0)
     score = _coloc_score(alloc, placed, seg_starts, seg_ends, weights, fill_ok, seg_list)
-    score = torch.where(fill_ok, _spread_score(score), 0.0)
+    score = torch.where(
+        fill_ok,
+        _spread_score(gang, spread_on, used, placed.sum(1, dtype=torch.int32), score),
+        0.0,
+    )
     chosen = torch.where(
         has_level, chosen_level, torch.where(use_cluster, n_levels, -1)
     )
@@ -332,6 +651,9 @@ def gang_select_single(
 def wave_chunk_core(
     free, topo, seg_starts, seg_ends,
     dem, cnt, mn, rq, pf, pend, ncap, seeds, commit_iters,
+    grq=None, gpin=None, gangpin=None, spreadlvl=None, spreadmin=None,
+    spreadreq=None, spreadseed=None,
+    grouped=False, pinned=False, spread=False,
     pair_dem=None, pair_cap=None, uidx=None, uniform=False, seg_list=None,
     fill=fill_batch,
 ):
@@ -343,11 +665,12 @@ def wave_chunk_core(
     `pair_dem [U,R]` + `pair_cap [U]` + `uidx [C,P]` (optional demand
     dedup): the capped-fit prefix sums are computed once per UNIQUE
     (demand, count) pair; each gang's level loop gathers the SAME integer
-    values (bit-exact).
+    values (bit-exact). Off under `pinned` (each gang sees its own
+    capacity view there).
     Returns (free, accept, placed, score, chosen, retry, new_cap,
     fill_failed, alloc)."""
     cnt = cnt * pend.unsqueeze(-1)
-    use_dedup = pair_dem is not None and uidx is not None
+    use_dedup = pair_dem is not None and uidx is not None and not pinned
     cs_pair = None
     if use_dedup:
         fit_pair = torch.minimum(
@@ -355,10 +678,13 @@ def wave_chunk_core(
         )  # [U, N]
         zero = torch.zeros((fit_pair.shape[0], 1), dtype=fit_pair.dtype, device=free.device)
         cs_pair = torch.cat([zero, _seg_cumsum(fit_pair, -1)], -1)  # [U, N+1]
-    gang = GangInputs(dem, cnt, mn, rq, pf, uidx if use_dedup else None)
+    gang = GangInputs(
+        dem, cnt, mn, rq, pf, uidx if use_dedup else None,
+        grq, gpin, gangpin, spreadlvl, spreadmin, spreadreq, spreadseed,
+    )
     alloc, placed, ok, chosen, score, had_cand, fallback_cap = gang_select_single(
         free, topo, seg_starts, seg_ends, gang, ncap, seeds, cs_pair, seg_list,
-        uniform=uniform, fill=fill,
+        grouped=grouped, pinned=pinned, spread=spread, uniform=uniform, fill=fill,
     )
 
     # integer-valued products: exact in float32 (TF32 must be off on CUDA)
@@ -409,19 +735,31 @@ def solve_wave_chunk(
     pending,  # [C] bool
     narrow_cap,  # [C] i32
     seeds,  # [C] i32
+    group_req=None,  # [C, P] i32
+    group_pin=None,  # [C, P] i32
+    gang_pin=None,  # [C] i32
+    spread_level=None,  # [C] i32
+    spread_min=None,  # [C] i32
+    spread_required=None,  # [C] bool
+    spread_seed=None,  # [C, D] i32 (or the [C, 0] placeholder)
     pair_demand=None,  # [U, R] f32
     pair_count=None,  # [U] i32
     pair_idx=None,  # [C, P] i32
     commit_iters: int = 2,
+    grouped: bool = False,
+    pinned: bool = False,
+    spread: bool = False,
     uniform: bool = False,
     level_widths: tuple = None,
     fill=fill_batch,
 ):
     """One wave over one chunk, with per-pod allocations (the binding path).
-    `level_widths`: per-level real domain counts for the ragged candidate
-    scan. `fill`: the fill implementation — the kernel wrapper by default;
-    tests pass ``fill_batch_ref`` to hold the kernel against its plain
-    version inside the path. Returns a dict of the chunk's results."""
+    Absent constraint arrays get the JAX package's sentinels (no
+    constraint); `grouped`, `pinned` and `spread` are the problem's static
+    flags. `level_widths`: per-level real domain counts for the ragged
+    candidate scan. `fill`: the fill implementation — the kernel wrapper by
+    default; tests pass ``fill_batch_ref`` to hold the kernel against its
+    plain version inside the path. Returns a dict of the chunk's results."""
     seg_starts = seg_starts.long()
     seg_ends = seg_ends.long()
     seg_list = None
@@ -429,11 +767,24 @@ def solve_wave_chunk(
         seg_list = tuple(
             (seg_starts[l, :w], seg_ends[l, :w]) for l, w in enumerate(level_widths)
         )
+    c, device = count.shape[0], count.device
+    if group_req is None:
+        group_req = torch.full(count.shape, -1, dtype=torch.int32, device=device)
+    if group_pin is None:
+        group_pin = torch.full(count.shape, -1, dtype=torch.int32, device=device)
+    if gang_pin is None:
+        gang_pin = torch.full((c,), -1, dtype=torch.int32, device=device)
+    spread_level, spread_min, spread_required, spread_seed = _spread_defaults(
+        c, device, spread_level, spread_min, spread_required, spread_seed
+    )
     free_after, accept, placed, score, chosen, retry, new_cap, _, alloc = (
         wave_chunk_core(
             free, topo, seg_starts, seg_ends,
             demand, count, min_count, req_level, pref_level,
             pending, narrow_cap, seeds, commit_iters,
+            group_req, group_pin, gang_pin,
+            spread_level, spread_min, spread_required, spread_seed,
+            grouped, pinned, spread,
             pair_dem=pair_demand, pair_cap=pair_count, uidx=pair_idx,
             uniform=uniform, seg_list=seg_list, fill=fill,
         )

@@ -2,7 +2,9 @@
 
 Counterpart of ``grove_tpu/solver/kernel.py::solve_waves`` (the binding
 path): the host loop walks waves and chunks, each chunk decided on the
-device by ``ops.packing.solve_wave_chunk``. The JAX loop's metrics and
+device by ``ops.packing.solve_wave_chunk``. Grouped, pinned and spread
+problems take the same loop with the static flags derived from the
+problem as the JAX package derives them. The JAX loop's metrics and
 tracing spans are not ported yet.
 """
 
@@ -26,22 +28,9 @@ from grove_tpu_torch.solver.types import PackingProblem, PackingResult
 from grove_tpu_torch.utils.platform import resolve_device, strict_fp32
 
 
-def _reject_unported(problem: PackingProblem, spread_level: np.ndarray) -> None:
-    """Problems with features this slice does not port raise instead of
-    silently computing something else (ROADMAP.md A.6)."""
-    flags = {
-        "per-group pack constraints (grouped)": problem.group_req is not None
-        and (problem.group_req >= 0).any(),
-        "recovery pins (pinned)": problem.gang_pin is not None
-        and (problem.gang_pin >= 0).any(),
-        "topology spread constraints (spread)": (spread_level >= 0).any(),
-    }
-    for feature, present in flags.items():
-        if present:
-            raise NotImplementedError(
-                f"{feature} are not ported to grove_tpu_torch yet"
-                " (ROADMAP.md A.6: static-flag fills)"
-            )
+def _or_full(a, shape) -> np.ndarray:
+    """A constraint array, or all -1 (no constraint) where it is unset."""
+    return a if a is not None else np.full(shape, -1, dtype=np.int32)
 
 
 def _sync(device: torch.device) -> None:
@@ -80,13 +69,21 @@ def solve_waves(
         width = [(0, g_pad - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
         return np.pad(a, width, constant_values=value)
 
-    spread_level = _spread_arrays(problem)[0]
-    _reject_unported(problem, spread_level)
+    spread_level_a, spread_min_a, spread_required_a, spread_seed_a = (
+        _spread_arrays(problem)
+    )
     demand = pad(problem.demand)
     count = pad(problem.count)
     min_count = pad(problem.min_count)
     req_level = pad(problem.req_level, -1)
     pref_level = pad(problem.pref_level, -1)
+    group_req = pad(_or_full(problem.group_req, problem.count.shape), -1)
+    group_pin = pad(_or_full(problem.group_pin, problem.count.shape), -1)
+    gang_pin = pad(_or_full(problem.gang_pin, problem.req_level.shape), -1)
+    spread_level = pad(spread_level_a, -1)
+    spread_min = pad(spread_min_a)
+    spread_required = pad(spread_required_a)
+    spread_seed = pad(spread_seed_a)
 
     node = problem_to_device(problem, device)
     free = node["capacity"]
@@ -106,6 +103,9 @@ def solve_waves(
         else None
     )
 
+    grouped = bool((group_req >= 0).any())
+    pinned = bool((gang_pin >= 0).any())
+    spread = bool((spread_level >= 0).any())
     # padded gangs have min_count == count == 0, preserving uniformity
     uniform = bool((problem.min_count == problem.count).all())
     level_widths = level_widths_of(problem)
@@ -113,7 +113,7 @@ def solve_waves(
     def upload(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    dedup = dedup_extra_args(demand, count, n_chunks, pinned=False)
+    dedup = dedup_extra_args(demand, count, n_chunks, pinned)
     pair_demand = upload(dedup["pair_demand"]) if dedup else None
     pair_count = upload(dedup["pair_count"]) if dedup else None
     # immutable chunk tensors go to the device ONCE (only mask/cap/seeds
@@ -122,7 +122,12 @@ def solve_waves(
     for c in range(n_chunks):
         sl = slice(c * chunk_size, (c + 1) * chunk_size)
         tensors = tuple(
-            upload(a[sl]) for a in (demand, count, min_count, req_level, pref_level)
+            upload(a[sl])
+            for a in (
+                demand, count, min_count, req_level, pref_level,
+                group_req, group_pin, gang_pin,
+                spread_level, spread_min, spread_required, spread_seed,
+            )
         )
         pidx = upload(dedup["pair_idx"][sl]) if dedup else None
         chunk_const.append(tensors + (pidx,))
@@ -139,14 +144,27 @@ def solve_waves(
             mask = pending[sl]
             if not mask.any():
                 continue
-            dem_c, cnt_c, mn_c, rq_c, pf_c, pidx_c = chunk_const[c]
+            (
+                dem_c, cnt_c, mn_c, rq_c, pf_c, grq_c, gpin_c, gangpin_c,
+                slvl_c, smin_c, sreq_c, sseed_c, pidx_c,
+            ) = chunk_const[c]
             out = solve_wave_chunk(
                 free, topo, seg_starts, seg_ends,
                 dem_c, cnt_c, mn_c, rq_c, pf_c,
                 upload(mask), upload(narrow_cap[sl]), upload(seeds[sl]),
+                group_req=grq_c,
+                group_pin=gpin_c,
+                gang_pin=gangpin_c,
+                spread_level=slvl_c,
+                spread_min=smin_c,
+                spread_required=sreq_c,
+                spread_seed=sseed_c,
                 pair_demand=pair_demand,
                 pair_count=pair_count,
                 pair_idx=pidx_c,
+                grouped=grouped,
+                pinned=pinned,
+                spread=spread,
                 uniform=uniform,
                 level_widths=level_widths,
                 fill=fill,

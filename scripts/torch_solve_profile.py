@@ -1,15 +1,25 @@
 """Where the port's sidecar solve spends its time on the GPU.
 
-Runs the BASELINE stress request (10,240 gangs x 5,120 nodes; smaller with
---gangs/--nodes) through ``grove_tpu_torch.solver.kernel.solve_waves`` on
-CUDA: once unprofiled (solve_seconds), then once under ``torch.profiler``
-(CPU + CUDA activities). Prints one JSON object: wall times, the summed
-device time of all kernels, the device busy share (device time / profiled
-wall), the number of device events (kernels and copies), fill launches,
-and the top kernels by device time.
-With --out, the full profiler table is written to that file.
+Runs one of chip_smoke.py's full-width requests through
+``grove_tpu_torch.solver.kernel.solve_waves`` on CUDA: (a) the BASELINE
+stress request (10,240 gangs x 5,120 nodes), (d) the disaggregated batch
+with a per-group ici-block pack (4,096 gangs) or (e) the spread + recovery
+batch (2,048 gangs), each on a fresh cluster (smaller with
+--gangs/--nodes). Solves once unprofiled (solve_seconds), then once under
+``torch.profiler`` (CPU + CUDA activities). Prints one JSON object: wall
+times, the summed device time of all kernels, the device busy share
+(device time / profiled wall), the number of device events (kernels and
+copies) in all and per chunk-wave, fill launches and their device time,
+the device time of the spread fill and of its quota (kernels launched
+inside them, by profiler range), and the top kernels by device time.
+With --chunk-waves K the profiled solve stops after its first K
+chunk-waves (the profiler's own cost grows with the events it holds: a
+whole solve of (e) does not finish in 15 minutes); every profiled figure
+is then that window's. With --out, the full profiler table is written to
+that file.
 
-    python3 scripts/torch_solve_profile.py [--gangs 10240] [--nodes 5120] [--out FILE]
+    python3 scripts/torch_solve_profile.py [--request a|d|e] [--gangs N] [--nodes 5120]
+        [--chunk-waves K] [--out FILE]
 """
 
 from __future__ import annotations
@@ -24,40 +34,121 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from grove_tpu_torch.models.scenarios import build_stress_problem  # noqa: E402
+from chip_smoke import disagg_specs, spread_recovery_specs  # noqa: E402
+from grove_tpu_torch.api.topology import ClusterTopology  # noqa: E402
+from grove_tpu_torch.models.scenarios import (  # noqa: E402
+    STRESS_CAPACITY,
+    build_stress_problem,
+)
+from grove_tpu_torch.ops import packing  # noqa: E402
 from grove_tpu_torch.ops.fill import fill_batch  # noqa: E402
+from grove_tpu_torch.sim.cluster import make_nodes  # noqa: E402
+from grove_tpu_torch.solver import kernel  # noqa: E402
+from grove_tpu_torch.solver.encode import build_problem  # noqa: E402
 from grove_tpu_torch.solver.kernel import solve_waves  # noqa: E402
 from grove_tpu_torch.utils.platform import card_info  # noqa: E402
+
+DEFAULT_GANGS = {"a": 10240, "d": 4096, "e": 2048}
+# profiler ranges: the spread fill and, inside it, its quota
+RANGES = {"spread_fill": "_fill_spread_floors_first", "spread_quota": "_spread_quota"}
+
+
+def build(request, n_gangs, n_nodes):
+    if request == "a":
+        return build_stress_problem(n_nodes, n_gangs)
+    nodes = make_nodes(n_nodes, dict(STRESS_CAPACITY), 8, 8)
+    specs = (disagg_specs(n_gangs, seed=5) if request == "d"
+             else spread_recovery_specs(n_gangs, seed=6, n_nodes=n_nodes))
+    return build_problem(nodes, specs, ClusterTopology())
+
+
+class _WindowEnd(Exception):
+    """Ends the profiled solve after its window of chunk-waves."""
+
+
+def instrument():
+    """Count chunk-waves (calls of solve_wave_chunk), end a solve once the
+    count reaches ``calls[1]`` (when set), and put a profiler range around
+    the spread fill and its quota; returns [count, limit]."""
+    from torch.profiler import record_function
+
+    calls = [0, None]
+    chunk = kernel.solve_wave_chunk
+
+    def counted(*args, **kw):
+        if calls[1] is not None and calls[0] >= calls[1]:
+            raise _WindowEnd
+        calls[0] += 1
+        return chunk(*args, **kw)
+
+    kernel.solve_wave_chunk = counted
+    for label, name in RANGES.items():
+        fn = getattr(packing, name)
+
+        def ranged(*args, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*args, **kw)
+
+        setattr(packing, name, ranged)
+    return calls
+
+
+def range_device_s(events, label):
+    """Device time of the kernels launched inside a profiler range (None
+    when the profiler attributes none to it)."""
+    for e in events:
+        if e.key == label:
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0.0)
+            return us / 1e6
+    return None
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--gangs", type=int, default=10240)
+    ap.add_argument("--request", choices=sorted(DEFAULT_GANGS), default="a")
+    ap.add_argument("--gangs", type=int, default=None)
     ap.add_argument("--nodes", type=int, default=5120)
+    ap.add_argument("--chunk-waves", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
     card = ", ".join(card_info())
-    problem = build_stress_problem(args.nodes, args.gangs)
-    solve_waves(build_stress_problem(256, 256), device="cuda")  # build + warm up
+    gangs = args.gangs or DEFAULT_GANGS[args.request]
+    problem = build(args.request, gangs, args.nodes)
+    solve_waves(build(args.request, 256, 256), device="cuda")  # build + warm up
 
+    chunk_waves = instrument()
     fill_batch.launches = 0
     plain = solve_waves(problem, device="cuda")
     fills = fill_batch.launches
+    waves = chunk_waves[0]
 
     from torch.profiler import ProfilerActivity, profile
 
+    chunk_waves[:] = [0, args.chunk_waves]
+    fill_batch.launches = 0
+    profiled = None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        profiled = solve_waves(problem, device="cuda")
+        try:
+            profiled = solve_waves(problem, device="cuda")
+        except _WindowEnd:
+            pass
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    window = chunk_waves[0]
+    window_fills = fill_batch.launches
     events = prof.key_averages()
     # device-side events only (kernels and copies, one per launch): the
-    # aten ops that launched them carry the same device time again
-    kernels = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    # aten ops that launched them carry the same device time again, and the
+    # ranges' own spans on the device track (idle gaps included) are not
+    # kernels
+    kernels = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA") and e.name not in RANGES]
     per_name = {}
     for e in kernels:
         us, n = per_name.get(e.name, (0.0, 0))
@@ -66,17 +157,25 @@ def main() -> int:
     device_us = sum(us for _, us, _ in device)
     out = {
         "card": card,
-        "gangs": args.gangs,
+        "request": args.request,
+        "gangs": gangs,
         "nodes": args.nodes,
         "solve_seconds": plain.solve_seconds,
         "admitted": int(plain.admitted.sum()),
+        "profiled_chunk_waves": window,
         "profiled_wall_s": wall,
-        "profiled_admitted_equal": bool((profiled.admitted == plain.admitted).all()),
+        "profiled_admitted_equal": (
+            None if profiled is None else bool((profiled.admitted == plain.admitted).all())
+        ),
         "device_kernel_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / wall,
         "device_events": len(kernels),
+        "chunk_waves": waves,
+        "device_events_per_chunk_wave": len(kernels) / max(window, 1),
         "fill_launches": fills,
+        "profiled_fill_launches": window_fills,
         "fill_device_s": sum(us for k, us, _ in device if "fill_kernel" in k) / 1e6,
+        **{f"{label}_device_s": range_device_s(events, label) for label in RANGES},
         "top_kernels": [
             {"name": k[:80], "device_s": us / 1e6, "count": n} for k, us, n in device[:12]
         ],

@@ -15,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from grove_tpu_torch.models.scenarios import build_stress_problem
+from grove_tpu_torch.api.topology import ClusterTopology
+from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, build_stress_problem
 from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
+from grove_tpu_torch.sim.cluster import make_nodes
+from grove_tpu_torch.solver.encode import build_problem
 from grove_tpu_torch.solver.kernel import solve_waves
 
 FIELDS = ("admitted", "placed", "score", "chosen_level", "alloc", "free_after")
@@ -110,6 +113,10 @@ KERNEL_CASES = [
     # K=8 with 1,024 threads of 16 nodes each (the largest run)
     pytest.param(1, 2, 131072, 2, False, 0.5, True, None, id="run_16"),
     pytest.param(32, 3, 5120, 2, False, 0.5, False, None, id="no_free_after"),
+    # the grouped fill's P=1 calls: one group, masks of about one ici-block,
+    # per-gang capacity after the first group
+    pytest.param(32, 1, 5120, 2, False, 0.0125, True, None, id="p1_per_gang"),
+    pytest.param(32, 1, 5120, 2, False, 0.0125, False, None, id="p1_per_gang_no_free_after"),
 ]
 
 
@@ -164,6 +171,60 @@ def test_cuda_solve_matches_plain_fill_and_cpu(cuda):
     assert fill_batch.launches > before
     plain = solve_waves(problem, chunk_size=32, device=cuda, fill=fill_batch_ref)
     cpu = solve_waves(problem, chunk_size=32, device="cpu")
+    for name in FIELDS:
+        np.testing.assert_array_equal(getattr(kern, name), getattr(plain, name), err_msg=name)
+        np.testing.assert_array_equal(getattr(kern, name), getattr(cpu, name), err_msg=name)
+
+
+def _flag_specs(kind, n_gangs, n_nodes, seed):
+    """Gangs with one constraint kind: per-group ici-block packs
+    (grouped), a slice pack pinned to a survivor (pinned), or a hard spread
+    over ici-blocks inside a slice with survivors beside a soft spread over
+    hosts (spread)."""
+    rng = np.random.default_rng(seed)
+    specs = []
+    for i in range(n_gangs):
+        groups = []
+        for q in range(int(rng.integers(1, 4))):
+            count = int(rng.integers(2, 6))
+            groups.append({"name": f"{kind}{i}-{q}", "count": count,
+                           "min_count": int(rng.integers(1, count + 1)),
+                           "demand": {"tpu": float(rng.integers(1, 3)),
+                                      "cpu": float(rng.integers(1, 9))}})
+        spec = {"name": f"{kind}{i}", "groups": groups, "priority": 0,
+                "required_key": None, "preferred_key": None}
+        if kind == "grouped":
+            for grp in groups:
+                grp["required_key"] = "cloud.google.com/gke-tpu-ici-block"
+        elif kind == "pinned":
+            spec.update(required_key="cloud.google.com/gke-tpu-slice",
+                        gang_pinned_node=f"node-{int(rng.integers(0, n_nodes))}")
+        elif i % 2:
+            spec.update(required_key="cloud.google.com/gke-tpu-slice",
+                        spread_key="cloud.google.com/gke-tpu-ici-block",
+                        spread_min_domains=3, spread_required=True)
+            first = 8 * int(rng.integers(0, n_nodes // 8))
+            spec["spread_survivor_nodes"] = [f"node-{first}", f"node-{first + 1}"]
+        else:
+            spec.update(spread_key="kubernetes.io/hostname", spread_min_domains=4)
+        specs.append(spec)
+    return specs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["grouped", "pinned", "spread"])
+def test_cuda_flag_solve_matches_plain_fill_and_cpu(cuda, kind):
+    nodes = make_nodes(256, dict(STRESS_CAPACITY), 8, 8)  # contended: some gangs wait
+    problem = build_problem(nodes, _flag_specs(kind, 384, 256, seed=3), ClusterTopology())
+    flag = {"grouped": problem.group_req, "pinned": problem.gang_pin,
+            "spread": problem.spread_level}[kind]
+    assert (flag >= 0).any()
+    before = fill_batch.launches
+    kern = solve_waves(problem, chunk_size=32, device=cuda)
+    assert fill_batch.launches > before
+    plain = solve_waves(problem, chunk_size=32, device=cuda, fill=fill_batch_ref)
+    cpu = solve_waves(problem, chunk_size=32, device="cpu")
+    assert 0 < kern.admitted.sum() < len(problem.gang_names)
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(kern, name), getattr(plain, name), err_msg=name)
         np.testing.assert_array_equal(getattr(kern, name), getattr(cpu, name), err_msg=name)

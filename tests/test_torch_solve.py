@@ -22,7 +22,7 @@ from grove_tpu_torch.convert import problem_from_arrays
 from grove_tpu_torch.models.scenarios import stress_gang_specs
 from grove_tpu_torch.ops.fill import fill_batch
 from grove_tpu_torch.sim.cluster import make_nodes
-from grove_tpu_torch.solver.encode import build_problem
+from grove_tpu_torch.solver.encode import ConstraintError, StickyGroupPad, build_problem
 from grove_tpu_torch.solver.kernel import solve_waves
 from tests.test_torch_encode import MEM_CAPACITY, mixed_specs
 
@@ -102,8 +102,87 @@ def test_solve_waves_without_device_raises_when_no_cuda(monkeypatch):
     ids=["grouped", "pinned", "spread"],
 )
 def test_unported_features_raise(change, feature):
+    """Once the raise of the first slice, now the flag's parity: a problem
+    with a per-group pack, a recovery pin or a spread constraint solves as
+    the JAX package solves it (the name is kept from that slice)."""
     specs = stress_gang_specs(4)
     change(specs)
-    problem = build_problem(make_nodes(8), specs, ClusterTopology())
-    with pytest.raises(NotImplementedError, match=feature):
-        solve_waves(problem, device="cpu")
+    want_problem = j_build_problem(j_make_nodes(8), specs, JTopology())
+    flag_array = {"grouped": want_problem.group_req, "pinned": want_problem.gang_pin,
+                  "spread": want_problem.spread_level}[feature]
+    assert (flag_array >= 0).any()
+    want = j_solve_waves(want_problem)
+    got = solve_waves(problem_from_arrays(want_problem), device="cpu")
+    assert want.admitted.any()
+    assert_same_result(got, want)
+
+
+def _flagged_specs():
+    """One request with all three flags (on different gangs: spread and a
+    per-group pack in one gang is a ConstraintError): the disaggregated
+    per-group packs, the spread-serving form with survivors, and both
+    recovery pins."""
+    specs = stress_gang_specs(120, seed=4)
+    for i, spec in enumerate(specs):
+        kind = i % 4
+        if kind == 0:
+            for grp in spec["groups"]:
+                grp["required_key"] = "cloud.google.com/gke-tpu-ici-block"
+                grp["min_count"] = max(1, grp["count"] - 1)
+            if i % 8 == 4:
+                spec["groups"][0]["pinned_node"] = f"node-{(i * 7) % 128}"
+        elif kind == 1:
+            spec.update(required_key="cloud.google.com/gke-tpu-slice",
+                        spread_key="cloud.google.com/gke-tpu-ici-block",
+                        spread_min_domains=3, spread_required=True)
+            if i % 8 == 1:
+                first = (i * 8) % 128
+                spec["spread_survivor_nodes"] = [f"node-{first}", f"node-{first + 1}"]
+        elif kind == 2:
+            spec.update(required_key="cloud.google.com/gke-tpu-slice",
+                        gang_pinned_node=f"node-{(i * 13) % 128}")
+    return specs
+
+
+def test_solve_decoded_matches_sidecar_solve_request_with_flags():
+    """A request carrying grouped, pinned and spread gangs through the
+    sidecar's solve on both sides. The JAX endpoint's sticky group padding
+    is process-wide, so the port's pad is set to the width it will use."""
+    from grove_tpu.cluster import grpcsolver as j_grpcsolver
+
+    specs = _flagged_specs()
+    capacity = {"cpu": 128.0, "tpu": 8.0}
+    request = build_request(j_make_nodes(128, capacity, 8, 8), specs, JTopology())
+    width = j_grpcsolver._PAD_GROUPS.grow(specs)
+    want = solve_request(request)
+    pad = StickyGroupPad()
+    pad.grow([{"groups": [None] * width}])
+    got = solve_decoded(make_nodes(128, capacity, 8, 8), specs, ClusterTopology(),
+                        device="cpu", pad_groups=pad)
+    assert len(got["placements"]) == len(want.placements) == len(specs)
+    for a, b in zip(want.placements, got["placements"]):
+        assert b["gang"] == a.gang and b["admitted"] == a.admitted, a.gang
+        assert b["chosen_level_key"] == a.chosen_level_key, a.gang
+        assert b["assignments"] == [(x.group, x.node, x.count) for x in a.assignments], a.gang
+        np.testing.assert_allclose(b["placement_score"], a.placement_score, rtol=1e-6, atol=0)
+    admitted = [p["admitted"] for p in got["placements"]]
+    for kind in range(3):  # every flag admits some of its gangs
+        assert any(admitted[kind::4]), kind
+
+
+def test_solve_decoded_constraint_error_surfaces():
+    """Spread combined with a per-group pack is the caller's fault: the JAX
+    sidecar raises its ValueError for INVALID_ARGUMENT, the port's
+    solve_decoded the encoder's ConstraintError (a ValueError), same text."""
+    from grove_tpu.cluster.grpcsolver import RequestDecodeError
+
+    specs = stress_gang_specs(4)
+    specs[1]["spread_key"] = "kubernetes.io/hostname"
+    specs[1]["groups"][0]["required_key"] = "cloud.google.com/gke-tpu-ici-block"
+    request = build_request(j_make_nodes(8), specs, JTopology())
+    with pytest.raises(RequestDecodeError) as want:
+        solve_request(request)
+    with pytest.raises(ConstraintError) as got:
+        solve_decoded(make_nodes(8), specs, ClusterTopology(), device="cpu")
+    assert isinstance(got.value, ValueError)
+    assert str(got.value) == str(want.value)

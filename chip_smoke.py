@@ -12,14 +12,17 @@ Phases (any failure raises and the script exits non-zero):
      per-gang capacity, masks 0/50/100% dense, zero demands and zero counts;
      alloc, placed and free_after must be equal bit for bit. Times the kernel
      and the plain version (median device time of 50 calls, CUDA events).
-  3b. kernel at the main path's own shapes: the fill calls of one
-     chunk-wave, recorded by a `fill=` passed to solve_waves — (a)'s level
-     fill (shared free, one-domain masks) and spill fill (per-gang free,
-     all nodes, mostly zero counts, no free_after) and (c)'s floors->extras
-     pair, and (d)'s per-group fills (P=1: a floors fill on shared free,
-     one on per-gang free, an extras fill, the rescue's last extras fill
-     without free_after); each bit for bit against the plain version, then
-     timed beside its bound.
+  3b. kernel at the main paths' own shapes: fill calls recorded by a
+     `fill=` passed to the solvers — from one chunk-wave of the binding
+     path, (a)'s level fill (shared free, one-domain masks) and spill fill
+     (per-gang free, all nodes, mostly zero counts, no free_after), (c)'s
+     floors->extras pair, and (d)'s per-group fills (P=1: a floors fill on
+     shared free, one on per-gang free, an extras fill, the rescue's last
+     extras fill without free_after); from the stats path, (a)'s slab fill
+     of groups 1..P-1 (per-gang free, no free_after); from the exact solve
+     of (a), the stacked candidates (C = L+1) and the spill fill (C=1);
+     each bit for bit against the plain version, then timed beside its
+     bound.
   4. main path at full width: five requests through the sidecar's solve
      (solve_decoded): the 10,240-gang x 5,120-node stress batch, 2,048 more
      stress gangs against the capacity it left, a non-uniform batch of
@@ -32,10 +35,20 @@ Phases (any failure raises and the script exits non-zero):
      inside their pin's domain, required spreads over enough domains);
      fill launch counts are set to 0 just before each request and read
      just after it.
-  5. kernel inside the path vs the plain fill inside the path, on reduced
-     problems (1,024 nodes x 2,048 gangs; grouped, pinned and spread
-     problems at 1,024 x 1,024): every result field bit-equal.
-  6. prints the kernels line, the card line, and last the ok line.
+  5. the stats path (the repo's headline solve): (a) through
+     solve_waves_stats, one warm-up and 10 timed runs (median, p99, min,
+     max of solve_seconds), its admitted gangs, pods placed, waves and tail
+     size equal to the JAX package's on the CPU and its score sum within
+     1e-5 (JAX_STATS_REFERENCE); then, for quality_vs_exact, the stats
+     and the exact solve (solve) of the first 2,048 gangs, both held
+     against the JAX package's. Launch counts are set to 0 just before
+     each solve and read just after it.
+  6. each solver with the kernel vs the same solver with the plain fill,
+     on reduced problems (1,024 nodes; stress and non-uniform at 2,048
+     gangs, grouped, pinned and spread at 1,024): the binding path, the
+     stats path and the exact solve (of the first 512 gangs), every result
+     field bit-equal.
+  7. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -210,12 +223,11 @@ class _Captured(Exception):
     """Ends a solve once the recording fill holds the calls it was after."""
 
 
-def capture_fill_calls(problem, n_calls):
-    """The arguments of the first `n_calls` fill calls of `problem`'s first
-    chunk-wave on the card, recorded by a `fill=` passed to solve_waves
-    (each call still runs the kernel so the solve proceeds as usual)."""
+def capture_fill_calls(run, n_calls):
+    """The arguments of the first `n_calls` fill calls of `run(fill)`, a
+    solve on the card given a `fill=` that records each call (and still
+    runs the kernel, so the solve proceeds as usual)."""
     from grove_tpu_torch.ops.fill import fill_batch
-    from grove_tpu_torch.solver.kernel import solve_waves
 
     calls = []
 
@@ -228,41 +240,58 @@ def capture_fill_calls(problem, n_calls):
         return out
 
     try:
-        solve_waves(problem, device="cuda", fill=recording_fill)
+        run(recording_fill)
     except _Captured:
         return calls
     _fail(f"the solve made fewer than {n_calls} fill calls")
 
 
 def path_fill_cases():
-    """Fill calls of one chunk-wave of the main path at full width:
-    (a)'s level fill and spill fill, (c)'s floors->extras pair, and (d)'s
-    P=1 fills: the first group's floors (shared free), the second group's
-    floors (per-gang free), the first group's extras, and the rescue
-    pass's last extras fill (no free_after)."""
+    """Fill calls of the main paths at full width: from one chunk-wave of
+    the binding path, (a)'s level fill and spill fill, (c)'s floors->extras
+    pair, and (d)'s P=1 fills (the first group's floors on shared free, the
+    second group's floors on per-gang free, the first group's extras, and
+    the rescue pass's last extras fill without free_after); from the stats
+    path's first chunk of (a), the slab fill's groups 1..P-1 (per-gang
+    free, no free_after); from the exact solve of (a), the first gang's
+    stacked candidates (C = L+1 rows) and its spill fill (C=1)."""
     from grove_tpu_torch.api.topology import ClusterTopology
     from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, stress_gang_specs
     from grove_tpu_torch.sim.cluster import make_nodes
     from grove_tpu_torch.solver.encode import StickyGroupPad, build_problem
+    from grove_tpu_torch.solver.kernel import solve, solve_waves, solve_waves_stats
 
     topology = ClusterTopology()
     nodes = make_nodes(5120, dict(STRESS_CAPACITY), 8, 8)
     cases = []
+
+    def binding(problem):
+        return lambda fill: solve_waves(problem, device="cuda", fill=fill)
+
+    stress = None
     for specs, names in (
         (stress_gang_specs(10240, seed=0), ("a_level", "a_spill")),
         (nonuniform_specs(4096, seed=2), ("c_floors", "c_extras")),
     ):
         problem = build_problem(nodes, specs, topology,
                                 pad_groups=StickyGroupPad().grow(specs))
-        for name, call in zip(names, capture_fill_calls(problem, len(names))):
+        stress = stress or problem
+        for name, call in zip(names, capture_fill_calls(binding(problem), len(names))):
             cases.append((name, *call))
     specs = disagg_specs(4096, seed=5)
     problem = build_problem(nodes, specs, topology, pad_groups=StickyGroupPad().grow(specs))
     p = problem.max_groups  # 2P fills in each of the chunk-wave's two dispatches
-    calls = capture_fill_calls(problem, 4 * p)
+    calls = capture_fill_calls(binding(problem), 4 * p)
     for name, index in (("d_floors_g0", 0), ("d_floors_g1", 1), ("d_extras_g0", p),
                         ("d_rescue_extras_last", 4 * p - 1)):
         cases.append((name, *calls[index]))
+    (call,) = capture_fill_calls(
+        lambda fill: solve_waves_stats(stress, device="cuda", fill=fill), 1)
+    cases.append(("a_slab_rest", *call))
+    exact = capture_fill_calls(
+        lambda fill: solve(stress, with_alloc=False, device="cuda", fill=fill), 2)
+    for name, call in zip(("a_exact_candidates", "a_exact_spill"), exact):
+        cases.append((name, *call))
     return cases
 
 
@@ -502,13 +531,145 @@ def phase_main_path() -> dict:
     return summary
 
 
+# The JAX package's results for the stress request (a) and its 2,048-gang
+# cut, from `JAX_PLATFORMS=cpu python scripts/stats_reference.py` (JAX 0.9.0
+# on the CPU): the stats solve's admitted gangs, pods placed, waves, tail
+# size and score sum, and (for the cut) the exact solve's admitted gangs
+# and score sum.
+JAX_STATS_REFERENCE = {
+    10240: {"admitted": 10232, "pods_placed": 34828, "waves": 8, "tail": 8,
+            "score_sum": 10117.439693391323},
+    2048: {"admitted": 2048, "pods_placed": 7048, "waves": 1, "tail": 0,
+           "score_sum": 2030.1599200367928, "exact_admitted": 2048,
+           "exact_score_sum": 2026.494970858097},
+}
+STATS_RUNS = 10  # timed stats solves of (a), after one warm-up
+# gangs of the stress request whose exact solve gives quality_vs_exact: the
+# first 2,048, as the exact solve of all 10,240 took 87.8 s on an H100
+# 80GB HBM3 at 700 W (`scripts/torch_solve_profile.py --path exact` times it)
+EXACT_GANGS = 2048
+# gangs of each reduced problem whose exact solve is held against the plain
+# fill (the binding and stats paths take them all)
+EXACT_PATH_GANGS = 512
+
+
+class _RecordWaveSolve:
+    """Keeps the output dict of the stats path's wave solve
+    (``solver.kernel.solve_waves_device``) for reading after the solve."""
+
+    def __enter__(self):
+        from grove_tpu_torch.solver import kernel
+
+        self.kernel, self.wrapped, self.out = kernel, kernel.solve_waves_device, None
+
+        def record(*args, **kwargs):
+            self.out = self.wrapped(*args, **kwargs)
+            return self.out
+
+        kernel.solve_waves_device = record
+        return self
+
+    def __exit__(self, *exc):
+        self.kernel.solve_waves_device = self.wrapped
+
+
+def _check_stats(tag, problem, res, ref, waves, tail):
+    """The stats solve's result against the JAX package's (counts exactly,
+    the score sum at rtol 1e-5), with its scores in [0, 1] and its capacity
+    left equal to the capacity less what the placed pods use."""
+    admitted, pods = int(res.admitted.sum()), int(res.placed.sum())
+    score_sum = float(res.score.astype(np.float64).sum())
+    got = {"admitted": admitted, "pods_placed": pods, "waves": waves, "tail": tail}
+    for key, value in got.items():
+        if value != ref[key]:
+            _fail(f"{tag}: {key} {value} != the JAX package's {ref[key]}")
+    if not np.isclose(score_sum, ref["score_sum"], rtol=1e-5, atol=0):
+        _fail(f"{tag}: score sum {score_sum} != the JAX package's {ref['score_sum']}")
+    if not (np.isfinite(res.score).all() and (res.score >= 0).all() and (res.score <= 1).all()):
+        _fail(f"{tag}: scores outside [0, 1]")
+    used = np.einsum("gp,gpr->r", res.placed.astype(np.float64), problem.demand)
+    freed = problem.capacity.sum(0, dtype=np.float64) - res.free_after.sum(0, dtype=np.float64)
+    if not np.allclose(used, freed, rtol=1e-6) or (res.free_after < 0).any():
+        _fail(f"{tag}: capacity left does not match the pods placed")
+    return score_sum
+
+
+def phase_stats_path() -> dict:
+    """The headline solve: (a) through solve_waves_stats, one warm-up and
+    STATS_RUNS timed runs, held against the JAX package's results; then the
+    stats and the exact solve of the first EXACT_GANGS gangs for
+    quality_vs_exact."""
+    from grove_tpu_torch.models.scenarios import build_stress_problem
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.solver.kernel import solve, solve_waves_stats
+
+    problem = build_stress_problem(5120, 10240)
+    solve_waves_stats(problem, device="cuda")  # warm-up
+    times, launches = [], []
+    for _ in range(STATS_RUNS):
+        fill_batch.launches = 0
+        with _RecordWaveSolve() as rec:
+            res = solve_waves_stats(problem, device="cuda")
+        launches.append(fill_batch.launches)
+        times.append(res.solve_seconds)
+        waves, tail = int(rec.out["waves"]), int(rec.out["pending"].sum())
+        _check_stats("stats (a)", problem, res, JAX_STATS_REFERENCE[10240], waves, tail)
+    if min(launches) == 0 or len(set(launches)) != 1:
+        _fail(f"stats path: fill launches per run {launches}")
+    # quality_vs_exact: the stats and the exact solve of the first
+    # EXACT_GANGS gangs on the same nodes
+    cut_problem = build_stress_problem(5120, EXACT_GANGS)
+    ref = JAX_STATS_REFERENCE[EXACT_GANGS]
+    with _RecordWaveSolve() as rec:
+        cut = solve_waves_stats(cut_problem, device="cuda")
+    cut_sum = _check_stats(f"stats of the first {EXACT_GANGS} gangs", cut_problem, cut, ref,
+                           int(rec.out["waves"]), int(rec.out["pending"].sum()))
+    fill_batch.launches = 0
+    exact = solve(cut_problem, with_alloc=False, device="cuda")
+    exact_launches = fill_batch.launches
+    exact_sum = float(exact.score.astype(np.float64).sum())
+    if int(exact.admitted.sum()) != ref["exact_admitted"] or not np.isclose(
+            exact_sum, ref["exact_score_sum"], rtol=1e-5, atol=0):
+        _fail(f"exact solve: {int(exact.admitted.sum())} admitted, score sum {exact_sum};"
+              f" the JAX package's {ref['exact_admitted']}, {ref['exact_score_sum']}")
+    if exact_launches == 0:
+        _fail("the exact solve did not launch the fill kernel")
+    quality = cut_sum / exact_sum
+    times_sorted = sorted(times)
+    out = {
+        "median_s": float(np.median(times)), "p99_s": float(np.percentile(times, 99)),
+        "min_s": times_sorted[0], "max_s": times_sorted[-1], "runs": len(times),
+        "waves": waves, "tail": tail, "admitted": int(res.admitted.sum()),
+        "pods_placed": int(res.placed.sum()), "fill_launches": launches[0],
+        "quality_vs_exact": quality, "quality_eval_gangs": EXACT_GANGS,
+        "exact_solve_seconds": exact.solve_seconds, "exact_fill_launches": exact_launches,
+    }
+    print(f"[stats] (a) solve_waves_stats 10240 gangs x 5120 nodes, {len(times)} runs after a"
+          f" warm-up: median {out['median_s']:.4f} s, p99 {out['p99_s']:.4f} s (linear"
+          f" interpolation), min {out['min_s']:.4f} s, max {out['max_s']:.4f} s; waves {waves},"
+          f" tail {tail}, admitted {out['admitted']}, pods placed {out['pods_placed']}, fill"
+          f" launches {launches[0]} per solve; equal to the JAX package's counts, score sum"
+          f" within 1e-5", flush=True)
+    print(f"[stats] exact solve of the first {EXACT_GANGS} gangs: {exact.solve_seconds:.3f} s,"
+          f" admitted {int(exact.admitted.sum())}, fill launches {exact_launches};"
+          f" quality_vs_exact {quality:.6f}", flush=True)
+    return out
+
+
 def phase_path_kernel_vs_plain() -> None:
+    """Each solver with the kernel against the same solver with the plain
+    fill, on reduced problems (1,024 nodes): the binding path (with
+    allocations), the stats path and the exact solve; every result field
+    bit-equal (capacity by its bits)."""
     from grove_tpu_torch.api.topology import ClusterTopology
     from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, stress_gang_specs
     from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
     from grove_tpu_torch.sim.cluster import make_nodes
     from grove_tpu_torch.solver.encode import build_problem
-    from grove_tpu_torch.solver.kernel import solve_waves
+    from grove_tpu_torch.solver.kernel import solve, solve_waves, solve_waves_stats
+
+    def exact(problem, **kw):
+        return solve(problem, with_alloc=False, **kw)
 
     nodes = make_nodes(1024, dict(STRESS_CAPACITY), 8, 8)
     for tag, specs in (("stress", stress_gang_specs(2048, seed=3)),
@@ -521,15 +682,24 @@ def phase_path_kernel_vs_plain() -> None:
                 "spread": problem.spread_level}.get(tag)
         if flag is not None and not (flag >= 0).any():
             _fail(f"the {tag} problem sets no {tag} constraint")
-        kern = solve_waves(problem, device="cuda", fill=fill_batch)
-        plain = solve_waves(problem, device="cuda", fill=fill_batch_ref)
-        for field in ("admitted", "placed", "score", "chosen_level", "alloc", "free_after"):
-            a, b = getattr(kern, field), getattr(plain, field)
-            if a.dtype != b.dtype or not np.array_equal(a, b):
-                _fail(f"path with kernel != path with plain fill ({tag}: {field})")
-        print(f"[path] {tag} 1024 nodes x {len(specs)} gangs: kernel path == plain path on every"
-              f" field (admitted {int(kern.admitted.sum())}; kernel {kern.solve_seconds:.3f} s,"
-              f" plain {plain.solve_seconds:.3f} s)", flush=True)
+        exact_problem = build_problem(nodes, specs[:EXACT_PATH_GANGS], ClusterTopology())
+        for path, run, prob in (("binding", solve_waves, problem),
+                                ("stats", solve_waves_stats, problem),
+                                ("exact", exact, exact_problem)):
+            kern = run(prob, device="cuda", fill=fill_batch)
+            plain = run(prob, device="cuda", fill=fill_batch_ref)
+            for field in ("admitted", "placed", "score", "chosen_level", "alloc", "free_after"):
+                a, b = getattr(kern, field), getattr(plain, field)
+                if a is None and b is None:
+                    continue
+                if a is None or b is None or a.dtype != b.dtype or not np.array_equal(
+                        a.view(np.int32) if field == "free_after" else a,
+                        b.view(np.int32) if field == "free_after" else b):
+                    _fail(f"{path} path with kernel != with plain fill ({tag}: {field})")
+            gangs = len(specs[:EXACT_PATH_GANGS] if path == "exact" else specs)
+            print(f"[path] {tag} 1024 nodes x {gangs} gangs, {path}: kernel path == plain"
+                  f" path on every field (admitted {int(kern.admitted.sum())}; kernel"
+                  f" {kern.solve_seconds:.3f} s, plain {plain.solve_seconds:.3f} s)", flush=True)
 
 
 def main() -> int:
@@ -539,13 +709,14 @@ def main() -> int:
     timing = phase_kernel_vs_plain()
     cases = phase_path_shapes()
     main_path = phase_main_path()
+    stats = phase_stats_path()
     phase_path_kernel_vs_plain()
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
         "source": "grove_tpu_torch/csrc/fill.cu",
         "replaces": "grove_tpu/ops/pallas_fill.py:69",
-        "launches": main_path["launches"],
+        "launches": main_path["launches"] + stats["fill_launches"] + stats["exact_fill_launches"],
         "max_abs_err": max([timing["max_abs_err"]] + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -554,7 +725,8 @@ def main() -> int:
         "library_ms": None,
         "cases": [{k: v for k, v in cs.items() if k != "max_abs_err"} for cs in cases],
     }
-    print(json.dumps({"kernels": [kernel], "main_path": {k: v for k, v in main_path.items() if k != "launches"}}))
+    paths = {k: v for k, v in main_path.items() if k != "launches"}
+    print(json.dumps({"kernels": [kernel], "main_path": paths, "stats_path": stats}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,19 @@
 """Wave-solver packing core in PyTorch, batched over a chunk of gangs.
 
-Counterpart of ``grove_tpu/ops/packing.py`` for the sidecar's solve path:
-``solve_wave_chunk`` → ``wave_chunk_core`` → ``gang_select_single`` → the
-fill. Where the JAX package vmaps one gang's decision over the chunk, the
-port writes the chunk axis C out as the leading dimension of every tensor:
-the fill kernel's grid IS the chunk axis, and ``torch.func.vmap`` has no
+Counterpart of ``grove_tpu/ops/packing.py``. Three solvers share the
+per-gang selection and the fill:
+
+- ``solve_wave_chunk``: one wave over one chunk with per-pod allocations
+  (the binding path's host loop, ``solver.kernel.solve_waves``);
+- ``solve_waves_device``: the whole multi-wave loop of the stats path
+  (compaction of pending gangs, settled chunks skipped, lazy rescue, the
+  slab fill from shared prefix tables), reading one number per wave;
+- ``solve_packing``: the exact sequential greedy (``gang_select_and_fill``
+  per gang, its L+1 candidate fills stacked into one fill call).
+
+Where the JAX package vmaps one gang's decision over the chunk, the port
+writes the chunk axis C out as the leading dimension of every tensor: the
+fill kernel's grid IS the chunk axis, and ``torch.func.vmap`` has no
 batching rule for it.
 
 The three static flags of the JAX package are ported: per-group pack
@@ -12,7 +21,6 @@ constraints (``grouped``: ``_fill_grouped``, each inner fill a P=1 call
 of ``fill``), recovery pins (``pinned``: per-gang capacity views) and
 topology spread constraints (``spread``: the balanced water-filling fill,
 plain torch, computed beside the plain dispatch and selected per gang).
-The spill/rescue second fill is the eager one (``lazy_rescue=False``).
 
 Semantics (the PodGang contract):
 - a gang is ADMITTED iff every group places >= min_count pods; extra pods up
@@ -38,8 +46,8 @@ from grove_tpu_torch.ops.fill import (  # noqa: F401  (re-exported primitives)
     fill_batch,
 )
 
-# narrow-cap sentinel of the lazy-rescue path ("retry with the cluster-wide
-# fill only"); the eager path never produces it
+# narrow-cap sentinel of the lazy-rescue path: "retry with the cluster-wide
+# fill only", distinct from -1 ("no broader level; done for good")
 _CLUSTER_RETRY = -2
 
 
@@ -188,6 +196,44 @@ def _fill_dispatch(
         free, mask, gang.demand, gang.count, gang.min_count, uniform, fill,
         with_free_after,
     )
+
+
+def _fill_slab_pair(free, sl_start, sl_end, gang: GangInputs, cs_pair, eff, fill):
+    """Uniform fill of each gang over its contiguous node slab
+    ``[sl_start, sl_end)`` (``[C]`` int64) from the chunk's shared
+    capped-fit prefix table ``cs_pair [U, N+1]``; ``eff [C,P]`` (int64)
+    names each group's row.
+
+    Group 0 fills against the shared snapshot ``free [N,R]``, so its
+    per-node take is boundary arithmetic on its pair's prefix row: no
+    division and no prefix sum (bit-exact: the row is the capped-fit
+    prefix sum the generic fill computes). Groups 1..P-1 see free debited
+    by group 0's take, per gang: one call of `fill` on ``[C,N,R]`` without
+    ``free_after``, which nothing reads.
+
+    Caller guarantees: uniform (floors == counts), no group constraints, no
+    spread, no recovery pins, lazy rescue. Returns (alloc [C,P,N],
+    placed [C,P])."""
+    p_dim = gang.count.shape[1]
+    cs0 = cs_pair[eff[:, 0]]  # [C, N+1] row gather
+    k0 = cs0[:, 1:] - cs0[:, :-1]  # capped per-node fits
+    n_idx = torch.arange(free.shape[0], device=free.device)
+    in_slab = (n_idx >= sl_start.unsqueeze(-1)) & (n_idx < sl_end.unsqueeze(-1))
+    cnt0 = gang.count[:, :1]
+    at_start = cs0.gather(1, sl_start.unsqueeze(-1))
+    at_end = cs0.gather(1, sl_end.unsqueeze(-1))
+    # exclusive prefix inside the slab; positions outside it are masked
+    cumex = cs0[:, :-1] - at_start
+    take0 = torch.where(in_slab, torch.minimum(torch.clamp(cnt0 - cumex, min=0), k0), 0)
+    placed0 = torch.minimum(cnt0, at_end - at_start)
+    if p_dim == 1:
+        return take0.unsqueeze(1), placed0
+    free1 = free - take0.unsqueeze(-1).to(free.dtype) * gang.demand[:, 0].unsqueeze(1)
+    alloc_rest, placed_rest, _ = fill(
+        free1, in_slab, gang.demand[:, 1:].contiguous(), gang.count[:, 1:].contiguous(),
+        with_free_after=False,
+    )
+    return torch.cat([take0.unsqueeze(1), alloc_rest], 1), torch.cat([placed0, placed_rest], 1)
 
 
 def _spread_defaults(c, device, spread_level, spread_min, spread_required, spread_seed):
@@ -468,19 +514,25 @@ def _coloc_score(alloc, placed_total, seg_starts, seg_ends, weights, ok, seg_lis
 def gang_select_single(
     free, topo, seg_starts, seg_ends, gang: GangInputs, narrow_cap, seed,
     cs_pair=None, seg_list=None, grouped: bool = False, pinned: bool = False,
-    spread: bool = False, uniform: bool = False, fill=fill_batch,
+    spread: bool = False, uniform: bool = False, lazy_rescue: bool = False,
+    fill=fill_batch,
 ):
     """Decide a chunk of gangs against one capacity snapshot ``free [N,R]``.
 
     Candidate levels are ranked by aggregate feasibility (prefix-sum
     boundary gathers); ONE fill is attempted at the best allowed level (or
-    cluster-wide when none), then a second fill either spills the
-    best-effort extras cluster-wide or, when the level fill missed the
-    floor and no broader feasible level remains, rescues the gang
-    cluster-wide. A fill that misses the floor lowers `narrow_cap` for the
-    next wave (fallback_cap). `grouped`, `pinned` and `spread` are the
-    problem's static flags; `seg_starts`/`seg_ends` are the padded int64
-    tables (the grouped and spread fills index them per gang).
+    cluster-wide when none). Eager (the default): a second fill then either
+    spills the best-effort extras cluster-wide or, when the level fill
+    missed the floor and no broader feasible level remains, rescues the
+    gang cluster-wide. `lazy_rescue` (uniform problems only: their extras
+    spill is empty): no second fill; such a gang's fallback cap becomes
+    ``_CLUSTER_RETRY`` and it takes the cluster-wide fill next wave. With
+    the dedup table and no grouped, pinned or spread gang, the lazy path
+    fills from slab bounds (``_fill_slab_pair``). A fill that misses the
+    floor lowers `narrow_cap` for the next wave (fallback_cap). `grouped`,
+    `pinned` and `spread` are the problem's static flags;
+    `seg_starts`/`seg_ends` are the padded int64 tables (the grouped and
+    spread fills index them per gang).
 
     Returns (alloc [C,P,N], placed [C,P], ok [C], chosen [C] (level index,
     n_levels for cluster-wide, -1 when nothing allowed), score [C],
@@ -558,15 +610,32 @@ def gang_select_single(
     use_cluster = (~has_level) & (req < 0) & any_active
     had_candidate = has_level | use_cluster
 
-    all_nodes = torch.ones((c, n_nodes), dtype=torch.bool, device=device)
     best_sel = bests.gather(1, chosen_level.unsqueeze(-1))  # [C, 1]
-    packed_mask = (topo.t()[chosen_level] == best_sel) & pin_mask
-    mask = torch.where(has_level.unsqueeze(-1), packed_mask, use_cluster.unsqueeze(-1))
-
-    alloc, placed, placed_min, free_after, used, spread_on = _dispatch_with_spread(
-        spread, grouped, free, mask.contiguous(), gang, topo, seg_starts, seg_ends,
-        seed, uniform, fill,
+    # slab path: every fill mask is one contiguous node slab (the picked
+    # domain, the whole cluster, or nothing), so the fill runs on its bounds
+    # from the shared prefix tables; it never builds free_after, which only
+    # the eager rescue reads
+    use_slab_fill = (
+        cs_k is None and uniform and lazy_rescue
+        and not grouped and not spread and not pinned
     )
+    if use_slab_fill:
+        sl_start = torch.where(has_level, seg_starts[chosen_level, best_sel[:, 0]], 0)
+        sl_end = torch.where(
+            has_level,
+            seg_ends[chosen_level, best_sel[:, 0]],
+            torch.where(use_cluster, n_nodes, 0),
+        )
+        alloc, placed = _fill_slab_pair(free, sl_start, sl_end, gang, cs_pair, eff, fill)
+        placed_min = placed  # uniform: floors ARE the counts
+        used = spread_on = None
+    else:
+        packed_mask = (topo.t()[chosen_level] == best_sel) & pin_mask
+        mask = torch.where(has_level.unsqueeze(-1), packed_mask, use_cluster.unsqueeze(-1))
+        alloc, placed, placed_min, free_after, used, spread_on = _dispatch_with_spread(
+            spread, grouped, free, mask.contiguous(), gang, topo, seg_starts, seg_ends,
+            seed, uniform, fill, with_free_after=not lazy_rescue,
+        )
     level_fill_ok = (
         had_candidate
         & any_active
@@ -578,54 +647,64 @@ def gang_select_single(
     # BROADER level whose aggregates looked feasible (skip hopeless levels)
     lower_feasible = torch.where(allowed & (lv < chosen_level.unsqueeze(-1)), lv, -1)
     fallback_cap = lower_feasible.amax(1)
-
-    # Second fill doubles as both paths:
-    # - level fill met the floor → best-effort extras spill cluster-wide
-    #   (spread gangs never spill: the balanced fill placed all they get)
-    # - level fill missed the floor AND no broader feasible level remains
-    #   (and no required pack) → cluster-wide scatter as a last resort
-    #   (never a spread gang: without a required pack it takes no level, so
-    #   this pass's spread fill reaches no result; it runs for the flag)
     no_req = req < 0
-    cluster_rescue = has_level & ~level_fill_ok & no_req & (fallback_cap < 0) & any_active
-    spill = level_fill_ok & has_level & no_req
-    if spread_on is not None:
-        spill = spill & ~spread_on
-    base_free = torch.where(cluster_rescue[:, None, None], free, free_after)
-    # extras of a group-constrained group stay inside its chosen domain:
-    # only unconstrained groups spill
-    spill_p = spill.unsqueeze(-1)
-    if gang.group_req is not None:
-        spill_p = spill_p & (gang.group_req < 0)
-    remaining = torch.where(
-        cluster_rescue.unsqueeze(-1),
-        gang.count,
-        torch.where(spill_p, gang.count - placed, 0),
-    )
-    rescue_min = torch.where(cluster_rescue.unsqueeze(-1), gang.min_count, 0)
-    # the capacity this fill leaves is not used: it is not written
-    alloc2, placed2, placed2_min, _, used2, _ = _dispatch_with_spread(
-        spread, grouped, base_free.contiguous(), all_nodes,
-        gang._replace(count=remaining, min_count=rescue_min), topo, seg_starts,
-        seg_ends, seed, uniform, fill, with_free_after=False,
-    )
-    rescue_ok = (
-        cluster_rescue
-        & torch.where(active, placed2_min >= gang.min_count, True).all(1)
-        & _spread_admit(gang, spread_on, used2, placed2.sum(1, dtype=torch.int32))
-    )
-    r3, s3 = rescue_ok[:, None, None], spill[:, None, None]
-    alloc = torch.where(r3, alloc2, torch.where(s3, alloc + alloc2, alloc))
-    r2, s2 = rescue_ok.unsqueeze(-1), spill.unsqueeze(-1)
-    placed = torch.where(r2, placed2, torch.where(s2, placed + placed2, placed))
-    if spread_on is not None:
-        used = torch.where(rescue_ok, used2, used)
-    fill_ok = level_fill_ok | rescue_ok
-    chosen_level = torch.where(rescue_ok, n_levels, chosen_level)
-    has_level = has_level & ~rescue_ok
-    use_cluster = use_cluster | rescue_ok
+    if lazy_rescue:
+        # uniform only: a level fill that met the floor placed every pod, so
+        # there is nothing to spill; a gang that needs the cluster rescue
+        # defers it to the next (compacted) wave through the sentinel cap,
+        # where it finds no allowed level and takes the cluster-wide fill
+        defer = has_level & ~level_fill_ok & no_req & (fallback_cap < 0) & any_active
+        fallback_cap = torch.where(defer, _CLUSTER_RETRY, fallback_cap)
+        fill_ok = level_fill_ok
+    else:
+        # Second fill doubles as both paths:
+        # - level fill met the floor → best-effort extras spill cluster-wide
+        #   (spread gangs never spill: the balanced fill placed all they get)
+        # - level fill missed the floor AND no broader feasible level remains
+        #   (and no required pack) → cluster-wide scatter as a last resort
+        #   (never a spread gang: without a required pack it takes no level, so
+        #   this pass's spread fill reaches no result; it runs for the flag)
+        cluster_rescue = has_level & ~level_fill_ok & no_req & (fallback_cap < 0) & any_active
+        spill = level_fill_ok & has_level & no_req
+        if spread_on is not None:
+            spill = spill & ~spread_on
+        base_free = torch.where(cluster_rescue[:, None, None], free, free_after)
+        # extras of a group-constrained group stay inside its chosen domain:
+        # only unconstrained groups spill
+        spill_p = spill.unsqueeze(-1)
+        if gang.group_req is not None:
+            spill_p = spill_p & (gang.group_req < 0)
+        remaining = torch.where(
+            cluster_rescue.unsqueeze(-1),
+            gang.count,
+            torch.where(spill_p, gang.count - placed, 0),
+        )
+        rescue_min = torch.where(cluster_rescue.unsqueeze(-1), gang.min_count, 0)
+        # the capacity this fill leaves is not used: it is not written
+        all_nodes = torch.ones((c, n_nodes), dtype=torch.bool, device=device)
+        alloc2, placed2, placed2_min, _, used2, _ = _dispatch_with_spread(
+            spread, grouped, base_free.contiguous(), all_nodes,
+            gang._replace(count=remaining, min_count=rescue_min), topo, seg_starts,
+            seg_ends, seed, uniform, fill, with_free_after=False,
+        )
+        rescue_ok = (
+            cluster_rescue
+            & torch.where(active, placed2_min >= gang.min_count, True).all(1)
+            & _spread_admit(gang, spread_on, used2, placed2.sum(1, dtype=torch.int32))
+        )
+        r3, s3 = rescue_ok[:, None, None], spill[:, None, None]
+        alloc = torch.where(r3, alloc2, torch.where(s3, alloc + alloc2, alloc))
+        r2, s2 = rescue_ok.unsqueeze(-1), spill.unsqueeze(-1)
+        placed = torch.where(r2, placed2, torch.where(s2, placed + placed2, placed))
+        if spread_on is not None:
+            used = torch.where(rescue_ok, used2, used)
+        fill_ok = level_fill_ok | rescue_ok
+        chosen_level = torch.where(rescue_ok, n_levels, chosen_level)
+        has_level = has_level & ~rescue_ok
+        use_cluster = use_cluster | rescue_ok
 
-    # epilogue: mask out failed fills, score, pick the reported level
+    # epilogue (lazy and eager): mask out failed fills, score, pick the
+    # reported level
     alloc = torch.where(fill_ok[:, None, None], alloc, 0)
     placed = torch.where(fill_ok.unsqueeze(-1), placed, 0)
     score = _coloc_score(alloc, placed, seg_starts, seg_ends, weights, fill_ok, seg_list)
@@ -655,7 +734,7 @@ def wave_chunk_core(
     spreadreq=None, spreadseed=None,
     grouped=False, pinned=False, spread=False,
     pair_dem=None, pair_cap=None, uidx=None, uniform=False, seg_list=None,
-    fill=fill_batch,
+    fill=fill_batch, lazy_rescue=False,
 ):
     """Decide one chunk of gangs in parallel against one capacity snapshot,
     commit by iterative prefix-acceptance with a final joint-feasibility
@@ -667,8 +746,15 @@ def wave_chunk_core(
     (demand, count) pair; each gang's level loop gathers the SAME integer
     values (bit-exact). Off under `pinned` (each gang sees its own
     capacity view there).
+    `lazy_rescue` (uniform problems only) defers cluster rescues to the
+    next wave (``gang_select_single``); a deferred gang always retries.
     Returns (free, accept, placed, score, chosen, retry, new_cap,
     fill_failed, alloc)."""
+    if lazy_rescue and not uniform:
+        raise ValueError(
+            "lazy_rescue requires a uniform problem: only then is the extras"
+            " spill provably empty"
+        )
     cnt = cnt * pend.unsqueeze(-1)
     use_dedup = pair_dem is not None and uidx is not None and not pinned
     cs_pair = None
@@ -684,7 +770,8 @@ def wave_chunk_core(
     )
     alloc, placed, ok, chosen, score, had_cand, fallback_cap = gang_select_single(
         free, topo, seg_starts, seg_ends, gang, ncap, seeds, cs_pair, seg_list,
-        grouped=grouped, pinned=pinned, spread=spread, uniform=uniform, fill=fill,
+        grouped=grouped, pinned=pinned, spread=spread, uniform=uniform,
+        lazy_rescue=lazy_rescue, fill=fill,
     )
 
     # integer-valued products: exact in float32 (TF32 must be off on CUDA)
@@ -709,6 +796,8 @@ def wave_chunk_core(
     new_cap = torch.where(fill_failed, fallback_cap, ncap)
     min_allowed = torch.where(rq >= 0, rq, 0)
     retry = pend & ((ok & ~accept) | (fill_failed & (new_cap >= min_allowed)))
+    if lazy_rescue:
+        retry = retry | (pend & fill_failed & (new_cap == _CLUSTER_RETRY))
     return (
         free,
         accept & pend,
@@ -720,6 +809,31 @@ def wave_chunk_core(
         fill_failed,
         alloc,
     )
+
+
+def _constraint_defaults(
+    count, group_req, group_pin, gang_pin,
+    spread_level, spread_min, spread_required, spread_seed,
+):
+    """The constraint arrays of ``count``'s gangs, with the JAX package's
+    sentinels (no constraint) where one is None."""
+    c, device = count.shape[0], count.device
+    if group_req is None:
+        group_req = torch.full(count.shape, -1, dtype=torch.int32, device=device)
+    if group_pin is None:
+        group_pin = torch.full(count.shape, -1, dtype=torch.int32, device=device)
+    if gang_pin is None:
+        gang_pin = torch.full((c,), -1, dtype=torch.int32, device=device)
+    return (group_req, group_pin, gang_pin) + _spread_defaults(
+        c, device, spread_level, spread_min, spread_required, spread_seed
+    )
+
+
+def _seg_views(seg_starts, seg_ends, level_widths):
+    """Per-level ragged (starts, ends) views of the padded tables, or None."""
+    if level_widths is None:
+        return None
+    return tuple((seg_starts[l, :w], seg_ends[l, :w]) for l, w in enumerate(level_widths))
 
 
 def solve_wave_chunk(
@@ -762,20 +876,13 @@ def solve_wave_chunk(
     plain version inside the path. Returns a dict of the chunk's results."""
     seg_starts = seg_starts.long()
     seg_ends = seg_ends.long()
-    seg_list = None
-    if level_widths is not None:
-        seg_list = tuple(
-            (seg_starts[l, :w], seg_ends[l, :w]) for l, w in enumerate(level_widths)
-        )
-    c, device = count.shape[0], count.device
-    if group_req is None:
-        group_req = torch.full(count.shape, -1, dtype=torch.int32, device=device)
-    if group_pin is None:
-        group_pin = torch.full(count.shape, -1, dtype=torch.int32, device=device)
-    if gang_pin is None:
-        gang_pin = torch.full((c,), -1, dtype=torch.int32, device=device)
-    spread_level, spread_min, spread_required, spread_seed = _spread_defaults(
-        c, device, spread_level, spread_min, spread_required, spread_seed
+    seg_list = _seg_views(seg_starts, seg_ends, level_widths)
+    (
+        group_req, group_pin, gang_pin,
+        spread_level, spread_min, spread_required, spread_seed,
+    ) = _constraint_defaults(
+        count, group_req, group_pin, gang_pin,
+        spread_level, spread_min, spread_required, spread_seed,
     )
     free_after, accept, placed, score, chosen, retry, new_cap, _, alloc = (
         wave_chunk_core(
@@ -801,4 +908,380 @@ def solve_wave_chunk(
         ).to(torch.int32),
         "alloc": torch.where(accept[:, None, None], alloc, 0),
         "free_after": free_after,
+    }
+
+
+def _host_int(t: torch.Tensor) -> int:
+    """The stats path's one device→host read per wave: a count."""
+    return int(t)
+
+
+def solve_waves_device(
+    capacity,  # [N, R] f32
+    topo,  # [N, L] i32
+    seg_starts,  # [L, D] i32
+    seg_ends,  # [L, D] i32
+    demand,  # [G, P, R] f32, G divisible by n_chunks
+    count,  # [G, P] i32
+    min_count,  # [G, P] i32
+    req_level,  # [G] i32
+    pref_level,  # [G] i32
+    group_req=None,  # [G, P] i32
+    group_pin=None,  # [G, P] i32
+    gang_pin=None,  # [G] i32
+    spread_level=None,  # [G] i32
+    spread_min=None,  # [G] i32
+    spread_required=None,  # [G] bool
+    spread_seed=None,  # [G, D] i32 (or the [G, 0] placeholder)
+    pair_demand=None,  # [U, R] f32, demand dedup (solver.dedup)
+    pair_count=None,  # [U] i32
+    pair_idx=None,  # [G, P] i32
+    n_chunks: int = 20,
+    max_waves: int = 8,
+    commit_iters: int = 0,
+    grouped: bool = False,
+    pinned: bool = False,
+    spread: bool = False,
+    uniform: bool = False,
+    lazy_rescue: bool = False,
+    level_widths: tuple = None,
+    fill=fill_batch,
+):
+    """The whole multi-wave wave-parallel solve of the stats path, with one
+    device→host read per wave (the count of pending gangs, ``_host_int``)
+    and one more for the lazy-rescue epilogue; nothing is read inside a
+    chunk.
+
+    Per wave: pending gangs are compacted to the front (stable, so their
+    order holds; each keeps its seed ``index + wave*7919``), and the chunks
+    that hold one, exactly the first ceil(pending / C), are decided and
+    committed in turn against the running capacity (``wave_chunk_core``,
+    `commit_iters` refinement passes). The JAX program skips the other,
+    settled chunks with a ``lax.cond``: they leave capacity and narrow caps
+    unchanged and report nothing, which is what their rows get here. Gangs
+    that lost a commit race or walk their narrow cap retry next wave. With
+    `lazy_rescue`, a gang that deferred its cluster rescue on the last wave
+    gets it in one more pass over exactly those gangs.
+
+    Returns a dict: admitted [G], placed [G,P], score [G], chosen_level [G]
+    (-1 cluster-wide or none), free_after [N,R], waves (int), pending [G]
+    (still pending, or a fill ever missed and the gang was not admitted:
+    the exact tail's candidates)."""
+    g_total, p_max, _ = demand.shape
+    n_levels = topo.shape[1]
+    device = demand.device
+    (
+        group_req, group_pin, gang_pin,
+        spread_level, spread_min, spread_required, spread_seed,
+    ) = _constraint_defaults(
+        count, group_req, group_pin, gang_pin,
+        spread_level, spread_min, spread_required, spread_seed,
+    )
+    use_dedup = (
+        pair_demand is not None and pair_count is not None
+        and pair_idx is not None and not pinned
+    )
+    c = g_total // n_chunks
+    seg_starts = seg_starts.long()
+    seg_ends = seg_ends.long()
+    seg_list = _seg_views(seg_starts, seg_ends, level_widths)
+    per_gang = (
+        demand, count, min_count, req_level, pref_level, group_req, group_pin,
+        gang_pin, spread_level, spread_min, spread_required, spread_seed,
+    ) + ((pair_idx,) if use_dedup else ())
+    state = {
+        "free": capacity,
+        "pending": torch.ones((g_total,), dtype=torch.bool, device=device),
+        "narrow_cap": torch.full((g_total,), n_levels - 1, dtype=torch.int32, device=device),
+        "admitted": torch.zeros((g_total,), dtype=torch.bool, device=device),
+        "placed": torch.zeros((g_total, p_max), dtype=torch.int32, device=device),
+        "score": torch.zeros((g_total,), dtype=torch.float32, device=device),
+        "chosen": torch.full((g_total,), -1, dtype=torch.int32, device=device),
+        "rescue": torch.zeros((g_total,), dtype=torch.bool, device=device),
+    }
+
+    def wave_body(state, pending, n_pending, wave):
+        # compaction: the stable sort keeps pending gangs in their order
+        order = torch.argsort((~pending).to(torch.uint8), stable=True)
+        rows = order[: -(-n_pending // c) * c]  # the chunks holding a pending gang
+        seeds = torch.arange(g_total, dtype=torch.int32, device=device) + wave * 7919
+        xs = [a.index_select(0, rows) for a in per_gang]
+        pend = pending.index_select(0, rows)
+        ncap = state["narrow_cap"].index_select(0, rows)
+        seeds = seeds.index_select(0, rows)
+        free = state["free"]
+        ys = []
+        for k in range(rows.shape[0] // c):
+            sl = slice(k * c, (k + 1) * c)
+            (
+                dem, cnt, mn, rq, pf, grq, gpin, gangpin, slvl, smin, sreq, sseed,
+                *uidx,
+            ) = (x[sl] for x in xs)
+            free, accept, placed, score, chosen, retry, new_cap, fill_failed, _ = (
+                wave_chunk_core(
+                    free, topo, seg_starts, seg_ends,
+                    dem, cnt, mn, rq, pf, pend[sl], ncap[sl], seeds[sl], commit_iters,
+                    grq, gpin, gangpin, slvl, smin, sreq, sseed,
+                    grouped, pinned, spread,
+                    pair_dem=pair_demand if use_dedup else None,
+                    pair_cap=pair_count if use_dedup else None,
+                    uidx=uidx[0] if use_dedup else None,
+                    uniform=uniform, seg_list=seg_list, fill=fill,
+                    lazy_rescue=lazy_rescue,
+                )
+            )
+            ys.append((accept, placed, score, chosen, retry, new_cap, fill_failed))
+        accept, placed, score, chosen, retry, new_cap, fill_failed = (
+            torch.cat(y) for y in zip(*ys)
+        )
+
+        def settled(like):
+            """All rows zero, the active rows set: settled chunks report no
+            accept, retry or fill failure."""
+            return torch.zeros((g_total,) + like.shape[1:], dtype=like.dtype, device=device)
+
+        accept = settled(accept).index_copy_(0, rows, accept)
+        retry = settled(retry).index_copy_(0, rows, retry)
+        fill_failed = settled(fill_failed).index_copy_(0, rows, fill_failed)
+        # only accepted rows are merged: the others' values are never read
+        placed = settled(placed).index_copy_(0, rows, placed)
+        score = settled(score).index_copy_(0, rows, score)
+        chosen = settled(chosen).index_copy_(0, rows, chosen)
+        return {
+            "free": free,
+            "pending": retry,
+            "narrow_cap": state["narrow_cap"].index_copy(0, rows, new_cap),
+            "admitted": state["admitted"] | accept,
+            "placed": torch.where(accept.unsqueeze(-1), placed, state["placed"]),
+            "score": torch.where(accept, score, state["score"]),
+            "chosen": torch.where(accept, chosen, state["chosen"]),
+            # a gang whose single fill ever missed the floor is an exact-tail
+            # candidate (its seed-picked domain may have been the wrong one)
+            "rescue": state["rescue"] | fill_failed,
+        }
+
+    # After the first wave the JAX loop's condition, progress & any(pending),
+    # is any(retry): the pending count read after each wave decides it.
+    wave, n_pending = 0, g_total
+    while wave < max_waves and n_pending:
+        state = wave_body(state, state["pending"], n_pending, wave)
+        wave += 1
+        n_pending = _host_int(state["pending"].sum())
+    if lazy_rescue:
+        # a gang that deferred its cluster rescue on the last wave is still
+        # pending with the sentinel cap: one more pass over exactly those
+        # gangs gives it the cluster-wide fill the eager path makes in-wave
+        # (other pending gangs are left out: another level attempt would
+        # admit more than the eager path within the same budget)
+        deferred = state["pending"] & (state["narrow_cap"] == _CLUSTER_RETRY)
+        n_deferred = _host_int(deferred.sum())
+        if n_deferred:
+            rest = state["pending"] & ~deferred
+            state = wave_body(state, deferred, n_deferred, wave)
+            state["pending"] = state["pending"] | rest
+            wave += 1
+    chosen = state["chosen"]
+    return {
+        "admitted": state["admitted"],
+        "placed": state["placed"],
+        "score": state["score"],
+        "chosen_level": torch.where(chosen >= n_levels, -1, chosen),
+        "free_after": state["free"],
+        "waves": wave,
+        "pending": state["pending"] | (state["rescue"] & ~state["admitted"]),
+    }
+
+
+def _one_hot_sum(one_hot, cands):
+    """``sum(one_hot[i] * cands[i] for i)`` as XLA computes the JAX
+    package's expression: a chain of adds from the first term (XLA drops
+    Python's leading 0), so a zero comes out -0.0 where every term is
+    -0.0. A reduction, which starts from +0.0, would give +0.0 there."""
+    terms = one_hot.view((-1,) + (1,) * (cands.dim() - 1)) * cands
+    acc = terms[0]
+    for term in terms[1:]:
+        acc = acc + term
+    return acc
+
+
+def gang_select_and_fill(
+    free, topo, seg_starts, seg_ends, gang: GangInputs, grouped=False,
+    pinned=False, spread=False, uniform=False, seg_list=None, fill=fill_batch,
+):
+    """One gang's placement decision against ``free [N,R]`` (the exact
+    sequential kernel's step). `gang` holds one gang (C=1).
+
+    Per level, the best-fit feasible domain (least spare fit count, ties to
+    the least free capacity); then the fill at every level's domain and
+    cluster-wide, the L+1 candidates stacked as the rows of ONE dispatch
+    (they all start from `free`); the preferred level among the candidates
+    whose fill truly meets the floor wins; best-effort extras spill
+    cluster-wide (one more fill, C=1). All-or-nothing: `free` comes back
+    unchanged when no candidate admits. Branch-free: nothing is read on the
+    host. `seg_starts`/`seg_ends` are the padded int64 tables.
+
+    Returns (free_new [N,R], alloc [1,P,N], placed [1,P], ok [1],
+    chosen_level [1] (-1 cluster-wide or none), score [1])."""
+    n_nodes, n_levels = topo.shape
+    device = free.device
+    weights = _level_weights(n_levels, device)
+
+    pin_mask, free_vis = _gang_pin_mask(free, topo, gang, pinned)
+    active, cs_k, cs_free, free_tol, min_demand = _aggregate_tables(free_vis, gang)
+    any_active = active.any(1)  # [1]
+    act = active.unsqueeze(-1)  # [1, P, 1]
+    level_ok, masks = [], []
+    for l in range(n_levels):
+        starts, ends = seg_list[l] if seg_list is not None else (seg_starts[l], seg_ends[l])
+        K = cs_k[:, :, ends] - cs_k[:, :, starts]  # [1, P, D]
+        free_agg = cs_free[..., ends, :] - cs_free[..., starts, :]  # [D,R] or [1,D,R]
+        if free_agg.dim() == 2:
+            free_agg = free_agg.unsqueeze(0)
+        feas = torch.where(act, K >= gang.min_count.unsqueeze(-1), True).all(1)
+        feas = feas & (free_agg >= (min_demand - free_tol).unsqueeze(1)).all(-1)
+        feas = feas & (ends > starts) & any_active.unsqueeze(-1)  # [1, D]
+        # best fit: least leftover fit count (K is capped at the count, so
+        # full fits tie at 0), then the domain with the least free capacity
+        spare = torch.where(act, K - gang.count.unsqueeze(-1), 0).sum(1, dtype=torch.int32)
+        free_total = free_agg.sum(-1)  # [1, D]
+        tie = free_total / (free_total.amax(-1, keepdim=True) + 1.0)
+        key = spare.to(torch.float32) + tie
+        best = torch.where(feas, key, torch.inf).argmin(1)  # [1]
+        ok_l = feas.any(1)
+        level_ok.append(ok_l)
+        masks.append(ok_l.unsqueeze(-1) & (topo[:, l] == best.unsqueeze(-1)) & pin_mask)
+    masks.append(torch.ones((1, n_nodes), dtype=torch.bool, device=device))
+
+    # the L+1 candidate fills in one dispatch: row i is the gang's fill
+    # inside masks[i], every row from the same free
+    n_cand = n_levels + 1
+    rep = GangInputs(*(
+        None if t is None else t.expand((n_cand,) + t.shape[1:]) for t in gang
+    ))
+    rep = rep._replace(demand=rep.demand.contiguous())
+    alloc_c, placed_c, placed_min_c, free_c, used_c, spread_on = _dispatch_with_spread(
+        spread, grouped, free, torch.cat(masks), rep, topo, seg_starts, seg_ends,
+        torch.zeros((n_cand,), dtype=torch.int32, device=device), uniform, fill,
+    )
+    lv = torch.arange(n_levels, device=device)
+    req = gang.req_level  # [1]
+    min_allowed = torch.where(req >= 0, req, 0)
+    allowed = torch.cat([
+        torch.cat(level_ok) & (lv >= min_allowed),
+        (req < 0) & any_active,  # cluster-wide only without a required pack
+    ])
+    oks = (
+        allowed
+        & torch.where(active, placed_min_c >= gang.min_count, True).all(1)
+        & _spread_admit(rep, spread_on, used_c, placed_c.sum(1, dtype=torch.int32))
+    )  # [L+1]
+
+    # preference: the preferred level first, then the closest levels
+    # (narrower wins ties), cluster-wide last — except a spread gang, which
+    # prefers its broadest allowed mask, and with no required pack ranks
+    # cluster-wide above every level (a level candidate is one domain)
+    pref_eff = torch.where(gang.pref_level >= 0, gang.pref_level, n_levels - 1)
+    cluster_rank = torch.zeros((1,), dtype=torch.long, device=device)
+    if spread:
+        spread_on = spread_on[:1]
+        pref_eff = torch.where(spread_on, torch.clamp(req, min=0), pref_eff)
+        cluster_rank = torch.where(spread_on & (req < 0), 2 * (n_levels + 1), cluster_rank)
+    level_rank = 2 * (n_levels - (lv - pref_eff).abs()) + (lv > pref_eff).long()
+    pref_rank = torch.cat([level_rank, cluster_rank])
+    chosen = torch.where(oks, pref_rank + 1, 0).argmax()  # 0-d
+    ok_min = oks.any().unsqueeze(0)  # [1]
+
+    # the JAX package takes the chosen candidate by one-hot weighted sums in
+    # float32; for the counts that is the chosen row through float32 (every
+    # other term is a zero), for the capacity the sum's signed zeros matter
+    pick = chosen.unsqueeze(0)
+    alloc = alloc_c.to(free.dtype)[pick].to(torch.int32)
+    placed = placed_c.to(free.dtype)[pick].to(torch.int32)
+    used = None if used_c is None else used_c.to(free.dtype)[pick].to(torch.int32)
+    one_hot = (torch.arange(n_cand, device=device) == chosen).to(free.dtype)
+    free_after = _one_hot_sum(one_hot, free_c)
+
+    # best-effort extras spill cluster-wide: no required pack, never from a
+    # group-constrained group, never for a spread gang
+    spill = (req < 0) & ok_min & (chosen < n_levels)
+    if spread:
+        spill = spill & ~spread_on
+    remaining = torch.where(spill.unsqueeze(-1) & (gang.group_req < 0), gang.count - placed, 0)
+    alloc2, placed2, free_after2 = fill(free_after, masks[-1], gang.demand, remaining)
+    s2 = spill.unsqueeze(-1)
+    alloc = torch.where(s2.unsqueeze(-1), alloc + alloc2, alloc)
+    placed = torch.where(s2, placed + placed2, placed)
+    free_final = torch.where(spill[:, None, None], free_after2, free_after)[0]
+
+    # all-or-nothing: capacity unchanged unless admitted
+    free_new = torch.where(ok_min.unsqueeze(-1), free_final, free)
+    alloc = torch.where(ok_min[:, None, None], alloc, 0)
+    placed = torch.where(ok_min.unsqueeze(-1), placed, 0)
+    chosen_l = torch.where(ok_min & (chosen < n_levels), chosen, -1).to(torch.int32)
+    score = _coloc_score(alloc, placed, seg_starts, seg_ends, weights, ok_min, seg_list)
+    score = torch.where(
+        ok_min,
+        _spread_score(gang, spread_on, used, placed.sum(1, dtype=torch.int32), score),
+        0.0,
+    )
+    return free_new, alloc, placed, ok_min, chosen_l, score
+
+
+def solve_packing(
+    capacity,  # [N, R] f32
+    topo,  # [N, L] i32
+    seg_starts,  # [L, D] i32
+    seg_ends,  # [L, D] i32
+    demand,  # [G, P, R] f32
+    count,  # [G, P] i32
+    min_count,  # [G, P] i32
+    req_level,  # [G] i32 (-1 none)
+    pref_level,  # [G] i32 (-1 → narrowest)
+    group_req=None,  # [G, P] i32 (-1 none)
+    group_pin=None,  # [G, P] i32 (-1 none)
+    gang_pin=None,  # [G] i32 (-1 none)
+    spread_level=None,  # [G] i32 (-1 none)
+    spread_min=None,  # [G] i32
+    spread_required=None,  # [G] bool
+    spread_seed=None,  # [G, D] i32 (or the [G, 0] placeholder)
+    with_alloc: bool = True,
+    grouped: bool = False,
+    pinned: bool = False,
+    spread: bool = False,
+    uniform: bool = False,
+    level_widths: tuple = None,
+    fill=fill_batch,
+):
+    """The exact sequential greedy: ``gang_select_and_fill`` for each gang
+    in order against the capacity the earlier gangs left. A host loop over
+    the gangs that reads nothing from the device. Returns a dict: admitted
+    [G], placed [G,P], score [G], chosen_level [G], alloc [G,P,N] (None
+    without `with_alloc`), free_after [N,R]."""
+    seg_starts = seg_starts.long()
+    seg_ends = seg_ends.long()
+    seg_list = _seg_views(seg_starts, seg_ends, level_widths)
+    gangs = GangInputs(
+        demand, count, min_count, req_level, pref_level, None,
+        *_constraint_defaults(
+            count, group_req, group_pin, gang_pin,
+            spread_level, spread_min, spread_required, spread_seed,
+        ),
+    )
+    free = capacity
+    ys = []
+    for g in range(demand.shape[0]):
+        gang = GangInputs(*(None if t is None else t[g : g + 1] for t in gangs))
+        free, alloc, placed, ok, chosen_l, score = gang_select_and_fill(
+            free, topo, seg_starts, seg_ends, gang, grouped=grouped, pinned=pinned,
+            spread=spread, uniform=uniform, seg_list=seg_list, fill=fill,
+        )
+        ys.append((ok, placed, score, chosen_l) + ((alloc,) if with_alloc else ()))
+    cols = [torch.cat(y) for y in zip(*ys)]
+    return {
+        "admitted": cols[0],
+        "placed": cols[1],
+        "score": cols[2],
+        "chosen_level": cols[3],
+        "alloc": cols[4] if with_alloc else None,
+        "free_after": free,
     }

@@ -1,24 +1,35 @@
-"""Wave solver host loop: PackingProblem → PackingResult on a torch device.
+"""Solver entry points: PackingProblem → PackingResult on a torch device.
 
-Counterpart of ``grove_tpu/solver/kernel.py::solve_waves`` (the binding
-path): the host loop walks waves and chunks, each chunk decided on the
-device by ``ops.packing.solve_wave_chunk``. Grouped, pinned and spread
-problems take the same loop with the static flags derived from the
-problem as the JAX package derives them. The JAX loop's metrics and
-tracing spans are not ported yet.
+Counterpart of ``grove_tpu/solver/kernel.py``:
+
+- ``solve_waves``: the binding path's host loop over waves and chunks,
+  each chunk decided by ``ops.packing.solve_wave_chunk`` (per-pod
+  allocations, eager rescue);
+- ``solve_waves_stats``: the stats path, ``ops.packing.solve_waves_device``
+  (one read per wave), then the exact sequential greedy over the gangs
+  still pending (the hybrid tail);
+- ``solve``: the exact sequential greedy, ``ops.packing.solve_packing``.
+
+Grouped, pinned and spread problems take the same paths with the static
+flags derived from the problem as the JAX package derives them. The JAX
+module's metrics and tracing spans are not ported yet.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from grove_tpu_torch.convert import problem_to_device
 from grove_tpu_torch.ops.fill import fill_batch
-from grove_tpu_torch.ops.packing import solve_wave_chunk
+from grove_tpu_torch.ops.packing import (
+    solve_packing,
+    solve_wave_chunk,
+    solve_waves_device,
+)
 from grove_tpu_torch.solver.dedup import (
     _spread_arrays,
     dedup_extra_args,
@@ -26,6 +37,11 @@ from grove_tpu_torch.solver.dedup import (
 )
 from grove_tpu_torch.solver.types import PackingProblem, PackingResult
 from grove_tpu_torch.utils.platform import resolve_device, strict_fp32
+
+# The BASELINE stress configuration of the stats path (the JAX package's
+# bench defaults).
+BENCH_CHUNK_SIZE = 48
+BENCH_MAX_WAVES = 32
 
 
 def _or_full(a, shape) -> np.ndarray:
@@ -36,6 +52,78 @@ def _or_full(a, shape) -> np.ndarray:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _flags(args):
+    """The static flags (grouped, pinned, spread, uniform) of the solvers'
+    positional arrays (``_problem_arrays``), derived as the JAX package
+    derives them."""
+    count, min_count, group_req, gang_pin, spread_level = (args[i] for i in (5, 6, 9, 11, 12))
+    return (
+        bool((group_req >= 0).any()),
+        bool((gang_pin >= 0).any()),
+        bool((spread_level >= 0).any()),
+        # all-or-nothing population (padded gangs are 0 == 0): one fill per
+        # dispatch instead of floors then extras
+        bool((min_count == count).all()),
+    )
+
+
+# PackingProblem's per-gang fields, in the order of _problem_arrays
+_GANG_FIELDS = (
+    "demand", "count", "min_count", "req_level", "pref_level", "group_req",
+    "group_pin", "gang_pin", "spread_level", "spread_min", "spread_required",
+    "spread_seed",
+)
+
+
+def _problem_arrays(problem: PackingProblem, rows=None, g_pad=None):
+    """The positional array arguments of the solvers, ``(capacity, topo,
+    seg_starts, seg_ends, demand, count, min_count, req_level, pref_level,
+    group_req, group_pin, gang_pin, spread_level, spread_min,
+    spread_required, spread_seed)``, with unset constraints at their
+    sentinels. `rows` selects gangs; `g_pad` pads the gang axis (sentinel
+    -1 for the level and pin fields, 0 elsewhere)."""
+    shape = problem.count.shape
+    sl, sm, sr, ss = _spread_arrays(problem)
+    per_gang = (
+        (problem.demand, 0), (problem.count, 0), (problem.min_count, 0),
+        (problem.req_level, -1), (problem.pref_level, -1),
+        (_or_full(problem.group_req, shape), -1),
+        (_or_full(problem.group_pin, shape), -1),
+        (_or_full(problem.gang_pin, shape[:1]), -1),
+        (sl, -1), (sm, 0), (sr, 0), (ss, 0),
+    )
+
+    def pick(a, value):
+        if rows is not None:
+            a = a[rows]
+        if g_pad is None or a.shape[0] == g_pad:
+            return a
+        width = [(0, g_pad - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
+        return np.pad(a, width, constant_values=value)
+
+    node = (problem.capacity, problem.topo, problem.seg_starts, problem.seg_ends)
+    return node + tuple(pick(a, v) for a, v in per_gang)
+
+
+def pad_problem_for_waves(
+    problem: PackingProblem, chunk_size: int
+) -> Tuple[Tuple[np.ndarray, ...], int, bool, bool, bool, bool]:
+    """The wave solvers' input contract: clamp the chunk size, pad the gang
+    axis to a chunk multiple (sentinel -1 for the level and pin fields, 0
+    elsewhere), and decide the static flags. Returns (args, n_chunks,
+    grouped, pinned, spread, uniform), args the positional numpy arrays of
+    ``solve_waves_device``."""
+    g = problem.num_gangs
+    chunk_size = min(chunk_size, max(g, 1))
+    n_chunks = max(1, (g + chunk_size - 1) // chunk_size)
+    args = _problem_arrays(problem, g_pad=n_chunks * chunk_size)
+    return (args, n_chunks) + _flags(args)
 
 
 def solve_waves(
@@ -59,31 +147,15 @@ def solve_waves(
     device = resolve_device(device)
     strict_fp32()
     g = problem.num_gangs
-    chunk_size = min(chunk_size, max(g, 1))
-    n_chunks = max(1, (g + chunk_size - 1) // chunk_size)
-    g_pad = n_chunks * chunk_size
-
-    def pad(a, value=0):
-        if a.shape[0] == g_pad:
-            return a
-        width = [(0, g_pad - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
-        return np.pad(a, width, constant_values=value)
-
-    spread_level_a, spread_min_a, spread_required_a, spread_seed_a = (
-        _spread_arrays(problem)
+    args, n_chunks, grouped, pinned, spread, uniform = pad_problem_for_waves(
+        problem, chunk_size
     )
-    demand = pad(problem.demand)
-    count = pad(problem.count)
-    min_count = pad(problem.min_count)
-    req_level = pad(problem.req_level, -1)
-    pref_level = pad(problem.pref_level, -1)
-    group_req = pad(_or_full(problem.group_req, problem.count.shape), -1)
-    group_pin = pad(_or_full(problem.group_pin, problem.count.shape), -1)
-    gang_pin = pad(_or_full(problem.gang_pin, problem.req_level.shape), -1)
-    spread_level = pad(spread_level_a, -1)
-    spread_min = pad(spread_min_a)
-    spread_required = pad(spread_required_a)
-    spread_seed = pad(spread_seed_a)
+    (
+        demand, count, min_count, req_level, pref_level, group_req, group_pin,
+        gang_pin, spread_level, spread_min, spread_required, spread_seed,
+    ) = args[4:]
+    g_pad = demand.shape[0]
+    chunk_size = g_pad // n_chunks
 
     node = problem_to_device(problem, device)
     free = node["capacity"]
@@ -103,33 +175,25 @@ def solve_waves(
         else None
     )
 
-    grouped = bool((group_req >= 0).any())
-    pinned = bool((gang_pin >= 0).any())
-    spread = bool((spread_level >= 0).any())
-    # padded gangs have min_count == count == 0, preserving uniformity
-    uniform = bool((problem.min_count == problem.count).all())
     level_widths = level_widths_of(problem)
 
-    def upload(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
     dedup = dedup_extra_args(demand, count, n_chunks, pinned)
-    pair_demand = upload(dedup["pair_demand"]) if dedup else None
-    pair_count = upload(dedup["pair_count"]) if dedup else None
+    pair_demand = _upload(dedup["pair_demand"], device) if dedup else None
+    pair_count = _upload(dedup["pair_count"], device) if dedup else None
     # immutable chunk tensors go to the device ONCE (only mask/cap/seeds
     # change between waves)
     chunk_const = []
     for c in range(n_chunks):
         sl = slice(c * chunk_size, (c + 1) * chunk_size)
         tensors = tuple(
-            upload(a[sl])
+            _upload(a[sl], device)
             for a in (
                 demand, count, min_count, req_level, pref_level,
                 group_req, group_pin, gang_pin,
                 spread_level, spread_min, spread_required, spread_seed,
             )
         )
-        pidx = upload(dedup["pair_idx"][sl]) if dedup else None
+        pidx = _upload(dedup["pair_idx"][sl], device) if dedup else None
         chunk_const.append(tensors + (pidx,))
 
     _sync(device)
@@ -151,7 +215,8 @@ def solve_waves(
             out = solve_wave_chunk(
                 free, topo, seg_starts, seg_ends,
                 dem_c, cnt_c, mn_c, rq_c, pf_c,
-                upload(mask), upload(narrow_cap[sl]), upload(seeds[sl]),
+                _upload(mask, device), _upload(narrow_cap[sl], device),
+                _upload(seeds[sl], device),
                 group_req=grq_c,
                 group_pin=gpin_c,
                 gang_pin=gangpin_c,
@@ -201,6 +266,123 @@ def solve_waves(
         score=score[:g],
         chosen_level=chosen_level[:g],
         alloc=None if alloc is None else alloc[:g],
+        free_after=free_after,
+        solve_seconds=elapsed,
+    )
+
+
+def solve(
+    problem: PackingProblem,
+    with_alloc: bool = True,
+    device: Optional[Union[str, torch.device]] = None,
+    fill=fill_batch,
+) -> PackingResult:
+    """The exact sequential greedy (``ops.packing.solve_packing``): gangs in
+    order, each against the capacity the earlier ones left, every level and
+    cluster-wide tried. Runs on ``device`` (default: the card; raises
+    without one); `fill` as in ``solve_waves``. ``solve_seconds`` is the
+    solve after the upload, ending when `admitted` is on the host."""
+    device = resolve_device(device)
+    strict_fp32()
+    host = _problem_arrays(problem)
+    args = tuple(_upload(a, device) for a in host)
+    grouped, pinned, spread, uniform = _flags(host)
+    _sync(device)
+    t0 = time.perf_counter()
+    out = solve_packing(
+        *args, with_alloc=with_alloc, grouped=grouped, pinned=pinned, spread=spread,
+        uniform=uniform, level_widths=level_widths_of(problem), fill=fill,
+    )
+    admitted = out["admitted"].cpu().numpy()
+    elapsed = time.perf_counter() - t0
+    return PackingResult(
+        admitted=admitted,
+        placed=out["placed"].cpu().numpy(),
+        score=out["score"].cpu().numpy(),
+        chosen_level=out["chosen_level"].cpu().numpy(),
+        alloc=None if out["alloc"] is None else out["alloc"].cpu().numpy(),
+        free_after=out["free_after"].cpu().numpy(),
+        solve_seconds=elapsed,
+    )
+
+
+def solve_waves_stats(
+    problem: PackingProblem,
+    chunk_size: int = BENCH_CHUNK_SIZE,
+    max_waves: int = BENCH_MAX_WAVES,
+    device: Optional[Union[str, torch.device]] = None,
+    fill=fill_batch,
+) -> PackingResult:
+    """The stats path (the stress bench's solve): the whole wave loop in
+    ``ops.packing.solve_waves_device`` (compaction, settled chunks skipped,
+    lazy rescue for uniform problems, demand dedup), then the gangs still
+    pending, or whose single fill ever missed, solved by the exact
+    sequential greedy against the capacity left (the hybrid tail, padded
+    to a power of two of at least 32 gangs). No per-pod allocations.
+    ``solve_seconds`` is the wave solve plus the tail's solve, uploads
+    excluded. Runs on ``device`` (default: the card; raises without one);
+    `fill` as in ``solve_waves``."""
+    device = resolve_device(device)
+    strict_fp32()
+    g = problem.num_gangs
+    host, n_chunks, grouped, pinned, spread, uniform = pad_problem_for_waves(
+        problem, chunk_size
+    )
+    args = tuple(_upload(a, device) for a in host)
+    extra = {
+        name: _upload(a, device)
+        for name, a in dedup_extra_args(host[4], host[5], n_chunks, pinned).items()
+    }
+    _sync(device)
+    t0 = time.perf_counter()
+    out = solve_waves_device(
+        *args, **extra, n_chunks=n_chunks, max_waves=max_waves, grouped=grouped,
+        pinned=pinned, spread=spread, uniform=uniform,
+        # all-or-nothing populations defer cluster rescues to the next
+        # compacted wave instead of paying an in-wave second fill
+        lazy_rescue=uniform, level_widths=level_widths_of(problem), fill=fill,
+    )
+    admitted = out["admitted"][:g].cpu().numpy()
+    elapsed = time.perf_counter() - t0
+    placed = out["placed"][:g].cpu().numpy()
+    score = out["score"][:g].cpu().numpy()
+    chosen_level = out["chosen_level"][:g].cpu().numpy()
+    free_after = out["free_after"].cpu().numpy()
+    pending = out["pending"][:g].cpu().numpy()
+
+    # hybrid tail: gangs that kept colliding past the wave budget (or whose
+    # seed-picked domain missed) finish under the exact kernel
+    idx = np.flatnonzero(pending)
+    n_pending = idx.size
+    if n_pending:
+        t_pad = 32
+        while t_pad < n_pending:
+            t_pad *= 2
+        arrays = _problem_arrays(problem, rows=idx, g_pad=t_pad)
+        tail = PackingProblem(
+            capacity=free_after,
+            topo=problem.topo,
+            seg_starts=problem.seg_starts,
+            seg_ends=problem.seg_ends,
+            **dict(zip(_GANG_FIELDS, arrays[4:])),
+            priority=np.pad(problem.priority[idx], (0, t_pad - n_pending)),
+        )
+        tail_res = solve(tail, with_alloc=False, device=device, fill=fill)
+        elapsed += tail_res.solve_seconds
+        tail_admit = tail_res.admitted[:n_pending]
+        admitted[idx] = tail_admit
+        placed[idx] = np.where(tail_admit[:, None], tail_res.placed[:n_pending], placed[idx])
+        score[idx] = np.where(tail_admit, tail_res.score[:n_pending], score[idx])
+        chosen_level[idx] = np.where(
+            tail_admit, tail_res.chosen_level[:n_pending], chosen_level[idx]
+        )
+        free_after = tail_res.free_after
+    return PackingResult(
+        admitted=admitted,
+        placed=placed,
+        score=score,
+        chosen_level=chosen_level,
+        alloc=None,
         free_after=free_after,
         solve_seconds=elapsed,
     )

@@ -1,25 +1,32 @@
-"""Where the port's sidecar solve spends its time on the GPU.
+"""Where the port's solves spend their time on the GPU.
 
-Runs one of chip_smoke.py's full-width requests through
-``grove_tpu_torch.solver.kernel.solve_waves`` on CUDA: (a) the BASELINE
+Runs one of chip_smoke.py's full-width requests on CUDA: (a) the BASELINE
 stress request (10,240 gangs x 5,120 nodes), (d) the disaggregated batch
 with a per-group ici-block pack (4,096 gangs) or (e) the spread + recovery
 batch (2,048 gangs), each on a fresh cluster (smaller with
---gangs/--nodes). Solves once unprofiled (solve_seconds), then once under
-``torch.profiler`` (CPU + CUDA activities). Prints one JSON object: wall
-times, the summed device time of all kernels, the device busy share
-(device time / profiled wall), the number of device events (kernels and
-copies) in all and per chunk-wave, fill launches and their device time,
-the device time of the spread fill and of its quota (kernels launched
-inside them, by profiler range), and the top kernels by device time.
-With --chunk-waves K the profiled solve stops after its first K
-chunk-waves (the profiler's own cost grows with the events it holds: a
-whole solve of (e) does not finish in 15 minutes); every profiled figure
-is then that window's. With --out, the full profiler table is written to
-that file.
+--gangs/--nodes), through one of the port's solvers (--path): the binding
+path (``solver.kernel.solve_waves``), the stats path
+(``solve_waves_stats``: the wave loop of ``ops.packing.solve_waves_device``
+and the exact tail) or the exact solve (``solve``, no allocations).
+Solves once unprofiled (solve_seconds), then once under ``torch.profiler``
+(CPU + CUDA activities). Prints one JSON object: wall times, the summed
+device time of all kernels, the device busy share (device time / profiled
+wall), the number of device events (kernels and copies) in all and per
+chunk-wave (per wave on the stats path, per gang on the exact path), fill
+launches and their device time, the device time of the spread fill and of
+its quota (kernels launched inside them, by profiler range), and the top
+kernels by device time. On the stats path it also gives the waves, the
+tail's size, and the host time of the wave loop and of the tail.
 
-    python3 scripts/torch_solve_profile.py [--request a|d|e] [--gangs N] [--nodes 5120]
-        [--chunk-waves K] [--out FILE]
+With --chunk-waves K the profiled binding solve stops after its first K
+chunk-waves (the profiler's own cost grows with the events it holds: a
+whole solve of (e) does not finish in 15 minutes); with --window-gangs K
+(exact path, default 512) the profiled solve is that of the first K gangs;
+every profiled figure is then that window's. With --out, the full
+profiler table is written to that file.
+
+    python3 scripts/torch_solve_profile.py [--path binding|stats|exact] [--request a|d|e]
+        [--gangs N] [--nodes 5120] [--chunk-waves K] [--window-gangs K] [--out FILE]
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ from grove_tpu_torch.ops.fill import fill_batch  # noqa: E402
 from grove_tpu_torch.sim.cluster import make_nodes  # noqa: E402
 from grove_tpu_torch.solver import kernel  # noqa: E402
 from grove_tpu_torch.solver.encode import build_problem  # noqa: E402
-from grove_tpu_torch.solver.kernel import solve_waves  # noqa: E402
+from grove_tpu_torch.solver.kernel import solve, solve_waves, solve_waves_stats  # noqa: E402
 from grove_tpu_torch.utils.platform import card_info  # noqa: E402
 
 DEFAULT_GANGS = {"a": 10240, "d": 4096, "e": 2048}
@@ -54,6 +61,8 @@ RANGES = {"spread_fill": "_fill_spread_floors_first", "spread_quota": "_spread_q
 
 
 def build(request, n_gangs, n_nodes):
+    """The request's problem: (a) stress, (d) disaggregated, (e) spread +
+    recovery, n_gangs gangs on n_nodes nodes."""
     if request == "a":
         return build_stress_problem(n_nodes, n_gangs)
     nodes = make_nodes(n_nodes, dict(STRESS_CAPACITY), 8, 8)
@@ -67,21 +76,24 @@ class _WindowEnd(Exception):
 
 
 def instrument():
-    """Count chunk-waves (calls of solve_wave_chunk), end a solve once the
-    count reaches ``calls[1]`` (when set), and put a profiler range around
-    the spread fill and its quota; returns [count, limit]."""
+    """Count chunk-waves (chunk decisions: calls of the binding path's
+    solve_wave_chunk and of the stats path's wave_chunk_core), end a solve
+    once the count reaches ``calls[1]`` (when set), and put a profiler range
+    around the spread fill and its quota; returns [count, limit]."""
     from torch.profiler import record_function
 
     calls = [0, None]
-    chunk = kernel.solve_wave_chunk
 
-    def counted(*args, **kw):
-        if calls[1] is not None and calls[0] >= calls[1]:
-            raise _WindowEnd
-        calls[0] += 1
-        return chunk(*args, **kw)
+    def counted(fn):
+        def wrapper(*args, **kw):
+            if calls[1] is not None and calls[0] >= calls[1]:
+                raise _WindowEnd
+            calls[0] += 1
+            return fn(*args, **kw)
+        return wrapper
 
-    kernel.solve_wave_chunk = counted
+    kernel.solve_wave_chunk = counted(kernel.solve_wave_chunk)
+    packing.wave_chunk_core = counted(packing.wave_chunk_core)
     for label, name in RANGES.items():
         fn = getattr(packing, name)
 
@@ -91,6 +103,32 @@ def instrument():
 
         setattr(packing, name, ranged)
     return calls
+
+
+class StatsParts:
+    """Host time of the stats path's wave loop and of its exact tail, its
+    waves and the tail's size (wraps kernel.solve_waves_device and
+    kernel.solve; the wave loop's time ends in a device sync)."""
+
+    def __init__(self):
+        self.wave_s = self.tail_s = 0.0
+        self.waves = self.tail = 0
+        wave_solve, tail_solve = kernel.solve_waves_device, kernel.solve
+
+        def timed_waves(*args, **kw):
+            t0 = time.perf_counter()
+            out = wave_solve(*args, **kw)
+            torch.cuda.synchronize()
+            self.wave_s = time.perf_counter() - t0
+            self.waves = out["waves"]
+            return out
+
+        def timed_tail(problem, **kw):
+            res = tail_solve(problem, **kw)
+            self.tail_s, self.tail = res.solve_seconds, int(problem.num_gangs)
+            return res
+
+        kernel.solve_waves_device, kernel.solve = timed_waves, timed_tail
 
 
 def range_device_s(events, label):
@@ -107,10 +145,12 @@ def range_device_s(events, label):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("binding", "stats", "exact"), default="binding")
     ap.add_argument("--request", choices=sorted(DEFAULT_GANGS), default="a")
     ap.add_argument("--gangs", type=int, default=None)
     ap.add_argument("--nodes", type=int, default=5120)
     ap.add_argument("--chunk-waves", type=int, default=None)
+    ap.add_argument("--window-gangs", type=int, default=512)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -119,23 +159,39 @@ def main() -> int:
     card = ", ".join(card_info())
     gangs = args.gangs or DEFAULT_GANGS[args.request]
     problem = build(args.request, gangs, args.nodes)
-    solve_waves(build(args.request, 256, 256), device="cuda")  # build + warm up
+    run = {
+        "binding": lambda p: solve_waves(p, device="cuda"),
+        "stats": lambda p: solve_waves_stats(p, device="cuda"),
+        "exact": lambda p: solve(p, with_alloc=False, device="cuda"),
+    }[args.path]
+    run(build(args.request, 256, 256))  # build + warm up
 
     chunk_waves = instrument()
+    parts = StatsParts() if args.path == "stats" else None
     fill_batch.launches = 0
-    plain = solve_waves(problem, device="cuda")
+    plain = run(problem)
     fills = fill_batch.launches
     waves = chunk_waves[0]
+    stats_parts = None if parts is None else {
+        "waves": parts.waves, "tail_gangs": parts.tail, "wave_loop_s": parts.wave_s,
+        "tail_s": parts.tail_s, "host_s_per_wave": parts.wave_s / max(parts.waves, 1),
+    }
 
     from torch.profiler import ProfilerActivity, profile
 
-    chunk_waves[:] = [0, args.chunk_waves]
+    window_problem = problem
+    if args.path == "exact" and args.window_gangs < gangs:
+        window_problem = build(args.request, args.window_gangs, args.nodes)
+    if args.path == "binding":
+        chunk_waves[:] = [0, args.chunk_waves]
+    else:
+        chunk_waves[:] = [0, None]
     fill_batch.launches = 0
     profiled = None
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         try:
-            profiled = solve_waves(problem, device="cuda")
+            profiled = run(window_problem)
         except _WindowEnd:
             pass
         torch.cuda.synchronize()
@@ -157,15 +213,18 @@ def main() -> int:
     device_us = sum(us for _, us, _ in device)
     out = {
         "card": card,
+        "path": args.path,
         "request": args.request,
         "gangs": gangs,
         "nodes": args.nodes,
         "solve_seconds": plain.solve_seconds,
         "admitted": int(plain.admitted.sum()),
+        "profiled_gangs": window_problem.num_gangs,
         "profiled_chunk_waves": window,
         "profiled_wall_s": wall,
         "profiled_admitted_equal": (
-            None if profiled is None else bool((profiled.admitted == plain.admitted).all())
+            None if profiled is None or window_problem is not problem
+            else bool((profiled.admitted == plain.admitted).all())
         ),
         "device_kernel_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / wall,
@@ -180,6 +239,13 @@ def main() -> int:
             {"name": k[:80], "device_s": us / 1e6, "count": n} for k, us, n in device[:12]
         ],
     }
+    if stats_parts is not None:
+        out["stats"] = stats_parts
+        out["device_events_per_wave"] = len(kernels) / max(parts.waves, 1)
+    if args.path == "exact":  # per gang row solved (the encoder's padded rows included)
+        out["gang_rows"] = problem.num_gangs
+        out["device_events_per_gang"] = len(kernels) / window_problem.num_gangs
+        out["host_s_per_gang"] = plain.solve_seconds / problem.num_gangs
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as fh:

@@ -6,21 +6,31 @@ only PyTorch is installed:
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 The CUDA fill kernel is held bit for bit against its plain PyTorch version,
-alone and inside the wave solver; the solver on the card is also held
-against the same solver on the CPU (which the CPU tests hold against the
-JAX package).
+alone and inside the solvers (the binding path, the stats path and the
+exact kernel); each solver on the card is also held against the same solver
+on the CPU (which the CPU tests hold against the JAX package).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import nonuniform_specs
 from grove_tpu_torch.api.topology import ClusterTopology
 from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, build_stress_problem
+from grove_tpu_torch.ops import packing
 from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
 from grove_tpu_torch.sim.cluster import make_nodes
+from grove_tpu_torch.solver.dedup import dedup_extra_args, level_widths_of
 from grove_tpu_torch.solver.encode import build_problem
-from grove_tpu_torch.solver.kernel import solve_waves
+from grove_tpu_torch.solver.kernel import (
+    BENCH_CHUNK_SIZE,
+    BENCH_MAX_WAVES,
+    pad_problem_for_waves,
+    solve,
+    solve_waves,
+    solve_waves_stats,
+)
 
 FIELDS = ("admitted", "placed", "score", "chosen_level", "alloc", "free_after")
 
@@ -228,3 +238,110 @@ def test_cuda_flag_solve_matches_plain_fill_and_cpu(cuda, kind):
     for name in FIELDS:
         np.testing.assert_array_equal(getattr(kern, name), getattr(plain, name), err_msg=name)
         np.testing.assert_array_equal(getattr(kern, name), getattr(cpu, name), err_msg=name)
+
+
+def _stats_problem(kind):
+    """A contended cut of a smoke request: stress (demand dedup, slab fill,
+    lazy rescue, an exact tail), non-uniform (eager rescue), or one of the
+    flag kinds above."""
+    if kind == "stress":
+        return build_stress_problem(128, 1024)
+    nodes = make_nodes(128, dict(STRESS_CAPACITY), 8, 8)
+    specs = (nonuniform_specs(384, seed=2) if kind == "nonuniform"
+             else _flag_specs(kind, 256, 128, 4))
+    return build_problem(nodes, specs, ClusterTopology())
+
+
+def _assert_same(got, want):
+    for name in FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        if b is None:
+            assert a is None, name
+            continue
+        if name == "free_after":  # by the bits: -0.0 and +0.0 differ
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["stats", "exact"])
+@pytest.mark.parametrize("kind", ["stress", "nonuniform", "grouped", "pinned", "spread"])
+def test_cuda_stats_and_exact_match_plain_fill_and_cpu(cuda, kind, path):
+    """solve_waves_stats and solve (no allocations) with the kernel equal
+    the same solve with the plain fill on the card and on the CPU."""
+    run = (solve_waves_stats if path == "stats"
+           else lambda p, **kw: solve(p, with_alloc=False, **kw))
+    problem = _stats_problem(kind)
+    before = fill_batch.launches
+    kern = run(problem, device=cuda)
+    assert fill_batch.launches > before
+    plain = run(problem, device=cuda, fill=fill_batch_ref)
+    cpu = run(problem, device="cpu")
+    assert 0 < kern.admitted.sum() < len(problem.gang_names)
+    _assert_same(kern, plain)
+    _assert_same(kern, cpu)
+
+
+@pytest.mark.gpu
+def test_cuda_exact_with_alloc_matches_cpu(cuda):
+    problem = _stats_problem("grouped")
+    _assert_same(solve(problem, device=cuda), solve(problem, device="cpu"))
+
+
+def _no_sync_but_reads(monkeypatch):
+    """CUDA's sync debug mode set to raise on every synchronizing call,
+    except inside ``packing._host_int`` (the wave loop's one read)."""
+    read = packing._host_int
+
+    def read_synced(t):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(packing, "_host_int", read_synced)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["stress", "nonuniform", "spread"])
+def test_cuda_wave_loop_syncs_only_for_its_reads(cuda, kind, monkeypatch):
+    """solve_waves_device on the card with the stream guarded: no device
+    sync happens but the pending-count reads, and there is one per wave
+    (plus the lazy rescue's epilogue check)."""
+    problem = _stats_problem(kind)
+    raw, n_chunks, grouped, pinned, spread, uniform = pad_problem_for_waves(
+        problem, BENCH_CHUNK_SIZE)
+    args = [torch.from_numpy(a).to(cuda) for a in raw]
+    extra = {k: torch.from_numpy(v).to(cuda)
+             for k, v in dedup_extra_args(raw[4], raw[5], n_chunks, pinned).items()}
+    reads = []
+    _no_sync_but_reads(monkeypatch)
+    read = packing._host_int
+    monkeypatch.setattr(packing, "_host_int", lambda t: reads.append(t) or read(t))
+    try:
+        out = packing.solve_waves_device(
+            *args, **extra, n_chunks=n_chunks, max_waves=BENCH_MAX_WAVES, grouped=grouped,
+            pinned=pinned, spread=spread, uniform=uniform, lazy_rescue=uniform,
+            level_widths=level_widths_of(problem))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(reads) == out["waves"] + (1 if uniform else 0)
+    assert out["waves"] >= 2 and int(out["admitted"].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_exact_kernel_never_syncs(cuda, monkeypatch):
+    """solve_packing is branch-free on the card: not one device sync."""
+    problem = _stats_problem("spread")
+    raw, *_ = pad_problem_for_waves(problem, 1)
+    args = [torch.from_numpy(a).to(cuda) for a in raw]
+    _no_sync_but_reads(monkeypatch)
+    try:
+        out = packing.solve_packing(*args[:16], with_alloc=False, spread=True,
+                                    level_widths=level_widths_of(problem))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out["admitted"].sum()) > 0

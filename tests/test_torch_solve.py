@@ -101,10 +101,9 @@ def test_solve_waves_without_device_raises_when_no_cuda(monkeypatch):
     ],
     ids=["grouped", "pinned", "spread"],
 )
-def test_unported_features_raise(change, feature):
-    """Once the raise of the first slice, now the flag's parity: a problem
-    with a per-group pack, a recovery pin or a spread constraint solves as
-    the JAX package solves it (the name is kept from that slice)."""
+def test_flag_solve_waves_matches(change, feature):
+    """A problem with a per-group pack, a recovery pin or a spread
+    constraint solves as the JAX package solves it."""
     specs = stress_gang_specs(4)
     change(specs)
     want_problem = j_build_problem(j_make_nodes(8), specs, JTopology())

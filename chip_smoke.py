@@ -6,7 +6,8 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises and the script exits non-zero):
   1. device: CUDA must be available; prints the card's name and power limit.
-  2. build: compiles the fill kernel (csrc/fill.cu, sm_90a) from the sources.
+  2. build: compiles the kernels (csrc/fill.cu, csrc/drf.cu; sm_90a) from the
+     sources, one nvcc each, all started together.
   3. kernel vs plain version on the card at the wave solver's fill shape
      (C=32 gangs, P=3 groups, N=5120 nodes, R=2 resources): shared and
      per-gang capacity, masks 0/50/100% dense, zero demands and zero counts;
@@ -48,7 +49,26 @@ Phases (any failure raises and the script exits non-zero):
      gangs, grouped, pinned and spread at 1,024): the binding path, the
      stats path and the exact solve (of the first 512 gangs), every result
      field bit-equal.
-  7. prints the kernels line, the card line, and last the ok line.
+  7. [sched] the scheduler round end to end (solver/scheduler.GangScheduler
+     over the port's store and simulated cluster, built from wire documents
+     by models/scenarios.scheduler_world) on the card: (s) 10,240 stress
+     gangs in one namespace on 5,120 nodes, an admission round and an
+     upkeep round; (q) the same gangs over eight tenant queues, one round
+     with the DRF order; (r) 512 nodes, 1,024 gangs of one tenant, then 528
+     more of three others (16 of priority 100): reclaim and preemption with
+     their trial solves. Every round is held against the JAX package's
+     (JAX_SCHEDULER_REFERENCE, from scripts/scheduler_reference.py): the
+     bindings' hash, admissions, evictions, per-queue counts and event
+     counts equal, the score sum at rtol 1e-6; and checked valid (usage <=
+     capacity, floors met, required packs in one domain). Prints each
+     round's wall time, its split by the tracer's spans, solve_seconds and
+     the fill and DRF launches (set to 0 just before each round, read just
+     after it).
+  8. [drf] the DRF kernel (csrc/drf.cu) against its plain twin, bit for bit:
+     every scan step of 200 random queue trees (tests/test_quota.py's
+     generator, seed 7), the warp and block edges Q=1, 32, 33, 1024, and
+     the ordering pass recorded from (q); times the kernel at (q)'s shape.
+  9. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -83,16 +103,21 @@ def phase_device() -> str:
     return line
 
 
+KERNEL_SOURCES = ("fill", "drf")  # grove_tpu_torch/csrc/<name>.cu
+
+
 def phase_build() -> None:
     from grove_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load("fill")
-    print(f"[build] fill.cu built+loaded in {time.perf_counter() - t0:.3f} s", flush=True)
-    log = _build.BUILD_LOGS.get("fill", "(prebuilt library reused)")
-    for ln in log.strip().splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(f"[build]   {ln.strip()}", flush=True)
+    _build.load_all(KERNEL_SOURCES)
+    print(f"[build] {', '.join(n + '.cu' for n in KERNEL_SOURCES)} built (one nvcc each, all"
+          f" started together) and loaded in {time.perf_counter() - t0:.3f} s", flush=True)
+    for name in KERNEL_SOURCES:
+        log = _build.BUILD_LOGS.get(name, "(prebuilt library reused)")
+        for ln in log.strip().splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"[build]   {name}: {ln.strip()}", flush=True)
 
 
 def _fill_inputs(rng, c, p, n, r, shared, density):
@@ -702,21 +727,339 @@ def phase_path_kernel_vs_plain() -> None:
                   f" {kern.solve_seconds:.3f} s, plain {plain.solve_seconds:.3f} s)", flush=True)
 
 
+# The JAX package's scheduler rounds on the worlds of
+# models/scenarios.scheduler_world, from `JAX_PLATFORMS=cpu python
+# scripts/scheduler_reference.py` (JAX 0.9.0 on the CPU): per round, gangs
+# admitted, pods bound, the placement score sum, the sha256 of the sorted
+# ns/pod=node bindings, the evicted gangs (count and sha256 of the sorted
+# names), admitted gangs per queue and event counts by reason.
+_NONE = "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"
+JAX_SCHEDULER_REFERENCE = {
+    "s": [
+        {"admitted": 10235, "bound": 34865, "score_sum": 10116.369945168495,
+         "bindings": 34865,
+         "bindings_sha256": "c93b1fb1180d523e501e2157bab7489466f6e192c4b60c108aedc04e6e63987f",
+         "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"default": 10235},
+         "events_by_reason": {"GangAdmitted": 10235, "GangDeferred": 5, "PodBound": 34865}},
+        {"admitted": 3, "bound": 16, "score_sum": 1.6911112666130066, "bindings": 34881,
+         "bindings_sha256": "1561fdabf3ae514bf795fd28bfabe7354207aa14d665c7167939b214f5506d4f",
+         "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"default": 3},
+         "events_by_reason": {"GangAdmitted": 3, "GangDeferred": 2, "PodBound": 16}},
+    ],
+    "q": [
+        {"admitted": 10231, "bound": 34833, "score_sum": 10084.246239542961,
+         "bindings": 34833,
+         "bindings_sha256": "7ff9f94016b74cc5ea0e31eb3c29f4ea4fe0ae8f674ab4586e1f50bd4f7c744a",
+         "evicted": 0, "evicted_sha256": _NONE,
+         "admitted_per_queue": {"tenant-0": 1271, "tenant-1": 1280, "tenant-2": 1280,
+                                "tenant-3": 1280, "tenant-4": 1280, "tenant-5": 1280,
+                                "tenant-6": 1280, "tenant-7": 1280},
+         "events_by_reason": {"GangAdmitted": 10231, "GangDeferred": 9, "PodBound": 34833}},
+    ],
+    "r": [
+        {"admitted": 1024, "bound": 3473, "score_sum": 1011.9702439308167, "bindings": 3473,
+         "bindings_sha256": "b67e6d78aeacaef3e858e08eb1d9a387e4c5b87c972375e0c2cba2f38a507fa0",
+         "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1024},
+         "events_by_reason": {"GangAdmitted": 1024, "PodBound": 3473}},
+        {"admitted": 67, "bound": 207, "score_sum": 54.27487090229988, "bindings": 3680,
+         "bindings_sha256": "86a0d604696fcf92ad75d738b655e1315ce13f4537e5cf88222f41c065a45035",
+         "evicted": 335,
+         "evicted_sha256": "55cdbeb1c1ad1c3ce1623bc4699e974a1a5508799654f8bbefc4b9ae10b86ef6",
+         "admitted_per_queue": {"tenant-1": 22, "tenant-2": 25, "tenant-3": 20},
+         "events_by_reason": {"GangAdmitted": 67, "GangDeferred": 461, "PodBound": 207,
+                              "Preempted": 2, "QuotaReclaim": 333}},
+    ],
+}
+SCHED_WORLDS = (("s", "flat"), ("q", "fair-share"), ("r", "preemption + reclaim"))
+
+
+def check_world_valid(tag, store, cluster) -> None:
+    """Usage <= capacity on every node (live bound pods), every scheduled
+    gang's groups at or above their floor, every required pack (of a gang
+    or a group) inside one domain of its key."""
+    nodes = {n.name: n for n in cluster.nodes}
+    used = {}
+    live = {}
+    for (ns, name), node in cluster.bindings.items():
+        pod = store.get("Pod", ns, name, readonly=True)
+        if pod is None or pod.metadata.deletion_timestamp is not None or pod.status.node_name != node:
+            continue  # an evicted pod's binding goes at the next round's gc
+        live[(ns, name)] = node
+        acc = used.setdefault(node, {})
+        for r, v in pod.spec.total_requests().items():
+            acc[r] = acc.get(r, 0.0) + v
+    for node, acc in used.items():
+        for r, v in acc.items():
+            cap = nodes[node].capacity.get(r, 0.0)
+            if v > cap + 1e-6 * max(1.0, cap):
+                _fail(f"{tag}: node {node} over capacity on {r} ({v} > {cap})")
+    for gang in store.scan("PodGang"):
+        cond = next((c for c in gang.status.conditions if c.type == "Scheduled"), None)
+        if cond is None or cond.status != "True":
+            continue
+        gang_nodes = []
+        for group in gang.spec.pod_groups:
+            placed = [live[(r.namespace, r.name)] for r in group.pod_references
+                      if (r.namespace, r.name) in live]
+            if len(placed) < group.min_replicas:
+                _fail(f"{tag}: gang {gang.metadata.name} group {group.name} below its floor")
+            tc = group.topology_constraint
+            if tc is not None and tc.pack_constraint is not None and tc.pack_constraint.required:
+                key = tc.pack_constraint.required
+                if len({nodes[n].labels.get(key) for n in placed}) > 1:
+                    _fail(f"{tag}: group {group.name} spans domains of {key}")
+            gang_nodes += placed
+        tc = gang.spec.topology_constraint
+        if tc is not None and tc.pack_constraint is not None and tc.pack_constraint.required:
+            key = tc.pack_constraint.required
+            if len({nodes[n].labels.get(key) for n in gang_nodes}) > 1:
+                _fail(f"{tag}: gang {gang.metadata.name} spans domains of {key}")
+
+
+def _span_split(spans) -> dict:
+    """A round's time by the tracer's spans: pending scan (with phase and
+    health upkeep) + encode, quota order, solve, preemption/reclaim (trial
+    solves included) and commit + status writes."""
+    def total(names, parent=None):
+        return sum(sp.dur_us for sp in spans
+                   if sp.name in names and (parent is None or sp.parent == parent)) / 1e6
+
+    trials = sum(1 for sp in spans if sp.name == "scheduler.solve"
+                 and sp.parent in ("scheduler.preempt", "quota.reclaim"))
+    return {
+        "scan_encode_s": total({"scheduler.pending-scan"})
+        + total({"scheduler.encode"}, "scheduler.schedule"),
+        "quota_order_s": total({"quota.order"}),
+        "solve_s": total({"scheduler.solve"}, "scheduler.schedule"),
+        "preempt_reclaim_s": total({"scheduler.preempt", "quota.reclaim"}),
+        "commit_status_s": total({"scheduler.commit", "scheduler.status-write"}),
+        "trial_solves": trials,
+    }
+
+
+class _RecordOrderPass:
+    """Keeps the inputs of the quota manager's ordering passes."""
+
+    def __enter__(self):
+        from grove_tpu_torch.quota import manager
+
+        self.manager, self.wrapped, self.calls = manager, manager.fair_order, []
+
+        def record(deserved, usage, demand, counts, device=None):
+            self.calls.append(tuple(np.array(a) for a in (deserved, usage, demand, counts)))
+            return self.wrapped(deserved, usage, demand, counts, device=device)
+
+        manager.fair_order = record
+        return self
+
+    def __exit__(self, *exc):
+        self.manager.fair_order = self.wrapped
+
+
+def phase_scheduler() -> dict:
+    """The scheduler worlds (s), (q), (r) through the port's GangScheduler
+    on the card, every round held against JAX_SCHEDULER_REFERENCE."""
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.models.scenarios import EventCapture, round_summary, scheduler_world
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.observability.metrics import METRICS
+    from grove_tpu_torch.observability.tracing import TRACER
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import fair_order_scan
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    TRACER.enable()
+    out = {"fill_launches": 0, "drf_launches": 0, "rounds": {}, "q_order_inputs": None}
+    for name, label in SCHED_WORLDS:
+        world = scheduler_world(name)
+        store = Store(VirtualClock(0.0))
+        cluster = SimCluster(store, make_nodes(*world["nodes"]))
+        sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"],
+                              device="cuda")
+        EVENTS.reset()
+        EVENTS.clock = store.clock
+        for doc in world["queues"]:
+            store.create(decode_object(doc), consume=True)
+        for index, docs in enumerate(world["rounds"]):
+            t0 = time.perf_counter()
+            for doc in docs:
+                store.create(decode_object(doc), consume=True)
+            load_s = time.perf_counter() - t0
+            TRACER.reset()
+            METRICS.histograms.pop("gang_solve_seconds", None)
+            with EventCapture(EVENTS) as cap, _RecordOrderPass() as orders:
+                fill_batch.launches = 0
+                fair_order_scan.launches = 0
+                t0 = time.perf_counter()
+                sched.schedule_pending()
+                wall = time.perf_counter() - t0
+                fills, drfs = fill_batch.launches, fair_order_scan.launches
+            tag = f"sched ({name}) round {index + 1}"
+            got = round_summary(store, cluster, cap.events)
+            want = dict(JAX_SCHEDULER_REFERENCE[name][index])
+            if not np.isclose(got["score_sum"], want.pop("score_sum"), rtol=1e-6, atol=0):
+                _fail(f"{tag}: score sum {got['score_sum']} != the JAX package's")
+            for key, value in want.items():
+                if got[key] != value:
+                    _fail(f"{tag}: {key} {got[key]} != the JAX package's {value}")
+            check_world_valid(tag, store, cluster)
+            if got["events_by_reason"] and fills == 0:
+                _fail(f"{tag}: the round did not launch the fill kernel")
+            if world["queues"] and drfs == 0:
+                _fail(f"{tag}: the round did not launch the DRF kernel")
+            if name == "q":
+                out["q_order_inputs"] = orders.calls[0]
+            split = _span_split(TRACER.spans())
+            solves = METRICS.histograms.get("gang_solve_seconds", [])
+            row = {"wall_s": wall, "load_s": load_s, **split,
+                   "solve_seconds": solves[0] if solves else None,
+                   "fill_launches": fills, "drf_launches": drfs,
+                   **{k: got[k] for k in ("admitted", "bound", "evicted")}}
+            out["rounds"][f"{name}{index + 1}"] = row
+            out["fill_launches"] += fills
+            out["drf_launches"] += drfs
+            print(f"[sched] ({name}) {label} round {index + 1}: wall {wall:.3f} s (world load"
+                  f" {load_s:.3f} s before it); scan+encode {split['scan_encode_s']:.3f} s,"
+                  f" quota order {split['quota_order_s']:.3f} s, solve {split['solve_s']:.3f} s,"
+                  f" preempt/reclaim {split['preempt_reclaim_s']:.3f} s"
+                  f" ({split['trial_solves']} trial solves), commit+status"
+                  f" {split['commit_status_s']:.3f} s; solve_seconds"
+                  f" {row['solve_seconds'] if row['solve_seconds'] is None else round(row['solve_seconds'], 4)};"
+                  f" fill launches {fills}, DRF launches {drfs}; admitted {got['admitted']},"
+                  f" bound {got['bound']}, evicted {got['evicted']}; equal to the JAX package's,"
+                  f" valid", flush=True)
+    TRACER.disable()
+    return out
+
+
+def random_queue_tree(rng, q_dim=8, g_dim=16, r_dim=4):
+    """One random queue tree of tests/test_quota.py (its generator)."""
+    n_q = int(rng.integers(1, q_dim + 1))
+    n_r = int(rng.integers(1, r_dim + 1))
+    deserved = np.zeros((q_dim, r_dim), np.float32)
+    usage = np.zeros((q_dim, r_dim), np.float32)
+    demand = np.zeros((q_dim, g_dim, r_dim), np.float32)
+    counts = np.zeros((q_dim,), np.int32)
+    for q in range(n_q):
+        if rng.random() > 0.25:
+            deserved[q, :n_r] = rng.integers(0, 5, n_r)
+        if rng.random() > 0.3:
+            usage[q, :n_r] = rng.integers(0, 9, n_r) * rng.choice([0.25, 0.5, 1.0, 2.0])
+        counts[q] = rng.integers(0, g_dim + 1)
+        demand[q, :, :n_r] = rng.integers(0, 4, (g_dim, n_r)) * rng.choice([0.5, 1.0])
+    if n_q >= 2 and rng.random() > 0.5:
+        src, dst = rng.choice(n_q, 2, replace=False)
+        deserved[dst] = deserved[src]
+        usage[dst] = usage[src]
+    return deserved, usage, demand, counts
+
+
+def wide_queue_tree(seed, q_dim, g_dim=6, r_dim=3):
+    """A random tree of Q queues (the kernel's warp and block edges), with
+    zero-deserved queues, share ties and drained queues."""
+    rng = np.random.default_rng(seed)
+    deserved = rng.integers(0, 5, (q_dim, r_dim)).astype(np.float32)
+    deserved[rng.random(q_dim) < 0.2] = 0.0
+    usage = (rng.integers(0, 9, (q_dim, r_dim)) * 0.5).astype(np.float32)
+    usage[1::7] = usage[0]
+    deserved[1::7] = deserved[0]
+    demand = (rng.integers(0, 4, (q_dim, g_dim, r_dim)) * 0.5).astype(np.float32)
+    counts = rng.integers(0, g_dim + 1, q_dim).astype(np.int32)
+    return deserved, usage, demand, counts
+
+
+def drf_bound(inputs, steps):
+    """Least time of the ordering pass from the bytes it must move (the
+    queue rows and counts read once, the demand rows the picks charge, the
+    (queue, slot) rows written) over HBM bandwidth, and from its operations
+    (per step a compare per queue and the picked row's charge and share)
+    over the fp32 rate. Returns (ms, by)."""
+    deserved, usage, demand, counts = inputs
+    q_dim, r_dim = deserved.shape
+    read = (2 * q_dim * r_dim + steps * r_dim + q_dim) * 4
+    written = steps * 2 * 4
+    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    t_ops = steps * (q_dim + 4 * r_dim) / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_drf(q_inputs) -> dict:
+    """The DRF kernel against its plain twin, every scan step bit for bit,
+    then its time at (q)'s shape."""
+    from grove_tpu_torch.quota.ordering import fair_order, fair_order_ref, fair_order_scan
+
+    def check(tag, inputs, steps):
+        cuda = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in inputs]
+        got = fair_order_scan(*cuda, steps).cpu()
+        want = fair_order_ref(*[t.cpu() for t in cuda], steps)
+        if not torch.equal(got, want):
+            _fail(f"DRF kernel != plain twin ({tag})")
+
+    rng = np.random.default_rng(7)
+    for trial in range(200):
+        tree = random_queue_tree(rng)
+        check(f"random tree {trial}", tree, tree[2].shape[0] * tree[2].shape[1])
+    print("[drf] 200 random queue trees (tests/test_quota.py's generator, seed 7): every scan"
+          " step equal bit for bit", flush=True)
+    for q_dim in (1, 32, 33, 1024):
+        tree = wide_queue_tree(q_dim, q_dim)
+        check(f"Q={q_dim}", tree, q_dim * tree[2].shape[1])
+    print("[drf] Q = 1, 32, 33, 1024 (warp and block edges): equal bit for bit", flush=True)
+    total = int(q_inputs[3].sum())
+    check("(q)", q_inputs, total)
+    got = fair_order(*q_inputs, device="cuda")
+    if not np.array_equal(got, fair_order(*q_inputs, device="cpu")):
+        _fail("fair_order on the card != on the CPU at (q)")
+    cuda = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in q_inputs]
+    ms = _median_ms(lambda: fair_order_scan(*cuda, total), reps=20, warmup=2)
+    plain = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fair_order_ref(*cuda, total)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = statistics.median(plain)
+    bound_ms, bound_by = drf_bound(q_inputs, total)
+    q_dim, g_dim, r_dim = q_inputs[2].shape
+    print(f"[drf] (q) Q={q_dim} G={g_dim} R={r_dim}, {total} steps: equal bit for bit; kernel"
+          f" {ms:.3f} ms (median device time of 20 calls, CUDA event pairs), plain twin on the"
+          f" card {plain_ms:.1f} ms (host clock, median of 3), bound {bound_ms * 1e3:.4f} us"
+          f" ({bound_by}); {ms * 1e3 / total:.3f} us per dependent step", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": 0.0, "steps": total}
+
+
+def _timed(phase, *args):
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[smoke] {phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    card = phase_device()
-    phase_build()
-    timing = phase_kernel_vs_plain()
-    cases = phase_path_shapes()
-    main_path = phase_main_path()
-    stats = phase_stats_path()
-    phase_path_kernel_vs_plain()
+    t_start = time.perf_counter()
+    card = _timed(phase_device)
+    _timed(phase_build)
+    timing = _timed(phase_kernel_vs_plain)
+    cases = _timed(phase_path_shapes)
+    main_path = _timed(phase_main_path)
+    stats = _timed(phase_stats_path)
+    _timed(phase_path_kernel_vs_plain)
+    sched = _timed(phase_scheduler)
+    drf = _timed(phase_drf, sched["q_order_inputs"])
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
         "source": "grove_tpu_torch/csrc/fill.cu",
         "replaces": "grove_tpu/ops/pallas_fill.py:69",
-        "launches": main_path["launches"] + stats["fill_launches"] + stats["exact_fill_launches"],
+        "launches": main_path["launches"] + stats["fill_launches"] + stats["exact_fill_launches"]
+        + sched["fill_launches"],
         "max_abs_err": max([timing["max_abs_err"]] + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -725,8 +1068,23 @@ def main() -> int:
         "library_ms": None,
         "cases": [{k: v for k, v in cs.items() if k != "max_abs_err"} for cs in cases],
     }
+    drf_kernel = {
+        "name": "fair_order",
+        "route": "cuda",
+        "source": "grove_tpu_torch/csrc/drf.cu",
+        "replaces": "grove_tpu/quota/ordering.py:41",
+        "launches": sched["drf_launches"],
+        "max_abs_err": drf["max_abs_err"],
+        "ms": drf["ms"],
+        "plain_ms": drf["plain_ms"],
+        "bound_ms": drf["bound_ms"],
+        "bound_by": drf["bound_by"],
+        "library_ms": None,
+    }
     paths = {k: v for k, v in main_path.items() if k != "launches"}
-    print(json.dumps({"kernels": [kernel], "main_path": paths, "stats_path": stats}))
+    print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": [kernel, drf_kernel], "main_path": paths, "stats_path": stats,
+                      "scheduler": sched["rounds"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

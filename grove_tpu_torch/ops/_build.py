@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` into ``build/grove_tpu_torch/<name>-<hash>.so`` (the hash
 covers the source and the flags, so an edited source rebuilds) and loaded
 with ``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
-Nothing is built when a module is imported.
+``load_all`` starts one nvcc per missing source, all together. Nothing is
+built when a module is imported.
 """
 
 from __future__ import annotations
@@ -68,27 +69,50 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def _compile(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` into a temporary file; returns
+    (process, temporary path)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = library_path(name)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """The loaded libraries for ``csrc/<name>.cu`` of every name, compiling
+    each one that has no build with one nvcc per source, all started
+    together. Raises ``RuntimeError`` with nvcc's output when a build
+    fails."""
+    with _LOCK:
+        procs = {
+            name: _compile(name)
+            for name in names
+            if name not in _LIBS and not library_path(name).exists()
+        }
+        try:
+            for name, (proc, tmp) in procs.items():
+                BUILD_LOGS[name] = proc.communicate()[0]
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+                        + BUILD_LOGS[name]
+                    )
+                os.replace(tmp, library_path(name))
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for name in names:
+            if name not in _LIBS:
+                _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        return {name: _LIBS[name] for name in names}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, compiling it first when no
     build of this source exists. Raises ``RuntimeError`` with nvcc's output
     when the build fails."""
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        out = library_path(name)
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOGS[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-                    + BUILD_LOGS[name]
-                )
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        _LIBS[name] = lib
-        return lib
+    return load_all([name])[name]

@@ -345,3 +345,107 @@ def test_cuda_exact_kernel_never_syncs(cuda, monkeypatch):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(out["admitted"].sum()) > 0
+
+
+# -- the DRF fair-share order (csrc/drf.cu) -------------------------------------
+
+
+def _drf_check(inputs, steps, device):
+    from grove_tpu_torch.quota.ordering import fair_order_ref, fair_order_scan
+
+    cuda = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in inputs]
+    launches = fair_order_scan.launches
+    got = fair_order_scan(*cuda, steps).cpu()
+    assert fair_order_scan.launches == launches + 1
+    want = fair_order_ref(*[torch.from_numpy(np.ascontiguousarray(a)) for a in inputs], steps)
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.gpu
+def test_cuda_drf_kernel_matches_twin_on_random_trees(cuda):
+    """Every scan step (drained tails included) of tests/test_quota.py's
+    200 random trees, bit for bit."""
+    from chip_smoke import random_queue_tree
+
+    rng = np.random.default_rng(7)
+    for _ in range(200):
+        tree = random_queue_tree(rng)
+        _drf_check(tree, tree[2].shape[0] * tree[2].shape[1], cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dim", [1, 32, 33, 1024])
+def test_cuda_drf_kernel_matches_twin_at_warp_and_block_edges(cuda, q_dim):
+    from chip_smoke import wide_queue_tree
+
+    tree = wide_queue_tree(q_dim, q_dim)
+    out = _drf_check(tree, q_dim * tree[2].shape[1], cuda)
+    assert (out[: int(tree[3].sum()), 0] >= 0).all()
+
+
+@pytest.mark.gpu
+def test_cuda_drf_kernel_edge_inputs(cuda):
+    """Ties, overflow of usage*BIG to +inf (the argmin then falls on the
+    lowest index, drained or not) and NaN usage, against the twin; more
+    than 1024 queues raise."""
+    from grove_tpu_torch.quota.ordering import fair_order, fair_order_scan
+
+    tie = (np.full((2, 1), 2.0, np.float32), np.zeros((2, 1), np.float32),
+           np.ones((2, 4, 1), np.float32), np.array([4, 4], np.int32))
+    assert _drf_check(tie, 8, cuda)[:, 0].tolist() == [0, 1, 0, 1, 0, 1, 0, 1]
+    inf = (np.array([[0.0], [0.0], [1.0]], np.float32),
+           np.array([[0.0], [1e21], [1e30]], np.float32),
+           np.ones((3, 2, 1), np.float32), np.array([0, 2, 0], np.int32))
+    _drf_check(inf, 6, cuda)
+    nan = (np.ones((3, 2), np.float32), np.array([[0, 1], [np.nan, 0], [0, 0]], np.float32),
+           np.ones((3, 2, 2), np.float32), np.array([2, 2, 2], np.int32))
+    _drf_check(nan, 6, cuda)
+    big = [np.zeros((1025, 1), np.float32)] * 2 + [np.zeros((1025, 1, 1), np.float32),
+                                                   np.ones((1025,), np.int32)]
+    with pytest.raises(ValueError, match="at most 1024"):
+        fair_order_scan(*[torch.from_numpy(a).to(cuda) for a in big], 4)
+    np.testing.assert_array_equal(fair_order(*tie, device=cuda), fair_order(*tie, device="cpu"))
+
+
+@pytest.mark.gpu
+def test_cuda_scheduler_rounds_match_the_cpu_twins(cuda):
+    """A cut of world (r) through the port's scheduler on the card (fill
+    and DRF kernels) and on the CPU (their plain twins): every round's
+    summary, PodGang status and binding equal."""
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.models.scenarios import EventCapture, round_summary, scheduler_world
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.quota.ordering import fair_order_scan
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    world = scheduler_world("r", 128, 256)
+    sides = []
+    for device in (cuda, "cpu"):
+        store = Store(VirtualClock(0.0))
+        cluster = SimCluster(store, make_nodes(*world["nodes"]))
+        sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"],
+                              device=device)
+        for doc in world["queues"]:
+            store.create(decode_object(doc), consume=True)
+        summaries = []
+        for docs in world["rounds"]:
+            for doc in docs:
+                store.create(decode_object(doc), consume=True)
+            fill_batch.launches = fair_order_scan.launches = 0
+            with EventCapture(EVENTS) as cap:
+                sched.schedule_pending()
+            summaries.append((round_summary(store, cluster, cap.events), cap.events,
+                              fill_batch.launches, fair_order_scan.launches))
+        statuses = {(g.metadata.namespace, g.metadata.name): g.status for g in store.scan("PodGang")}
+        sides.append((summaries, statuses, dict(cluster.bindings)))
+    (card, card_status, card_bind), (cpu, cpu_status, cpu_bind) = sides
+    for (a, ev_a, fills, drfs), (b, ev_b, _, _) in zip(card, cpu):
+        assert fills > 0 and drfs > 0
+        assert a == b and ev_a == ev_b
+    assert card_status == cpu_status and card_bind == cpu_bind
+    assert card[1][0]["evicted"] > 0

@@ -64,10 +64,15 @@ Phases (any failure raises and the script exits non-zero):
      round's wall time, its split by the tracer's spans, solve_seconds and
      the fill and DRF launches (set to 0 just before each round, read just
      after it).
-  8. [drf] the DRF kernel (csrc/drf.cu) against its plain twin, bit for bit:
-     every scan step of 200 random queue trees (tests/test_quota.py's
-     generator, seed 7), the warp and block edges Q=1, 32, 33, 1024, and
-     the ordering pass recorded from (q); times the kernel at (q)'s shape.
+  8. [drf] the DRF kernels (csrc/drf.cu: the share table, then the merge)
+     against their plain twin, bit for bit: every scan step of 200 random
+     queue trees (tests/test_quota.py's generator, seed 7), the warp, block
+     and owner edges Q=1, 32, 33, 64, 1024, 1025, 2048, 4096, the named
+     edge trees (drf_edge_trees), a table too large for shared memory
+     (Q=8, G=8192), counts above G at Q=64 and 1025, and the ordering pass
+     recorded from (q), where each kernel is also held to its plain
+     version; times the share table, the merge and the whole pass at (q)'s
+     shape, and the merge per step at the unstaged and wider shapes.
   9. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
@@ -866,14 +871,15 @@ def phase_scheduler() -> dict:
     from grove_tpu_torch.observability.metrics import METRICS
     from grove_tpu_torch.observability.tracing import TRACER
     from grove_tpu_torch.ops.fill import fill_batch
-    from grove_tpu_torch.quota.ordering import fair_order_scan
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
     from grove_tpu_torch.runtime.clock import VirtualClock
     from grove_tpu_torch.runtime.store import Store
     from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
     from grove_tpu_torch.solver.scheduler import GangScheduler
 
     TRACER.enable()
-    out = {"fill_launches": 0, "drf_launches": 0, "rounds": {}, "q_order_inputs": None}
+    out = {"fill_launches": 0, "drf_shares_launches": 0, "drf_merge_launches": 0, "rounds": {},
+           "q_order_inputs": None}
     for name, label in SCHED_WORLDS:
         world = scheduler_world(name)
         store = Store(VirtualClock(0.0))
@@ -893,11 +899,12 @@ def phase_scheduler() -> dict:
             METRICS.histograms.pop("gang_solve_seconds", None)
             with EventCapture(EVENTS) as cap, _RecordOrderPass() as orders:
                 fill_batch.launches = 0
-                fair_order_scan.launches = 0
+                share_table_cuda.launches = merge_cuda.launches = 0
                 t0 = time.perf_counter()
                 sched.schedule_pending()
                 wall = time.perf_counter() - t0
-                fills, drfs = fill_batch.launches, fair_order_scan.launches
+                fills = fill_batch.launches
+                shares, merges = share_table_cuda.launches, merge_cuda.launches
             tag = f"sched ({name}) round {index + 1}"
             got = round_summary(store, cluster, cap.events)
             want = dict(JAX_SCHEDULER_REFERENCE[name][index])
@@ -909,19 +916,21 @@ def phase_scheduler() -> dict:
             check_world_valid(tag, store, cluster)
             if got["events_by_reason"] and fills == 0:
                 _fail(f"{tag}: the round did not launch the fill kernel")
-            if world["queues"] and drfs == 0:
-                _fail(f"{tag}: the round did not launch the DRF kernel")
+            if world["queues"] and (shares == 0 or merges == 0):
+                _fail(f"{tag}: the round did not launch both DRF kernels")
             if name == "q":
                 out["q_order_inputs"] = orders.calls[0]
             split = _span_split(TRACER.spans())
             solves = METRICS.histograms.get("gang_solve_seconds", [])
             row = {"wall_s": wall, "load_s": load_s, **split,
                    "solve_seconds": solves[0] if solves else None,
-                   "fill_launches": fills, "drf_launches": drfs,
+                   "fill_launches": fills, "drf_shares_launches": shares,
+                   "drf_merge_launches": merges,
                    **{k: got[k] for k in ("admitted", "bound", "evicted")}}
             out["rounds"][f"{name}{index + 1}"] = row
             out["fill_launches"] += fills
-            out["drf_launches"] += drfs
+            out["drf_shares_launches"] += shares
+            out["drf_merge_launches"] += merges
             print(f"[sched] ({name}) {label} round {index + 1}: wall {wall:.3f} s (world load"
                   f" {load_s:.3f} s before it); scan+encode {split['scan_encode_s']:.3f} s,"
                   f" quota order {split['quota_order_s']:.3f} s, solve {split['solve_s']:.3f} s,"
@@ -929,7 +938,7 @@ def phase_scheduler() -> dict:
                   f" ({split['trial_solves']} trial solves), commit+status"
                   f" {split['commit_status_s']:.3f} s; solve_seconds"
                   f" {row['solve_seconds'] if row['solve_seconds'] is None else round(row['solve_seconds'], 4)};"
-                  f" fill launches {fills}, DRF launches {drfs}; admitted {got['admitted']},"
+                  f" fill launches {fills}, DRF launches {shares} share table + {merges} merge; admitted {got['admitted']},"
                   f" bound {got['bound']}, evicted {got['evicted']}; equal to the JAX package's,"
                   f" valid", flush=True)
     TRACER.disable()
@@ -972,6 +981,48 @@ def wide_queue_tree(seed, q_dim, g_dim=6, r_dim=3):
     return deserved, usage, demand, counts
 
 
+def past_g_tree(q_dim, g_dim=6):
+    """wide_queue_tree with every fifth queue holding more pending gangs
+    than G, up to 2G (the merge charges demand row G-1 past the table)."""
+    deserved, usage, demand, counts = wide_queue_tree(q_dim + 1, q_dim, g_dim=g_dim)
+    counts[::5] += g_dim
+    return deserved, usage, demand, counts
+
+
+def drf_edge_trees() -> dict:
+    """Named edge inputs of the DRF order: name -> (deserved, usage, demand,
+    counts, steps). Share ties; a -0.0 share at a higher index than a +0.0
+    one (a key map that kept the sign would pick queue 1 first); NaN usage
+    (NaN shares come first); usage*BIG overflowing to +inf, where the
+    lowest queue wins though drained and is charged past its count; zero
+    counts between active queues; every queue drained before the last
+    step; counts above G (the merge charges demand row G-1 past the
+    table); 40 resources (the share table folds them 32 at a time)."""
+    f32 = np.float32
+    rng = np.random.default_rng(11)
+    mixed_d = rng.integers(0, 4, (5, 2)).astype(f32)
+    mixed_u = (rng.integers(0, 5, (5, 2)) * 0.5).astype(f32)
+    mixed_dem = (rng.integers(0, 3, (5, 4, 2)) * 0.5).astype(f32)
+    return {
+        "tie": (np.full((2, 1), 2.0, f32), np.zeros((2, 1), f32), np.ones((2, 4, 1), f32),
+                np.array([4, 4], np.int32), 8),
+        "signed_zero_tie": (np.ones((2, 1), f32), np.array([[0.0], [-0.0]], f32),
+                            np.stack([np.zeros((3, 1), f32), np.full((3, 1), -0.0, f32)]),
+                            np.array([3, 3], np.int32), 6),
+        "nan_usage": (np.ones((3, 2), f32), np.array([[0, 1], [np.nan, 0], [0, 0]], f32),
+                      np.ones((3, 2, 2), f32), np.array([2, 2, 2], np.int32), 6),
+        "overflow_to_inf": (np.array([[0.0], [0.0], [1.0]], f32),
+                            np.array([[0.0], [1e21], [1e30]], f32), np.ones((3, 2, 1), f32),
+                            np.array([0, 2, 0], np.int32), 6),
+        "zero_counts": (mixed_d, mixed_u, mixed_dem, np.array([0, 3, 0, 4, 0], np.int32), 20),
+        "drained_before_t": (mixed_d, mixed_u, mixed_dem, np.array([1, 0, 2, 1, 0], np.int32),
+                             20),
+        "counts_above_g": (mixed_d, mixed_u, mixed_dem, np.array([6, 1, 9, 0, 5], np.int32),
+                           21),
+        "forty_resources": (*wide_queue_tree(40, 5, g_dim=6, r_dim=40), 30),
+    }
+
+
 def drf_bound(inputs, steps):
     """Least time of the ordering pass from the bytes it must move (the
     queue rows and counts read once, the demand rows the picks charge, the
@@ -987,13 +1038,72 @@ def drf_bound(inputs, steps):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def drf_phase_bounds(inputs, steps):
+    """Least time of the share table and of the merge apart, each from the
+    bytes it must move over HBM bandwidth and its operations over the fp32
+    rate, counted for this run's data: the table entries the counts need
+    (k < min(count, G)) and the queues with more pending gangs than G.
+    Share table: the queue rows, counts and those demand rows read, the
+    entries and tails written; an add, a divide and a max per entry and
+    resource. Merge: counts and entries read, the (queue, slot) rows
+    written, the tail, deserved and demand row G-1 of each queue past G
+    read and the tail written; a compare per queue and step. Returns
+    {"shares": (ms, by), "merge": (ms, by)}."""
+    deserved, usage, demand, counts = inputs
+    q_dim, g_dim, r_dim = demand.shape
+    entries = int(np.clip(counts, 0, g_dim).sum())
+    past = int((counts > g_dim).sum())
+
+    def bound(nbytes, ops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    return {
+        "shares": bound((2 * q_dim * r_dim + q_dim + entries * (r_dim + 1) + past * r_dim) * 4,
+                        3 * entries * r_dim),
+        "merge": bound((q_dim + entries + 2 * steps + 4 * past * r_dim) * 4, steps * q_dim),
+    }
+
+
+DRF_QUEUE_EDGES = (1, 32, 33, 64, 1024, 1025, 2048, 4096)  # warp, block and owner edges
+
+
+def _host_ms(fn, reps=3):
+    """Median host-clock time of fn in ms, the card synchronised around each
+    call (for the plain versions, which read the card every step)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def phase_drf(q_inputs) -> dict:
-    """The DRF kernel against its plain twin, every scan step bit for bit,
-    then its time at (q)'s shape."""
-    from grove_tpu_torch.quota.ordering import fair_order, fair_order_ref, fair_order_scan
+    """The DRF kernels against their plain twin, every scan step bit for
+    bit, and each phase against its plain version at (q); then their times:
+    the share table, the merge and the whole pass at (q)'s shape, and the
+    merge per step at the other shapes it takes (the table not staged, one
+    warp and more), each a median of CUDA event pairs."""
+    from grove_tpu_torch.quota.ordering import (
+        fair_order,
+        fair_order_ref,
+        fair_order_scan,
+        merge_cuda,
+        merge_ref,
+        order_keys,
+        share_table_cuda,
+        share_table_ref,
+    )
+
+    def upload(inputs):
+        return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in inputs]
 
     def check(tag, inputs, steps):
-        cuda = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in inputs]
+        cuda = upload(inputs)
         got = fair_order_scan(*cuda, steps).cpu()
         want = fair_order_ref(*[t.cpu() for t in cuda], steps)
         if not torch.equal(got, want):
@@ -1005,33 +1115,103 @@ def phase_drf(q_inputs) -> dict:
         check(f"random tree {trial}", tree, tree[2].shape[0] * tree[2].shape[1])
     print("[drf] 200 random queue trees (tests/test_quota.py's generator, seed 7): every scan"
           " step equal bit for bit", flush=True)
-    for q_dim in (1, 32, 33, 1024):
+    for q_dim in DRF_QUEUE_EDGES:
         tree = wide_queue_tree(q_dim, q_dim)
         check(f"Q={q_dim}", tree, q_dim * tree[2].shape[1])
-    print("[drf] Q = 1, 32, 33, 1024 (warp and block edges): equal bit for bit", flush=True)
+    print(f"[drf] Q = {', '.join(map(str, DRF_QUEUE_EDGES))} (warp, block and owner edges):"
+          " equal bit for bit", flush=True)
+    edges = drf_edge_trees()
+    for name, (*tree, steps) in edges.items():
+        check(name, tree, steps)
+    print(f"[drf] edge trees {', '.join(edges)}: equal bit for bit", flush=True)
+    unstaged = wide_queue_tree(8, 8, g_dim=8192, r_dim=2)  # a 256 KB table
+    check("Q=8 G=8192", unstaged, int(unstaged[3].sum()) + 4)
+    for q_dim in (64, 1025):
+        tree = past_g_tree(q_dim)
+        check(f"Q={q_dim} past G", tree, int(tree[3].sum()) + 4)
+    print("[drf] Q=8 G=8192 (table read from global memory), Q=64 and Q=1025 with counts"
+          " above G (the tail charged above one warp): equal bit for bit", flush=True)
+
     total = int(q_inputs[3].sum())
     check("(q)", q_inputs, total)
     got = fair_order(*q_inputs, device="cuda")
     if not np.array_equal(got, fair_order(*q_inputs, device="cpu")):
         _fail("fair_order on the card != on the CPU at (q)")
-    cuda = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in q_inputs]
-    ms = _median_ms(lambda: fair_order_scan(*cuda, total), reps=20, warmup=2)
-    plain = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fair_order_ref(*cuda, total)
-        torch.cuda.synchronize()
-        plain.append((time.perf_counter() - t0) * 1e3)
-    plain_ms = statistics.median(plain)
-    bound_ms, bound_by = drf_bound(q_inputs, total)
+    cuda = upload(q_inputs)
+    deserved, usage, demand, counts = cuda
     q_dim, g_dim, r_dim = q_inputs[2].shape
-    print(f"[drf] (q) Q={q_dim} G={g_dim} R={r_dim}, {total} steps: equal bit for bit; kernel"
-          f" {ms:.3f} ms (median device time of 20 calls, CUDA event pairs), plain twin on the"
-          f" card {plain_ms:.1f} ms (host clock, median of 3), bound {bound_ms * 1e3:.4f} us"
-          f" ({bound_by}); {ms * 1e3 / total:.3f} us per dependent step", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": 0.0, "steps": total}
+    # each phase against its plain version on the same inputs (the merge on
+    # the plain table, whose keys are the kernel's)
+    table, tail = share_table_cuda(*cuda)
+    plain_table, plain_tail = share_table_ref(deserved, usage, demand)
+    keys = table.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    plain_keys = order_keys(plain_table).cpu().numpy()
+    for q, count in enumerate(q_inputs[3]):
+        n = min(int(count), g_dim)
+        if not np.array_equal(keys[q, :n], plain_keys[q, :n]):
+            _fail(f"share table kernel != plain share table at (q), queue {q}")
+    if not torch.equal(merge_cuda(table, tail, deserved, demand, counts, total),
+                       merge_ref(plain_table, plain_tail, deserved, demand, counts, total)):
+        _fail("merge kernel != plain merge at (q)")
+    print("[drf] (q) share table == plain share table (every entry the counts need), merge =="
+          " plain merge: bit for bit", flush=True)
+
+    ms = _median_ms(lambda: fair_order_scan(*cuda, total), reps=20, warmup=2)
+    shares_ms = _median_ms(lambda: share_table_cuda(*cuda), reps=20, warmup=2)
+    # counts <= G at (q): the merge never charges the tail, so it can rerun
+    merge_ms = _median_ms(lambda: merge_cuda(table, tail, deserved, demand, counts, total),
+                          reps=20, warmup=2)
+    # the same steps through the one-warp loop that checks for queues past
+    # G: a ninth queue with more pending gangs than G and +inf usage (its
+    # key +inf, its index the highest) wins no step before the eight drain
+    extra = (np.ones((1, r_dim), np.float32), np.full((1, r_dim), np.inf, np.float32),
+             np.zeros((1, g_dim, r_dim), np.float32), np.array([g_dim + 1], np.int32))
+    p_des, p_use, p_dem, p_counts = upload(
+        [np.concatenate([x, y]) for x, y in zip(q_inputs, extra)])
+    p_table, p_tail = share_table_cuda(p_des, p_use, p_dem, p_counts)
+    if not torch.equal(merge_cuda(p_table, p_tail, p_des, p_dem, p_counts, total),
+                       merge_cuda(table, tail, deserved, demand, counts, total)):
+        _fail("merge with a queue past G that wins no step != the merge at (q)")
+    past_g_loop_ms = _median_ms(
+        lambda: merge_cuda(p_table, p_tail, p_des, p_dem, p_counts, total), reps=20, warmup=2)
+    plain_ms = _host_ms(lambda: fair_order_ref(*cuda, total))
+    plain_shares_ms = _host_ms(lambda: share_table_ref(deserved, usage, demand))
+    plain_merge_ms = _host_ms(
+        lambda: merge_ref(plain_table, plain_tail, deserved, demand, counts, total))
+    bound_ms, bound_by = drf_bound(q_inputs, total)
+    bounds = drf_phase_bounds(q_inputs, total)
+    print(f"[drf] (q) Q={q_dim} G={g_dim} R={r_dim}, {total} steps: whole pass {ms:.4f} ms ="
+          f" share table {shares_ms:.4f} ms + merge {merge_ms:.4f} ms (medians of 20 calls"
+          f" each, CUDA event pairs); plain on the card (host clock, median of 3): scan twin"
+          f" {plain_ms:.1f} ms, share table {plain_shares_ms:.1f} ms, merge"
+          f" {plain_merge_ms:.1f} ms", flush=True)
+    print(f"[drf] (q) per dependent step: whole pass {ms * 1e3 / total:.4f} us, merge"
+          f" {merge_ms * 1e3 / total:.4f} us; bound {bound_ms * 1e3:.4f} us for the pass"
+          f" ({bound_by}), {bound_ms * 1e3 / total:.6f} us per step; share table bound"
+          f" {bounds['shares'][0] * 1e3:.4f} us ({bounds['shares'][1]}), merge bound"
+          f" {bounds['merge'][0] * 1e3:.4f} us ({bounds['merge'][1]})", flush=True)
+
+    print(f"[drf] (q) merge through the one-warp loop that checks for queues past G (a"
+          f" ninth queue past G that wins no step; the same {total} rows):"
+          f" {past_g_loop_ms:.4f} ms, against {merge_ms:.4f} ms without the check", flush=True)
+
+    # the merge per step where it takes its other paths (counts <= G: no tail)
+    other = {"Q=8 G=8192 unstaged": unstaged}
+    other.update({f"Q={n} G=6": wide_queue_tree(n, n) for n in (64, 1025, 4096)})
+    per_step = {}
+    for tag, tree in other.items():
+        steps = int(tree[3].sum())
+        t_des, t_use, t_dem, t_counts = upload(tree)
+        t_table, t_tail = share_table_cuda(t_des, t_use, t_dem, t_counts)
+        t_ms = _median_ms(lambda: merge_cuda(t_table, t_tail, t_des, t_dem, t_counts, steps),
+                          reps=10, warmup=2)
+        per_step[tag] = {"merge_ms": t_ms, "steps": steps, "us_per_step": t_ms * 1e3 / steps}
+        print(f"[drf] merge at {tag}, {steps} steps: {t_ms:.4f} ms,"
+              f" {t_ms * 1e3 / steps:.4f} us per step", flush=True)
+    return {"ms": ms, "shares_ms": shares_ms, "merge_ms": merge_ms, "plain_ms": plain_ms,
+            "plain_shares_ms": plain_shares_ms, "plain_merge_ms": plain_merge_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bounds": bounds, "steps": total,
+            "merge_past_g_loop_ms": past_g_loop_ms, "merge_per_step": per_step}
 
 
 def _timed(phase, *args):
@@ -1068,23 +1248,28 @@ def main() -> int:
         "library_ms": None,
         "cases": [{k: v for k, v in cs.items() if k != "max_abs_err"} for cs in cases],
     }
-    drf_kernel = {
-        "name": "fair_order",
-        "route": "cuda",
-        "source": "grove_tpu_torch/csrc/drf.cu",
-        "replaces": "grove_tpu/quota/ordering.py:41",
-        "launches": sched["drf_launches"],
-        "max_abs_err": drf["max_abs_err"],
-        "ms": drf["ms"],
-        "plain_ms": drf["plain_ms"],
-        "bound_ms": drf["bound_ms"],
-        "bound_by": drf["bound_by"],
-        "library_ms": None,
-    }
+    drf_kernels = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "grove_tpu_torch/csrc/drf.cu",
+            "replaces": "grove_tpu/quota/ordering.py:41",
+            "launches": sched[f"drf_{phase}_launches"],
+            "max_abs_err": 0.0,  # _fail unless equal bit for bit
+            "ms": drf[f"{phase}_ms"],
+            "plain_ms": drf[f"plain_{phase}_ms"],
+            "bound_ms": drf["bounds"][phase][0],
+            "bound_by": drf["bounds"][phase][1],
+            "library_ms": None,
+        }
+        for name, phase in (("drf_shares_kernel", "shares"), ("drf_merge_kernel", "merge"))
+    ]
+    drf_pass = {k: drf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "steps",
+                                    "merge_past_g_loop_ms", "merge_per_step")}
     paths = {k: v for k, v in main_path.items() if k != "launches"}
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [kernel, drf_kernel], "main_path": paths, "stats_path": stats,
-                      "scheduler": sched["rounds"]}))
+    print(json.dumps({"kernels": [kernel, *drf_kernels], "main_path": paths, "stats_path": stats,
+                      "scheduler": sched["rounds"], "drf_pass": drf_pass}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

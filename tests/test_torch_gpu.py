@@ -351,12 +351,17 @@ def test_cuda_exact_kernel_never_syncs(cuda, monkeypatch):
 
 
 def _drf_check(inputs, steps, device):
-    from grove_tpu_torch.quota.ordering import fair_order_ref, fair_order_scan
+    from grove_tpu_torch.quota.ordering import (
+        fair_order_ref,
+        fair_order_scan,
+        merge_cuda,
+        share_table_cuda,
+    )
 
     cuda = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in inputs]
-    launches = fair_order_scan.launches
+    launches = share_table_cuda.launches, merge_cuda.launches
     got = fair_order_scan(*cuda, steps).cpu()
-    assert fair_order_scan.launches == launches + 1
+    assert (share_table_cuda.launches, merge_cuda.launches) == (launches[0] + 1, launches[1] + 1)
     want = fair_order_ref(*[torch.from_numpy(np.ascontiguousarray(a)) for a in inputs], steps)
     assert torch.equal(got, want)
     return got
@@ -375,7 +380,7 @@ def test_cuda_drf_kernel_matches_twin_on_random_trees(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("q_dim", [1, 32, 33, 1024])
+@pytest.mark.parametrize("q_dim", [1, 32, 33, 64, 1024, 1025, 2048, 4096])
 def test_cuda_drf_kernel_matches_twin_at_warp_and_block_edges(cuda, q_dim):
     from chip_smoke import wide_queue_tree
 
@@ -386,26 +391,93 @@ def test_cuda_drf_kernel_matches_twin_at_warp_and_block_edges(cuda, q_dim):
 
 @pytest.mark.gpu
 def test_cuda_drf_kernel_edge_inputs(cuda):
-    """Ties, overflow of usage*BIG to +inf (the argmin then falls on the
-    lowest index, drained or not) and NaN usage, against the twin; more
-    than 1024 queues raise."""
-    from grove_tpu_torch.quota.ordering import fair_order, fair_order_scan
+    """chip_smoke.drf_edge_trees against the twin: ties, a -0.0 against a
+    +0.0 share, NaN usage, overflow of usage*BIG to +inf (the argmin then
+    falls on the lowest index, drained or not), zero counts, every queue
+    drained before the last step, counts above G."""
+    from chip_smoke import drf_edge_trees
+    from grove_tpu_torch.quota.ordering import fair_order
 
-    tie = (np.full((2, 1), 2.0, np.float32), np.zeros((2, 1), np.float32),
-           np.ones((2, 4, 1), np.float32), np.array([4, 4], np.int32))
-    assert _drf_check(tie, 8, cuda)[:, 0].tolist() == [0, 1, 0, 1, 0, 1, 0, 1]
-    inf = (np.array([[0.0], [0.0], [1.0]], np.float32),
-           np.array([[0.0], [1e21], [1e30]], np.float32),
-           np.ones((3, 2, 1), np.float32), np.array([0, 2, 0], np.int32))
-    _drf_check(inf, 6, cuda)
-    nan = (np.ones((3, 2), np.float32), np.array([[0, 1], [np.nan, 0], [0, 0]], np.float32),
-           np.ones((3, 2, 2), np.float32), np.array([2, 2, 2], np.int32))
-    _drf_check(nan, 6, cuda)
-    big = [np.zeros((1025, 1), np.float32)] * 2 + [np.zeros((1025, 1, 1), np.float32),
-                                                   np.ones((1025,), np.int32)]
-    with pytest.raises(ValueError, match="at most 1024"):
-        fair_order_scan(*[torch.from_numpy(a).to(cuda) for a in big], 4)
+    for name, (*tree, steps) in drf_edge_trees().items():
+        out = _drf_check(tree, steps, cuda)
+        if name == "tie":
+            assert out[:, 0].tolist() == [0, 1, 0, 1, 0, 1, 0, 1]
+        if name == "signed_zero_tie":
+            assert out[:, 0].tolist() == [0, 0, 0, 1, 1, 1]
+    tie = drf_edge_trees()["tie"][:4]
     np.testing.assert_array_equal(fair_order(*tie, device=cuda), fair_order(*tie, device="cpu"))
+
+
+@pytest.mark.gpu
+def test_cuda_drf_share_table_matches_plain_keys(cuda):
+    """Phase 1 alone: every table entry a merge can read (k < min(count, G))
+    is the key of the plain share table's entry, and the tail of a queue
+    with more pending gangs than G is the plain usage after G charges."""
+    from chip_smoke import drf_edge_trees, random_queue_tree
+    from grove_tpu_torch.quota.ordering import order_keys, share_table_cuda, share_table_ref
+
+    rng = np.random.default_rng(7)
+    trees = [random_queue_tree(rng) for _ in range(20)]
+    trees += [drf_edge_trees()[name][:4] for name in ("counts_above_g", "forty_resources",
+                                                      "nan_usage", "signed_zero_tie")]
+    for deserved, usage, demand, counts in trees:
+        arrays = [np.ascontiguousarray(a) for a in (deserved, usage, demand, counts)]
+        table, tail = share_table_cuda(*[torch.from_numpy(a).to(cuda) for a in arrays])
+        want, want_tail = share_table_ref(*[torch.from_numpy(a) for a in arrays[:3]])
+        keys = table.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+        want_keys = order_keys(want).numpy()
+        for q, count in enumerate(counts):
+            n = min(int(count), demand.shape[1])
+            np.testing.assert_array_equal(keys[q, :n], want_keys[q, :n])
+            if count > demand.shape[1]:
+                assert torch.equal(tail[q].cpu(), want_tail[q])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dim", [1025, 2048, 4096])
+def test_cuda_drf_kernel_above_1024_queues(cuda, q_dim):
+    """More than 1,024 queues (a thread owns several) with every share 0:
+    every step a tie, which the lowest queue takes, against the twin."""
+    zeros = [np.zeros((q_dim, 1), np.float32)] * 2 + [np.zeros((q_dim, 1, 1), np.float32),
+                                                     np.ones((q_dim,), np.int32)]
+    out = _drf_check(zeros, q_dim + 4, cuda)
+    assert out[:q_dim, 0].tolist() == list(range(q_dim))
+
+
+@pytest.mark.gpu
+def test_cuda_drf_kernel_unstaged_table(cuda):
+    """Q=8, G=8,192: the 256 KB table does not fit in shared memory, so the
+    merge reads its heads from global memory."""
+    from chip_smoke import wide_queue_tree
+
+    tree = wide_queue_tree(8, 8, g_dim=8192, r_dim=2)
+    assert tree[2].shape[0] * tree[2].shape[1] * 4 > 225 * 1024
+    _drf_check(tree, int(tree[3].sum()) + 4, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dim", [64, 1025])
+def test_cuda_drf_kernel_past_g_above_one_warp(cuda, q_dim):
+    """Counts above G with more than one warp of queues: the owner charges
+    the tail past the table row."""
+    from chip_smoke import past_g_tree
+
+    tree = past_g_tree(q_dim)
+    assert (tree[3] > tree[2].shape[1]).any()
+    _drf_check(tree, int(tree[3].sum()) + 4, cuda)
+
+
+@pytest.mark.gpu
+def test_cuda_drf_merge_names_its_queue_limit(cuda):
+    """Above one warp the merge keeps a count per queue in shared memory; a
+    tree with more queues than that raises, naming the limit."""
+    from grove_tpu_torch.quota.ordering import _kernel, fair_order_scan
+
+    q_dim = _kernel().grove_drf_merge_max_queues() + 1
+    big = [np.zeros((q_dim, 1), np.float32)] * 2 + [np.zeros((q_dim, 1, 1), np.float32),
+                                                   np.ones((q_dim,), np.int32)]
+    with pytest.raises(ValueError, match="at most 57600"):
+        fair_order_scan(*[torch.from_numpy(a).to(cuda) for a in big], 4)
 
 
 @pytest.mark.gpu
@@ -417,7 +489,7 @@ def test_cuda_scheduler_rounds_match_the_cpu_twins(cuda):
     from grove_tpu_torch.api.wire import decode_object
     from grove_tpu_torch.models.scenarios import EventCapture, round_summary, scheduler_world
     from grove_tpu_torch.observability.events import EVENTS
-    from grove_tpu_torch.quota.ordering import fair_order_scan
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
     from grove_tpu_torch.runtime.clock import VirtualClock
     from grove_tpu_torch.runtime.store import Store
     from grove_tpu_torch.sim.cluster import SimCluster
@@ -436,16 +508,17 @@ def test_cuda_scheduler_rounds_match_the_cpu_twins(cuda):
         for docs in world["rounds"]:
             for doc in docs:
                 store.create(decode_object(doc), consume=True)
-            fill_batch.launches = fair_order_scan.launches = 0
+            fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
             with EventCapture(EVENTS) as cap:
                 sched.schedule_pending()
             summaries.append((round_summary(store, cluster, cap.events), cap.events,
-                              fill_batch.launches, fair_order_scan.launches))
+                              fill_batch.launches,
+                              (share_table_cuda.launches, merge_cuda.launches)))
         statuses = {(g.metadata.namespace, g.metadata.name): g.status for g in store.scan("PodGang")}
         sides.append((summaries, statuses, dict(cluster.bindings)))
     (card, card_status, card_bind), (cpu, cpu_status, cpu_bind) = sides
     for (a, ev_a, fills, drfs), (b, ev_b, _, _) in zip(card, cpu):
-        assert fills > 0 and drfs > 0
+        assert fills > 0 and drfs[0] == drfs[1] > 0
         assert a == b and ev_a == ev_b
     assert card_status == cpu_status and card_bind == cpu_bind
     assert card[1][0]["evicted"] > 0

@@ -3,14 +3,17 @@
 The DRF order's plain twin (``grove_tpu_torch.quota.ordering``) against the
 JAX scan and the oracle, bit for bit, over ``tests/test_quota.py``'s 200
 random queue trees (its generator, seed 7) and the tie, zero-deserved,
-empty, drained and no-resource cases; ``QuotaManager.order_specs`` and the
-usage accountant against the JAX package's on the same inputs.
+empty, drained and no-resource cases; the kernel's two-phase plain version
+(share table, then merge) against both, on the same trees, on
+``chip_smoke.drf_edge_trees`` and above 1,024 queues; ``QuotaManager.order_specs``
+and the usage accountant against the JAX package's on the same inputs.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import drf_edge_trees, past_g_tree, wide_queue_tree
 from grove_tpu.api.wire import decode_object as jax_decode
 from grove_tpu.quota.accountant import QuotaAccountant as JaxAccountant
 from grove_tpu.quota.manager import QuotaManager as JaxQuotaManager
@@ -23,7 +26,15 @@ from grove_tpu_torch.models.scenarios import queue_docs
 from grove_tpu_torch.quota import oracle as port_oracle
 from grove_tpu_torch.quota.accountant import QuotaAccountant
 from grove_tpu_torch.quota.manager import QuotaManager
-from grove_tpu_torch.quota.ordering import fair_order, fair_order_ref, fair_order_scan
+from grove_tpu_torch.quota.ordering import (
+    fair_order,
+    fair_order_merge_ref,
+    fair_order_ref,
+    fair_order_scan,
+    merge_cuda,
+    share_table_cuda,
+    share_table_ref,
+)
 from grove_tpu_torch.runtime.clock import VirtualClock
 from grove_tpu_torch.runtime.store import Store
 
@@ -129,10 +140,80 @@ def test_edge_cases_match_jax_and_oracle(case):
 
 def test_ref_runs_the_twin_on_cpu_tensors_and_never_counts():
     deserved, usage, demand, counts = random_trees()[3]
-    fair_order_scan.launches = 0
+    share_table_cuda.launches = merge_cuda.launches = 0
     a = fair_order_scan(*_tensors(deserved, usage, demand, counts), 20)
     b = fair_order_ref(*_tensors(deserved, usage, demand, counts), 20)
-    assert torch.equal(a, b) and fair_order_scan.launches == 0
+    assert torch.equal(a, b)
+    assert share_table_cuda.launches == merge_cuda.launches == 0
+
+
+# -- the kernel's two phases (share table, then merge) -------------------------
+
+
+def _merge_matches(deserved, usage, demand, counts, steps):
+    """The two-phase version against the step twin over ``steps`` steps and
+    against the JAX scan's untrimmed rows (it runs Q*G steps) and its
+    trimmed order."""
+    q_dim, g_dim, r_dim = demand.shape
+    tensors = _tensors(deserved, usage, demand, counts)
+    got = fair_order_merge_ref(*tensors, steps)
+    assert torch.equal(got, fair_order_ref(*tensors, steps))
+    scan = np.asarray(_compiled(q_dim, g_dim, r_dim)(deserved, usage, demand, counts))
+    n = min(steps, len(scan))
+    np.testing.assert_array_equal(got.numpy()[:n], scan[:n])
+    total = int(counts.sum())
+    if total <= min(steps, q_dim * g_dim):
+        np.testing.assert_array_equal(
+            got.numpy()[:total], jax_fair_order(deserved, usage, demand, counts))
+    return got
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_merge_ref_matches_jax_and_twin_on_random_trees(part):
+    for deserved, usage, demand, counts in random_trees()[part * 50:(part + 1) * 50]:
+        _merge_matches(deserved, usage, demand, counts, Q * G)
+
+
+@pytest.mark.parametrize("case", sorted(drf_edge_trees()))
+def test_merge_ref_edge_cases_match_jax_and_twin(case):
+    deserved, usage, demand, counts, steps = drf_edge_trees()[case]
+    got = _merge_matches(deserved, usage, demand, counts, steps)
+    if case == "signed_zero_tie":
+        assert got[:, 0].tolist() == [0, 0, 0, 1, 1, 1]
+    if case == "overflow_to_inf":  # queue 0 is drained but wins every +inf tie
+        assert got.tolist() == [[0, k] for k in range(6)]
+    if case == "drained_before_t":
+        assert (got[int(counts.sum()):] == -1).all()
+
+
+@pytest.mark.parametrize("q_dim", [1025, 2048])
+def test_merge_ref_matches_jax_above_1024_queues(q_dim):
+    deserved, usage, demand, counts = wide_queue_tree(q_dim, q_dim)
+    got = _merge_matches(deserved, usage, demand, counts, q_dim * demand.shape[1])
+    assert (got[: int(counts.sum()), 0] >= 0).all()
+
+
+@pytest.mark.parametrize("q_dim", [8, 64, 1025])
+def test_merge_ref_matches_jax_past_g(q_dim):
+    """Every fifth queue holds more pending gangs than G: past its table row
+    the merge charges demand row G-1 to the tail, as the gather clamps."""
+    deserved, usage, demand, counts = past_g_tree(q_dim)
+    _merge_matches(deserved, usage, demand, counts, int(counts.sum()) + 4)
+
+
+def test_share_table_is_the_twins_shares_per_charge():
+    """Entry [q, k] of the table is the dominant share of queue q after its
+    first k charges, as the JAX step computes it; the tail is the usage
+    after G charges."""
+    deserved, usage, demand, counts = random_trees()[5]
+    table, tail = share_table_ref(*_tensors(deserved, usage, demand))
+    safe = np.where(deserved > 0, deserved, np.float32(1.0))
+    u = usage.copy()
+    for k in range(G):
+        share = np.where(deserved > 0, u / safe, u * np.float32(1e18)).max(axis=1)
+        np.testing.assert_array_equal(table[:, k].numpy(), share)
+        u = u + demand[:, k]
+    np.testing.assert_array_equal(tail.numpy(), u)
 
 
 def test_fair_order_without_a_device_needs_a_card():

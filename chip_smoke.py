@@ -47,7 +47,7 @@ Phases (any failure raises and the script exits non-zero):
   6. each solver with the kernel vs the same solver with the plain fill,
      on reduced problems (1,024 nodes; stress and non-uniform at 2,048
      gangs, grouped, pinned and spread at 1,024): the binding path, the
-     stats path and the exact solve (of the first 512 gangs), every result
+     stats path and the exact solve (of the first 256 gangs), every result
      field bit-equal.
   7. [sched] the scheduler round end to end (solver/scheduler.GangScheduler
      over the port's store and simulated cluster, built from wire documents
@@ -69,11 +69,29 @@ Phases (any failure raises and the script exits non-zero):
      queue trees (tests/test_quota.py's generator, seed 7), the warp, block
      and owner edges Q=1, 32, 33, 64, 1024, 1025, 2048, 4096, the named
      edge trees (drf_edge_trees), a table too large for shared memory
-     (Q=8, G=8192), counts above G at Q=64 and 1025, and the ordering pass
-     recorded from (q), where each kernel is also held to its plain
-     version; times the share table, the merge and the whole pass at (q)'s
-     shape, and the merge per step at the unstaged and wider shapes.
-  9. prints the kernels line, the card line, and last the ok line.
+     (Q=8, G=8192), counts above G at Q=64 and 1025, Q=57,601 and 65,536
+     (taken counts in global memory, held to the plain two-phase version),
+     and the ordering pass recorded from (q), where each kernel is also
+     held to its plain version; times the share table, the merge and the
+     whole pass at (q)'s shape, and the merge per step at the unstaged and
+     wider shapes and at Q=65,536.
+  9. [delta] the delta round (solver/deltastate.py through
+     GangScheduler.enable_delta) on the churn world of
+     models/scenarios.scheduler_world("delta"): (q)'s round, then 24
+     seeded churn ticks (arrivals, departures, pod failures with recovery
+     pins, a node cordoned and uncordoned, a standing backlog, idle
+     ticks), one scheduler and one store throughout, the A/B self-check
+     (a from-scratch encode and solve of the same round) on every round.
+     Every round is held against the JAX package's (JAX_DELTA_REFERENCE):
+     round_summary as in [sched], the delta counters, the free matrix's
+     crc32 and the state fingerprint's sha256; and checked valid. Prints
+     each round's wall, its solve.delta_encode span, the self-check's time
+     and the fill and DRF launches (set to 0 just before the round, read
+     just after it), then the p50/p99 tick wall less the self-check. Fails
+     unless a round reused the solve, one fell back to a full encode, one
+     flap back reused the retired encoding, and the fill and both DRF
+     kernels launched during the phase.
+ 10. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -580,7 +598,7 @@ STATS_RUNS = 10  # timed stats solves of (a), after one warm-up
 EXACT_GANGS = 2048
 # gangs of each reduced problem whose exact solve is held against the plain
 # fill (the binding and stats paths take them all)
-EXACT_PATH_GANGS = 512
+EXACT_PATH_GANGS = 256
 
 
 class _RecordWaveSolve:
@@ -981,6 +999,15 @@ def wide_queue_tree(seed, q_dim, g_dim=6, r_dim=3):
     return deserved, usage, demand, counts
 
 
+def many_queue_tree(q_dim):
+    """wide_queue_tree with more queues than the merge keeps taken counts
+    for in shared memory (57,600): G=2, R=2."""
+    return wide_queue_tree(q_dim, q_dim, g_dim=2, r_dim=2)
+
+
+DRF_GLOBAL_COUNT_QUEUES = (57601, 65536)  # past shared memory; 65,536 = 32,769 Queue CRs padded
+
+
 def past_g_tree(q_dim, g_dim=6):
     """wide_queue_tree with every fifth queue holding more pending gangs
     than G, up to 2G (the merge charges demand row G-1 past the table)."""
@@ -1090,6 +1117,7 @@ def phase_drf(q_inputs) -> dict:
     warp and more), each a median of CUDA event pairs."""
     from grove_tpu_torch.quota.ordering import (
         fair_order,
+        fair_order_merge_ref,
         fair_order_ref,
         fair_order_scan,
         merge_cuda,
@@ -1131,6 +1159,27 @@ def phase_drf(q_inputs) -> dict:
         check(f"Q={q_dim} past G", tree, int(tree[3].sum()) + 4)
     print("[drf] Q=8 G=8192 (table read from global memory), Q=64 and Q=1025 with counts"
           " above G (the tail charged above one warp): equal bit for bit", flush=True)
+    # past 57,600 queues the merge keeps its taken counts in global memory;
+    # the twin here is the plain two-phase version on the CPU (the step scan
+    # over 65,536 queues costs tens of seconds)
+    many = {}
+    for q_dim in DRF_GLOBAL_COUNT_QUEUES:
+        tree = many_queue_tree(q_dim)
+        steps = int(tree[3].sum())
+        cuda = upload(tree)
+        got = fair_order_scan(*cuda, steps + 4).cpu()
+        want = fair_order_merge_ref(*[torch.from_numpy(np.ascontiguousarray(a)) for a in tree],
+                                    steps + 4)
+        if not torch.equal(got, want):
+            _fail(f"DRF kernel != plain two-phase version at Q={q_dim}")
+        t_des, t_use, t_dem, t_counts = cuda
+        t_table, t_tail = share_table_cuda(t_des, t_use, t_dem, t_counts)
+        t_ms = _median_ms(lambda: merge_cuda(t_table, t_tail, t_des, t_dem, t_counts, steps),
+                          reps=3, warmup=1)
+        many[q_dim] = {"merge_ms": t_ms, "steps": steps, "us_per_step": t_ms * 1e3 / steps}
+        print(f"[drf] Q={q_dim} G=2 R=2 (taken counts in global memory), {steps} steps: equal"
+              f" bit for bit to the plain two-phase version; merge {t_ms:.3f} ms,"
+              f" {t_ms * 1e3 / steps:.4f} us per step", flush=True)
 
     total = int(q_inputs[3].sum())
     check("(q)", q_inputs, total)
@@ -1211,7 +1260,372 @@ def phase_drf(q_inputs) -> dict:
     return {"ms": ms, "shares_ms": shares_ms, "merge_ms": merge_ms, "plain_ms": plain_ms,
             "plain_shares_ms": plain_shares_ms, "plain_merge_ms": plain_merge_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bounds": bounds, "steps": total,
-            "merge_past_g_loop_ms": past_g_loop_ms, "merge_per_step": per_step}
+            "merge_past_g_loop_ms": past_g_loop_ms, "merge_per_step": per_step,
+            "merge_global_counts": many}
+
+
+# The JAX package's delta rounds on the churn world of
+# models/scenarios.scheduler_world("delta") (seed 0: (q)'s round, then 24
+# churn ticks), from `JAX_PLATFORMS=cpu python scripts/scheduler_reference.py
+# delta` (JAX 0.9.0 on the CPU; a JAX GangScheduler with enable_delta() and
+# delta_selfcheck on every round): per round, round_summary as in
+# JAX_SCHEDULER_REFERENCE, the delta counters, the crc32 of the free-capacity
+# matrix (state_fingerprint()[2]) and the sha256 of the whole
+# state_fingerprint().
+JAX_DELTA_REFERENCE = [
+    {"admitted": 10231, "bound": 34833, "score_sum": 10084.246239542961, "bindings": 34833,
+     "bindings_sha256": "7ff9f94016b74cc5ea0e31eb3c29f4ea4fe0ae8f674ab4586e1f50bd4f7c744a",
+     "evicted": 0, "evicted_sha256": _NONE,
+     "admitted_per_queue": {"tenant-0": 1271, "tenant-1": 1280, "tenant-2": 1280, "tenant-3": 1280,
+                            "tenant-4": 1280, "tenant-5": 1280, "tenant-6": 1280,
+                            "tenant-7": 1280},
+     "events_by_reason": {"GangAdmitted": 10231, "GangDeferred": 9, "PodBound": 34833},
+     "counters": {"warm_start_hits": 0, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 10240, "last_reused": 0},
+     "free_crc": 4170254377,
+     "state_sha256": "6e2f2ee82a78f33369423fb86e8b1bc5aadbc227cf0530e4199985c99213a0e5"},
+    {"admitted": 6, "bound": 47, "score_sum": 3.846746325492859, "bindings": 34880,
+     "bindings_sha256": "cebb696007c67301b1c42dd66443189972f1a61a61b86a3bb314a7ed44df32a1",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 6},
+     "events_by_reason": {"GangAdmitted": 6, "GangDeferred": 5, "PodBound": 47},
+     "counters": {"warm_start_hits": 9, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 9},
+     "free_crc": 2853563664,
+     "state_sha256": "4ca9fcd99409ebf3829b7d7b95b90276df86d6e87f46927a7a5ee3f109fec58f"},
+    {"admitted": 4, "bound": 21, "score_sum": 2.885926067829132, "bindings": 34900,
+     "bindings_sha256": "37fbfb16f5bfe96f5041383a85523a7d7811865a33ef0d3bf1484a7b3ae665cc",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 4},
+     "events_by_reason": {"GangAdmitted": 4, "GangDeferred": 2, "PodBound": 21},
+     "counters": {"warm_start_hits": 14, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 5},
+     "free_crc": 4261502517,
+     "state_sha256": "f3a45706f3cebadf921b7f9f8a4837baccda2156b07802cb680ba1924b5f3f45"},
+    {"admitted": 2, "bound": 12, "score_sum": 1.7916667461395264, "bindings": 34912,
+     "bindings_sha256": "01ad51b0c30b3a40f9c6b2bf99358126a4fec14cf729c8d05c9e8f16d3888e52",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1, "tenant-1": 1},
+     "events_by_reason": {"GangAdmitted": 2, "GangDeferred": 2, "PodBound": 12},
+     "counters": {"warm_start_hits": 16, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 2},
+     "free_crc": 3698672750,
+     "state_sha256": "8d9005283d8c08775b250d062109e3e855107f966a7cdd9a6681a41043c5ac96"},
+    {"admitted": 2, "bound": 4, "score_sum": 2.0, "bindings": 34916,
+     "bindings_sha256": "6d6f734446588fd3e66c8df26850b5a876cb3979dbbfa97bdcea944254c35192",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-2": 1, "tenant-3": 1},
+     "events_by_reason": {"GangAdmitted": 2, "GangDeferred": 2, "PodBound": 4},
+     "counters": {"warm_start_hits": 18, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 2},
+     "free_crc": 625421677,
+     "state_sha256": "6d75ea68ebf5dfcc83f14a184e41952ccee1e91c4d19e06b8a571c859d1e99bd"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34916,
+     "bindings_sha256": "6d6f734446588fd3e66c8df26850b5a876cb3979dbbfa97bdcea944254c35192",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 20, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 2943177636,
+     "state_sha256": "eceac7ecd3a912e5d13107dd233c2b1a1ac32045617118eaac31fe6e1d745b64"},
+    {"admitted": 1, "bound": 4, "score_sum": 1.0, "bindings": 34920,
+     "bindings_sha256": "16c9dab416c52572af7ccb6bd7484fb0a0660b24967ea982c5c43e4a012881cf",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-4": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 4},
+     "counters": {"warm_start_hits": 22, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 2943177636,
+     "state_sha256": "a26a9c6a52c94cc11a396627cac45b0066f1e2f5532ca8c7bbe5d74503f327f5"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34912,
+     "bindings_sha256": "9462513fc7d335b94364b03debe2d38532d0c9fa1a407f976a7f844a7e09674e",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 24, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 2206875172,
+     "state_sha256": "8ce276fe9bd35865dd150a719625e9c388581ca18e96fc8cecac2ab97120eb76"},
+    {"admitted": 1, "bound": 3, "score_sum": 1.0, "bindings": 34915,
+     "bindings_sha256": "b35562f58361a2d01d50fecc1b2cc5808a3cfcb04fda923fca91e8aafb1103d0",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-5": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 3},
+     "counters": {"warm_start_hits": 26, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 2206875172,
+     "state_sha256": "422f2c31c28b182ab55ebccb56356419ac58ab6b137afd052fde81d7fcb00593"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34911,
+     "bindings_sha256": "e5abbbe71d6a627dbab8215a178533c803426118a687e6e55cd9b4dbed73453e",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 26, "solve_reuses": 0, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 0},
+     "free_crc": 1223848722,
+     "state_sha256": "4b761a054b0628d872452a6637cafbe3e59ab486cea03fbdf25ca85d0f23d020"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34911,
+     "bindings_sha256": "e5abbbe71d6a627dbab8215a178533c803426118a687e6e55cd9b4dbed73453e",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 28, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 1223848722,
+     "state_sha256": "4b761a054b0628d872452a6637cafbe3e59ab486cea03fbdf25ca85d0f23d020"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34909,
+     "bindings_sha256": "98360279b024e059939a400763dd77fdacba82357501ec3ead41ab416656ac32",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 30, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 163520973,
+     "state_sha256": "50e6da15d16d8e199c77bdcbb855bb3e0dbbda293e05eae1aa7e1d2ff5bca965"},
+    {"admitted": 1, "bound": 1, "score_sum": 1.0, "bindings": 34909,
+     "bindings_sha256": "bff193bc45cc5f57d9a630a644deac88d8807dcd0985dce10784890933296dfa",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 1},
+     "counters": {"warm_start_hits": 32, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 1227874246,
+     "state_sha256": "1ff4ba4bc9b3cd87362e588833c5bd880f6a91f8e6101b7f7442b4a43c7f109d"},
+    {"admitted": 1, "bound": 2, "score_sum": 1.0, "bindings": 34911,
+     "bindings_sha256": "a118da0a2b715b16c6689a6eed7e888173c385a025e61e4a43db1b71a9535986",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-6": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 2},
+     "counters": {"warm_start_hits": 34, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 3341797644,
+     "state_sha256": "d1d9395506630404f67a8c8afa9fee126ea2b8f29ca50ed5e7a80dce5f00bfae"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34911,
+     "bindings_sha256": "a118da0a2b715b16c6689a6eed7e888173c385a025e61e4a43db1b71a9535986",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 36, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 3215944548,
+     "state_sha256": "74111ee1f38c281d4f2e400155cfb003da725312c05b9d9c24c21b2780bcaaf5"},
+    {"admitted": 1, "bound": 1, "score_sum": 0.6333333849906921, "bindings": 34911,
+     "bindings_sha256": "a118da0a2b715b16c6689a6eed7e888173c385a025e61e4a43db1b71a9535986",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 1},
+     "counters": {"warm_start_hits": 38, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 649209802,
+     "state_sha256": "9f73b02076962f5c1eacca09b3eba1e001d7fbc862e75e5d0fa62166c98ae375"},
+    {"admitted": 2, "bound": 11, "score_sum": 1.7619048357009888, "bindings": 34922,
+     "bindings_sha256": "4c948a8b5d0621a63f49c9ba2d1a6dcd5b545b6019e74f816249b948a005b0e9",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1, "tenant-7": 1},
+     "events_by_reason": {"GangAdmitted": 2, "GangDeferred": 2, "PodBound": 11},
+     "counters": {"warm_start_hits": 40, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 2},
+     "free_crc": 3215944548,
+     "state_sha256": "7ab3e709829319ca9e2962e2da9f50e9dc2ac1c81f302e18272915f0f0976e08"},
+    {"admitted": 1, "bound": 4, "score_sum": 1.0, "bindings": 34926,
+     "bindings_sha256": "ea318b8afed5265b7440317da70aa53ecfd8ce71715942f18523896eb903b378",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-1": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 4},
+     "counters": {"warm_start_hits": 40, "solve_reuses": 1, "full_fallbacks": 2,
+                  "drift_detected": 0, "last_reencoded": 3, "last_reused": 0},
+     "free_crc": 1667032430,
+     "state_sha256": "522e18afb8a0dce7706209d5379022accc84790c4a302428cb54747e3662f688"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34926,
+     "bindings_sha256": "ea318b8afed5265b7440317da70aa53ecfd8ce71715942f18523896eb903b378",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 42, "solve_reuses": 1, "full_fallbacks": 2,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 579851944,
+     "state_sha256": "4d7c78492e6c3ef56b99518ebd3cd88c35597c52213a5e4b49c19c5871cc1450"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34924,
+     "bindings_sha256": "0d51644d098403557782b4e98a04042b6bc578a43d05b85d22cc1c47f705cc4b",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 44, "solve_reuses": 1, "full_fallbacks": 2,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 3924359870,
+     "state_sha256": "c6168c66884ae23837c933ef09d8e1073a3e919ef8ef6b2a118f54e0c5497737"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34924,
+     "bindings_sha256": "0d51644d098403557782b4e98a04042b6bc578a43d05b85d22cc1c47f705cc4b",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 46, "solve_reuses": 2, "full_fallbacks": 2,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 3924359870,
+     "state_sha256": "c6168c66884ae23837c933ef09d8e1073a3e919ef8ef6b2a118f54e0c5497737"},
+    {"admitted": 1, "bound": 4, "score_sum": 1.0, "bindings": 34928,
+     "bindings_sha256": "802f677d914cb479d30d3484670fccc8252012ff45b0dfc3754e8e5258a9f0c2",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-2": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 4},
+     "counters": {"warm_start_hits": 48, "solve_reuses": 2, "full_fallbacks": 2,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 3924359870,
+     "state_sha256": "71c9818d75925973075519c9807f70d104ba0a467e9f8363126e0ad8d5f93ece"},
+    {"admitted": 2, "bound": 7, "score_sum": 2.0, "bindings": 34935,
+     "bindings_sha256": "a4a00aeb838794ca78312131b7c95383df51035969f1f4f74b57a223f10890bf",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-3": 1, "tenant-4": 1},
+     "events_by_reason": {"GangAdmitted": 2, "GangDeferred": 2, "PodBound": 7},
+     "counters": {"warm_start_hits": 50, "solve_reuses": 2, "full_fallbacks": 2,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 2},
+     "free_crc": 1819035171,
+     "state_sha256": "fe74e24b75dfce4e73616ede33964eab2bf7edcb912671077118ab3da228fc6d"},
+    {"admitted": 1, "bound": 1, "score_sum": 1.0, "bindings": 34935,
+     "bindings_sha256": "c340bd965e640835bbd017354266c06c19c16ef546d84c381d04224fa86ab6ff",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 1},
+     "counters": {"warm_start_hits": 52, "solve_reuses": 2, "full_fallbacks": 2,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 2266553442,
+     "state_sha256": "1aec5906cafe6d1e119cfc0cecc8771823207d6eca7ace702085e9ba501ff08a"},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34935,
+     "bindings_sha256": "c340bd965e640835bbd017354266c06c19c16ef546d84c381d04224fa86ab6ff",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 54, "solve_reuses": 2, "full_fallbacks": 2,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 314465237,
+     "state_sha256": "d0e4157055e581e5ebcc50d6679857b058eaa17f55e93de7f079edc96a20413d"},
+]
+
+
+def _percentile(samples, q):
+    """Nearest-rank percentile, as grove_tpu/sim/deltachurn.py reports it."""
+    s = sorted(samples)
+    k = min(len(s) - 1, max(0, int(round(q * (len(s) - 1) + 0.5)) - 1))
+    return s[max(k, int(q * (len(s) - 1)))]
+
+
+def phase_delta() -> dict:
+    """The churn world through the port's GangScheduler with the delta
+    state and its A/B self-check on every round, on the card; every round
+    held against JAX_DELTA_REFERENCE and checked valid."""
+    import hashlib
+
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.models.scenarios import (
+        EventCapture,
+        apply_tick,
+        delta_counters,
+        round_summary,
+        scheduler_world,
+    )
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.observability.tracing import TRACER
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    world = scheduler_world("delta")
+    if len(JAX_DELTA_REFERENCE) != len(world["ticks"]) + 1:
+        _fail("JAX_DELTA_REFERENCE does not hold one entry per round of the churn world")
+    t0 = time.perf_counter()
+    store = Store(VirtualClock(0.0))
+    cluster = SimCluster(store, make_nodes(*world["nodes"]))
+    sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"],
+                          device="cuda")
+    if not sched.enable_delta():
+        _fail("delta: enable_delta() refused the port's store")
+    sched.delta_selfcheck = True
+    EVENTS.reset()
+    EVENTS.clock = store.clock
+    for doc in world["queues"] + world["rounds"][0]:
+        store.create(decode_object(doc), consume=True)
+    load_s = time.perf_counter() - t0
+    TRACER.enable()
+    out = {"fill_launches": 0, "drf_shares_launches": 0, "drf_merge_launches": 0,
+           "load_s": load_s, "rounds": []}
+    seen = {"reuse": 0, "fallback": 0, "flap_back_reused": 0}
+    before_cordon = None
+    for index, tick in enumerate([None] + world["ticks"]):
+        ops = tick or []
+        if any(op[0] == "cordon" and op[2] for op in ops):
+            before_cordon = sched.delta._enc
+        if tick:
+            apply_tick(store, cluster, tick, decode_object)
+        counts = delta_counters(sched.delta)
+        TRACER.reset()
+        sched.last_selfcheck_seconds = 0.0
+        with EventCapture(EVENTS) as cap:
+            fill_batch.launches = 0
+            share_table_cuda.launches = merge_cuda.launches = 0
+            t0 = time.perf_counter()
+            sched.schedule_pending()
+            wall = time.perf_counter() - t0
+            fills = fill_batch.launches
+            shares, merges = share_table_cuda.launches, merge_cuda.launches
+        tag = f"delta round {index + 1}"
+        got = round_summary(store, cluster, cap.events)
+        fp = sched.delta.state_fingerprint()
+        got.update(counters=delta_counters(sched.delta), free_crc=fp[2],
+                   state_sha256=hashlib.sha256(repr(fp).encode()).hexdigest())
+        want = dict(JAX_DELTA_REFERENCE[index])
+        if not np.isclose(got["score_sum"], want.pop("score_sum"), rtol=1e-6, atol=0):
+            _fail(f"{tag}: score sum {got['score_sum']} != the JAX package's")
+        for key, value in want.items():
+            if got[key] != value:
+                _fail(f"{tag}: {key} {got[key]} != the JAX package's {value}")
+        check_world_valid(tag, store, cluster)
+        now = got["counters"]
+        reused = now["solve_reuses"] > counts["solve_reuses"]
+        fallback = now["full_fallbacks"] > counts["full_fallbacks"]
+        flap_back = (any(op[0] == "cordon" and not op[2] for op in ops)
+                     and sched.delta._enc is before_cordon)
+        seen["reuse"] += reused
+        seen["fallback"] += fallback
+        seen["flap_back_reused"] += flap_back
+        spans = TRACER.spans()
+        encode_s = sum(sp.dur_us for sp in spans if sp.name == "solve.delta_encode") / 1e6
+        split = _span_split(spans)
+        row = {"wall_s": wall, "selfcheck_s": sched.last_selfcheck_seconds,
+               "delta_encode_s": encode_s, **split, "fill_launches": fills,
+               "drf_shares_launches": shares, "drf_merge_launches": merges,
+               "solve_reused": reused, "full_fallback": fallback, "flap_back_reused": flap_back,
+               "reencoded": now["last_reencoded"], "reused": now["last_reused"],
+               **{k: got[k] for k in ("admitted", "bound", "evicted")}}
+        out["rounds"].append(row)
+        out["fill_launches"] += fills
+        out["drf_shares_launches"] += shares
+        out["drf_merge_launches"] += merges
+        what = ", ".join(w for w, on in (("solve reused", reused), ("full fallback", fallback),
+                                         ("flap back: retired encoding reused", flap_back)) if on)
+        print(f"[delta] round {index + 1}{' (the (q) round)' if index == 0 else ''}: wall"
+              f" {wall:.3f} s, self-check (this round's encode and solve from scratch)"
+              f" {sched.last_selfcheck_seconds:.3f} s, solve.delta_encode {encode_s:.4f} s;"
+              f" pending scan {split['scan_encode_s']:.3f} s, quota order"
+              f" {split['quota_order_s']:.3f} s, solve {split['solve_s']:.3f} s,"
+              f" preempt/reclaim {split['preempt_reclaim_s']:.3f} s ({split['trial_solves']}"
+              f" trial solves), commit+status {split['commit_status_s']:.3f} s;"
+              f" specs re-encoded {now['last_reencoded']}, reused {now['last_reused']};"
+              f" fill launches {fills}, DRF launches {shares} share table + {merges} merge;"
+              f" admitted {got['admitted']}, bound {got['bound']}, evicted {got['evicted']}"
+              f"{'; ' + what if what else ''}; equal to the JAX package's, valid", flush=True)
+    TRACER.disable()
+    for key, label in (("reuse", "solve reuse"), ("fallback", "full fallback"),
+                       ("flap_back_reused", "flap back that reused the retired encoding")):
+        if not seen[key]:
+            _fail(f"delta: no tick showed a {label}")
+    for key in ("fill_launches", "drf_shares_launches", "drf_merge_launches"):
+        if not out[key]:
+            _fail(f"delta: the phase launched no {key[:-9]} kernel")
+    ticks = out["rounds"][1:]
+    # the tick wall with the self-check subtracted, as deltachurn.churn_loop
+    # reports it; the self-check is the same tick's encode and solve from
+    # scratch
+    walls = [max(0.0, r["wall_s"] - r["selfcheck_s"]) for r in ticks]
+    scratch = [r["selfcheck_s"] for r in ticks]
+    out.update(ticks=len(ticks), tick_p50_s=_percentile(walls, 0.5),
+               tick_p99_s=_percentile(walls, 0.99), tick_mean_s=statistics.mean(walls),
+               selfcheck_p50_s=_percentile(scratch, 0.5),
+               selfcheck_p99_s=_percentile(scratch, 0.99), seen=seen)
+    print(f"[delta] {len(ticks)} churn ticks, wall less self-check: p50"
+          f" {out['tick_p50_s']:.4f} s, p99 {out['tick_p99_s']:.4f} s, mean"
+          f" {out['tick_mean_s']:.4f} s; the self-check's from-scratch encode + solve of the"
+          f" same ticks: p50 {out['selfcheck_p50_s']:.4f} s, p99 {out['selfcheck_p99_s']:.4f} s;"
+          f" solve reuses {seen['reuse']}, full fallbacks {seen['fallback']}, flap backs that"
+          f" reused the retired encoding {seen['flap_back_reused']}; launches over the phase:"
+          f" fill {out['fill_launches']}, DRF {out['drf_shares_launches']} share table +"
+          f" {out['drf_merge_launches']} merge", flush=True)
+    parts = ("scan_encode_s", "quota_order_s", "solve_s", "preempt_reclaim_s",
+             "commit_status_s", "delta_encode_s")
+    out["tick_median_split_s"] = {k: statistics.median(r[k] for r in ticks) for k in parts}
+    print("[delta] churn ticks, median by span: " + ", ".join(
+        f"{k[:-2]} {v:.4f} s" for k, v in out["tick_median_split_s"].items()), flush=True)
+    return out
 
 
 def _timed(phase, *args):
@@ -1233,13 +1647,14 @@ def main() -> int:
     _timed(phase_path_kernel_vs_plain)
     sched = _timed(phase_scheduler)
     drf = _timed(phase_drf, sched["q_order_inputs"])
+    delta = _timed(phase_delta)
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
         "source": "grove_tpu_torch/csrc/fill.cu",
         "replaces": "grove_tpu/ops/pallas_fill.py:69",
         "launches": main_path["launches"] + stats["fill_launches"] + stats["exact_fill_launches"]
-        + sched["fill_launches"],
+        + sched["fill_launches"] + delta["fill_launches"],
         "max_abs_err": max([timing["max_abs_err"]] + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -1254,7 +1669,7 @@ def main() -> int:
             "route": "cuda",
             "source": "grove_tpu_torch/csrc/drf.cu",
             "replaces": "grove_tpu/quota/ordering.py:41",
-            "launches": sched[f"drf_{phase}_launches"],
+            "launches": sched[f"drf_{phase}_launches"] + delta[f"drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
             "plain_ms": drf[f"plain_{phase}_ms"],
@@ -1265,11 +1680,14 @@ def main() -> int:
         for name, phase in (("drf_shares_kernel", "shares"), ("drf_merge_kernel", "merge"))
     ]
     drf_pass = {k: drf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "steps",
-                                    "merge_past_g_loop_ms", "merge_per_step")}
+                                    "merge_past_g_loop_ms", "merge_per_step",
+                                    "merge_global_counts")}
     paths = {k: v for k, v in main_path.items() if k != "launches"}
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [kernel, *drf_kernels], "main_path": paths, "stats_path": stats,
-                      "scheduler": sched["rounds"], "drf_pass": drf_pass}))
+                      "scheduler": sched["rounds"], "drf_pass": drf_pass,
+                      "delta": {k: v for k, v in delta.items() if k != "rounds"},
+                      "delta_rounds": delta["rounds"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

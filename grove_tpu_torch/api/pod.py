@@ -1,7 +1,8 @@
 """The Pod model and its status predicates.
 
 Counterpart of ``grove_tpu/api/pod.py``, cut to what the scheduler round
-reads: ``is_scheduled``, ``is_terminating``, ``is_ready``.
+reads: ``is_scheduled``, ``is_terminating``, ``is_schedule_gated``,
+``is_ready``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,10 @@ class Pod:
 
 def is_terminating(pod: Pod) -> bool:
     return pod.metadata.deletion_timestamp is not None
+
+
+def is_schedule_gated(pod: Pod) -> bool:
+    return bool(pod.spec.scheduling_gates)
 
 
 def is_scheduled(pod: Pod) -> bool:

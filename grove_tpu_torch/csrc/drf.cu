@@ -33,8 +33,10 @@
 //   queues (blockDim <= 1,024), keeps their taken counts in shared memory
 //   and caches its local best (key, queue); the warps' minima cross shared
 //   memory, double-buffered by step parity, under one barrier a step, and
-//   only the picked queue's owner rescans. The counts bound Q by shared
-//   memory: 225 KB / 4 B = 57,600 queues (grove_drf_merge_max_queues).
+//   only the picked queue's owner rescans. Past 225 KB / 4 B = 57,600
+//   queues (grove_drf_merge_shared_queues) the counts live in a [Q] global
+//   buffer the caller allocates and zeroes: a thread reads and writes the
+//   counts of its own queues only, so they need no barrier either way.
 //   The table is staged in shared memory by TMA bulk copies (cp.async.bulk
 //   into an mbarrier) when it fits beside the counts in 225 KB (at (q): 8 x
 //   2,048 x 4 B = 64 KB), else read from global memory, where phase 1 just
@@ -213,6 +215,7 @@ struct MergeArgs {
   const float* demand;    // [Q, G, R]
   const int* counts;      // [Q]
   int* out;               // [steps, 2]
+  int* taken;             // [Q] taken counts in global memory, or null: in shared
   int q_dim, g_dim, r_dim, steps;
   int stage_bytes;        // table bytes staged in shared memory, 0 for none
 };
@@ -285,12 +288,12 @@ __device__ __forceinline__ bool pick_is_mine(uint32_t key, uint32_t& gmin,
 // The least key of queues [q0, q1) and the lowest queue holding it
 // (kKeyNone and INT_MAX for none).
 __device__ __forceinline__ void local_best(const MergeArgs& a, const uint32_t* tab,
-                                           const int* s_taken, int q0, int q1, uint32_t& best,
+                                           const int* taken, int q0, int q1, uint32_t& best,
                                            int& best_q) {
   best = kKeyNone;
   best_q = INT_MAX;
   for (int q = q0; q < q1; ++q) {
-    const uint32_t k = key_of(a, tab, q, s_taken[q], a.counts[q]);
+    const uint32_t k = key_of(a, tab, q, taken[q], a.counts[q]);
     if (k < best) {
       best = k;
       best_q = q;
@@ -339,8 +342,8 @@ __device__ __forceinline__ void warp_steps(const MergeArgs& a, const uint32_t* t
 
 // The T steps. One warp runs warp_steps. With more queues thread t owns
 // queues [t*per, t*per + per), per = ceil(Q/blockDim), their taken counts
-// in shared memory; it caches its local best (key, queue), and only the
-// owner of the picked queue rescans.
+// in shared memory (in a.taken past 57,600 queues); it caches its local
+// best (key, queue), and only the owner of the picked queue rescans.
 template <bool kOneWarp>
 __global__ void __launch_bounds__(kMaxThreads)
 drf_merge_kernel(MergeArgs a) {
@@ -358,7 +361,7 @@ drf_merge_kernel(MergeArgs a) {
   }
   int2* out = reinterpret_cast<int2*>(a.out);
   int par = 0;
-  int* s_taken = reinterpret_cast<int*>(s_dyn + a.stage_bytes / 4);
+  int* s_taken = a.taken != nullptr ? a.taken : reinterpret_cast<int*>(s_dyn + a.stage_bytes / 4);
   const int per = (a.q_dim + blockDim.x - 1) / blockDim.x;
   const int q0 = min((int)threadIdx.x * per, a.q_dim), q1 = min(q0 + per, a.q_dim);
   int n_active = 0;
@@ -403,23 +406,25 @@ int grove_drf_shares(const float* deserved, const float* usage, const float* dem
   return (int)cudaGetLastError();
 }
 
-// Most queues the merge takes: above one warp it keeps a taken count per
-// queue in shared memory.
-int grove_drf_merge_max_queues() { return kSmemBytes / 4; }
+// Most queues whose taken counts the merge keeps in shared memory; past
+// them it takes a [Q] global buffer.
+int grove_drf_merge_shared_queues() { return kSmemBytes / 4; }
 
 // Phase 2. The table and tail of phase 1 (tail is charged in place), with
-// deserved, demand and counts as above, -> out [steps,2] i32.
+// deserved, demand and counts as above, -> out [steps,2] i32. taken: a [Q]
+// i32 buffer of zeros when Q > grove_drf_merge_shared_queues(), else null.
 int grove_drf_merge(const uint32_t* table, float* tail, const float* deserved,
-                    const float* demand, const int* counts, int* out, int q_dim, int g_dim,
-                    int r_dim, int steps, cudaStream_t stream) {
+                    const float* demand, const int* counts, int* out, int* taken, int q_dim,
+                    int g_dim, int r_dim, int steps, cudaStream_t stream) {
   if (q_dim < 1 || g_dim < 1 || r_dim < 1 || steps < 0) return (int)cudaErrorInvalidValue;
-  if (q_dim > grove_drf_merge_max_queues()) return (int)cudaErrorInvalidValue;
+  const bool global_taken = q_dim > grove_drf_merge_shared_queues();
+  if (global_taken != (taken != nullptr)) return (int)cudaErrorInvalidValue;
   if (steps == 0) return 0;
   const bool one_warp = q_dim <= 32;
-  const long long taken_bytes = one_warp ? 0 : 4LL * q_dim;
+  const long long taken_bytes = one_warp || global_taken ? 0 : 4LL * q_dim;
   const long long table_bytes = ((long long)q_dim * g_dim * 4 + 15) / 16 * 16;
   const int stage_bytes = table_bytes + taken_bytes <= kSmemBytes ? (int)table_bytes : 0;
-  const MergeArgs a{table, tail, deserved, demand, counts, out,
+  const MergeArgs a{table, tail, deserved, demand, counts, out, taken,
                     q_dim, g_dim, r_dim, steps, stage_bytes};
   const int smem = stage_bytes + (int)taken_bytes;
   void (*kernel)(MergeArgs) = one_warp ? &drf_merge_kernel<true> : &drf_merge_kernel<false>;

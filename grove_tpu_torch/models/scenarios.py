@@ -8,13 +8,16 @@ JAX package's generator.
 documents a PodCliqueSet controller would have written (wire documents, as
 ``grove_tpu/api/serialize.py`` exports them), so one world loads into the
 port's store and into the JAX package's alike. ``scheduler_world`` holds the
-scheduler worlds (s), (q) and (r); ``EventCapture`` and ``round_summary``
-read a round the same way on either side. This part is plain Python.
+scheduler worlds (s), (q) and (r), and the churn world ``delta`` whose ticks
+``apply_tick`` applies to either package's store; ``EventCapture`` and
+``round_summary`` read a round the same way on either side. This part is
+plain Python.
 """
 
 from __future__ import annotations
 
 import hashlib
+import random
 from collections import Counter
 from typing import Callable, Dict, List, Optional
 
@@ -213,7 +216,8 @@ def _tenant(i: int, spec: dict, offset: int = 0, n: int = 8) -> str:
     return f"tenant-{offset + i % n}"
 
 
-def scheduler_world(name: str, n_nodes: Optional[int] = None, n_gangs: Optional[int] = None) -> dict:
+def scheduler_world(name: str, n_nodes: Optional[int] = None, n_gangs: Optional[int] = None,
+                    ticks: Optional[int] = None, seed: int = 0) -> dict:
     """A scheduler world: ``nodes`` (make_nodes arguments), ``priority_map``,
     ``queues`` (documents created first) and ``rounds`` (documents created
     before each ``schedule_pending()`` round).
@@ -231,8 +235,17 @@ def scheduler_world(name: str, n_nodes: Optional[int] = None, n_gangs: Optional[
 
     ``n_nodes`` / ``n_gangs`` cut a world (for (r), ``n_gangs`` is round
     1's count; round 2 takes half as many and one high-priority gang per 64
-    of round 1's, at least one)."""
+    of round 1's, at least one).
+    - ``delta``: (q)'s world and round, then ``ticks`` (default 24) churn
+      ticks under the key ``ticks``, drawn by :func:`churn_ticks` from
+      ``seed``."""
     capacity = dict(STRESS_CAPACITY)
+    if name == "delta":
+        world = scheduler_world("q", n_nodes, n_gangs)
+        world["ticks"] = churn_ticks(
+            world["rounds"][0], world["nodes"][0], 24 if ticks is None else ticks, seed
+        )
+        return world
     if name in ("s", "q"):
         n_nodes = n_nodes or 5120
         specs = stress_gang_specs(n_gangs or 10240, seed=0)
@@ -274,6 +287,138 @@ def scheduler_world(name: str, n_nodes: Optional[int] = None, n_gangs: Optional[
             ],
         }
     raise ValueError(f"unknown scheduler world {name!r}")
+
+
+# -- the churn world ----------------------------------------------------------
+
+CHURN_FLAP_EVERY = 8  # a cordon toggle every 8th tick
+CHURN_BACKLOG = 2  # unplaceable gangs that stay pending from the first tick
+
+
+def _backlog_specs(n: int) -> List[dict]:
+    """Gangs no node can take: two pods of 16 chips each."""
+    return [{"name": f"backlog{k}", "required_key": None, "preferred_key": None, "priority": 0,
+             "groups": [{"name": f"backlog{k}-0", "demand": {"tpu": 16.0, "cpu": 2.0},
+                         "count": 2, "min_count": 2}]} for k in range(n)]
+
+
+def _deletes(docs: List[dict]) -> List[tuple]:
+    """Delete operations of one gang's objects: pods, cliques, PodGang."""
+    order = {"Pod": 0, "PodClique": 1, "PodGang": 2}
+    ranked = sorted(docs, key=lambda d: order[d["kind"]])
+    return [("delete", d["kind"], d["metadata"]["namespace"], d["metadata"]["name"])
+            for d in ranked]
+
+
+def churn_ticks(round1: List[dict], n_nodes: int, ticks: int, seed: int) -> List[List[tuple]]:
+    """Seeded churn after (q)'s round, as operations on documents and
+    nodes: the mix of ``grove_tpu/sim/deltachurn.py`` ``churn_loop``
+    without controllers. Per tick, from ``random.Random(seed)``:
+
+    - 45 %: one or two fresh stress gangs (``stress_gang_specs(.., seed +
+      1)`` renamed ``churn<k>``) arrive, arrival k in tenant-(k % 8);
+    - 20 %: the oldest churn-arrived gang still present leaves (its pods,
+      cliques and PodGang deleted);
+    - 15 %: a pod of a round-1 gang with a required pack fails: it is
+      deleted and a pending replacement of the same name and labels is
+      created, so its gang's recovery solve is pinned by the survivors.
+      The pod is drawn from a clique of two or more pods: a clique's
+      survivors are what pins the gang (the sole pod of a clique comes
+      back unpinned in both packages, ROADMAP C.3);
+    - the rest: nothing.
+
+    The first tick also brings a standing backlog, as the JAX package's
+    delta smoke has one (``deltachurn.smoke_ab_run``): ``CHURN_BACKLOG``
+    gangs of pods that ask for 16 chips on nodes of 8, backlog k in
+    tenant-k. They never place, so every later round encodes, orders and
+    solves, and a round whose input did not change reuses the last solve.
+
+    Every ``CHURN_FLAP_EVERY``-th tick also toggles a node's cordon: a
+    seeded node leaves the schedulable set, and comes back at the next
+    such tick. Operations: ``("create", doc)``, ``("delete", kind,
+    namespace, name)``, ``("cordon", node, bool)``. They name their objects
+    and are fixed by the seed, not by a store's state, so one list drives
+    either package."""
+    rng = random.Random(seed)
+    by_gang: Dict[str, List[dict]] = {}
+    for doc in round1:
+        labels = doc["metadata"]["labels"]
+        gang = doc["metadata"]["name"] if doc["kind"] == "PodGang" else labels[namegen.LABEL_PODGANG]
+        by_gang.setdefault(gang, []).append(doc)
+    # pods of cliques of two or more, per gang with a required pack
+    failing: Dict[str, List[dict]] = {}
+    for name, docs in by_gang.items():
+        if not any(d["kind"] == "PodGang" and "topologyConstraint" in d["spec"] for d in docs):
+            continue
+        sizes = Counter(d["metadata"]["labels"][namegen.LABEL_PODCLIQUE] for d in docs
+                        if d["kind"] == "Pod")
+        pods = [d for d in docs if d["kind"] == "Pod"
+                and sizes[d["metadata"]["labels"][namegen.LABEL_PODCLIQUE]] > 1]
+        if pods:
+            failing[name] = pods
+    packed = list(failing)
+    pool = _renamed(stress_gang_specs(2 * ticks, seed=seed + 1), "churn")
+    arrivals = 0
+    live: List[List[dict]] = []  # churn-arrived gangs' documents, oldest first
+    flapped: Optional[str] = None
+    out = []
+    for i in range(ticks):
+        ops: List[tuple] = []
+        if i == 0:
+            backlog = gang_world_docs(_backlog_specs(CHURN_BACKLOG),
+                                      namespace_of=lambda k, s: f"tenant-{k}",
+                                      queue_of=lambda k, s: f"tenant-{k}")
+            ops += [("create", d) for d in backlog]
+        roll = rng.random()
+        if roll < 0.45:
+            for _ in range(rng.randrange(1, 3)):
+                tenant = f"tenant-{arrivals % 8}"
+                docs = gang_world_docs([pool[arrivals]], namespace_of=lambda j, s: tenant,
+                                       queue_of=lambda j, s: tenant)
+                ops += [("create", d) for d in docs]
+                live.append(docs)
+                arrivals += 1
+        elif roll < 0.65 and live:
+            ops += _deletes(live.pop(0))
+        elif roll < 0.8 and packed:
+            pods = failing[packed[rng.randrange(len(packed))]]
+            pod = pods[rng.randrange(len(pods))]
+            ops.append(("delete", "Pod", pod["metadata"]["namespace"], pod["metadata"]["name"]))
+            ops.append(("create", pod))
+        if i and i % CHURN_FLAP_EVERY == 0:
+            if flapped is None:
+                flapped = f"node-{rng.randrange(n_nodes)}"
+                ops.append(("cordon", flapped, True))
+            else:
+                ops.append(("cordon", flapped, False))
+                flapped = None
+        out.append(ops)
+    return out
+
+
+def apply_tick(store, cluster, tick: List[tuple], decode: Callable[[dict], object]) -> None:
+    """Apply one tick of :func:`churn_ticks` to a store and its cluster;
+    ``decode`` is the store's own package's wire decoder. A delete of an
+    object already gone (a pod of a gang the scheduler evicted) is
+    skipped."""
+    nodes = {n.name: n for n in cluster.nodes}
+    for op in tick:
+        if op[0] == "create":
+            store.create(decode(op[1]))
+        elif op[0] == "delete":
+            if store.get(*op[1:], readonly=True) is not None:
+                store.delete(*op[1:])
+        elif op[0] == "cordon":
+            nodes[op[1]].cordoned = op[2]
+        else:
+            raise ValueError(f"unknown churn operation {op[0]!r}")
+
+
+def delta_counters(delta) -> dict:
+    """The delta state's counters, read the same way from either package."""
+    return {k: getattr(delta, k) for k in (
+        "warm_start_hits", "solve_reuses", "full_fallbacks", "drift_detected",
+        "last_reencoded", "last_reused")}
 
 
 class EventCapture:

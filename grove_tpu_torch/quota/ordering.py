@@ -157,7 +157,7 @@ def _check(name, t, dtype, shape, device):
 
 
 _SHARES_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_MERGE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_MERGE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _kernel():
@@ -167,8 +167,8 @@ def _kernel():
         lib.grove_drf_shares.restype = ctypes.c_int
         lib.grove_drf_merge.argtypes = _MERGE_ARGTYPES
         lib.grove_drf_merge.restype = ctypes.c_int
-        lib.grove_drf_merge_max_queues.argtypes = []
-        lib.grove_drf_merge_max_queues.restype = ctypes.c_int
+        lib.grove_drf_merge_shared_queues.argtypes = []
+        lib.grove_drf_merge_shared_queues.restype = ctypes.c_int
         lib.grove_drf_error_string.argtypes = [ctypes.c_int]
         lib.grove_drf_error_string.restype = ctypes.c_char_p
     return lib
@@ -215,9 +215,10 @@ def share_table_cuda(deserved, usage, demand, counts):
 def merge_cuda(table, tail, deserved, demand, counts, steps: int) -> torch.Tensor:
     """Phase 2 on the card: launches ``drf_merge_kernel`` on the current
     stream over the table and tail of :func:`share_table_cuda` (the tail is
-    charged in place) and returns the ``[steps, 2]`` i32 rows. Up to 57,600
-    queues: above one warp the kernel keeps a count per queue in shared
-    memory."""
+    charged in place) and returns the ``[steps, 2]`` i32 rows. Above one warp
+    the kernel keeps a taken count per queue in shared memory, and past
+    ``grove_drf_merge_shared_queues()`` (57,600) in a zeroed ``[Q]`` buffer
+    allocated here."""
     q_dim, g_dim, r_dim = demand.shape
     device = demand.device
     _check("table", table, torch.int32, (q_dim, g_dim), device)
@@ -232,14 +233,13 @@ def merge_cuda(table, tail, deserved, demand, counts, steps: int) -> torch.Tenso
     _check("demand", demand, torch.float32, (q_dim, g_dim, r_dim), device)
     _check("counts", counts, torch.int32, (q_dim,), device)
     lib = _kernel()
-    if q_dim > lib.grove_drf_merge_max_queues():
-        raise ValueError(f"fair_order: {q_dim} queues, the merge kernel takes at most"
-                         f" {lib.grove_drf_merge_max_queues()} (a count per queue in shared"
-                         " memory)")
+    taken = (torch.zeros((q_dim,), dtype=torch.int32, device=device)
+             if q_dim > lib.grove_drf_merge_shared_queues() else None)
     out = torch.empty((steps, 2), dtype=torch.int32, device=device)
     err = lib.grove_drf_merge(
         table.data_ptr(), tail.data_ptr(), deserved.data_ptr(), demand.data_ptr(),
-        counts.data_ptr(), out.data_ptr(), q_dim, g_dim, r_dim, steps, _stream(device),
+        counts.data_ptr(), out.data_ptr(), None if taken is None else taken.data_ptr(),
+        q_dim, g_dim, r_dim, steps, _stream(device),
     )
     _raise_on(lib, err, "merge")
     merge_cuda.launches += 1

@@ -129,6 +129,11 @@ class SimCluster:
             reqs = self._requests_by_uid[uid] = pod.spec.total_requests()
         return reqs
 
+    def pod_requests(self, pod) -> Dict[str, float]:
+        """Memoized ``total_requests`` per pod uid, shared with the delta
+        state's row recounts so both sides sum the same dict objects."""
+        return self._pod_requests(pod)
+
     def _used_by_node(self) -> Dict[str, Dict[str, float]]:
         """Committed usage per node in one pass over the bindings."""
         used: Dict[str, Dict[str, float]] = {}

@@ -3,8 +3,9 @@
 Counterpart of ``grove_tpu/solver/encode.py`` (numpy only; the port keeps
 its own copy). Nodes are topology-sorted so every domain is a contiguous
 slab; per-level domain labels become dense int ids; gang/group structures
-are padded into size buckets. The cached-node encoding of the delta and
-frontier tiers is not part of this slice.
+are padded into size buckets. ``NodeEncoding``, ``slice_encoding`` and
+``build_problem_cached`` are the cached node side of the delta-solve state
+(``solver/deltastate.py``).
 """
 
 from __future__ import annotations
@@ -260,6 +261,77 @@ class StickyGroupPad:
             return self._width
 
 
+class NodeEncoding:
+    """Cached node-side arrays for repeat solves over an unchanged topology:
+    the delta-solve tier (``solver/deltastate.py``).
+
+    Holds everything :func:`encode_nodes` derives that does not change per
+    tick: the topology sort order, dense path-keyed domain ids, contiguous
+    domain boundaries, the node-name index, and the base capacity matrix
+    (``node.capacity`` with no usage deducted). Per-tick free capacity is a
+    separate ``[N, R]`` matrix whose dirty rows the delta state patches;
+    :func:`build_problem_cached` assembles from the pair a problem equal bit
+    for bit to a from-scratch :func:`build_problem` over the same inputs.
+
+    The static arrays stay host ndarrays: the preemption trials and the
+    oracle index them on the host, and the solver uploads what it needs per
+    solve; the cache saves the re-sort and re-derive only.
+    """
+
+    def __init__(
+        self,
+        nodes: Sequence,
+        topology: ClusterTopology,
+        resource_names: List[str],
+    ) -> None:
+        capacity, topo, node_names, resource_names, level_keys = encode_nodes(
+            nodes, topology, None, list(resource_names)
+        )
+        self.base_capacity = capacity  # [N, R] float32, node.capacity only
+        self.topo = topo
+        self.node_names = node_names
+        self.resource_names = resource_names
+        self.level_keys = level_keys
+        self.seg_starts, self.seg_ends = domain_boundaries(topo)
+        self.node_index = {name: i for i, name in enumerate(node_names)}
+
+
+def slice_encoding(
+    enc: NodeEncoding, start: int, end: int, pad_to: Optional[int] = None
+):
+    """Localized node-side arrays for one contiguous topology slab
+    ``[start, end)`` of a :class:`NodeEncoding` (the partitioned frontier's
+    subproblem encode).
+
+    Nodes are topology-sorted, so a slab's per-level dense ids form
+    contiguous ranges; subtracting the first row re-bases them at 0 without
+    changing domain identity. ``pad_to`` appends ghost rows that extend the
+    last domain of every level (ids replicated from the final real row);
+    with zero capacity the kernel never fills them, so padded and unpadded
+    solves are equal bit for bit.
+
+    Returns ``(topo_local, seg_starts, seg_ends, node_names, node_index)``
+    where ``node_names`` includes ghost names for the padding rows and
+    ``node_index`` maps real slab nodes only."""
+    n_real = end - start
+    topo_local = enc.topo[start:end] - enc.topo[start : start + 1]
+    if pad_to is not None and pad_to > n_real:
+        topo_local = np.concatenate(
+            [
+                topo_local,
+                np.repeat(topo_local[-1:], pad_to - n_real, axis=0),
+            ]
+        )
+    seg_starts, seg_ends = domain_boundaries(topo_local)
+    node_names = list(enc.node_names[start:end])
+    node_index = {name: i for i, name in enumerate(node_names)}
+    if pad_to is not None and pad_to > n_real:
+        node_names.extend(
+            f"__frontier-pad-{i}" for i in range(pad_to - n_real)
+        )
+    return topo_local, seg_starts, seg_ends, node_names, node_index
+
+
 def build_problem(
     nodes: Sequence,
     gang_specs: List[dict],
@@ -302,6 +374,40 @@ def build_problem(
     )
 
 
+def build_problem_cached(
+    enc: NodeEncoding,
+    capacity: np.ndarray,
+    gang_specs: List[dict],
+    pad_gangs: Optional[int] = None,
+    pad_groups: Optional[int] = None,
+    pre_encoded: Optional[tuple] = None,
+) -> PackingProblem:
+    """Assemble a problem from a cached :class:`NodeEncoding` and a free
+    capacity matrix kept by the caller (the delta-solve path: the
+    re-sort, re-id and boundary scan of :func:`encode_nodes` are skipped;
+    only the gang-side arrays are built per tick).
+
+    ``capacity`` must hold the float32 values a from-scratch encode would
+    produce for the current free capacity; the result is then equal bit for
+    bit to :func:`build_problem`. ``pre_encoded``: an :func:`encode_gangs`
+    result computed earlier for the same (gang_specs, pad_gangs,
+    pad_groups); encode_gangs is pure, so reusing it changes no bit."""
+    return _assemble_problem(
+        capacity,
+        enc.topo,
+        enc.seg_starts,
+        enc.seg_ends,
+        enc.node_names,
+        enc.resource_names,
+        enc.level_keys,
+        enc.node_index,
+        gang_specs,
+        pad_gangs,
+        pad_groups,
+        pre_encoded=pre_encoded,
+    )
+
+
 def _assemble_problem(
     capacity: np.ndarray,
     topo: np.ndarray,
@@ -314,9 +420,12 @@ def _assemble_problem(
     gang_specs: List[dict],
     pad_gangs: Optional[int],
     pad_groups: Optional[int],
+    pre_encoded: Optional[tuple] = None,
 ) -> PackingProblem:
-    """Gang-side half of the encode: gang tensors, quantization, recovery
-    pins and spread seeds."""
+    """Gang-side half of the encode, shared by the from-scratch and the
+    cached paths: gang arrays, quantization, recovery pins and spread
+    seeds. ``pre_encoded`` stands in for the :func:`encode_gangs` call with
+    its result computed earlier for the same arguments."""
     (
         demand,
         count,
@@ -330,7 +439,11 @@ def _assemble_problem(
         spread_required,
         gang_names,
         group_names,
-    ) = encode_gangs(gang_specs, resource_names, level_keys, pad_gangs, pad_groups)
+    ) = (
+        pre_encoded
+        if pre_encoded is not None
+        else encode_gangs(gang_specs, resource_names, level_keys, pad_gangs, pad_groups)
+    )
 
     capacity, demand = _quantize_resources(capacity, demand)
 

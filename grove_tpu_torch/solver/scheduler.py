@@ -9,13 +9,21 @@ reclaim with their trial solves, binding, PodGang and Queue status writes,
 and events. Solves and the ordering scan run on ``device`` (default: the
 card; raises without one unless ``device="cpu"``).
 
-Not part of this port: the delta-solve state, the partitioned frontier,
-the gRPC sidecar branch, the speculative-encode cache, the disruption
-broker, the node-health monitor, gang journeys and the wall profiler. With
-none of them the JAX scheduler runs exactly this round (a bare scheduler
-has no broker and no monitor: every eviction is ungated, nothing is held).
-Besides the JAX package's spans this round opens ``scheduler.preempt``
-around priority preemption.
+``enable_delta()`` attaches the incremental delta-solve state
+(``solver/deltastate.py``): the round then encodes from a free-capacity
+matrix and a gang-spec cache folded from the store's watch events, skips the
+solve when the solver input equals the last tick's (``_delta_last``), and
+with ``delta_selfcheck`` holds every delta problem and solve to a
+from-scratch one. Delta is opt-in on a bare scheduler, as in the JAX
+package.
+
+Not part of this port: the partitioned frontier, the gRPC sidecar branch,
+the speculative-encode cache, the disruption broker, the node-health
+monitor, gang journeys and the wall profiler. With none of them the JAX
+scheduler runs exactly this round (a bare scheduler has no broker and no
+monitor: every eviction is ungated, nothing is held). Besides the JAX
+package's spans this round opens ``scheduler.preempt`` around priority
+preemption.
 """
 
 from __future__ import annotations
@@ -58,7 +66,8 @@ from grove_tpu_torch.observability.tracing import TRACER
 from grove_tpu_torch.quota.manager import QuotaManager, spec_demand
 from grove_tpu_torch.quota.oracle import dominant_share_of
 from grove_tpu_torch.runtime.errors import ERR_CONFLICT, ERR_NOT_FOUND, GroveError
-from grove_tpu_torch.runtime.store import commit_status
+from grove_tpu_torch.runtime.store import Store, commit_status
+from grove_tpu_torch.sim.cluster import SimCluster
 from grove_tpu_torch.solver.encode import StickyGroupPad, build_problem
 from grove_tpu_torch.solver.introspect import classify_rejections
 from grove_tpu_torch.solver.kernel import solve_waves
@@ -93,6 +102,103 @@ class GangScheduler:
         self.quota = QuotaManager(store, device=self.device)
         # pods bound by the most recent _commit_admitted pass
         self._last_commit_bound = 0
+        # incremental delta-solve state (solver/deltastate.py): None runs
+        # the from-scratch round; enable_delta() attaches it
+        self.delta = None
+        # after every delta solve, re-derive the problem from scratch and
+        # assert problem and admissions equal bit for bit (tests, the smoke)
+        self.delta_selfcheck = False
+        # seconds the self-check spent inside schedule_pending() since the
+        # caller last reset this: latency reports subtract it
+        self.last_selfcheck_seconds = 0.0
+        # (fingerprint + solve options, result) of the last delta solve:
+        # an equal key means identical solver input, and the solve is
+        # skipped and its result reused
+        self._delta_last = None
+        # True while the most recent batch "solve" was such a reuse: gates
+        # the gang_solve_seconds observation
+        self._solve_reused = False
+        # the partitioned frontier is not ported: never True
+        self._frontier_solved = False
+
+    def enable_delta(self) -> bool:
+        """Attach the incremental delta-solve state. The port's in-memory
+        store and simulated cluster only: the fold consumes the store's
+        synchronous ``subscribe_system`` watch. Safe to call twice."""
+        if self.delta is not None:
+            return True
+        if not isinstance(self.store, Store) or not isinstance(self.cluster, SimCluster):
+            return False
+        from grove_tpu_torch.solver.deltastate import DeltaSolveState
+
+        self.delta = DeltaSolveState(self.store, self.cluster, self.topology)
+        return True
+
+    def _solve_batch_delta(self, nodes: List, gang_specs: List[dict]):
+        """The delta round's solve: this tick's problem assembled from the
+        dirty-masked cluster state (no bindings pass, no topology re-sort),
+        and no solve at all when the solver input equals the last tick's
+        (equal fingerprints give equal arrays, and the wave solve is
+        deterministic). Returns (PackingResult, PackingProblem)."""
+        with TRACER.span(
+            "solve.delta_encode", gangs=len(gang_specs), nodes=len(nodes)
+        ) as span:
+            problem, fingerprint = self.delta.encode(
+                nodes,
+                gang_specs,
+                pad_groups=self._pad_groups.grow(gang_specs),
+            )
+            span.set("reencoded", self.delta.last_reencoded)
+        key = (fingerprint, self.chunk_size, self.max_waves)
+        if self._delta_last is not None and self._delta_last[0] == key:
+            self.delta.solve_reuses += 1
+            METRICS.inc("delta_solve_reuses_total")
+            # no solve ran this tick: the latency histogram must not
+            # observe the cached result's solve_seconds again
+            self._solve_reused = True
+            return self._delta_last[1], problem
+        result, problem = self._solve_batch(nodes, gang_specs, None, problem=problem)
+        self._delta_last = (key, result)
+        return result, problem
+
+    def _delta_ab_check(self, nodes, gang_specs, problem, result) -> None:
+        """The A/B pin of ``delta_selfcheck``: re-derive the solver input
+        from scratch (a full bindings pass, a full topology encode) and
+        assert that the problem arrays and the solve's outcome equal the
+        delta path's bit for bit. The full solve runs on ``self.device``."""
+        from grove_tpu_torch.solver.deltastate import problems_identical
+
+        t0 = time.perf_counter()
+        free = self.cluster.node_free_all(nodes)
+        full = build_problem(
+            nodes,
+            gang_specs,
+            self.topology,
+            free_capacity=free,
+            pad_groups=self._pad_groups.grow(gang_specs),
+        )
+        mismatch = problems_identical(problem, full)
+        if mismatch:
+            raise AssertionError(
+                f"delta-solve problem diverged from the from-scratch encode: {mismatch}"
+            )
+        full_result = solve_waves(
+            full,
+            chunk_size=self.chunk_size,
+            max_waves=self.max_waves,
+            with_alloc=True,
+            device=self.device,
+        )
+        for field in ("admitted", "placed", "score", "chosen_level", "alloc"):
+            a = getattr(result, field)
+            b = getattr(full_result, field)
+            if (a is None) != (b is None) or (
+                a is not None and not np.array_equal(a, b)
+            ):
+                raise AssertionError(
+                    f"delta-solve result diverged from the full solve on {field!r}"
+                )
+        self.last_selfcheck_seconds += time.perf_counter() - t0
 
     def _solve_batch(
         self,
@@ -100,17 +206,22 @@ class GangScheduler:
         gang_specs: List[dict],
         free_capacity: Optional[Dict[str, Dict[str, float]]],
         with_alloc: bool = True,
+        problem=None,
     ):
         """One batch solve against a free-capacity snapshot. Returns
-        (PackingResult, PackingProblem)."""
-        with TRACER.span("scheduler.encode", gangs=len(gang_specs), nodes=len(nodes)):
-            problem = build_problem(
-                nodes,
-                gang_specs,
-                self.topology,
-                free_capacity=free_capacity,
-                pad_groups=self._pad_groups.grow(gang_specs),
-            )
+        (PackingResult, PackingProblem). ``problem``: an encode built
+        already (the delta path); the from-scratch encode is then skipped
+        and ``free_capacity`` is unused."""
+        self._solve_reused = False  # a real solve runs
+        if problem is None:
+            with TRACER.span("scheduler.encode", gangs=len(gang_specs), nodes=len(nodes)):
+                problem = build_problem(
+                    nodes,
+                    gang_specs,
+                    self.topology,
+                    free_capacity=free_capacity,
+                    pad_groups=self._pad_groups.grow(gang_specs),
+                )
         with TRACER.span("scheduler.solve", gangs=len(gang_specs), where="in-process"):
             result = solve_waves(
                 problem,
@@ -143,6 +254,11 @@ class GangScheduler:
         else:
             namespaces = [namespace]
         self.cluster._gc_bindings()
+        if self.delta is not None:
+            # before the pending scan: a topology change (cordon, flap,
+            # capacity) must clear the spec cache before any spec is served
+            # from it (pins and survivor seeds resolve against the nodes)
+            self.delta.refresh([n for n in self.cluster.nodes if n.schedulable])
         sticky_bound = 0
         gang_specs: List[dict] = []
         gang_pods: Dict[str, Dict[str, List]] = {}
@@ -177,9 +293,15 @@ class GangScheduler:
             # cordoned and unhealthy nodes never reach the solver
             nodes = [n for n in self.cluster.nodes if n.schedulable]
             if nodes:
-                free = self.cluster.node_free_all(nodes)
-                result, problem = self._solve_batch(nodes, gang_specs, free)
-                METRICS.observe("gang_solve_seconds", result.solve_seconds)
+                if self.delta is not None:
+                    result, problem = self._solve_batch_delta(nodes, gang_specs)
+                else:
+                    free = self.cluster.node_free_all(nodes)
+                    result, problem = self._solve_batch(nodes, gang_specs, free)
+                if self.delta is not None and self.delta_selfcheck:
+                    self._delta_ab_check(nodes, gang_specs, problem, result)
+                if not self._solve_reused:
+                    METRICS.observe("gang_solve_seconds", result.solve_seconds)
                 with TRACER.span("scheduler.preempt"):
                     preempted, preempt_free = self._maybe_preempt(gang_specs, result)
                 if self.quota.active():
@@ -430,6 +552,18 @@ class GangScheduler:
         gang_specs: List[dict] = []
         gang_pods: Dict[str, Dict[str, List]] = {}
         for gang_name, pods in sorted(by_gang.items()):
+            if self.delta is not None:
+                # warm start: a gang with no relevant pod or PodGang delta
+                # since its spec was built, and the same pending pod set,
+                # reuses the spec; inputs outside the watched events
+                # (cordons, node changes) clear the whole cache through the
+                # topology signature in DeltaSolveState.refresh
+                hit = self.delta.cached_spec(namespace, gang_name, pods)
+                if hit is not None:
+                    spec, pods_by_pclq = hit
+                    gang_specs.append(spec)
+                    gang_pods[spec["name"]] = dict(pods_by_pclq)
+                    continue
             built = self._build_gang_spec(namespace, gang_name, pods)
             if built is None:
                 loose.extend(pods)
@@ -437,6 +571,8 @@ class GangScheduler:
             spec, by_pclq = built
             gang_specs.append(spec)
             gang_pods[f"{namespace}/{gang_name}"] = dict(by_pclq)
+            if self.delta is not None:
+                self.delta.store_spec(namespace, gang_name, pods, spec, dict(by_pclq))
         return gang_specs, gang_pods, loose
 
     def _build_gang_spec(self, namespace: str, gang_name: str, pods: List):

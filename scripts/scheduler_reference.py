@@ -13,14 +13,24 @@ admitted gangs per queue and event counts by reason. ``chip_smoke.py``
 holds the port's rounds on the card against these numbers (its
 ``JAX_SCHEDULER_REFERENCE``). Run on the CPU, one world at a time or all:
 
-    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r]
+    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta]
 
-A world can be cut for a quick look: ``--nodes N --gangs G``.
+``delta`` is the churn world: (q)'s round, then its churn ticks
+(``scheduler_world("delta")``, ``apply_tick`` with the JAX decoder), through
+a JAX ``GangScheduler`` with ``enable_delta()`` and ``delta_selfcheck`` on
+every round. Per round it also prints the delta counters, the crc32 of the
+free-capacity matrix (``state_fingerprint()[2]``) and the sha256 of the
+whole ``state_fingerprint()``; ``chip_smoke.py`` holds the port's delta
+rounds to them (``JAX_DELTA_REFERENCE``).
+
+A world can be cut for a quick look: ``--nodes N --gangs G`` (and
+``--ticks T --seed S`` for ``delta``).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -39,6 +49,8 @@ from grove_tpu.sim.cluster import SimCluster, make_nodes  # noqa: E402
 from grove_tpu.solver.scheduler import GangScheduler  # noqa: E402
 from grove_tpu_torch.models.scenarios import (  # noqa: E402
     EventCapture,
+    apply_tick,
+    delta_counters,
     round_summary,
     scheduler_world,
 )
@@ -67,15 +79,53 @@ def run_world(name: str, n_nodes=None, n_gangs=None) -> list:
     return rounds
 
 
+def delta_state(delta) -> dict:
+    """The delta counters, the free matrix's crc32 and the sha256 of the
+    whole state fingerprint after a round."""
+    fp = delta.state_fingerprint()
+    return {"counters": delta_counters(delta), "free_crc": fp[2],
+            "state_sha256": hashlib.sha256(repr(fp).encode()).hexdigest()}
+
+
+def run_delta(n_nodes=None, n_gangs=None, ticks=None, seed=0) -> list:
+    world = scheduler_world("delta", n_nodes, n_gangs, ticks, seed)
+    store = Store(VirtualClock(0.0))
+    cluster = SimCluster(store=store, nodes=make_nodes(*world["nodes"]))
+    scheduler = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"])
+    assert scheduler.enable_delta()
+    scheduler.delta_selfcheck = True
+    for doc in world["queues"] + world["rounds"][0]:
+        store.create(decode_object(doc))
+    rounds = []
+    for tick in [None] + world["ticks"]:
+        if tick:
+            apply_tick(store, cluster, tick, decode_object)
+        t0 = time.perf_counter()
+        with EventCapture(EVENTS) as cap:
+            scheduler.schedule_pending()
+        summary = round_summary(store, cluster, cap.events)
+        summary.update(delta_state(scheduler.delta))
+        summary["seconds"] = time.perf_counter() - t0
+        print(f"[delta] round {len(rounds) + 1}: {json.dumps(summary)}", file=sys.stderr,
+              flush=True)
+        rounds.append(summary)
+    return rounds
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("worlds", nargs="*", default=["s", "q", "r"])
     parser.add_argument("--nodes", type=int, default=None)
     parser.add_argument("--gangs", type=int, default=None)
+    parser.add_argument("--ticks", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     out = {"jax": jax.__version__, "backend": jax.default_backend()}
     for name in args.worlds:
-        out[name] = run_world(name, args.nodes, args.gangs)
+        if name == "delta":
+            out[name] = run_delta(args.nodes, args.gangs, args.ticks, args.seed)
+        else:
+            out[name] = run_world(name, args.nodes, args.gangs)
     print(json.dumps(out))
     return 0
 

@@ -468,16 +468,17 @@ def test_cuda_drf_kernel_past_g_above_one_warp(cuda, q_dim):
 
 
 @pytest.mark.gpu
-def test_cuda_drf_merge_names_its_queue_limit(cuda):
-    """Above one warp the merge keeps a count per queue in shared memory; a
-    tree with more queues than that raises, naming the limit."""
-    from grove_tpu_torch.quota.ordering import _kernel, fair_order_scan
+@pytest.mark.parametrize("q_dim", [57601, 65536])
+def test_cuda_drf_merge_past_shared_memory_queues(cuda, q_dim):
+    """Past 57,600 queues the merge keeps its taken counts in a global
+    buffer instead of shared memory: every step against the twin."""
+    from chip_smoke import many_queue_tree
+    from grove_tpu_torch.quota.ordering import _kernel
 
-    q_dim = _kernel().grove_drf_merge_max_queues() + 1
-    big = [np.zeros((q_dim, 1), np.float32)] * 2 + [np.zeros((q_dim, 1, 1), np.float32),
-                                                   np.ones((q_dim,), np.int32)]
-    with pytest.raises(ValueError, match="at most 57600"):
-        fair_order_scan(*[torch.from_numpy(a).to(cuda) for a in big], 4)
+    assert q_dim > _kernel().grove_drf_merge_shared_queues()
+    tree = many_queue_tree(q_dim)
+    out = _drf_check(tree, int(tree[3].sum()) + 4, cuda)
+    assert (out[: int(tree[3].sum()), 0] >= 0).all()
 
 
 @pytest.mark.gpu
@@ -522,3 +523,56 @@ def test_cuda_scheduler_rounds_match_the_cpu_twins(cuda):
         assert a == b and ev_a == ev_b
     assert card_status == cpu_status and card_bind == cpu_bind
     assert card[1][0]["evicted"] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_delta_churn_rounds_match_the_cpu_twins(cuda):
+    """The churn world cut to 64 nodes and 96 gangs through the port's delta
+    round (self-check on) on the card and on the CPU: every round's
+    summary, events, delta counters and state fingerprint equal, and the
+    card's rounds launched the fill and both DRF kernels."""
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.models.scenarios import (
+        EventCapture,
+        apply_tick,
+        delta_counters,
+        round_summary,
+        scheduler_world,
+    )
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    world = scheduler_world("delta", 64, 96)
+    sides = []
+    for device in (cuda, "cpu"):
+        store = Store(VirtualClock(0.0))
+        cluster = SimCluster(store, make_nodes(*world["nodes"]))
+        sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"],
+                              device=device)
+        assert sched.enable_delta()
+        sched.delta_selfcheck = True
+        for doc in world["queues"] + world["rounds"][0]:
+            store.create(decode_object(doc), consume=True)
+        rounds = []
+        launches = [0, 0, 0]
+        for tick in [None] + world["ticks"]:
+            if tick:
+                apply_tick(store, cluster, tick, decode_object)
+            fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+            with EventCapture(EVENTS) as cap:
+                sched.schedule_pending()
+            for i, n in enumerate((fill_batch.launches, share_table_cuda.launches,
+                                   merge_cuda.launches)):
+                launches[i] += n
+            rounds.append((round_summary(store, cluster, cap.events), cap.events,
+                           delta_counters(sched.delta), sched.delta.state_fingerprint()))
+        sides.append((rounds, launches, list(cluster.bindings.items())))
+    (card, card_launches, card_bind), (cpu, cpu_launches, cpu_bind) = sides
+    assert card == cpu and card_bind == cpu_bind
+    assert min(card_launches) > 0 and cpu_launches == [0, 0, 0]
+    assert sum(r[2]["solve_reuses"] > 0 for r in card) > 0

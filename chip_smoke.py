@@ -91,7 +91,23 @@ Phases (any failure raises and the script exits non-zero):
      unless a round reused the solve, one fell back to a full encode, one
      flap back reused the retired encoding, and the fill and both DRF
      kernels launched during the phase.
- 10. prints the kernels line, the card line, and last the ok line.
+ 10. [frontier] the partitioned frontier (solver/frontier.py through
+     GangScheduler.enable_frontier) on (phi),
+     models/scenarios.scheduler_world("frontier"): the churn world's (q)
+     round and 16 of its ticks (80 slices of 64 nodes, so 80 subproblems in
+     round 1), delta and frontier self-checks on every round. Every round
+     is held against JAX_FRONTIER_REFERENCE: what [delta] holds and the
+     deterministic fields of the frontier's stats(); and checked valid.
+     Prints each round's wall, its solve.partition span less the frontier
+     self-check, its buckets and stacked dispatches with the host time per
+     dispatch, round 1 beside [delta]'s round 1, and the ticks' p50/p99
+     wall less the self-checks. Fails unless a stacked dispatch held two or
+     more real lanes, a gang went through the residual, the fill kernel
+     launched from inside solve_waves_stacked with every launch taking all
+     stacked lanes' chunk rows, and both DRF kernels launched. Then the fill
+     at round 1's stacked shape (lanes folded into the gang axis) against
+     its plain version, timed beside its bound.
+ 11. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -1628,6 +1644,475 @@ def phase_delta() -> dict:
     return out
 
 
+# JAX_FRONTIER_REFERENCE: (phi), the frontier's world
+# (scheduler_world("frontier"): (q)'s round, then 16 churn ticks of seed 0),
+# from `JAX_PLATFORMS=cpu python scripts/scheduler_reference.py frontier`
+# (JAX 0.9.0 on the CPU; a JAX GangScheduler with enable_delta(),
+# enable_frontier(), delta_selfcheck and frontier_selfcheck on every round):
+# per round, what JAX_DELTA_REFERENCE holds and the deterministic fields of
+# the frontier state's stats() (models/scenarios.frontier_counters).
+JAX_FRONTIER_REFERENCE = [
+    {"admitted": 10239, "bound": 34892, "score_sum": 10075.59018716216, "bindings": 34892,
+     "bindings_sha256": "1b32956de0fe6eb889754516a4d931ed0f5b1f96488183c435f55aa4259af4e5",
+     "evicted": 0, "evicted_sha256": _NONE,
+     "admitted_per_queue": {"tenant-0": 1279, "tenant-1": 1280, "tenant-2": 1280, "tenant-3": 1280,
+                            "tenant-4": 1280, "tenant-5": 1280, "tenant-6": 1280, "tenant-7": 1280},
+     "events_by_reason": {"GangAdmitted": 10239, "GangDeferred": 1, "PodBound": 34892},
+     "counters": {"warm_start_hits": 0, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 10240, "last_reused": 0},
+     "free_crc": 4170254377,
+     "state_sha256": "5857466a50e354eea7826846d427135e1a935af65fcef8ba76a9f7f1510ea1cf",
+     "frontier": {"solves": 1, "degenerate_ticks": 0, "subproblems_total": 80,
+                  "assigned_gangs_total": 10240, "residual_gangs_total": 2,
+                  "batched_dispatches_total": 58, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 1, "bound": 8, "score_sum": 0.6166666746139526, "bindings": 34900,
+     "bindings_sha256": "47637971338c2a8424b3145090f59641f24eaf4126d7860266a289ada9232c2f",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 8},
+     "counters": {"warm_start_hits": 1, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 1},
+     "free_crc": 531161091,
+     "state_sha256": "5550e7597977a5d01081764b0f0e88f93a29448aec63af21a9a2a06fc05107e5",
+     "frontier": {"solves": 2, "degenerate_ticks": 0, "subproblems_total": 83,
+                  "assigned_gangs_total": 10243, "residual_gangs_total": 5,
+                  "batched_dispatches_total": 60, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 1, "bound": 1, "score_sum": 0.833333432674408, "bindings": 34900,
+     "bindings_sha256": "47637971338c2a8424b3145090f59641f24eaf4126d7860266a289ada9232c2f",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 1},
+     "counters": {"warm_start_hits": 3, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 3244670425,
+     "state_sha256": "9fdce3f7c7b14a5b246a0961abc336ce181a8f0c98a24ded25a5052fce66c4e9",
+     "frontier": {"solves": 3, "degenerate_ticks": 0, "subproblems_total": 86,
+                  "assigned_gangs_total": 10246, "residual_gangs_total": 7,
+                  "batched_dispatches_total": 62, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 2, "bound": 12, "score_sum": 1.3666667342185974, "bindings": 34912,
+     "bindings_sha256": "d184eacd1959de30888f18825d9cb0726ab2a1da80660932314da0ddb990c14e",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1, "tenant-1": 1},
+     "events_by_reason": {"GangAdmitted": 2, "GangDeferred": 2, "PodBound": 12},
+     "counters": {"warm_start_hits": 5, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 2},
+     "free_crc": 3376158537,
+     "state_sha256": "d989144f3e7ee7cdeb2f7ef240ee8f96360bb21cd079ad2950fa42080db2bea2",
+     "frontier": {"solves": 4, "degenerate_ticks": 0, "subproblems_total": 90,
+                  "assigned_gangs_total": 10250, "residual_gangs_total": 9,
+                  "batched_dispatches_total": 64, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 2, "bound": 4, "score_sum": 2.0, "bindings": 34916,
+     "bindings_sha256": "62b5cd0765345800059f75175f533dbc8625f60964229d4e12c47547cee396cc",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-2": 1, "tenant-3": 1},
+     "events_by_reason": {"GangAdmitted": 2, "GangDeferred": 2, "PodBound": 4},
+     "counters": {"warm_start_hits": 7, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 2},
+     "free_crc": 33499926,
+     "state_sha256": "1ceb15baee66e4b72f233cb3164a14d14981c0624ce26750dfba84f4a20dca4e",
+     "frontier": {"solves": 5, "degenerate_ticks": 0, "subproblems_total": 94,
+                  "assigned_gangs_total": 10254, "residual_gangs_total": 11,
+                  "batched_dispatches_total": 66, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34916,
+     "bindings_sha256": "62b5cd0765345800059f75175f533dbc8625f60964229d4e12c47547cee396cc",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 9, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 1807678792,
+     "state_sha256": "ca50bfc8f7522352adf8bd65aa16b145aac8c2d0e770b3b52116187f10393bd3",
+     "frontier": {"solves": 6, "degenerate_ticks": 0, "subproblems_total": 96,
+                  "assigned_gangs_total": 10256, "residual_gangs_total": 13,
+                  "batched_dispatches_total": 68, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 1, "bound": 4, "score_sum": 1.0, "bindings": 34920,
+     "bindings_sha256": "a40b956f2fff8c649bc8979def7f099b7a9180bd57919e691cc1256ac80c4773",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-4": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 4},
+     "counters": {"warm_start_hits": 11, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 1807678792,
+     "state_sha256": "47b9174ee4c5cd93dc42d849de04755e454776d6ccc6c5e01c66dad920447c67",
+     "frontier": {"solves": 7, "degenerate_ticks": 0, "subproblems_total": 98,
+                  "assigned_gangs_total": 10259, "residual_gangs_total": 15,
+                  "batched_dispatches_total": 70, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34912,
+     "bindings_sha256": "393aaa3d7b0a078c00dbf1e1aa161678477d06cc6ec0758118fe9faf620b1b3a",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 13, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 415572874,
+     "state_sha256": "7f8657d15bff41313ba2a156303dbb5e7fc342e97a5b3a09776ceba2dc873ade",
+     "frontier": {"solves": 8, "degenerate_ticks": 0, "subproblems_total": 100,
+                  "assigned_gangs_total": 10261, "residual_gangs_total": 17,
+                  "batched_dispatches_total": 72, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 1, "bound": 3, "score_sum": 1.0, "bindings": 34915,
+     "bindings_sha256": "a10cb4c4edc66d4f7e0e5cbbde5d3c55862138645238fcb5f957c7b8bcd00093",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-5": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 3},
+     "counters": {"warm_start_hits": 15, "solve_reuses": 0, "full_fallbacks": 0,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 415572874,
+     "state_sha256": "cc3462fa5cf91f296cc7ce41c645955ddc5c9dd7b9b5bd7791d72bf1bef74320",
+     "frontier": {"solves": 9, "degenerate_ticks": 0, "subproblems_total": 103,
+                  "assigned_gangs_total": 10264, "residual_gangs_total": 19,
+                  "batched_dispatches_total": 74, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34911,
+     "bindings_sha256": "05d6116159b06f5278e446587f261f5df65f86eace232ad6e674f59265174fd7",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 15, "solve_reuses": 0, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 0},
+     "free_crc": 2387562348,
+     "state_sha256": "4f07db561f6068ae4c36ac03c0a1d1daff98372b1c0e7fcca084adfeadc41abc",
+     "frontier": {"solves": 10, "degenerate_ticks": 0, "subproblems_total": 105,
+                  "assigned_gangs_total": 10266, "residual_gangs_total": 21,
+                  "batched_dispatches_total": 76, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34911,
+     "bindings_sha256": "05d6116159b06f5278e446587f261f5df65f86eace232ad6e674f59265174fd7",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 17, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 2387562348,
+     "state_sha256": "4f07db561f6068ae4c36ac03c0a1d1daff98372b1c0e7fcca084adfeadc41abc",
+     "frontier": {"solves": 10, "degenerate_ticks": 0, "subproblems_total": 105,
+                  "assigned_gangs_total": 10266, "residual_gangs_total": 21,
+                  "batched_dispatches_total": 76, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34909,
+     "bindings_sha256": "231c586e7949e4504eeff63a0bed065f35ee89a7425878d06ab69d4c4b77a26a",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 19, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 2094630420,
+     "state_sha256": "97b1233260c6a6ff589ccda8da69eafab4cb28df0934c9504fc5c4d169aec17b",
+     "frontier": {"solves": 11, "degenerate_ticks": 0, "subproblems_total": 107,
+                  "assigned_gangs_total": 10268, "residual_gangs_total": 23,
+                  "batched_dispatches_total": 78, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 1, "bound": 1, "score_sum": 1.0, "bindings": 34909,
+     "bindings_sha256": "0475924000ce00eb49c0cbfc4e7c74c533a0837b2dcbb2438809e3392dd0aeeb",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 1},
+     "counters": {"warm_start_hits": 21, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 216308278,
+     "state_sha256": "fc3c601e7ff8bb827b4d9a2dd21f6a1011104a4f2713daeb7fb0b3286ca83bd6",
+     "frontier": {"solves": 12, "degenerate_ticks": 0, "subproblems_total": 110,
+                  "assigned_gangs_total": 10271, "residual_gangs_total": 25,
+                  "batched_dispatches_total": 80, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 1, "bound": 2, "score_sum": 1.0, "bindings": 34911,
+     "bindings_sha256": "0979dad7b9c4daaea05654889970f3398a62b589dd42e92e01c23a745f1e191a",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-6": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 2},
+     "counters": {"warm_start_hits": 23, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 2100331684,
+     "state_sha256": "c0f0975aa1e9524fb248f446d256f3e8344080b393d3f75faf7e795737d4e229",
+     "frontier": {"solves": 13, "degenerate_ticks": 0, "subproblems_total": 112,
+                  "assigned_gangs_total": 10274, "residual_gangs_total": 27,
+                  "batched_dispatches_total": 82, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 0, "bound": 0, "score_sum": 0.0, "bindings": 34911,
+     "bindings_sha256": "0979dad7b9c4daaea05654889970f3398a62b589dd42e92e01c23a745f1e191a",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {},
+     "events_by_reason": {"GangDeferred": 2},
+     "counters": {"warm_start_hits": 25, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 0, "last_reused": 2},
+     "free_crc": 4049128258,
+     "state_sha256": "f860c0bc4728c8f8386c7160b4128a60ec5f6fd9d5b3f6d2e53faf31623ab9a7",
+     "frontier": {"solves": 14, "degenerate_ticks": 0, "subproblems_total": 114,
+                  "assigned_gangs_total": 10276, "residual_gangs_total": 29,
+                  "batched_dispatches_total": 84, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 1, "bound": 1, "score_sum": 0.6000000238418579, "bindings": 34911,
+     "bindings_sha256": "f37b235c5bf5e639026d12a1b8f41d6cfbfaccf0aa23260465476dcb28c5a3fc",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1},
+     "events_by_reason": {"GangAdmitted": 1, "GangDeferred": 2, "PodBound": 1},
+     "counters": {"warm_start_hits": 27, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 1, "last_reused": 2},
+     "free_crc": 3616014856,
+     "state_sha256": "381a62d5eacb3f4e11dceb6597cbc31d134d628de7bf99a9d628cffaf2e198bb",
+     "frontier": {"solves": 15, "degenerate_ticks": 0, "subproblems_total": 116,
+                  "assigned_gangs_total": 10279, "residual_gangs_total": 31,
+                  "batched_dispatches_total": 86, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+    {"admitted": 2, "bound": 11, "score_sum": 1.607142984867096, "bindings": 34922,
+     "bindings_sha256": "7d79a80fe4c9777700d696983e3fa763bc2bb63a61da55c5ffe25553041b4c5d",
+     "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1, "tenant-7": 1},
+     "events_by_reason": {"GangAdmitted": 2, "GangDeferred": 2, "PodBound": 11},
+     "counters": {"warm_start_hits": 29, "solve_reuses": 1, "full_fallbacks": 1,
+                  "drift_detected": 0, "last_reencoded": 2, "last_reused": 2},
+     "free_crc": 1596714649,
+     "state_sha256": "d064a23a6da2f05ce4763cd5ffb5af6243533915b804a571a2d767b0dc63fda7",
+     "frontier": {"solves": 16, "degenerate_ticks": 0, "subproblems_total": 120,
+                  "assigned_gangs_total": 10283, "residual_gangs_total": 33,
+                  "batched_dispatches_total": 88, "residual_overlap_hits": 0,
+                  "residual_overlap_misses": 0}},
+]
+
+
+class _RecordStacks:
+    """Keeps the stacks the frontier hands to solve_waves_stacked (the
+    arrays, not copies: the frontier does not write them after)."""
+
+    def __enter__(self):
+        from grove_tpu_torch.solver import frontier
+
+        self.module, self.wrapped, self.stacks = frontier, frontier.solve_waves_stacked, []
+
+        def record(stack, **kw):
+            self.stacks.append(stack)
+            return self.wrapped(stack, **kw)
+
+        frontier.solve_waves_stacked = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.solve_waves_stacked = self.wrapped
+
+
+def frontier_stacks(nodes, specs, topology):
+    """The stacks the partitioned frontier builds for `specs` on `nodes`
+    with all their capacity free (a first round's): [(lane problems,
+    stack)] per bucket, each lane built and each bucket stacked by the
+    port's FrontierState, as its solve does."""
+    from grove_tpu_torch.solver import frontier
+    from grove_tpu_torch.solver.encode import NodeEncoding, _next_pow2, build_problem
+
+    problem = build_problem(nodes, specs, topology)
+    enc = NodeEncoding(nodes, topology, problem.resource_names)
+    state = frontier.FrontierState(topology)
+    plan = state.plan_for(enc)
+    free = enc.base_capacity.copy()
+    part_of = state.assign(plan, enc, free, specs)
+    buckets = {}
+    for k in sorted({int(k) for k in part_of if k >= 0}):
+        idxs = [i for i in range(len(specs)) if part_of[i] == k]
+        n_real = int(plan.ends[k] - plan.starts[k])
+        key = (_next_pow2(max(len(idxs), frontier.MIN_SUB_GANG_BUCKET)),
+               _next_pow2(max(n_real, 8)))
+        buckets.setdefault(key, []).append(state._build_lane(
+            enc, free, plan, k, idxs, specs, key[0], problem.max_groups, key[1],
+            list(problem.resource_names)))
+    return [(lanes, state._stack_bucket(lanes)) for _key, lanes in sorted(buckets.items())]
+
+
+def stacked_fill_call(stack, chunk_size):
+    """The arguments of the first fill kernel launch of one stacked dispatch
+    of `stack` (the lanes folded into the gang axis by the fill's vmap
+    rule), cloned, and the dispatch's lane count."""
+    from grove_tpu_torch.ops import fill as fill_mod
+    from grove_tpu_torch.solver.kernel import solve_waves_stacked
+
+    calls = []
+    wrapped = fill_mod._fill_batch_cuda
+
+    def record(free, mask, demand, count, with_free_after):
+        calls.append((tuple(t.clone() for t in (free, mask, demand, count)),
+                      {"with_free_after": with_free_after}))
+        raise _Captured
+
+    fill_mod._fill_batch_cuda = record
+    try:
+        solve_waves_stacked(stack, chunk_size=chunk_size, max_waves=1, device="cuda")
+    except _Captured:
+        return calls[0], stack["demand"].shape[0]
+    finally:
+        fill_mod._fill_batch_cuda = wrapped
+    _fail("frontier: the stacked dispatch made no fill call")
+
+
+def phase_frontier(delta_round1) -> dict:
+    """(phi) through the port's GangScheduler with the delta state, the
+    partitioned frontier and both self-checks on every round, on the card;
+    every round held against JAX_FRONTIER_REFERENCE and checked valid; then
+    the fill at the stacked dispatch's shape against its plain version and
+    timed beside its bound."""
+    import hashlib
+
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.models.scenarios import (
+        EventCapture,
+        apply_tick,
+        delta_counters,
+        frontier_counters,
+        round_summary,
+        scheduler_world,
+    )
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.observability.tracing import TRACER
+    from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    world = scheduler_world("frontier")
+    if len(JAX_FRONTIER_REFERENCE) != len(world["ticks"]) + 1:
+        _fail("JAX_FRONTIER_REFERENCE does not hold one entry per round of (phi)")
+    t0 = time.perf_counter()
+    store = Store(VirtualClock(0.0))
+    cluster = SimCluster(store, make_nodes(*world["nodes"]))
+    sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"],
+                          device="cuda")
+    if not sched.enable_frontier():
+        _fail("frontier: enable_frontier() refused the port's store")
+    sched.delta_selfcheck = sched.frontier_selfcheck = True
+    front = sched.frontier
+    EVENTS.reset()
+    EVENTS.clock = store.clock
+    for doc in world["queues"] + world["rounds"][0]:
+        store.create(decode_object(doc), consume=True)
+    load_s = time.perf_counter() - t0
+    TRACER.enable()
+    out = {"fill_launches": 0, "drf_shares_launches": 0, "drf_merge_launches": 0,
+           "stacked_fill_launches": 0, "stacked_fill_rows_ok": True, "load_s": load_s,
+           "rounds": []}
+    widest = 0  # most real lanes in one stacked dispatch
+    with _RecordStacks() as recorded:
+        for index, tick in enumerate([None] + world["ticks"]):
+            if tick:
+                apply_tick(store, cluster, tick, decode_object)
+            TRACER.reset()
+            sched.last_selfcheck_seconds = 0.0
+            front_check0 = front.selfcheck_seconds
+            stacked0, rows0 = front.stacked_fill_launches, front.stacked_fill_rows
+            solves0 = front.solves
+            with EventCapture(EVENTS) as cap:
+                fill_batch.launches = 0
+                share_table_cuda.launches = merge_cuda.launches = 0
+                t0 = time.perf_counter()
+                sched.schedule_pending()
+                wall = time.perf_counter() - t0
+                fills = fill_batch.launches
+                shares, merges = share_table_cuda.launches, merge_cuda.launches
+            tag = f"frontier round {index + 1}"
+            got = round_summary(store, cluster, cap.events)
+            fp = sched.delta.state_fingerprint()
+            got.update(counters=delta_counters(sched.delta), free_crc=fp[2],
+                       state_sha256=hashlib.sha256(repr(fp).encode()).hexdigest(),
+                       frontier=frontier_counters(front))
+            want = dict(JAX_FRONTIER_REFERENCE[index])
+            if not np.isclose(got["score_sum"], want.pop("score_sum"), rtol=1e-6, atol=0):
+                _fail(f"{tag}: score sum {got['score_sum']} != the JAX package's")
+            for key, value in want.items():
+                if got[key] != value:
+                    _fail(f"{tag}: {key} {got[key]} != the JAX package's {value}")
+            check_world_valid(tag, store, cluster)
+            partitioned = front.solves > solves0
+            stacked = front.stacked_fill_launches - stacked0
+            stacked_rows = front.stacked_fill_rows - rows0
+            buckets = front.last_buckets if partitioned else []
+            if partitioned:
+                widest = max([widest] + [b[2] for b in buckets])
+                # every stacked launch took all stacked lanes' chunk rows
+                if stacked_rows != sum(b[3] * min(sched.chunk_size, b[0]) * b[5]
+                                       for b in buckets):
+                    out["stacked_fill_rows_ok"] = False
+            spans = TRACER.spans()
+            front_check = front.selfcheck_seconds - front_check0
+            partition_s = sum(sp.dur_us for sp in spans if sp.name == "solve.partition") / 1e6
+            execute = [sp.dur_us / 1e6 for sp in spans if sp.name == "solver.execute"
+                       and sp.attrs.get("kernel") == "solve_wave_chunk_stack"]
+            split = _span_split(spans)
+            row = {"wall_s": wall, "selfcheck_s": sched.last_selfcheck_seconds,
+                   "frontier_selfcheck_s": front_check,
+                   "partition_s": partition_s - front_check, **split,
+                   "stacked_dispatches": len(execute), "execute_host_s": sum(execute),
+                   "buckets": [list(b) for b in buckets], "fill_launches": fills,
+                   "stacked_fill_launches": stacked, "drf_shares_launches": shares,
+                   "drf_merge_launches": merges, "partitioned": partitioned,
+                   **{k: got[k] for k in ("admitted", "bound", "evicted")}}
+            out["rounds"].append(row)
+            out["fill_launches"] += fills
+            out["stacked_fill_launches"] += stacked
+            out["drf_shares_launches"] += shares
+            out["drf_merge_launches"] += merges
+            per_dispatch = (sum(execute) / len(execute)) if execute else 0.0
+            print(f"[frontier] round {index + 1}{' (the (q) round)' if index == 0 else ''}:"
+                  f" wall {wall:.3f} s, self-checks {sched.last_selfcheck_seconds:.3f} s (frontier"
+                  f" {front_check:.3f} s); solve.partition less its self-check"
+                  f" {row['partition_s']:.3f} s over {len(buckets)} bucket(s)"
+                  f" {[tuple(b[:4]) for b in buckets]} (g_pad, n_pad, lanes, stacked lanes),"
+                  f" {len(execute)} stacked dispatches, host time per dispatch"
+                  f" {per_dispatch * 1e3:.2f} ms; pending scan {split['scan_encode_s']:.3f} s,"
+                  f" quota order {split['quota_order_s']:.3f} s, global solve"
+                  f" {split['solve_s']:.3f} s, commit+status {split['commit_status_s']:.3f} s;"
+                  f" fill launches {fills} ({stacked} stacked), DRF launches {shares} share"
+                  f" table + {merges} merge; admitted {got['admitted']}, bound {got['bound']};"
+                  f" frontier {got['frontier']}; equal to the JAX package's, valid", flush=True)
+    TRACER.disable()
+    last = frontier_counters(front)
+    if widest < 2:
+        _fail("frontier: no stacked dispatch held two or more real lanes")
+    if not last["residual_gangs_total"]:
+        _fail("frontier: no gang went through the residual pass")
+    if not out["stacked_fill_launches"]:
+        _fail("frontier: solve_waves_stacked launched no fill kernel")
+    if not out["stacked_fill_rows_ok"]:
+        _fail("frontier: a stacked fill launch did not take every lane's chunk rows")
+    for key in ("drf_shares_launches", "drf_merge_launches"):
+        if not out[key]:
+            _fail(f"frontier: the phase launched no {key[:-9]} kernel")
+    first = out["rounds"][0]
+    print(f"[frontier] round 1 beside [delta]'s round 1 (the same world and round through the"
+          f" global solve): wall {first['wall_s']:.3f} s vs {delta_round1['wall_s']:.3f} s,"
+          f" self-checks {first['selfcheck_s']:.3f} s vs {delta_round1['selfcheck_s']:.3f} s;"
+          f" solve {first['partition_s']:.3f} s (solve.partition less its self-check) vs"
+          f" {delta_round1['solve_s']:.3f} s (scheduler.solve); pending scan"
+          f" {first['scan_encode_s']:.3f} s vs {delta_round1['scan_encode_s']:.3f} s, commit+status"
+          f" {first['commit_status_s']:.3f} s vs {delta_round1['commit_status_s']:.3f} s", flush=True)
+    ticks = out["rounds"][1:]
+    walls = [max(0.0, r["wall_s"] - r["selfcheck_s"]) for r in ticks]
+    dispatches = [r["stacked_dispatches"] for r in out["rounds"]]
+    host = sum(r["execute_host_s"] for r in out["rounds"]) / max(sum(dispatches), 1)
+    out.update(ticks=len(ticks), tick_p50_s=_percentile(walls, 0.5),
+               tick_p99_s=_percentile(walls, 0.99), tick_mean_s=statistics.mean(walls),
+               stacked_dispatches_per_round=dispatches, host_s_per_stacked_dispatch=host,
+               widest_stack_lanes=widest, stats=front.stats())
+    print(f"[frontier] {len(ticks)} churn ticks, wall less self-checks: p50"
+          f" {out['tick_p50_s']:.4f} s, p99 {out['tick_p99_s']:.4f} s, mean"
+          f" {out['tick_mean_s']:.4f} s; stacked dispatches per round {dispatches}, host time"
+          f" per stacked dispatch {host * 1e3:.3f} ms (solver.execute spans); widest stack"
+          f" {widest} real lanes; launches over the phase: fill {out['fill_launches']}"
+          f" ({out['stacked_fill_launches']} from solve_waves_stacked), DRF"
+          f" {out['drf_shares_launches']} share table + {out['drf_merge_launches']} merge;"
+          f" stats {front.stats()}", flush=True)
+    # the fill at the stacked dispatch's shape: round 1's first bucket (the
+    # launches here are outside the counted run)
+    (args, kw), lanes = stacked_fill_call(recorded.stacks[0], sched.chunk_size)
+    fill_out = fill_batch(*args, **kw)
+    torch.cuda.synchronize()
+    err = _check_equal("frontier stacked", fill_out, fill_batch_ref(*args, **kw))
+    ms = _median_ms(lambda: fill_batch(*args, **kw))
+    plain_ms = _median_ms(lambda: fill_batch_ref(*args, **kw))
+    bound_ms, bound_by = _fill_bound(args, **kw)
+    free, mask, demand, count = args
+    c, p, r = demand.shape
+    print(f"[frontier] stacked fill: {lanes} lanes x {c // lanes} gangs = C={c} rows, P={p}"
+          f" N={mask.shape[-1]} R={r}, free {'shared' if free.dim() == 2 else 'per-gang'},"
+          f" free_after {'yes' if kw['with_free_after'] else 'no'}: equal bit for bit; kernel"
+          f" {ms * 1e3:.2f} us per launch, plain {plain_ms * 1e3:.2f} us, bound"
+          f" {bound_ms * 1e3:.3f} us ({bound_by}), {100 * bound_ms / ms:.1f} % of bound",
+          flush=True)
+    out["stacked_fill"] = {"case": "frontier_stacked", "rows": c, "lanes": lanes, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                           "share_of_bound": bound_ms / ms, "max_abs_err": err}
+    return out
+
+
 def _timed(phase, *args):
     t0 = time.perf_counter()
     out = phase(*args)
@@ -1648,20 +2133,24 @@ def main() -> int:
     sched = _timed(phase_scheduler)
     drf = _timed(phase_drf, sched["q_order_inputs"])
     delta = _timed(phase_delta)
+    front = _timed(phase_frontier, delta["rounds"][0])
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
         "source": "grove_tpu_torch/csrc/fill.cu",
         "replaces": "grove_tpu/ops/pallas_fill.py:69",
         "launches": main_path["launches"] + stats["fill_launches"] + stats["exact_fill_launches"]
-        + sched["fill_launches"] + delta["fill_launches"],
-        "max_abs_err": max([timing["max_abs_err"]] + [cs["max_abs_err"] for cs in cases]),
+        + sched["fill_launches"] + delta["fill_launches"] + front["fill_launches"],
+        "frontier_stacked_launches": front["stacked_fill_launches"],
+        "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"]]
+                           + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
-        "cases": [{k: v for k, v in cs.items() if k != "max_abs_err"} for cs in cases],
+        "cases": [{k: v for k, v in cs.items() if k != "max_abs_err"}
+                  for cs in cases + [front["stacked_fill"]]],
     }
     drf_kernels = [
         {
@@ -1669,7 +2158,8 @@ def main() -> int:
             "route": "cuda",
             "source": "grove_tpu_torch/csrc/drf.cu",
             "replaces": "grove_tpu/quota/ordering.py:41",
-            "launches": sched[f"drf_{phase}_launches"] + delta[f"drf_{phase}_launches"],
+            "launches": sched[f"drf_{phase}_launches"] + delta[f"drf_{phase}_launches"]
+            + front[f"drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
             "plain_ms": drf[f"plain_{phase}_ms"],
@@ -1687,7 +2177,9 @@ def main() -> int:
     print(json.dumps({"kernels": [kernel, *drf_kernels], "main_path": paths, "stats_path": stats,
                       "scheduler": sched["rounds"], "drf_pass": drf_pass,
                       "delta": {k: v for k, v in delta.items() if k != "rounds"},
-                      "delta_rounds": delta["rounds"]}))
+                      "delta_rounds": delta["rounds"],
+                      "frontier": {k: v for k, v in front.items() if k != "rounds"},
+                      "frontier_rounds": front["rounds"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,11 @@ JAX package's generator.
 documents a PodCliqueSet controller would have written (wire documents, as
 ``grove_tpu/api/serialize.py`` exports them), so one world loads into the
 port's store and into the JAX package's alike. ``scheduler_world`` holds the
-scheduler worlds (s), (q) and (r), and the churn world ``delta`` whose ticks
-``apply_tick`` applies to either package's store; ``EventCapture`` and
-``round_summary`` read a round the same way on either side. This part is
-plain Python.
+scheduler worlds (s), (q) and (r), the churn world ``delta`` whose ticks
+``apply_tick`` applies to either package's store, and the frontier's world
+(phi); ``EventCapture``, ``round_summary``, ``delta_counters`` and
+``frontier_counters`` read a round the same way on either side. This part
+is plain Python.
 """
 
 from __future__ import annotations
@@ -238,8 +239,14 @@ def scheduler_world(name: str, n_nodes: Optional[int] = None, n_gangs: Optional[
     of round 1's, at least one).
     - ``delta``: (q)'s world and round, then ``ticks`` (default 24) churn
       ticks under the key ``ticks``, drawn by :func:`churn_ticks` from
-      ``seed``."""
+      ``seed``.
+    - ``frontier``: (phi), the world of the partitioned frontier: ``delta``
+      with 16 churn ticks by default (tick 8 cordons a node, tick 16
+      uncordons it). Its 5,120 nodes are 80 slices of 64, so the frontier
+      cuts 80 subproblems."""
     capacity = dict(STRESS_CAPACITY)
+    if name == "frontier":
+        return scheduler_world("delta", n_nodes, n_gangs, 16 if ticks is None else ticks, seed)
     if name == "delta":
         world = scheduler_world("q", n_nodes, n_gangs)
         world["ticks"] = churn_ticks(
@@ -419,6 +426,22 @@ def delta_counters(delta) -> dict:
     return {k: getattr(delta, k) for k in (
         "warm_start_hits", "solve_reuses", "full_fallbacks", "drift_detected",
         "last_reencoded", "last_reused")}
+
+
+# FrontierState.stats() fields that do not depend on time (occupancy and the
+# self-check's milliseconds do)
+FRONTIER_STAT_FIELDS = (
+    "solves", "degenerate_ticks", "subproblems_total", "assigned_gangs_total",
+    "residual_gangs_total", "batched_dispatches_total", "residual_overlap_hits",
+    "residual_overlap_misses",
+)
+
+
+def frontier_counters(frontier) -> dict:
+    """The deterministic part of a frontier state's ``stats()``, read the
+    same way from either package."""
+    stats = frontier.stats()
+    return {k: stats[k] for k in FRONTIER_STAT_FIELDS}
 
 
 class EventCapture:

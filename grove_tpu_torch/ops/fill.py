@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -220,19 +221,84 @@ def _fill_batch_cuda(free, mask, demand, count, with_free_after):
             + lib.grove_cuda_error_string(err).decode()
         )
     fill_batch.launches += 1
+    fill_batch.rows += c
     return alloc, placed, free_after
+
+
+@torch.library.custom_op("grove_tpu_torch::fill_batch", mutates_args=())
+def _fill_op(
+    free: torch.Tensor,
+    mask: torch.Tensor,
+    demand: torch.Tensor,
+    count: torch.Tensor,
+    with_free_after: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``fill_batch`` as an operator, so that ``torch.func.vmap`` reaches it
+    through :func:`_fill_vmap` (vmap cannot trace the kernel's ctypes
+    launch). Without ``free_after`` its third result is an empty tensor."""
+    if demand.device.type == "cuda":
+        alloc, placed, free_after = _fill_batch_cuda(free, mask, demand, count, with_free_after)
+    else:
+        alloc, placed, free_after = fill_batch_ref(free, mask, demand, count, with_free_after)
+    if free_after is None:
+        free_after = demand.new_empty((0,))
+    return alloc, placed, free_after
+
+
+def _lane_first(t, dim, b):
+    """`t` with the vmapped lane axis first: moved there, or broadcast to
+    `b` lanes where `t` is shared by every lane (``dim`` None)."""
+    return t.expand((b,) + t.shape) if dim is None else t.movedim(dim, 0)
+
+
+@_fill_op.register_vmap
+def _fill_vmap(info, in_dims, free, mask, demand, count, with_free_after):
+    """The fill over B lanes of C gangs is one fill of B·C gangs: the lane
+    axis folds into the gang axis (mask ``[B,C,N]`` → ``[B·C,N]``, demand
+    ``[B,C,P,R]`` → ``[B·C,P,R]``, count ``[B,C,P]`` → ``[B·C,P]``), so one
+    launch serves every lane. A capacity snapshot ``[N,R]`` per lane is
+    expanded to one row per gang, ``[B·C,N,R]`` (the kernel takes a row
+    stride of 0 or N·R only); one shared by every lane stays shared."""
+    b = info.batch_size
+    free_dim, mask_dim, demand_dim, count_dim, _ = in_dims
+    demand = _lane_first(demand, demand_dim, b)
+    _, c, p_dim, r = demand.shape
+    mask = _lane_first(mask, mask_dim, b)
+    n = mask.shape[-1]
+    rows = b * c
+    if free_dim is not None or free.dim() == 3:
+        free = _lane_first(free, free_dim, b)
+        if free.dim() == 3:  # one [N,R] snapshot per lane
+            free = free.unsqueeze(1).expand(b, c, n, r)
+        free = free.reshape(rows, n, r).contiguous()
+    alloc, placed, free_after = _fill_op(
+        free,
+        mask.reshape(rows, n).contiguous(),
+        demand.reshape(rows, p_dim, r).contiguous(),
+        _lane_first(count, count_dim, b).reshape(rows, p_dim).contiguous(),
+        with_free_after,
+    )
+    alloc = alloc.view(b, c, p_dim, n)
+    placed = placed.view(b, c, p_dim)
+    if not with_free_after:
+        return (alloc, placed, free_after), (0, 0, None)
+    return (alloc, placed, free_after.view(b, c, n, r)), (0, 0, 0)
 
 
 def fill_batch(free, mask, demand, count, with_free_after=True):
     """The fill of C gangs on the tensors' device: the CUDA kernel for CUDA
     tensors, :func:`fill_batch_ref` for CPU tensors. Same arguments and
-    results as :func:`fill_batch_ref`."""
-    if demand.device.type == "cuda":
-        return _fill_batch_cuda(free, mask, demand, count, with_free_after)
-    if demand.device.type == "cpu":
-        return fill_batch_ref(free, mask, demand, count, with_free_after)
-    raise ValueError(f"fill_batch: unsupported device {demand.device}")
+    results as :func:`fill_batch_ref`. Under ``torch.func.vmap`` the lanes
+    fold into the gang axis and one launch serves them all
+    (:func:`_fill_vmap`)."""
+    if demand.device.type not in ("cuda", "cpu"):
+        # before the operator: a meta tensor would reach its fake kernel
+        raise ValueError(f"fill_batch: unsupported device {demand.device}")
+    alloc, placed, free_after = _fill_op(free, mask, demand, count, with_free_after)
+    return alloc, placed, free_after if with_free_after else None
 
 
-# kernel launches since the last reset (the plain CPU path never counts)
+# kernel launches since the last reset, and the gang rows they took (the
+# plain CPU path never counts)
 fill_batch.launches = 0
+fill_batch.rows = 0

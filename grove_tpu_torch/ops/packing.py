@@ -296,8 +296,9 @@ def _spread_quota(K: torch.Tensor, cnt: torch.Tensor, load: torch.Tensor) -> tor
     # descending, then index descending
     order = torch.sort(-load_eff.flip(-1), dim=-1, stable=True).indices
     perm = (d - 1) - order
-    ranks = torch.arange(d, device=K.device).expand_as(perm)
-    rank = torch.empty_like(perm).scatter_(-1, perm, ranks)
+    # each domain's place in that order: the inverse permutation (an argsort
+    # of a permutation has no ties, and vmap has a batching rule for it)
+    rank = torch.argsort(perm, dim=-1)
     shave = at_level & (rank < excess.unsqueeze(-1))
     return q0 - shave.to(torch.int32)
 
@@ -909,6 +910,81 @@ def solve_wave_chunk(
         "alloc": torch.where(accept[:, None, None], alloc, 0),
         "free_after": free_after,
     }
+
+
+def solve_wave_chunk_stack(
+    free,  # [B, N, R] f32 — one capacity snapshot per stacked subproblem
+    topo,  # [B, N, L] i32
+    seg_starts,  # [B, L, D] i32
+    seg_ends,  # [B, L, D] i32
+    demand,  # [B, C, P, R] f32 — one CHUNK of gangs per subproblem lane
+    count,  # [B, C, P] i32
+    min_count,  # [B, C, P] i32
+    req_level,  # [B, C] i32
+    pref_level,  # [B, C] i32
+    pending,  # [B, C] bool
+    narrow_cap,  # [B, C] i32
+    seeds,  # [B, C] i32
+    group_req,  # [B, C, P] i32
+    group_pin,  # [B, C, P] i32
+    gang_pin,  # [B, C] i32
+    spread_level,  # [B, C] i32
+    spread_min,  # [B, C] i32
+    spread_required,  # [B, C] bool
+    spread_seed,  # [B, C, D] i32 (or the [B, C, 0] placeholder)
+    commit_iters: int = 2,
+    grouped: bool = False,
+    pinned: bool = False,
+    spread: bool = False,
+    uniform: bool = False,
+    fill=fill_batch,
+):
+    """One wave over one chunk of every stacked subproblem lane at once: the
+    partitioned frontier's batched dispatch (``solver/frontier.py``).
+
+    Node-disjoint subproblems padded to one shape are stacked on a leading
+    lane axis and decided by ``torch.func.vmap`` of the same
+    :func:`wave_chunk_core` the binding path runs per problem (without the
+    demand dedup and the ragged ``level_widths``, as the JAX package calls
+    it). Each lane carries its own capacity, topology slabs and narrow caps,
+    so lanes never read each other's rows. The fill's vmap rule folds the
+    lanes into its gang axis: one kernel launch per fill serves every lane.
+    Inert padding lanes (zero capacity and counts, pending False) leave
+    their free untouched.
+
+    Static flags are the OR over the stack (``uniform``: the AND); a lane
+    without groups, pins or spread takes the same values through the
+    flagged code. Returns (free_after [B,N,R], accept [B,C], retry [B,C],
+    new_cap [B,C], placed [B,C,P], score [B,C], chosen_level [B,C],
+    alloc [B,C,P,N]), the last four masked by accept as
+    :func:`solve_wave_chunk` masks them."""
+    n_levels = topo.shape[2]
+
+    def lane(free_b, topo_b, ss_b, se_b, dem_b, cnt_b, mn_b, rq_b, pf_b, pend_b, ncap_b,
+             seed_b, grq_b, gpin_b, gangpin_b, slvl_b, smin_b, sreq_b, sseed_b):
+        free_after, accept, placed, score, chosen, retry, new_cap, _, alloc = wave_chunk_core(
+            free_b, topo_b, ss_b, se_b, dem_b, cnt_b, mn_b, rq_b, pf_b, pend_b, ncap_b,
+            seed_b, commit_iters, grq_b, gpin_b, gangpin_b, slvl_b, smin_b, sreq_b, sseed_b,
+            grouped, pinned, spread, uniform=uniform, fill=fill,
+        )
+        # the post-processing of solve_wave_chunk, so that a stacked lane
+        # and the per-problem path cannot diverge
+        return (
+            free_after,
+            accept,
+            retry,
+            new_cap,
+            torch.where(accept.unsqueeze(-1), placed, 0),
+            torch.where(accept, score, 0.0),
+            torch.where(accept, torch.where(chosen >= n_levels, -1, chosen), -1).to(torch.int32),
+            torch.where(accept[:, None, None], alloc, 0),
+        )
+
+    return torch.func.vmap(lane)(
+        free, topo, seg_starts.long(), seg_ends.long(), demand, count, min_count,
+        req_level, pref_level, pending, narrow_cap, seeds, group_req, group_pin, gang_pin,
+        spread_level, spread_min, spread_required, spread_seed,
+    )
 
 
 def _host_int(t: torch.Tensor) -> int:

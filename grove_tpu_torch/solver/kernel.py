@@ -8,26 +8,33 @@ Counterpart of ``grove_tpu/solver/kernel.py``:
 - ``solve_waves_stats``: the stats path, ``ops.packing.solve_waves_device``
   (one read per wave), then the exact sequential greedy over the gangs
   still pending (the hybrid tail);
-- ``solve``: the exact sequential greedy, ``ops.packing.solve_packing``.
+- ``solve``: the exact sequential greedy, ``ops.packing.solve_packing``;
+- ``solve_waves_stacked``: ``solve_waves`` over a stack of same-shape
+  subproblems, each (wave, chunk) one ``ops.packing.solve_wave_chunk_stack``
+  dispatch over every lane (the partitioned frontier, ``solver/frontier.py``).
 
 Grouped, pinned and spread problems take the same paths with the static
-flags derived from the problem as the JAX package derives them. The JAX
-module's metrics and tracing spans are not ported yet.
+flags derived from the problem as the JAX package derives them. Of the JAX
+module's metrics and tracing spans only the stacked solve's
+``solver.execute`` span is ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from grove_tpu_torch.convert import problem_to_device
 from grove_tpu_torch.ops.fill import fill_batch
+from grove_tpu_torch.observability.tracing import TRACER
 from grove_tpu_torch.ops.packing import (
     solve_packing,
     solve_wave_chunk,
+    solve_wave_chunk_stack,
     solve_waves_device,
 )
 from grove_tpu_torch.solver.dedup import (
@@ -73,12 +80,14 @@ def _flags(args):
     )
 
 
-# PackingProblem's per-gang fields, in the order of _problem_arrays
+# PackingProblem's per-gang fields, in the order of _problem_arrays, and the
+# value each pads its gang axis with (the -1 sentinels: no constraint)
 _GANG_FIELDS = (
     "demand", "count", "min_count", "req_level", "pref_level", "group_req",
     "group_pin", "gang_pin", "spread_level", "spread_min", "spread_required",
     "spread_seed",
 )
+_GANG_PADS = (0, 0, 0, -1, -1, -1, -1, -1, -1, 0, 0, 0)
 
 
 def _problem_arrays(problem: PackingProblem, rows=None, g_pad=None):
@@ -90,14 +99,12 @@ def _problem_arrays(problem: PackingProblem, rows=None, g_pad=None):
     -1 for the level and pin fields, 0 elsewhere)."""
     shape = problem.count.shape
     sl, sm, sr, ss = _spread_arrays(problem)
-    per_gang = (
-        (problem.demand, 0), (problem.count, 0), (problem.min_count, 0),
-        (problem.req_level, -1), (problem.pref_level, -1),
-        (_or_full(problem.group_req, shape), -1),
-        (_or_full(problem.group_pin, shape), -1),
-        (_or_full(problem.gang_pin, shape[:1]), -1),
-        (sl, -1), (sm, 0), (sr, 0), (ss, 0),
-    )
+    per_gang = zip((
+        problem.demand, problem.count, problem.min_count, problem.req_level,
+        problem.pref_level, _or_full(problem.group_req, shape),
+        _or_full(problem.group_pin, shape), _or_full(problem.gang_pin, shape[:1]),
+        sl, sm, sr, ss,
+    ), _GANG_PADS)
 
     def pick(a, value):
         if rows is not None:
@@ -386,3 +393,126 @@ def solve_waves_stats(
         free_after=free_after,
         solve_seconds=elapsed,
     )
+
+
+
+def solve_waves_stacked(
+    stack: Dict[str, np.ndarray],
+    chunk_size: int = 32,
+    max_waves: int = 16,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Dict[str, object]:
+    """Wave-parallel solve of a STACK of same-shape subproblems: the
+    partitioned frontier's batched execution (``solver/frontier.py``).
+
+    ``stack`` holds the lanes' problem arrays with a leading lane axis
+    (``capacity [B,N,R]``, ``topo [B,N,L]``, ``seg_starts``/``seg_ends
+    [B,L,D]``, gang arrays ``[B,G,...]``). The host loop is
+    :func:`solve_waves`' for every lane at once: the same chunk clamp to
+    ``min(chunk_size, G)`` and padding (the -1 sentinels), the same
+    lane-local seeds ``arange(G) + wave*7919`` and commit, but each (wave,
+    chunk) is ONE ``solve_wave_chunk_stack`` dispatch over all B lanes, in a
+    ``solver.execute`` span. A lane's results equal :func:`solve_waves` on
+    that lane alone, bit for bit (the frontier self-check's contract).
+
+    Per dispatch the loop reads seven tensors back, as the JAX package
+    does: accept, retry, new_cap and the masked placed, score,
+    chosen_level and alloc. Runs on ``device`` (default: the card; raises
+    without one), with that card current, so a worker thread may call it.
+    Returns per-lane ``admitted [B,G]``, ``placed``, ``score``,
+    ``chosen_level``, ``alloc [B,G,P,N]``, ``free_after [B,N,R]``,
+    ``dispatches``, ``fill_launches`` and ``fill_rows`` (fill kernel
+    launches during the dispatches and the gang rows they took; 0 on the
+    CPU) and ``solve_seconds``."""
+    device = resolve_device(device)
+    strict_fp32()
+    b, g, p_max, _r = stack["demand"].shape
+    n = stack["capacity"].shape[1]
+    chunk_size = min(chunk_size, max(g, 1))
+    n_chunks = max(1, (g + chunk_size - 1) // chunk_size)
+    g_pad = n_chunks * chunk_size
+
+    def pad(a, value):
+        if a.shape[1] == g_pad:
+            return a
+        width = [(0, 0), (0, g_pad - a.shape[1])] + [(0, 0)] * (a.ndim - 2)
+        return np.pad(a, width, constant_values=value)
+
+    # the per-gang arrays, in solve_wave_chunk_stack's argument order
+    gang = [pad(stack[name], value) for name, value in zip(_GANG_FIELDS, _GANG_PADS)]
+    count, min_count, group_req, gang_pin, spread_level = (gang[i] for i in (1, 2, 5, 7, 8))
+    grouped = bool((group_req >= 0).any())
+    pinned = bool((gang_pin >= 0).any())
+    spread = bool((spread_level >= 0).any())
+    # the AND over lanes: min == count for every gang (padded gangs 0 == 0)
+    uniform = bool((min_count == count).all())
+    n_levels = stack["topo"].shape[2]
+    pending = np.zeros((b, g_pad), dtype=bool)
+    pending[:, :g] = True
+    narrow_cap = np.full((b, g_pad), n_levels - 1, dtype=np.int32)
+    admitted = np.zeros((b, g_pad), dtype=bool)
+    placed = np.zeros_like(count)
+    score = np.zeros((b, g_pad), dtype=np.float32)
+    chosen_level = np.full((b, g_pad), -1, dtype=np.int32)
+    alloc = np.zeros((b, g_pad, p_max, n), dtype=np.int32)
+
+    with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+        free = _upload(stack["capacity"], device)
+        node = tuple(_upload(stack[k], device) for k in ("topo", "seg_starts", "seg_ends"))
+        # immutable chunk tensors go to the device once
+        chunk_const = [
+            tuple(_upload(a[:, c * chunk_size : (c + 1) * chunk_size], device) for a in gang)
+            for c in range(n_chunks)
+        ]
+        _sync(device)
+        launches0, rows0 = fill_batch.launches, fill_batch.rows
+        t0 = time.perf_counter()
+        dispatches = 0
+        for wave in range(max_waves):
+            if not pending.any():
+                break
+            # lane-LOCAL seeds: a lane's gang keeps the seed it has solving alone
+            seeds = np.repeat(
+                np.arange(g_pad, dtype=np.int32)[None] + np.int32(wave * 7919), b, axis=0
+            )
+            for c in range(n_chunks):
+                sl = slice(c * chunk_size, (c + 1) * chunk_size)
+                mask = pending[:, sl]
+                if not mask.any():
+                    continue
+                dem, cnt, mn, rq, pf, grq, gpin, gangpin, slvl, smin, sreq, sseed = chunk_const[c]
+                with TRACER.span("solver.execute", kernel="solve_wave_chunk_stack", gangs=g):
+                    out = solve_wave_chunk_stack(
+                        free, *node, dem, cnt, mn, rq, pf,
+                        _upload(mask, device), _upload(narrow_cap[:, sl], device),
+                        _upload(seeds[:, sl], device),
+                        grq, gpin, gangpin, slvl, smin, sreq, sseed,
+                        grouped=grouped, pinned=pinned, spread=spread, uniform=uniform,
+                    )
+                dispatches += 1
+                free, accept_d, retry_d, new_cap_d, placed_d, score_d, chosen_d, alloc_d = out
+                committed = accept_d.cpu().numpy()
+                retry = retry_d.cpu().numpy()
+                admitted[:, sl] |= committed
+                placed[:, sl] = np.where(committed[:, :, None], placed_d.cpu().numpy(), placed[:, sl])
+                score[:, sl] = np.where(committed, score_d.cpu().numpy(), score[:, sl])
+                chosen_level[:, sl] = np.where(committed, chosen_d.cpu().numpy(), chosen_level[:, sl])
+                narrow_cap[:, sl] = new_cap_d.cpu().numpy()
+                alloc[:, sl] = np.where(
+                    committed[:, :, None, None], alloc_d.cpu().numpy(), alloc[:, sl]
+                )
+                pending[:, sl] = mask & retry
+        free_after = free.cpu().numpy()
+        elapsed = time.perf_counter() - t0
+    return {
+        "admitted": admitted[:, :g],
+        "placed": placed[:, :g],
+        "score": score[:, :g],
+        "chosen_level": chosen_level[:, :g],
+        "alloc": alloc[:, :g],
+        "free_after": free_after,
+        "dispatches": dispatches,
+        "fill_launches": fill_batch.launches - launches0,
+        "fill_rows": fill_batch.rows - rows0,
+        "solve_seconds": elapsed,
+    }

@@ -15,9 +15,13 @@ matrix and a gang-spec cache folded from the store's watch events, skips the
 solve when the solver input equals the last tick's (``_delta_last``), and
 with ``delta_selfcheck`` holds every delta problem and solve to a
 from-scratch one. Delta is opt-in on a bare scheduler, as in the JAX
-package.
+package. ``enable_frontier()`` then attaches the partitioned frontier
+(``solver/frontier.py``): the delta round solves its pending gangs as
+per-slab subproblems stacked into batched dispatches, plus a global
+residual pass, and with ``frontier_selfcheck`` holds every stacked lane to
+a solo solve.
 
-Not part of this port: the partitioned frontier, the gRPC sidecar branch,
+Not part of this port: the gRPC sidecar branch,
 the speculative-encode cache, the disruption broker, the node-health
 monitor, gang journeys and the wall profiler. With none of them the JAX
 scheduler runs exactly this round (a bare scheduler has no broker and no
@@ -118,7 +122,16 @@ class GangScheduler:
         # True while the most recent batch "solve" was such a reuse: gates
         # the gang_solve_seconds observation
         self._solve_reused = False
-        # the partitioned frontier is not ported: never True
+        # partitioned solver frontier (solver/frontier.py): None solves the
+        # pending gangs globally; enable_frontier() attaches it (it needs the
+        # delta state)
+        self.frontier = None
+        # after every partitioned solve, solve each subproblem alone and
+        # assert the batched composite equal bit for bit (tests, the smoke)
+        self.frontier_selfcheck = False
+        # True while the most recent solve went through the frontier: the
+        # delta A/B then pins the encode only, and the frontier self-check
+        # owns the solve comparison
         self._frontier_solved = False
 
     def enable_delta(self) -> bool:
@@ -132,6 +145,19 @@ class GangScheduler:
         from grove_tpu_torch.solver.deltastate import DeltaSolveState
 
         self.delta = DeltaSolveState(self.store, self.cluster, self.topology)
+        return True
+
+    def enable_frontier(self) -> bool:
+        """Attach the partitioned solver frontier (solver/frontier.py). Needs
+        the delta state: the plan rides its cached NodeEncoding and
+        maintained free matrix. Safe to call twice."""
+        if self.frontier is not None:
+            return True
+        if not self.enable_delta():
+            return False
+        from grove_tpu_torch.solver.frontier import FrontierState
+
+        self.frontier = FrontierState(self.topology)
         return True
 
     def _solve_batch_delta(self, nodes: List, gang_specs: List[dict]):
@@ -157,6 +183,17 @@ class GangScheduler:
             # observe the cached result's solve_seconds again
             self._solve_reused = True
             return self._delta_last[1], problem
+        self._frontier_solved = False
+        if self.frontier is not None:
+            # partitioned frontier: slab subproblems in batched dispatches
+            # plus a global residual pass; None (one slab, or every gang
+            # residual) falls through to the global solve below
+            result = self.frontier.solve(self, gang_specs, problem)
+            if result is not None:
+                self._solve_reused = False
+                self._frontier_solved = True
+                self._delta_last = (key, result)
+                return result, problem
         result, problem = self._solve_batch(nodes, gang_specs, None, problem=problem)
         self._delta_last = (key, result)
         return result, problem
@@ -182,6 +219,12 @@ class GangScheduler:
             raise AssertionError(
                 f"delta-solve problem diverged from the from-scratch encode: {mismatch}"
             )
+        if self._frontier_solved:
+            # the frontier's result is its own (slab-confined placements):
+            # this pins the encode, and the frontier self-check owns the
+            # solve comparison
+            self.last_selfcheck_seconds += time.perf_counter() - t0
+            return
         full_result = solve_waves(
             full,
             chunk_size=self.chunk_size,

@@ -23,6 +23,14 @@ free-capacity matrix (``state_fingerprint()[2]``) and the sha256 of the
 whole ``state_fingerprint()``; ``chip_smoke.py`` holds the port's delta
 rounds to them (``JAX_DELTA_REFERENCE``).
 
+``frontier`` is (phi), the partitioned frontier's world
+(``scheduler_world("frontier")``: the churn world with 16 ticks) through a
+JAX ``GangScheduler`` with ``enable_delta()``, ``enable_frontier()``,
+``delta_selfcheck`` and ``frontier_selfcheck`` on every round. Per round it
+prints what ``delta`` prints and the deterministic fields of the frontier
+state's ``stats()`` (``frontier_counters``); ``chip_smoke.py`` holds the
+port's frontier rounds to them (``JAX_FRONTIER_REFERENCE``).
+
 A world can be cut for a quick look: ``--nodes N --gangs G`` (and
 ``--ticks T --seed S`` for ``delta``).
 """
@@ -51,6 +59,7 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     EventCapture,
     apply_tick,
     delta_counters,
+    frontier_counters,
     round_summary,
     scheduler_world,
 )
@@ -87,13 +96,17 @@ def delta_state(delta) -> dict:
             "state_sha256": hashlib.sha256(repr(fp).encode()).hexdigest()}
 
 
-def run_delta(n_nodes=None, n_gangs=None, ticks=None, seed=0) -> list:
-    world = scheduler_world("delta", n_nodes, n_gangs, ticks, seed)
+def run_delta(n_nodes=None, n_gangs=None, ticks=None, seed=0, frontier=False) -> list:
+    name = "frontier" if frontier else "delta"
+    world = scheduler_world(name, n_nodes, n_gangs, ticks, seed)
     store = Store(VirtualClock(0.0))
     cluster = SimCluster(store=store, nodes=make_nodes(*world["nodes"]))
     scheduler = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"])
     assert scheduler.enable_delta()
     scheduler.delta_selfcheck = True
+    if frontier:
+        assert scheduler.enable_frontier()
+        scheduler.frontier_selfcheck = True
     for doc in world["queues"] + world["rounds"][0]:
         store.create(decode_object(doc))
     rounds = []
@@ -105,8 +118,10 @@ def run_delta(n_nodes=None, n_gangs=None, ticks=None, seed=0) -> list:
             scheduler.schedule_pending()
         summary = round_summary(store, cluster, cap.events)
         summary.update(delta_state(scheduler.delta))
+        if frontier:
+            summary["frontier"] = frontier_counters(scheduler.frontier)
         summary["seconds"] = time.perf_counter() - t0
-        print(f"[delta] round {len(rounds) + 1}: {json.dumps(summary)}", file=sys.stderr,
+        print(f"[{name}] round {len(rounds) + 1}: {json.dumps(summary)}", file=sys.stderr,
               flush=True)
         rounds.append(summary)
     return rounds
@@ -122,8 +137,9 @@ def main() -> int:
     args = parser.parse_args()
     out = {"jax": jax.__version__, "backend": jax.default_backend()}
     for name in args.worlds:
-        if name == "delta":
-            out[name] = run_delta(args.nodes, args.gangs, args.ticks, args.seed)
+        if name in ("delta", "frontier"):
+            out[name] = run_delta(args.nodes, args.gangs, args.ticks, args.seed,
+                                  frontier=name == "frontier")
         else:
             out[name] = run_world(name, args.nodes, args.gangs)
     print(json.dumps(out))

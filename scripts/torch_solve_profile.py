@@ -7,7 +7,10 @@ batch (2,048 gangs), each on a fresh cluster (smaller with
 --gangs/--nodes), through one of the port's solvers (--path): the binding
 path (``solver.kernel.solve_waves``), the stats path
 (``solve_waves_stats``: the wave loop of ``ops.packing.solve_waves_device``
-and the exact tail) or the exact solve (``solve``, no allocations).
+and the exact tail), the exact solve (``solve``, no allocations) or the
+partitioned frontier's stacked path (``stacked``: ``solve_waves_stacked``
+over every bucket the frontier stacks for the request's gangs on the free
+cluster, as in (phi)'s first round; ``chip_smoke.frontier_stacks``).
 Solves once unprofiled (solve_seconds), then once under ``torch.profiler``
 (CPU + CUDA activities). Prints one JSON object: wall times, the summed
 device time of all kernels, the device busy share (device time / profiled
@@ -25,7 +28,7 @@ whole solve of (e) does not finish in 15 minutes); with --window-gangs K
 every profiled figure is then that window's. With --out, the full
 profiler table is written to that file.
 
-    python3 scripts/torch_solve_profile.py [--path binding|stats|exact] [--request a|d|e]
+    python3 scripts/torch_solve_profile.py [--path binding|stats|exact|stacked] [--request a|d|e]
         [--gangs N] [--nodes 5120] [--chunk-waves K] [--window-gangs K] [--out FILE]
 """
 
@@ -36,23 +39,31 @@ import json
 import os
 import sys
 import time
+from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import disagg_specs, spread_recovery_specs  # noqa: E402
+from chip_smoke import disagg_specs, frontier_stacks, spread_recovery_specs  # noqa: E402
 from grove_tpu_torch.api.topology import ClusterTopology  # noqa: E402
 from grove_tpu_torch.models.scenarios import (  # noqa: E402
     STRESS_CAPACITY,
     build_stress_problem,
+    stress_gang_specs,
 )
 from grove_tpu_torch.ops import packing  # noqa: E402
 from grove_tpu_torch.ops.fill import fill_batch  # noqa: E402
 from grove_tpu_torch.sim.cluster import make_nodes  # noqa: E402
 from grove_tpu_torch.solver import kernel  # noqa: E402
 from grove_tpu_torch.solver.encode import build_problem  # noqa: E402
-from grove_tpu_torch.solver.kernel import solve, solve_waves, solve_waves_stats  # noqa: E402
+from grove_tpu_torch.solver.kernel import (  # noqa: E402
+    solve,
+    solve_waves,
+    solve_waves_stacked,
+    solve_waves_stats,
+)
 from grove_tpu_torch.utils.platform import card_info  # noqa: E402
 
 DEFAULT_GANGS = {"a": 10240, "d": 4096, "e": 2048}
@@ -69,6 +80,30 @@ def build(request, n_gangs, n_nodes):
     specs = (disagg_specs(n_gangs, seed=5) if request == "d"
              else spread_recovery_specs(n_gangs, seed=6, n_nodes=n_nodes))
     return build_problem(nodes, specs, ClusterTopology())
+
+
+class Stacked:
+    """The frontier's stacks of the request's gangs on a free cluster, read
+    as the profile reads a problem: its solve runs every stack through
+    ``solve_waves_stacked``; ``num_gangs`` counts the real lanes' gang rows."""
+
+    def __init__(self, request, n_gangs, n_nodes):
+        nodes = make_nodes(n_nodes, dict(STRESS_CAPACITY), 8, 8)
+        specs = {"a": lambda: stress_gang_specs(n_gangs, seed=0),
+                 "d": lambda: disagg_specs(n_gangs, seed=5),
+                 "e": lambda: spread_recovery_specs(n_gangs, seed=6, n_nodes=n_nodes)}[request]()
+        self.stacks = frontier_stacks(nodes, specs, ClusterTopology())
+        self.num_gangs = sum(p.num_gangs for lanes, _ in self.stacks for p in lanes)
+
+    def solve(self):
+        outs = [(len(lanes), solve_waves_stacked(stack, device="cuda"))
+                for lanes, stack in self.stacks]
+        return SimpleNamespace(
+            solve_seconds=sum(out["solve_seconds"] for _, out in outs),
+            admitted=np.concatenate([out["admitted"][:n].ravel() for n, out in outs]),
+            dispatches=sum(out["dispatches"] for _, out in outs),
+            lanes=[(n, out["admitted"].shape[0]) for n, out in outs],
+        )
 
 
 class _WindowEnd(Exception):
@@ -145,7 +180,8 @@ def range_device_s(events, label):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("binding", "stats", "exact"), default="binding")
+    ap.add_argument("--path", choices=("binding", "stats", "exact", "stacked"),
+                    default="binding")
     ap.add_argument("--request", choices=sorted(DEFAULT_GANGS), default="a")
     ap.add_argument("--gangs", type=int, default=None)
     ap.add_argument("--nodes", type=int, default=5120)
@@ -158,13 +194,15 @@ def main() -> int:
         return 1
     card = ", ".join(card_info())
     gangs = args.gangs or DEFAULT_GANGS[args.request]
-    problem = build(args.request, gangs, args.nodes)
+    make = Stacked if args.path == "stacked" else build
+    problem = make(args.request, gangs, args.nodes)
     run = {
         "binding": lambda p: solve_waves(p, device="cuda"),
         "stats": lambda p: solve_waves_stats(p, device="cuda"),
         "exact": lambda p: solve(p, with_alloc=False, device="cuda"),
+        "stacked": lambda p: p.solve(),
     }[args.path]
-    run(build(args.request, 256, 256))  # build + warm up
+    run(make(args.request, 256, 256))  # build + warm up
 
     chunk_waves = instrument()
     parts = StatsParts() if args.path == "stats" else None
@@ -182,7 +220,7 @@ def main() -> int:
     window_problem = problem
     if args.path == "exact" and args.window_gangs < gangs:
         window_problem = build(args.request, args.window_gangs, args.nodes)
-    if args.path == "binding":
+    if args.path in ("binding", "stacked"):
         chunk_waves[:] = [0, args.chunk_waves]
     else:
         chunk_waves[:] = [0, None]
@@ -242,6 +280,9 @@ def main() -> int:
     if stats_parts is not None:
         out["stats"] = stats_parts
         out["device_events_per_wave"] = len(kernels) / max(parts.waves, 1)
+    if args.path == "stacked":  # a chunk-wave is one dispatch over every lane
+        out["stacks"] = [{"lanes": n, "stacked_lanes": b} for n, b in plain.lanes]
+        out["host_s_per_dispatch"] = plain.solve_seconds / max(plain.dispatches, 1)
     if args.path == "exact":  # per gang row solved (the encoder's padded rows included)
         out["gang_rows"] = problem.num_gangs
         out["device_events_per_gang"] = len(kernels) / window_problem.num_gangs

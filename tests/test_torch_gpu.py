@@ -576,3 +576,128 @@ def test_cuda_delta_churn_rounds_match_the_cpu_twins(cuda):
     assert card == cpu and card_bind == cpu_bind
     assert min(card_launches) > 0 and cpu_launches == [0, 0, 0]
     assert sum(r[2]["solve_reuses"] > 0 for r in card) > 0
+
+
+def _frontier_stacks(kind, n_nodes=256):
+    """The partitioned frontier's stacks of gangs of one kind (stress;
+    disaggregated, with per-group packs; recovery, with pins) over the four
+    slices of a 256-node cluster. Returns [(lanes, stack)]."""
+    from chip_smoke import disagg_specs, frontier_stacks, spread_recovery_specs
+    from grove_tpu_torch.models.scenarios import stress_gang_specs
+
+    specs = {"stress": lambda: stress_gang_specs(192, seed=3),
+             "grouped": lambda: disagg_specs(96, seed=4),
+             "pinned": lambda: spread_recovery_specs(96, seed=5, n_nodes=n_nodes,
+                                                     kinds=("recovery",))}[kind]()
+    out = frontier_stacks(make_nodes(n_nodes, dict(STRESS_CAPACITY), 8, 8), specs,
+                          ClusterTopology())
+    assert any(len(lanes) >= 2 for lanes, _ in out)
+    return out
+
+
+STACK_FIELDS = ("free_after", "admitted", "retry", "new_cap", "placed", "score",
+                "chosen_level", "alloc")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["stress", "grouped", "pinned"])
+def test_cuda_stacked_chunk_matches_plain_fill(cuda, kind):
+    """One stacked chunk-wave on the card (the fill's vmap rule folds the
+    lanes into one kernel launch per fill) against the same call with the
+    plain fill, every output bit for bit."""
+    from grove_tpu_torch.solver.kernel import _GANG_FIELDS
+
+    lanes, stack = max(_frontier_stacks(kind), key=lambda ls: len(ls[0]))
+    b, g = stack["demand"].shape[:2]
+    chunk = min(32, g)
+    gang = [torch.from_numpy(np.ascontiguousarray(stack[name][:, :chunk])).to(cuda)
+            for name in _GANG_FIELDS]
+    node = [torch.from_numpy(stack[name]).to(cuda)
+            for name in ("capacity", "topo", "seg_starts", "seg_ends")]
+    pending = torch.ones((b, chunk), dtype=torch.bool, device=cuda)
+    narrow_cap = torch.full((b, chunk), stack["topo"].shape[2] - 1, dtype=torch.int32, device=cuda)
+    seeds = torch.arange(chunk, dtype=torch.int32, device=cuda).expand(b, chunk).contiguous()
+    flags = dict(grouped=bool((stack["group_req"] >= 0).any()),
+                 pinned=bool((stack["gang_pin"] >= 0).any()),
+                 spread=bool((stack["spread_level"] >= 0).any()),
+                 uniform=bool((stack["min_count"] == stack["count"]).all()))
+    args = node + gang[:5] + [pending, narrow_cap, seeds] + gang[5:]
+    fill_batch.launches = fill_batch.rows = 0
+    got = packing.solve_wave_chunk_stack(*args, **flags)
+    torch.cuda.synchronize()
+    launches, rows = fill_batch.launches, fill_batch.rows
+    want = packing.solve_wave_chunk_stack(*args, **flags, fill=fill_batch_ref)
+    for name, a, w in zip(STACK_FIELDS, got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w), name
+    assert got[1].any()
+    assert launches > 0 and rows == launches * b * chunk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["stress", "grouped", "pinned"])
+def test_cuda_stacked_lanes_match_solo_solves(cuda, kind):
+    """solve_waves_stacked on the card: every lane equal to the solo
+    solve_waves of its subproblem on the card, bit for bit (the frontier
+    self-check's contract), and every stacked fill launch took all the
+    stacked lanes' chunk rows."""
+    from grove_tpu_torch.solver.kernel import solve_waves_stacked
+
+    for lanes, stack in _frontier_stacks(kind):
+        out = solve_waves_stacked(stack, chunk_size=32, max_waves=16, device=cuda)
+        b, g = stack["demand"].shape[:2]
+        assert out["fill_launches"] > 0
+        assert out["fill_rows"] == out["fill_launches"] * b * min(32, g)
+        for li, lane in enumerate(lanes):
+            solo = solve_waves(lane, chunk_size=32, max_waves=16, device=cuda)
+            for name in ("admitted", "placed", "score", "chosen_level", "alloc"):
+                assert np.array_equal(out[name][li], getattr(solo, name)), (li, name)
+
+
+@pytest.mark.gpu
+def test_cuda_frontier_rounds_match_the_cpu_twins(cuda):
+    """A four-slice cut of (phi) through the port's frontier (delta and
+    frontier self-checks on every round) on the card and on the CPU: every
+    round's summary, events, delta counters, state fingerprint and frontier
+    counters equal; the card's stacked dispatches launched the fill."""
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.models.scenarios import (
+        EventCapture,
+        apply_tick,
+        delta_counters,
+        frontier_counters,
+        round_summary,
+        scheduler_world,
+    )
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    world = scheduler_world("frontier", 256, 128)
+    sides = []
+    for device in (cuda, "cpu"):
+        store = Store(VirtualClock(0.0))
+        cluster = SimCluster(store, make_nodes(*world["nodes"]))
+        sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"],
+                              device=device)
+        assert sched.enable_frontier()
+        sched.delta_selfcheck = sched.frontier_selfcheck = True
+        for doc in world["queues"] + world["rounds"][0]:
+            store.create(decode_object(doc), consume=True)
+        rounds = []
+        for tick in [None] + world["ticks"]:
+            if tick:
+                apply_tick(store, cluster, tick, decode_object)
+            with EventCapture(EVENTS) as cap:
+                sched.schedule_pending()
+            rounds.append((round_summary(store, cluster, cap.events), cap.events,
+                           delta_counters(sched.delta), sched.delta.state_fingerprint(),
+                           frontier_counters(sched.frontier)))
+        sides.append((rounds, sched.frontier.stacked_fill_launches,
+                      list(cluster.bindings.items())))
+    (card, card_stacked, card_bind), (cpu, cpu_stacked, cpu_bind) = sides
+    assert card == cpu and card_bind == cpu_bind
+    assert card_stacked > 0 and cpu_stacked == 0
+    assert card[-1][4]["solves"] > 0 and card[-1][4]["residual_gangs_total"] > 0

@@ -29,6 +29,7 @@ def _blocked(name: str) -> bool:
 def test_port_modules_import_with_jax_and_grove_tpu_blocked():
     mods = _port_modules()
     assert "grove_tpu_torch.ops.packing" in mods and len(mods) >= 20
+    assert "grove_tpu_torch.solver.frontier" in mods
     script = textwrap.dedent(
         f"""
         import sys

@@ -107,7 +107,22 @@ Phases (any failure raises and the script exits non-zero):
      stacked lanes' chunk rows, and both DRF kernels launched. Then the fill
      at round 1's stacked shape (lanes folded into the gang axis) against
      its plain version, timed beside its bound.
- 11. prints the kernels line, the card line, and last the ok line.
+ 11. [sharded] the multi-GPU tier (grove_tpu_torch/parallel) on the one
+     card: (a) (10,240 gangs x 5,120 nodes, chunk 128, 32 waves) through
+     solve_stress_sharded in local ranks (parallel.multihost.run_ranks,
+     which load the kernels built here): NCCL at world size 1, then 2 and
+     4 gloo ranks sharing cuda:0. Every rank's admitted, placed, score,
+     chosen_level, free_after, pending and waves must equal the
+     single-device solve on the card bit for bit and JAX_SHARDED_REFERENCE
+     (scripts/stats_reference.py sharded); at 2 and 4 ranks
+     domain_aggregates_ring of gang 0 must equal the single-device
+     aggregates, and at 2 ranks the sharded fill's identity cases the
+     whole-axis kernel and the plain fill. Every rank must launch the fill
+     kernel (its own count, zeroed just before its solve). Prints each
+     world's solve time beside the single-device one, collectives per
+     wave and fill launches per rank; the ranks share one card, so no
+     multi-GPU speed is implied.
+ 12. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -2113,6 +2128,160 @@ def phase_frontier(delta_round1) -> dict:
     return out
 
 
+# The JAX package's numbers for [sharded]: `solve_waves_device` of (a) on
+# one device at solve_stress_sharded's budget (chunk 128, 32 waves), from
+# `JAX_PLATFORMS=cpu python scripts/stats_reference.py sharded` (JAX 0.9.0,
+# CPU): counts, the score sum and the crc32 of the arrays' bytes. The score
+# is held at rtol 1e-6 (XLA's CPU backend fuses its multiply-add), the rest
+# exactly.
+JAX_SHARDED_REFERENCE = {
+    "nodes": 5120,
+    "gangs": 10240,
+    "chunk_size": 128,
+    "max_waves": 32,
+    "admitted": 10230,
+    "pending": 10,
+    "waves": 15,
+    "pods_placed": 34813,
+    "score_sum": 10115.289792835712,
+    "admitted_crc32": 3046904420,
+    "placed_crc32": 3412897608,
+    "score_crc32": 1986570905,
+    "chosen_level_crc32": 1917465202,
+    "free_after_crc32": 1908075594,
+}
+SHARDED_WORLDS = (1, 2, 4)  # ranks on cuda:0: NCCL at 1, gloo above (they share the card)
+SHARDED_TIMEOUT_S = 300  # per spawn; each collective raises after 120 s
+
+
+def _crc(a) -> int:
+    import zlib
+
+    return zlib.crc32(np.ascontiguousarray(a).tobytes())
+
+
+def _check_sharded_vs_jax(tag, res, ref):
+    """A stress solve's result against JAX_SHARDED_REFERENCE."""
+    got = {"admitted": int(res["admitted"].sum()), "pending": int(res["pending"].sum()),
+           "waves": int(res["waves"]), "pods_placed": int(res["placed"].sum()),
+           **{f"{k}_crc32": _crc(res[k]) for k in ("admitted", "placed", "chosen_level",
+                                                     "free_after")}}
+    for key, value in got.items():
+        if value != ref[key]:
+            _fail(f"{tag}: {key} {value} != the JAX package's {ref[key]}")
+    score_sum = float(res["score"].astype(np.float64).sum())
+    if not np.isclose(score_sum, ref["score_sum"], rtol=1e-6, atol=0):
+        _fail(f"{tag}: score sum {score_sum} != the JAX package's {ref['score_sum']}")
+
+
+def phase_sharded() -> dict:
+    """(a) with its node axis sharded over local ranks on the one card
+    (solve_stress_sharded through parallel.multihost.run_ranks): NCCL at
+    world size 1, gloo ranks sharing cuda:0 at 2 and 4. Every rank's result
+    must equal the single-device solve on the card bit for bit and
+    JAX_SHARDED_REFERENCE; at 2 and 4 ranks domain_aggregates_ring of (a)'s
+    gang 0 must equal the single-device aggregates, and at 2 ranks the
+    sharded fill's identity cases the whole-axis kernel and the plain fill;
+    and the launcher's own check (``spawn_local_cluster``'s job: a gather
+    from the rank's device, a small sharded solve equal to the rank's
+    one-device solve) must pass at each size. Every rank must launch the
+    fill kernel and load the parent's build."""
+    from grove_tpu_torch.models.scenarios import build_stress_problem
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.parallel.multihost import run_ranks
+    from grove_tpu_torch.ops.nodeaxis import WHOLE
+    from grove_tpu_torch.parallel.ring import domain_aggregates
+    from grove_tpu_torch.parallel.sharded import fill_cases, run_fill_case, solve_stress_single
+
+    ref = JAX_SHARDED_REFERENCE
+    cfg = {k: ref[k] for k in ("chunk_size", "max_waves")}
+    cfg.update(n_nodes=ref["nodes"], n_gangs=ref["gangs"])
+    problem = build_stress_problem(ref["nodes"], ref["gangs"])
+    solve_stress_single(problem, cfg["chunk_size"], cfg["max_waves"], device="cuda")  # warm-up
+    fill_batch.launches = 0
+    t0 = time.perf_counter()
+    single = solve_stress_single(problem, cfg["chunk_size"], cfg["max_waves"], device="cuda")
+    single_s = time.perf_counter() - t0
+    single_launches = fill_batch.launches
+    _check_sharded_vs_jax("sharded: single-device solve", single, ref)
+    K, free_agg = domain_aggregates(problem.capacity, problem.topo, problem.seg_starts,
+                                    problem.seg_ends, problem.demand[0], problem.count[0],
+                                    device="cuda")
+    wholes = {name: (run_fill_case(case, WHOLE, "cuda"), run_fill_case(case, WHOLE, "cpu"))
+              for name, case in fill_cases().items()}
+    print(f"[sharded] (a) {ref['gangs']} gangs x {ref['nodes']} nodes, chunk {cfg['chunk_size']},"
+          f" {cfg['max_waves']} waves: single-device solve {single_s:.3f} s (wall, after a"
+          f" warm-up), {single['waves']} waves, admitted {int(single['admitted'].sum())}, fill"
+          f" launches {single_launches}; equal to the JAX package's", flush=True)
+    out = {"single_s": single_s, "single_fill_launches": single_launches, "waves": single["waves"],
+           "worlds": {}, "fill_launches": 0, "max_abs_err": 0.0}
+    keys = ("admitted", "placed", "score", "chosen_level", "free_after", "pending")
+    for world in SHARDED_WORLDS:
+        jobs = [("stress", dict(cfg, warmup=True)), ("cluster", {})]
+        if world > 1:
+            jobs.append(("ring", {"n_nodes": ref["nodes"], "n_gangs": ref["gangs"], "gang": 0}))
+        if world == 2:
+            jobs.append(("fill", {}))
+        t0 = time.perf_counter()
+        ranks = run_ranks(jobs, world, device="cuda:0", timeout=SHARDED_TIMEOUT_S,
+                          pg_timeout=120)
+        wall = time.perf_counter() - t0
+        tag = f"sharded world {world}"
+        want_backend = "nccl" if world == 1 else "gloo"
+        for rank, res in enumerate(ranks):
+            got = res["stress"]
+            for key in keys:
+                same = got[key].dtype == single[key].dtype
+                if not same or got[key].tobytes() != single[key].tobytes():
+                    _fail(f"{tag} rank {rank}: {key} != the single-device solve")
+            if int(got["waves"]) != single["waves"]:
+                _fail(f"{tag} rank {rank}: waves {int(got['waves'])} != {single['waves']}")
+            _check_sharded_vs_jax(f"{tag} rank {rank}", got, ref)
+            if str(got["backend"]) != want_backend:
+                _fail(f"{tag} rank {rank}: backend {got['backend']}, expected {want_backend}")
+            if int(got["fill_launches"]) == 0:
+                _fail(f"{tag} rank {rank}: the fill kernel did not launch")
+            if int(got["compiled_kernels"]):
+                _fail(f"{tag} rank {rank}: rebuilt a kernel instead of loading the parent's build")
+            if not bool(res["cluster"]["ok"]):
+                _fail(f"{tag} rank {rank}: the launcher's cluster check failed")
+            if res["worker"]["blocked_modules"].size:
+                _fail(f"{tag} rank {rank}: imported {res['worker']['blocked_modules']}")
+            if "ring" in res and (res["ring"]["K"].tobytes() != K.tobytes()
+                                  or res["ring"]["free_agg"].tobytes() != free_agg.tobytes()):
+                _fail(f"{tag} rank {rank}: ring aggregates != the single-device aggregates")
+        if "fill" in ranks[0]:
+            for name, (kernel, plain) in wholes.items():
+                parts = [{k.split("/", 1)[1]: v for k, v in res["fill"].items()
+                          if k.startswith(name + "/")} for res in ranks]
+                for key in kernel:
+                    got = parts[0][key] if key == "placed" else np.concatenate(
+                        [p[key] for p in parts], axis=-2 if key == "free_after" else -1)
+                    if not got.tobytes() == kernel[key].tobytes() == plain[key].tobytes():
+                        _fail(f"{tag}: sharded fill case {name} {key} != the whole-axis fill")
+        launches = [int(r["stress"]["fill_launches"]) for r in ranks]
+        collectives = [int(r["stress"]["collectives"]) for r in ranks]
+        if len(set(collectives)) != 1:
+            _fail(f"{tag}: ranks called {collectives} collectives")
+        solve_s = [float(r["stress"]["seconds"]) for r in ranks]
+        out["fill_launches"] += sum(launches)
+        out["worlds"][world] = {"backend": want_backend, "spawn_wall_s": wall,
+                                "solve_s": solve_s, "fill_launches": launches,
+                                "collectives": collectives[0],
+                                "collectives_per_wave": collectives[0] / single["waves"]}
+        print(f"[sharded] world {world} ({want_backend}, ranks on cuda:0): solve"
+              f" {max(solve_s):.3f} s"
+              f" (slowest rank; single device {single_s:.3f} s), spawn to results {wall:.1f} s;"
+              f" {collectives[0]} collectives a rank, {collectives[0] / single['waves']:.1f} a"
+              f" wave; fill launches per rank {launches}; every rank equal to the single-device"
+              f" solve bit for bit and to the JAX package's; launcher check passed"
+              + ("; ring aggregates equal" if world > 1 else "")
+              + ("; sharded fill cases equal" if world == 2 else ""), flush=True)
+    print("[sharded] the ranks shared one card: these times say nothing of multi-GPU speed",
+          flush=True)
+    return out
+
+
 def _timed(phase, *args):
     t0 = time.perf_counter()
     out = phase(*args)
@@ -2134,14 +2303,17 @@ def main() -> int:
     drf = _timed(phase_drf, sched["q_order_inputs"])
     delta = _timed(phase_delta)
     front = _timed(phase_frontier, delta["rounds"][0])
+    sharded = _timed(phase_sharded)
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
         "source": "grove_tpu_torch/csrc/fill.cu",
         "replaces": "grove_tpu/ops/pallas_fill.py:69",
         "launches": main_path["launches"] + stats["fill_launches"] + stats["exact_fill_launches"]
-        + sched["fill_launches"] + delta["fill_launches"] + front["fill_launches"],
+        + sched["fill_launches"] + delta["fill_launches"] + front["fill_launches"]
+        + sharded["single_fill_launches"] + sharded["fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
+        "sharded_rank_launches": sharded["fill_launches"],
         "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"]]
                            + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
@@ -2179,7 +2351,7 @@ def main() -> int:
                       "delta": {k: v for k, v in delta.items() if k != "rounds"},
                       "delta_rounds": delta["rounds"],
                       "frontier": {k: v for k, v in front.items() if k != "rounds"},
-                      "frontier_rounds": front["rounds"]}))
+                      "frontier_rounds": front["rounds"], "sharded": sharded}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

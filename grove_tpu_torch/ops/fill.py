@@ -33,37 +33,53 @@ _INT_CAP = 1 << 20  # cap on pods-per-node fit counts (avoid inf→int wrap)
 _SCAN_SEGMENTS = 64
 
 
-def _seg_cumsum(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Inclusive prefix sum with the JAX package's association: the axis is
-    cut into S ≤ 64 equal segments (S the largest power of two dividing
-    it), each is scanned locally, and the segment offsets come from the
-    segment totals. Integer inputs are exact under any association (and
-    wrap like int32); float offsets use the same strictly-upper-triangular
-    product as ``grove_tpu/ops/packing.py::_seg_cumsum``."""
-    a = a.movedim(dim, -1)
-    n = a.shape[-1]
+def _scan_segments(n: int) -> int:
+    """Segment count S of the fixed-association prefix sum over an axis of
+    n: the largest power of two ≤ 64 dividing n (1: a plain scan)."""
     s = _SCAN_SEGMENTS
     while s > 1 and n % s:
         s //= 2
+    return s
+
+
+def _segment_scan(parts: torch.Tensor):
+    """(inclusive prefix inside each segment, segment totals) of ``parts
+    [..., S, n/S]``."""
+    # a one-element segment is its own prefix; skipping the scan matters
+    # on CUDA: scanning the commit's [N, R, 32, 1] rows took ~0.6 ms a
+    # call on an H100 (scripts/torch_solve_profile.py)
+    local = parts if parts.shape[-1] == 1 else torch.cumsum(parts, -1, dtype=parts.dtype)
+    return local, parts.sum(-1, dtype=parts.dtype)
+
+
+def _segment_offsets(totals: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix of the segment totals ``[..., S]``: the same
+    strictly-upper-triangular product as
+    ``grove_tpu/ops/packing.py::_seg_cumsum`` for floats; for integers an
+    exclusive cumsum (integer matmul has no CUDA kernel, and integers are
+    exact under any association)."""
+    if totals.dtype.is_floating_point:
+        s = totals.shape[-1]
+        tri = torch.triu(torch.ones((s, s), dtype=totals.dtype, device=totals.device), diagonal=1)
+        return totals @ tri
+    return torch.cumsum(totals, -1, dtype=totals.dtype) - totals
+
+
+def _seg_cumsum(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inclusive prefix sum with the JAX package's association: the axis is
+    cut into S ≤ 64 equal segments (``_scan_segments``), each is scanned
+    locally, and the segment offsets come from the segment totals
+    (``_segment_offsets``). Integer inputs are exact under any association
+    (and wrap like int32). ``ops/nodeaxis.py`` computes the same bits
+    with the node axis sharded."""
+    a = a.movedim(dim, -1)
+    n = a.shape[-1]
+    s = _scan_segments(n)
     if s <= 1:
         out = torch.cumsum(a, -1, dtype=a.dtype)
     else:
-        parts = a.reshape(a.shape[:-1] + (s, n // s))
-        # a one-element segment is its own prefix; skipping the scan matters
-        # on CUDA: scanning the commit's [N, R, 32, 1] rows took ~0.6 ms a
-        # call on an H100 (scripts/torch_solve_profile.py)
-        local = parts if n == s else torch.cumsum(parts, -1, dtype=a.dtype)
-        totals = parts.sum(-1, dtype=a.dtype)  # [..., S]
-        if a.dtype.is_floating_point:
-            tri = torch.triu(
-                torch.ones((s, s), dtype=a.dtype, device=a.device), diagonal=1
-            )
-            offs = totals @ tri
-        else:
-            # integer matmul has no CUDA kernel; exclusive cumsum is the
-            # same value (integers are exact under any association)
-            offs = torch.cumsum(totals, -1, dtype=a.dtype) - totals
-        out = (local + offs.unsqueeze(-1)).reshape(a.shape)
+        local, totals = _segment_scan(a.reshape(a.shape[:-1] + (s, n // s)))
+        out = (local + _segment_offsets(totals).unsqueeze(-1)).reshape(a.shape)
     return out.movedim(-1, dim)
 
 

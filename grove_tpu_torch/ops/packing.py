@@ -45,6 +45,7 @@ from grove_tpu_torch.ops.fill import (  # noqa: F401  (re-exported primitives)
     _seg_cumsum,
     fill_batch,
 )
+from grove_tpu_torch.ops.nodeaxis import WHOLE, NodeAxis
 
 # narrow-cap sentinel of the lazy-rescue path: "retry with the cluster-wide
 # fill only", distinct from -1 ("no broader level; done for good")
@@ -112,7 +113,7 @@ def _fill_floors_first(
 
 def _fill_grouped(
     free, mask, demand, count, min_count, group_req, group_pin,
-    topo, seg_starts, seg_ends, seed, fill, with_free_after=True,
+    topo, seg_starts, seg_ends, seed, fill, with_free_after=True, axis: NodeAxis = WHOLE,
 ):
     """Floors-first fill honoring per-GROUP pack constraints: a group with
     group_req >= 0 lands inside ONE domain at that level (chosen inside
@@ -132,11 +133,12 @@ def _fill_grouped(
         """Group p's domain at its required level (inside mask), [C,N]."""
         k = _pods_fit_per_node(free_c, demand[:, p])  # [C, N]
         k = torch.minimum(torch.where(mask, k, 0), torch.clamp(floors[:, p : p + 1], min=1))
-        cs = torch.cat([torch.zeros_like(k[:, :1]), _seg_cumsum(k, -1)], -1)
+        cs = axis.table(k, -1)
         any_req = group_req[:, p] >= 0
         lvl = torch.where(any_req, group_req[:, p], 0).long()
         starts, ends = seg_starts[lvl], seg_ends[lvl]  # [C, D]
-        K = cs.gather(1, ends) - cs.gather(1, starts)  # pods fitting per domain
+        at_starts, at_ends = axis.gather(cs, 1, (starts, ends))
+        K = at_ends - at_starts  # pods fitting per domain
         feas = (K >= floors[:, p : p + 1]) & (ends > starts)
         # capacity-weighted strided pick; argmax of a bool needs a cast
         w = torch.where(feas, K, 0).to(torch.float32)
@@ -181,7 +183,7 @@ def _fill_grouped(
 
 def _fill_dispatch(
     grouped, free, mask, gang: GangInputs, topo, seg_starts, seg_ends, seed,
-    uniform, fill, with_free_after=True,
+    uniform, fill, with_free_after=True, axis: NodeAxis = WHOLE,
 ):
     """Static dispatch: problems with no group-level constraints take the
     two-phase fill; the grouped fill is only paid when used.
@@ -190,7 +192,7 @@ def _fill_dispatch(
         return _fill_grouped(
             free, mask, gang.demand, gang.count, gang.min_count,
             gang.group_req, gang.group_pin, topo, seg_starts, seg_ends, seed,
-            fill, with_free_after,
+            fill, with_free_after, axis,
         )
     return _fill_floors_first(
         free, mask, gang.demand, gang.count, gang.min_count, uniform, fill,
@@ -198,7 +200,7 @@ def _fill_dispatch(
     )
 
 
-def _fill_slab_pair(free, sl_start, sl_end, gang: GangInputs, cs_pair, eff, fill):
+def _fill_slab_pair(free, sl_start, sl_end, gang: GangInputs, cs_pair, eff, fill, axis=WHOLE):
     """Uniform fill of each gang over its contiguous node slab
     ``[sl_start, sl_end)`` (``[C]`` int64) from the chunk's shared
     capped-fit prefix table ``cs_pair [U, N+1]``; ``eff [C,P]`` (int64)
@@ -212,16 +214,16 @@ def _fill_slab_pair(free, sl_start, sl_end, gang: GangInputs, cs_pair, eff, fill
     ``free_after``, which nothing reads.
 
     Caller guarantees: uniform (floors == counts), no group constraints, no
-    spread, no recovery pins, lazy rescue. Returns (alloc [C,P,N],
-    placed [C,P])."""
+    spread, no recovery pins, lazy rescue. Sharded (`axis`), ``free`` and
+    the table rows are this rank's and the slab bounds global; a slab may
+    straddle ranks. Returns (alloc [C,P,N], placed [C,P])."""
     p_dim = gang.count.shape[1]
     cs0 = cs_pair[eff[:, 0]]  # [C, N+1] row gather
     k0 = cs0[:, 1:] - cs0[:, :-1]  # capped per-node fits
-    n_idx = torch.arange(free.shape[0], device=free.device)
+    n_idx = axis.index(free.shape[0], free.device)
     in_slab = (n_idx >= sl_start.unsqueeze(-1)) & (n_idx < sl_end.unsqueeze(-1))
     cnt0 = gang.count[:, :1]
-    at_start = cs0.gather(1, sl_start.unsqueeze(-1))
-    at_end = cs0.gather(1, sl_end.unsqueeze(-1))
+    at_start, at_end = axis.gather(cs0, 1, (sl_start.unsqueeze(-1), sl_end.unsqueeze(-1)))
     # exclusive prefix inside the slab; positions outside it are masked
     cumex = cs0[:, :-1] - at_start
     take0 = torch.where(in_slab, torch.minimum(torch.clamp(cnt0 - cumex, min=0), k0), 0)
@@ -303,7 +305,7 @@ def _spread_quota(K: torch.Tensor, cnt: torch.Tensor, load: torch.Tensor) -> tor
     return q0 - shave.to(torch.int32)
 
 
-def _fill_spread(free, mask, demand, count, topo_col, starts_l, ends_l, load0=None):
+def _fill_spread(free, mask, demand, count, topo_col, starts_l, ends_l, load0=None, axis=WHOLE):
     """Fill each group inside `mask`, BALANCING its pods across the domains
     of one level per gang (`topo_col [C,N]`, `starts_l`/`ends_l [C,D]`,
     int64): per-group water-filled quotas (load-aware, so the groups
@@ -311,33 +313,34 @@ def _fill_spread(free, mask, demand, count, topo_col, starts_l, ends_l, load0=No
     take against each domain's quota. Plain torch (an XLA program in the
     JAX package, not a Pallas kernel).
     Returns (alloc [C,P,N], placed [C,P], free_after [C,N,R], load [C,D])."""
-    c, p_dim = count.shape
+    p_dim = count.shape[1]
     device = count.device
     if load0 is None:
         load0 = torch.zeros(starts_l.shape, dtype=torch.int32, device=device)
-    zero = torch.zeros((c, 1), dtype=torch.int32, device=device)
-    dom_start = starts_l.gather(1, topo_col)  # [C, N] first node of n's domain
     free_c, load = free, load0
     allocs, placed = [], []
     for p in range(p_dim):
         demand_p = demand[:, p]
         k = _pods_fit_per_node(free_c, demand_p)
         k = torch.minimum(torch.where(mask, k, 0), count[:, p : p + 1])
-        cs = torch.cat([zero, _seg_cumsum(k, -1)], -1)
-        K = cs.gather(1, ends_l) - cs.gather(1, starts_l)  # [C, D]
+        cs = axis.table(k, -1)
+        at_starts, at_ends = axis.gather(cs, 1, (starts_l, ends_l))
+        K = at_ends - at_starts  # [C, D]
         q = _spread_quota(K, count[:, p], load)
-        in_dom = cs[:, :-1] - cs.gather(1, dom_start)
+        # prefix inside n's domain: the table at the domain's first node
+        in_dom = cs[:, :-1] - at_starts.gather(1, topo_col)
         take = torch.minimum(torch.clamp(q.gather(1, topo_col) - in_dom, min=0), k)
         free_c = free_c - take.unsqueeze(-1).to(free_c.dtype) * demand_p.unsqueeze(1)
-        cs_t = torch.cat([zero, _seg_cumsum(take, -1)], -1)
-        load = load + (cs_t.gather(1, ends_l) - cs_t.gather(1, starts_l))
+        cs_t, total = axis.table(take, -1, total=True)
+        t_starts, t_ends = axis.gather(cs_t, 1, (starts_l, ends_l))
+        load = load + (t_ends - t_starts)
         allocs.append(take)
-        placed.append(take.sum(-1, dtype=torch.int32))
+        placed.append(total)
     return torch.stack(allocs, 1), torch.stack(placed, 1), free_c, load
 
 
 def _fill_spread_floors_first(
-    free, mask, demand, count, min_count, topo_col, starts_l, ends_l, load0=None
+    free, mask, demand, count, min_count, topo_col, starts_l, ends_l, load0=None, axis=WHOLE
 ):
     """Floors-first two-phase spread fill plus the count of distinct domains
     the placement spans at the spread level (survivor domains of `load0`
@@ -345,10 +348,10 @@ def _fill_spread_floors_first(
     floors = torch.minimum(min_count, count)
     extras = torch.clamp(count - min_count, min=0)
     alloc_min, placed_min, free1, load1 = _fill_spread(
-        free, mask, demand, floors, topo_col, starts_l, ends_l, load0
+        free, mask, demand, floors, topo_col, starts_l, ends_l, load0, axis
     )
     alloc_ext, placed_ext, free2, load2 = _fill_spread(
-        free1, mask, demand, extras, topo_col, starts_l, ends_l, load1
+        free1, mask, demand, extras, topo_col, starts_l, ends_l, load1, axis
     )
     used = (load2 > 0).sum(-1, dtype=torch.int32)
     return alloc_min + alloc_ext, placed_min + placed_ext, placed_min, free2, used
@@ -363,7 +366,7 @@ def _spread_select(gang: GangInputs, seg_starts, seg_ends, topo):
 
 def _dispatch_with_spread(
     spread, grouped, free, mask, gang: GangInputs, topo, seg_starts, seg_ends,
-    seed, uniform, fill, with_free_after=True,
+    seed, uniform, fill, with_free_after=True, axis: NodeAxis = WHOLE,
 ):
     """Fill dispatch for problems that may mix spread and non-spread gangs:
     with the static `spread` flag off, the plain dispatch alone; with it on,
@@ -372,14 +375,14 @@ def _dispatch_with_spread(
     and spread_on are None with the flag off."""
     alloc, placed, placed_min, free_after = _fill_dispatch(
         grouped, free, mask, gang, topo, seg_starts, seg_ends, seed, uniform,
-        fill, with_free_after,
+        fill, with_free_after, axis,
     )
     if not spread:
         return alloc, placed, placed_min, free_after, None, None
     spread_on, topo_col, starts_l, ends_l = _spread_select(gang, seg_starts, seg_ends, topo)
     a_s, p_s, pm_s, f_s, used = _fill_spread_floors_first(
         free, mask, gang.demand, gang.count, gang.min_count,
-        topo_col, starts_l, ends_l, _seed_or_none(gang.spread_seed),
+        topo_col, starts_l, ends_l, _seed_or_none(gang.spread_seed), axis,
     )
     on2, on3 = spread_on.unsqueeze(-1), spread_on[:, None, None]
     if with_free_after:
@@ -461,14 +464,15 @@ def _gang_pin_mask(free: torch.Tensor, topo: torch.Tensor, gang: GangInputs, pin
     return pin_mask, free_vis
 
 
-def _aggregate_tables(free: torch.Tensor, gang: GangInputs, cs_pair=None):
+def _aggregate_tables(free: torch.Tensor, gang: GangInputs, cs_pair=None, axis: NodeAxis = WHOLE):
     """Shared prelude of the selector: capped per-node fit counts and their
     prefix sums ``cs_k [C,P,N+1]`` (None on the dedup path, where the level
     loop gathers from ``cs_pair`` instead), the free-capacity prefix
     ``cs_free`` with its float tolerance, and the admission floor's joint
     demand ``[C,R]``. `free` is one snapshot ``[N,R]`` for the whole chunk
     (``cs_free [N+1,R]``, ``free_tol [R]``) or a view per gang ``[C,N,R]``
-    under recovery pins (``[C,N+1,R]``, ``[C,R]``)."""
+    under recovery pins (``[C,N+1,R]``, ``[C,R]``). Sharded (`axis`), the
+    tables hold this rank's entries (``NodeAxis.table``)."""
     active = gang.count > 0
     if cs_pair is not None and gang.uidx is not None:
         cs_k = None
@@ -477,35 +481,35 @@ def _aggregate_tables(free: torch.Tensor, gang: GangInputs, cs_pair=None):
         # group count (keeps the int32 prefix sums exact)
         k_all = _pods_fit_per_node(free.unsqueeze(1) if free.dim() == 3 else free, gang.demand)
         k_all = torch.minimum(k_all, gang.count.unsqueeze(-1))
-        zero_col = torch.zeros(k_all.shape[:2] + (1,), dtype=k_all.dtype, device=k_all.device)
-        cs_k = torch.cat([zero_col, _seg_cumsum(k_all, -1)], -1)
+        cs_k = axis.table(k_all, -1)
     min_demand = (gang.min_count.unsqueeze(-1).to(free.dtype) * gang.demand).sum(1)
-    cs_free = torch.cat(
-        [
-            torch.zeros(free.shape[:-2] + (1, free.shape[-1]), dtype=free.dtype, device=free.device),
-            _seg_cumsum(free, -2),
-        ],
-        -2,
-    )
+    cs_free, free_total = axis.table(free, -2, total=True)
     # float32 prefix sums of byte-scale capacity accumulate rounding error;
     # slack the joint check so it can only false-KEEP (the fill is exact)
-    free_tol = 1e-5 * cs_free[..., -1, :]
+    free_tol = 1e-5 * free_total
     return active, cs_k, cs_free, free_tol, min_demand
 
 
-def _coloc_score(alloc, placed_total, seg_starts, seg_ends, weights, ok, seg_list=None):
+def _level_bounds(seg_starts, seg_ends, seg_list):
+    """Per-level (starts, ends) domain bounds: the ragged views, or the
+    padded table's rows."""
+    if seg_list is not None:
+        return list(seg_list)
+    return [(seg_starts[l], seg_ends[l]) for l in range(seg_starts.shape[0])]
+
+
+def _coloc_score(alloc, placed_total, seg_starts, seg_ends, weights, ok, seg_list=None,
+                 axis: NodeAxis = WHOLE):
     """Level-weighted dominant-domain co-location score per gang ``[C]``.
     `seg_list`: per-level ragged (starts, ends) views (the padded rows pad
     every level to the broadest level's domain count)."""
-    n_levels = seg_starts.shape[0] if seg_list is None else len(seg_list)
     pods_per_node = alloc.sum(1, dtype=torch.int32)  # [C, N]
     total = torch.clamp(placed_total.sum(1, dtype=torch.int32), min=1)
-    zero = torch.zeros((alloc.shape[0], 1), dtype=torch.int32, device=alloc.device)
-    cs_pods = torch.cat([zero, _seg_cumsum(pods_per_node, -1)], -1)
+    cs_pods = axis.table(pods_per_node, -1)
+    spans = axis.spans(cs_pods, 1, _level_bounds(seg_starts, seg_ends, seg_list))
     score = torch.zeros(alloc.shape[:1], dtype=torch.float32, device=alloc.device)
-    for l in range(n_levels):
-        starts, ends = seg_list[l] if seg_list is not None else (seg_starts[l], seg_ends[l])
-        dominant = (cs_pods[:, ends] - cs_pods[:, starts]).amax(1)
+    for l, pods in enumerate(spans):
+        dominant = pods.amax(1)
         score = score + weights[l] * (
             dominant.to(torch.float32) / total.to(torch.float32)
         )
@@ -516,7 +520,7 @@ def gang_select_single(
     free, topo, seg_starts, seg_ends, gang: GangInputs, narrow_cap, seed,
     cs_pair=None, seg_list=None, grouped: bool = False, pinned: bool = False,
     spread: bool = False, uniform: bool = False, lazy_rescue: bool = False,
-    fill=fill_batch,
+    fill=fill_batch, axis: NodeAxis = WHOLE,
 ):
     """Decide a chunk of gangs against one capacity snapshot ``free [N,R]``.
 
@@ -533,7 +537,9 @@ def gang_select_single(
     floor lowers `narrow_cap` for the next wave (fallback_cap). `grouped`,
     `pinned` and `spread` are the problem's static flags;
     `seg_starts`/`seg_ends` are the padded int64 tables (the grouped and
-    spread fills index them per gang).
+    spread fills index them per gang). Sharded (`axis`), ``free`` and
+    ``topo`` are this rank's node slab and ``alloc`` this rank's columns;
+    every other result is the same on every rank.
 
     Returns (alloc [C,P,N], placed [C,P], ok [C], chosen [C] (level index,
     n_levels for cluster-wide, -1 when nothing allowed), score [C],
@@ -543,27 +549,28 @@ def gang_select_single(
     c = gang.demand.shape[0]
     device = free.device
     weights = _level_weights(n_levels, device)
+    fill = axis.fill(fill)
 
     pin_mask, free_vis = _gang_pin_mask(free, topo, gang, pinned)
     active, cs_k, cs_free, free_tol, min_demand = _aggregate_tables(
-        free_vis, gang, cs_pair
+        free_vis, gang, cs_pair, axis
     )
     any_active = active.any(1)
+    bounds = _level_bounds(seg_starts, seg_ends, seg_list)
     if cs_k is None:
         # dedup path: masked-out gangs (count zeroed by the pending filter)
         # read the reserved all-zero row 0
         eff = torch.where(active, gang.uidx, 0).long()
+        k_spans = axis.row_spans(cs_pair, eff, bounds)  # [C, P, D]
+    else:
+        k_spans = axis.spans(cs_k, 2, bounds)
+    free_spans = axis.spans(cs_free, cs_free.dim() - 2, bounds)  # [D,R] or [C,D,R]
 
     h = _strided_hash(seed)
     oks, bests = [], []
     for l in range(n_levels):
-        starts, ends = seg_list[l] if seg_list is not None else (seg_starts[l], seg_ends[l])
-        if cs_k is None:
-            row = eff.unsqueeze(-1)
-            K = cs_pair[row, ends] - cs_pair[row, starts]  # [C, P, D]
-        else:
-            K = cs_k[:, :, ends] - cs_k[:, :, starts]
-        free_agg = cs_free[..., ends, :] - cs_free[..., starts, :]  # [D,R] or [C,D,R]
+        starts, ends = bounds[l]
+        K, free_agg = k_spans[l], free_spans[l]
         if free_agg.dim() == 2:
             free_agg = free_agg.unsqueeze(0)
         act = active.unsqueeze(-1)
@@ -625,9 +632,9 @@ def gang_select_single(
         sl_end = torch.where(
             has_level,
             seg_ends[chosen_level, best_sel[:, 0]],
-            torch.where(use_cluster, n_nodes, 0),
+            torch.where(use_cluster, axis.global_n(n_nodes), 0),
         )
-        alloc, placed = _fill_slab_pair(free, sl_start, sl_end, gang, cs_pair, eff, fill)
+        alloc, placed = _fill_slab_pair(free, sl_start, sl_end, gang, cs_pair, eff, fill, axis)
         placed_min = placed  # uniform: floors ARE the counts
         used = spread_on = None
     else:
@@ -635,7 +642,7 @@ def gang_select_single(
         mask = torch.where(has_level.unsqueeze(-1), packed_mask, use_cluster.unsqueeze(-1))
         alloc, placed, placed_min, free_after, used, spread_on = _dispatch_with_spread(
             spread, grouped, free, mask.contiguous(), gang, topo, seg_starts, seg_ends,
-            seed, uniform, fill, with_free_after=not lazy_rescue,
+            seed, uniform, fill, with_free_after=not lazy_rescue, axis=axis,
         )
     level_fill_ok = (
         had_candidate
@@ -686,7 +693,7 @@ def gang_select_single(
         alloc2, placed2, placed2_min, _, used2, _ = _dispatch_with_spread(
             spread, grouped, base_free.contiguous(), all_nodes,
             gang._replace(count=remaining, min_count=rescue_min), topo, seg_starts,
-            seg_ends, seed, uniform, fill, with_free_after=False,
+            seg_ends, seed, uniform, fill, with_free_after=False, axis=axis,
         )
         rescue_ok = (
             cluster_rescue
@@ -708,7 +715,7 @@ def gang_select_single(
     # reported level
     alloc = torch.where(fill_ok[:, None, None], alloc, 0)
     placed = torch.where(fill_ok.unsqueeze(-1), placed, 0)
-    score = _coloc_score(alloc, placed, seg_starts, seg_ends, weights, fill_ok, seg_list)
+    score = _coloc_score(alloc, placed, seg_starts, seg_ends, weights, fill_ok, seg_list, axis)
     score = torch.where(
         fill_ok,
         _spread_score(gang, spread_on, used, placed.sum(1, dtype=torch.int32), score),
@@ -735,7 +742,7 @@ def wave_chunk_core(
     spreadreq=None, spreadseed=None,
     grouped=False, pinned=False, spread=False,
     pair_dem=None, pair_cap=None, uidx=None, uniform=False, seg_list=None,
-    fill=fill_batch, lazy_rescue=False,
+    fill=fill_batch, lazy_rescue=False, axis: NodeAxis = WHOLE,
 ):
     """Decide one chunk of gangs in parallel against one capacity snapshot,
     commit by iterative prefix-acceptance with a final joint-feasibility
@@ -749,6 +756,8 @@ def wave_chunk_core(
     capacity view there).
     `lazy_rescue` (uniform problems only) defers cluster rescues to the
     next wave (``gang_select_single``); a deferred gang always retries.
+    `axis`: the node axis (``ops.nodeaxis``); sharded, ``free``,
+    ``topo``, the returned free and alloc are this rank's node slab.
     Returns (free, accept, placed, score, chosen, retry, new_cap,
     fill_failed, alloc)."""
     if lazy_rescue and not uniform:
@@ -763,8 +772,7 @@ def wave_chunk_core(
         fit_pair = torch.minimum(
             _pods_fit_per_node(free, pair_dem), pair_cap.unsqueeze(-1)
         )  # [U, N]
-        zero = torch.zeros((fit_pair.shape[0], 1), dtype=fit_pair.dtype, device=free.device)
-        cs_pair = torch.cat([zero, _seg_cumsum(fit_pair, -1)], -1)  # [U, N+1]
+        cs_pair = axis.table(fit_pair, -1)  # [U, N+1]
     gang = GangInputs(
         dem, cnt, mn, rq, pf, uidx if use_dedup else None,
         grq, gpin, gangpin, spreadlvl, spreadmin, spreadreq, spreadseed,
@@ -772,7 +780,7 @@ def wave_chunk_core(
     alloc, placed, ok, chosen, score, had_cand, fallback_cap = gang_select_single(
         free, topo, seg_starts, seg_ends, gang, ncap, seeds, cs_pair, seg_list,
         grouped=grouped, pinned=pinned, spread=spread, uniform=uniform,
-        lazy_rescue=lazy_rescue, fill=fill,
+        lazy_rescue=lazy_rescue, fill=fill, axis=axis,
     )
 
     # integer-valued products: exact in float32 (TF32 must be off on CUDA)
@@ -781,7 +789,7 @@ def wave_chunk_core(
 
     def prefix_fits(acc):
         cum = _seg_cumsum(torch.where(acc[:, None, None], usage, 0.0), 0)
-        return (cum <= limit).flatten(1).all(1)
+        return axis.all((cum <= limit).flatten(1).all(1))
 
     accept = ok
     for _ in range(commit_iters):
@@ -1022,6 +1030,7 @@ def solve_waves_device(
     lazy_rescue: bool = False,
     level_widths: tuple = None,
     fill=fill_batch,
+    axis: NodeAxis = WHOLE,
 ):
     """The whole multi-wave wave-parallel solve of the stats path, with one
     device→host read per wave (the count of pending gangs, ``_host_int``)
@@ -1038,6 +1047,12 @@ def solve_waves_device(
     that lost a commit race or walk their narrow cap retry next wave. With
     `lazy_rescue`, a gang that deferred its cluster rescue on the last wave
     gets it in one more pass over exactly those gangs.
+
+    `axis` shards the node axis (``parallel.sharded.solve_stress_sharded``):
+    ``capacity``, ``topo`` and ``free_after`` are then this rank's node
+    slab, everything else is replicated, and the wave loop reads only
+    replicated counts, so every rank takes the same branches and calls the
+    same collectives.
 
     Returns a dict: admitted [G], placed [G,P], score [G], chosen_level [G]
     (-1 cluster-wide or none), free_after [N,R], waves (int), pending [G]
@@ -1103,7 +1118,7 @@ def solve_waves_device(
                     pair_cap=pair_count if use_dedup else None,
                     uidx=uidx[0] if use_dedup else None,
                     uniform=uniform, seg_list=seg_list, fill=fill,
-                    lazy_rescue=lazy_rescue,
+                    lazy_rescue=lazy_rescue, axis=axis,
                 )
             )
             ys.append((accept, placed, score, chosen, retry, new_cap, fill_failed))
@@ -1183,6 +1198,7 @@ def _one_hot_sum(one_hot, cands):
 def gang_select_and_fill(
     free, topo, seg_starts, seg_ends, gang: GangInputs, grouped=False,
     pinned=False, spread=False, uniform=False, seg_list=None, fill=fill_batch,
+    axis: NodeAxis = WHOLE,
 ):
     """One gang's placement decision against ``free [N,R]`` (the exact
     sequential kernel's step). `gang` holds one gang (C=1).
@@ -1201,16 +1217,19 @@ def gang_select_and_fill(
     n_nodes, n_levels = topo.shape
     device = free.device
     weights = _level_weights(n_levels, device)
+    fill = axis.fill(fill)
 
     pin_mask, free_vis = _gang_pin_mask(free, topo, gang, pinned)
-    active, cs_k, cs_free, free_tol, min_demand = _aggregate_tables(free_vis, gang)
+    active, cs_k, cs_free, free_tol, min_demand = _aggregate_tables(free_vis, gang, axis=axis)
     any_active = active.any(1)  # [1]
     act = active.unsqueeze(-1)  # [1, P, 1]
+    bounds = _level_bounds(seg_starts, seg_ends, seg_list)
+    k_spans = axis.spans(cs_k, 2, bounds)  # [1, P, D]
+    free_spans = axis.spans(cs_free, cs_free.dim() - 2, bounds)  # [D,R] or [1,D,R]
     level_ok, masks = [], []
     for l in range(n_levels):
-        starts, ends = seg_list[l] if seg_list is not None else (seg_starts[l], seg_ends[l])
-        K = cs_k[:, :, ends] - cs_k[:, :, starts]  # [1, P, D]
-        free_agg = cs_free[..., ends, :] - cs_free[..., starts, :]  # [D,R] or [1,D,R]
+        starts, ends = bounds[l]
+        K, free_agg = k_spans[l], free_spans[l]
         if free_agg.dim() == 2:
             free_agg = free_agg.unsqueeze(0)
         feas = torch.where(act, K >= gang.min_count.unsqueeze(-1), True).all(1)
@@ -1237,7 +1256,7 @@ def gang_select_and_fill(
     rep = rep._replace(demand=rep.demand.contiguous())
     alloc_c, placed_c, placed_min_c, free_c, used_c, spread_on = _dispatch_with_spread(
         spread, grouped, free, torch.cat(masks), rep, topo, seg_starts, seg_ends,
-        torch.zeros((n_cand,), dtype=torch.int32, device=device), uniform, fill,
+        torch.zeros((n_cand,), dtype=torch.int32, device=device), uniform, fill, axis=axis,
     )
     lv = torch.arange(n_levels, device=device)
     req = gang.req_level  # [1]
@@ -1294,7 +1313,7 @@ def gang_select_and_fill(
     alloc = torch.where(ok_min[:, None, None], alloc, 0)
     placed = torch.where(ok_min.unsqueeze(-1), placed, 0)
     chosen_l = torch.where(ok_min & (chosen < n_levels), chosen, -1).to(torch.int32)
-    score = _coloc_score(alloc, placed, seg_starts, seg_ends, weights, ok_min, seg_list)
+    score = _coloc_score(alloc, placed, seg_starts, seg_ends, weights, ok_min, seg_list, axis)
     score = torch.where(
         ok_min,
         _spread_score(gang, spread_on, used, placed.sum(1, dtype=torch.int32), score),
@@ -1327,10 +1346,13 @@ def solve_packing(
     uniform: bool = False,
     level_widths: tuple = None,
     fill=fill_batch,
+    axis: NodeAxis = WHOLE,
 ):
     """The exact sequential greedy: ``gang_select_and_fill`` for each gang
     in order against the capacity the earlier gangs left. A host loop over
-    the gangs that reads nothing from the device. Returns a dict: admitted
+    the gangs that reads nothing from the device. `axis` shards the node
+    axis as in :func:`solve_waves_device` (``capacity``, ``topo``, ``alloc``
+    and ``free_after`` are then this rank's). Returns a dict: admitted
     [G], placed [G,P], score [G], chosen_level [G], alloc [G,P,N] (None
     without `with_alloc`), free_after [N,R]."""
     seg_starts = seg_starts.long()
@@ -1349,7 +1371,7 @@ def solve_packing(
         gang = GangInputs(*(None if t is None else t[g : g + 1] for t in gangs))
         free, alloc, placed, ok, chosen_l, score = gang_select_and_fill(
             free, topo, seg_starts, seg_ends, gang, grouped=grouped, pinned=pinned,
-            spread=spread, uniform=uniform, seg_list=seg_list, fill=fill,
+            spread=spread, uniform=uniform, seg_list=seg_list, fill=fill, axis=axis,
         )
         ys.append((ok, placed, score, chosen_l) + ((alloc,) if with_alloc else ()))
     cols = [torch.cat(y) for y in zip(*ys)]

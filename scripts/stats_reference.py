@@ -10,6 +10,17 @@ score sum of the stats solve, admitted and score sum of the exact solve.
 numbers (its ``JAX_STATS_REFERENCE``). Run on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/stats_reference.py
+
+With ``sharded`` it prints instead the numbers of the multi-GPU phase
+(``chip_smoke.JAX_SHARDED_REFERENCE``): the JAX package's
+``solve_waves_device`` of (a) at ``solve_stress_sharded``'s budget (chunk
+128, 32 waves), on one device as ``tests/test_solver.py::TestMultiChip``
+calls it — admitted and pending counts, waves, pods placed, the score sum
+and the crc32 of the admitted, placed, chosen_level and free_after arrays'
+bytes (and of the score's, which the port does not match bit for bit:
+XLA's CPU backend fuses the score's multiply-add):
+
+    JAX_PLATFORMS=cpu python scripts/stats_reference.py sharded
 """
 
 from __future__ import annotations
@@ -17,6 +28,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import zlib
 
 import numpy as np
 
@@ -34,7 +46,42 @@ def _gauge(name):
     return int(METRICS.gauges.get(name, 0))
 
 
+def sharded_reference(n_nodes: int = 5120, n_gangs: int = 10240, chunk_size: int = 128,
+                      max_waves: int = 32) -> dict:
+    """The multi-GPU phase's reference: one-device ``solve_waves_device``
+    of ``build_stress_problem(n_nodes, n_gangs)`` as ``solve_stress_sharded``
+    runs it."""
+    import jax.numpy as jnp
+
+    from grove_tpu.ops.packing import solve_waves_device
+    from grove_tpu.solver.kernel import dedup_extra_args, level_widths_of, pad_problem_for_waves
+
+    problem = build_stress_problem(n_nodes, n_gangs)
+    g = problem.num_gangs
+    raw, n_chunks, grouped, pinned, spread, uniform = pad_problem_for_waves(problem, chunk_size)
+    out = solve_waves_device(
+        *[jnp.asarray(a) for a in raw], **dedup_extra_args(raw[4], raw[5], n_chunks, pinned),
+        n_chunks=n_chunks, max_waves=max_waves, grouped=grouped, pinned=pinned, spread=spread,
+        uniform=uniform, lazy_rescue=uniform, level_widths=level_widths_of(problem),
+    )
+    arrays = {k: np.asarray(out[k])[:g] for k in ("admitted", "placed", "score", "chosen_level",
+                                                  "pending")}
+    arrays["free_after"] = np.asarray(out["free_after"])
+    crc = lambda a: zlib.crc32(np.ascontiguousarray(a).tobytes())  # noqa: E731
+    return {
+        "nodes": n_nodes, "gangs": n_gangs, "chunk_size": chunk_size, "max_waves": max_waves,
+        "admitted": int(arrays["admitted"].sum()), "pending": int(arrays["pending"].sum()),
+        "waves": int(np.asarray(out["waves"])), "pods_placed": int(arrays["placed"].sum()),
+        "score_sum": float(arrays["score"].astype(np.float64).sum()),
+        **{f"{k}_crc32": crc(v) for k, v in arrays.items() if k != "pending"},
+    }
+
+
 def main() -> int:
+    if sys.argv[1:] == ["sharded"]:
+        print(json.dumps({"jax": jax.__version__, "backend": jax.default_backend(),
+                          **sharded_reference()}))
+        return 0
     out = {"jax": jax.__version__, "backend": jax.default_backend()}
     for n_gangs in (10240, 2048):
         problem = build_stress_problem(5120, n_gangs)

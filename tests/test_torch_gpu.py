@@ -701,3 +701,68 @@ def test_cuda_frontier_rounds_match_the_cpu_twins(cuda):
     assert card == cpu and card_bind == cpu_bind
     assert card_stacked > 0 and cpu_stacked == 0
     assert card[-1][4]["solves"] > 0 and card[-1][4]["residual_gangs_total"] > 0
+
+
+# -- the multi-GPU tier: gloo ranks sharing the one card ---------------------
+
+
+def _merged(parts, key):
+    return np.concatenate([p[key] for p in parts], axis=-2 if key == "free_after" else -1)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_fill_identity_over_two_gloo_ranks(cuda):
+    """The fill kernel on each rank's node slab with count' = max(count −
+    B_s, 0), two gloo ranks on cuda:0, equals the whole-axis kernel and
+    the plain fill bit for bit (−0.0s, a count met on rank 0's nodes, one
+    met inside rank 1's, slabs straddling the ranks)."""
+    from grove_tpu_torch.ops import _build
+    from grove_tpu_torch.parallel.multihost import run_ranks
+    from grove_tpu_torch.ops.nodeaxis import WHOLE
+    from grove_tpu_torch.parallel.sharded import fill_cases, run_fill_case
+
+    _build.load("fill")  # the ranks load this build
+    ranks = run_ranks([("fill", {})], 2, device="cuda:0", timeout=300)
+    for name, case in fill_cases().items():
+        whole = run_fill_case(case, WHOLE, cuda)
+        plain = run_fill_case(case, WHOLE, "cpu")
+        parts = [{k.split("/", 1)[1]: v for k, v in out["fill"].items()
+                  if k.startswith(name + "/")} for out in ranks]
+        for key in whole:
+            got = parts[0][key] if key == "placed" else _merged(parts, key)
+            assert got.tobytes() == whole[key].tobytes() == plain[key].tobytes(), (name, key)
+
+
+@pytest.mark.gpu
+def test_cuda_two_rank_gloo_solve_equals_single_device(cuda):
+    """solve_stress_sharded over two gloo ranks sharing cuda:0 equals the
+    single-device solve on the card bit for bit; every rank launched the
+    fill kernel and loaded the build it found."""
+    from grove_tpu_torch.ops import _build
+    from grove_tpu_torch.parallel.multihost import run_ranks
+    from grove_tpu_torch.parallel.sharded import solve_stress_single
+
+    cfg = {"n_nodes": 1024, "n_gangs": 1536, "chunk_size": 32, "max_waves": 8}
+    _build.load("fill")
+    single = solve_stress_single(build_stress_problem(cfg["n_nodes"], cfg["n_gangs"]),
+                                 cfg["chunk_size"], cfg["max_waves"], device=cuda)
+    for out in run_ranks([("stress", cfg)], 2, device="cuda:0", timeout=300):
+        got = out["stress"]
+        for key in ("admitted", "placed", "score", "chosen_level", "free_after", "pending"):
+            assert got[key].tobytes() == single[key].tobytes(), key
+        assert int(got["waves"]) == single["waves"]
+        assert int(got["fill_launches"]) > 0 and int(got["compiled_kernels"]) == 0
+        assert str(got["backend"]) == "gloo"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ranks", [1, 2])
+def test_cuda_spawn_local_cluster(cuda, ranks):
+    """The launcher's check on the card by default: NCCL at one rank (its
+    gather must come from a tensor on the card), gloo when two ranks share
+    cuda:0."""
+    from grove_tpu_torch.ops import _build
+    from grove_tpu_torch.parallel.multihost import spawn_local_cluster
+
+    _build.load("fill")
+    assert spawn_local_cluster(num_processes=ranks, timeout=300.0)

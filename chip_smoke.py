@@ -122,7 +122,25 @@ Phases (any failure raises and the script exits non-zero):
      world's solve time beside the single-device one, collectives per
      wave and fill launches per rank; the ranks share one card, so no
      multi-GPU speed is implied.
- 12. prints the kernels line, the card line, and last the ok line.
+ 12. [observe] the glass-box layer (observability/{tracing,metrics,journey,
+     profile,explain}.py) on (q) at full width: the tracer, the gang
+     journeys and the wall profiler on before the world loads, then round
+     1, held to JAX_SCHEDULER_REFERENCE as in [sched] and, by
+     models/scenarios.observe_summary, to JAX_OBSERVE_REFERENCE (the span
+     multiset "name<parent", counters, gauges, histogram counts, Prometheus
+     series, completed journeys; from scripts/scheduler_reference.py
+     observe); the Chrome trace must validate, every Prometheus line parse,
+     every admitted gang's journey hold all six phases and the profiler
+     attribute at least 95 % of the round's wall. Then an explain burst on
+     the same store (models/scenarios.explain_burst: every pending gang, a
+     scheduled one, an unknown name, capacity(), a drain and a queue
+     what-if), every document less its timing fields equal to the JAX
+     engine's (sha256 of its canonical JSON) and the store's
+     resourceVersion unmoved; the burst's trial solves must launch the fill
+     kernel and its order views both DRF kernels (counted apart). Prints
+     the traced wall beside [sched]'s (q) round 1, the profiler's top
+     phases, explain p50/p99 and the all-off check's cost.
+ 13. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -131,6 +149,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -870,24 +889,47 @@ def check_world_valid(tag, store, cluster) -> None:
                 _fail(f"{tag}: gang {gang.metadata.name} spans domains of {key}")
 
 
-def _span_split(spans) -> dict:
+def _span_split(spans, outside_s: float = 0.0) -> dict:
     """A round's time by the tracer's spans: pending scan (with phase and
-    health upkeep) + encode, quota order, solve, preemption/reclaim (trial
-    solves included) and commit + status writes."""
-    def total(names, parent=None):
-        return sum(sp.dur_us for sp in spans
-                   if sp.name in names and (parent is None or sp.parent == parent)) / 1e6
+    health upkeep) + the round's encode, quota order, the round's solve,
+    preemption/reclaim (trial solves included) and commit + status writes.
+    Priority preemption opens no span of its own, as in the JAX package:
+    its column is the residue of scheduler.schedule after the round's own
+    child spans (scan, order, encode or delta encode, solve or partitioned
+    solve, commit, status writes) and after ``outside_s``, time the caller
+    measured outside them (the delta self-check): quota.reclaim, the
+    preemption's trial encodes and solves (children of scheduler.schedule
+    too) and the glue between the round's phases. A delta round's own solve
+    takes its problem from the delta encode, so a scheduler.encode child
+    there is a trial's, and so is every scheduler.solve after it."""
+    roots = [sp for sp in spans if sp.name == "scheduler.schedule"]
+    children = sorted((sp for sp in spans if sp.parent == "scheduler.schedule"),
+                      key=lambda sp: sp.ts_us)
+    first = {}
+    for sp in children:
+        first.setdefault(sp.name, sp)
+    if "solve.delta_encode" in first:
+        first.pop("scheduler.encode", None)
+        solve = first.get("scheduler.solve")
+        trial = next((sp for sp in children if sp.name == "scheduler.encode"), None)
+        if solve is not None and trial is not None and trial.ts_us < solve.ts_us:
+            del first["scheduler.solve"]  # a reuse tick: every solve is a trial's
 
-    trials = sum(1 for sp in spans if sp.name == "scheduler.solve"
-                 and sp.parent in ("scheduler.preempt", "quota.reclaim"))
+    def own(name):
+        return first[name].dur_us / 1e6 if name in first else 0.0
+
+    own_s = sum(own(n) for n in (
+        "scheduler.pending-scan", "scheduler.encode", "solve.delta_encode", "quota.order",
+        "scheduler.solve", "solve.partition", "scheduler.commit", "scheduler.status-write"))
+    solves = sum(1 for sp in children if sp.name == "scheduler.solve")
     return {
-        "scan_encode_s": total({"scheduler.pending-scan"})
-        + total({"scheduler.encode"}, "scheduler.schedule"),
-        "quota_order_s": total({"quota.order"}),
-        "solve_s": total({"scheduler.solve"}, "scheduler.schedule"),
-        "preempt_reclaim_s": total({"scheduler.preempt", "quota.reclaim"}),
-        "commit_status_s": total({"scheduler.commit", "scheduler.status-write"}),
-        "trial_solves": trials,
+        "scan_encode_s": own("scheduler.pending-scan") + own("scheduler.encode"),
+        "quota_order_s": own("quota.order"),
+        "solve_s": own("scheduler.solve"),
+        "preempt_reclaim_s": sum(sp.dur_us for sp in roots) / 1e6 - own_s - outside_s,
+        "commit_status_s": own("scheduler.commit") + own("scheduler.status-write"),
+        "trial_solves": solves - ("scheduler.solve" in first) + sum(
+            1 for sp in spans if sp.name == "scheduler.solve" and sp.parent == "quota.reclaim"),
     }
 
 
@@ -1601,7 +1643,7 @@ def phase_delta() -> dict:
         seen["flap_back_reused"] += flap_back
         spans = TRACER.spans()
         encode_s = sum(sp.dur_us for sp in spans if sp.name == "solve.delta_encode") / 1e6
-        split = _span_split(spans)
+        split = _span_split(spans, sched.last_selfcheck_seconds)
         row = {"wall_s": wall, "selfcheck_s": sched.last_selfcheck_seconds,
                "delta_encode_s": encode_s, **split, "fill_launches": fills,
                "drf_shares_launches": shares, "drf_merge_launches": merges,
@@ -2041,7 +2083,9 @@ def phase_frontier(delta_round1) -> dict:
             partition_s = sum(sp.dur_us for sp in spans if sp.name == "solve.partition") / 1e6
             execute = [sp.dur_us / 1e6 for sp in spans if sp.name == "solver.execute"
                        and sp.attrs.get("kernel") == "solve_wave_chunk_stack"]
-            split = _span_split(spans)
+            # the frontier's self-check runs inside solve.partition; the
+            # delta one outside the round's spans
+            split = _span_split(spans, sched.last_selfcheck_seconds - front_check)
             row = {"wall_s": wall, "selfcheck_s": sched.last_selfcheck_seconds,
                    "frontier_selfcheck_s": front_check,
                    "partition_s": partition_s - front_check, **split,
@@ -2282,6 +2326,297 @@ def phase_sharded() -> dict:
     return out
 
 
+# JAX_OBSERVE_REFERENCE: (q)'s round with the tracer, the gang journeys and
+# the wall profiler on (enabled before the world loads), and the explain
+# burst after it, from `JAX_PLATFORMS=cpu python scripts/scheduler_reference.py
+# observe` (JAX 0.9.0 on the CPU): `observe_summary` of the round (span
+# multiset "name<parent", counters, gauges, histogram counts, Prometheus
+# series, completed journeys), and per document of `explain_burst` the
+# sha256 of its canonical JSON less timing fields, beside its verdict.
+JAX_OBSERVE_REFERENCE = {'summary': {'spans': {'quota.order<scheduler.schedule': 1,
+                       'quota.reclaim<scheduler.schedule': 1,
+                       'scheduler.commit<scheduler.schedule': 1,
+                       'scheduler.encode<quota.reclaim': 9,
+                       'scheduler.encode<scheduler.schedule': 1,
+                       'scheduler.pending-scan<scheduler.schedule': 1,
+                       'scheduler.schedule<None': 1,
+                       'scheduler.solve<quota.reclaim': 9,
+                       'scheduler.solve<scheduler.schedule': 1,
+                       'scheduler.status-write<scheduler.schedule': 1,
+                       'solver.wave<scheduler.solve': 14},
+             'counters': {'journeys_completed_total': 10231.0},
+             'gauges': {'gang_solve_waves': 1,
+                        'queue_admitted_gangs/tenant-0': 0,
+                        'queue_admitted_gangs/tenant-1': 0,
+                        'queue_admitted_gangs/tenant-2': 0,
+                        'queue_admitted_gangs/tenant-3': 0,
+                        'queue_admitted_gangs/tenant-4': 0,
+                        'queue_admitted_gangs/tenant-5': 0,
+                        'queue_admitted_gangs/tenant-6': 0,
+                        'queue_admitted_gangs/tenant-7': 0,
+                        'queue_dominant_share/tenant-0': 0.0,
+                        'queue_dominant_share/tenant-1': 0.0,
+                        'queue_dominant_share/tenant-2': 0.0,
+                        'queue_dominant_share/tenant-3': 0.0,
+                        'queue_dominant_share/tenant-4': 0.0,
+                        'queue_dominant_share/tenant-5': 0.0,
+                        'queue_dominant_share/tenant-6': 0.0,
+                        'queue_dominant_share/tenant-7': 0.0,
+                        'queue_pending_gangs/tenant-0': 1280,
+                        'queue_pending_gangs/tenant-1': 1280,
+                        'queue_pending_gangs/tenant-2': 1280,
+                        'queue_pending_gangs/tenant-3': 1280,
+                        'queue_pending_gangs/tenant-4': 1280,
+                        'queue_pending_gangs/tenant-5': 1280,
+                        'queue_pending_gangs/tenant-6': 1280,
+                        'queue_pending_gangs/tenant-7': 1280},
+             'histogram_counts': {'gang_solve_seconds': 1.0, 'quota_order_seconds': 1.0},
+             'prometheus_series': ['grove_tpu_gang_solve_seconds_count',
+                                   'grove_tpu_gang_solve_seconds_sum',
+                                   'grove_tpu_gang_solve_seconds{quantile="0.5"}',
+                                   'grove_tpu_gang_solve_seconds{quantile="0.9"}',
+                                   'grove_tpu_gang_solve_seconds{quantile="0.99"}',
+                                   'grove_tpu_gang_solve_waves',
+                                   'grove_tpu_journeys_completed_total',
+                                   'grove_tpu_queue_admitted_gangs{name="tenant-0"}',
+                                   'grove_tpu_queue_admitted_gangs{name="tenant-1"}',
+                                   'grove_tpu_queue_admitted_gangs{name="tenant-2"}',
+                                   'grove_tpu_queue_admitted_gangs{name="tenant-3"}',
+                                   'grove_tpu_queue_admitted_gangs{name="tenant-4"}',
+                                   'grove_tpu_queue_admitted_gangs{name="tenant-5"}',
+                                   'grove_tpu_queue_admitted_gangs{name="tenant-6"}',
+                                   'grove_tpu_queue_admitted_gangs{name="tenant-7"}',
+                                   'grove_tpu_queue_dominant_share{name="tenant-0"}',
+                                   'grove_tpu_queue_dominant_share{name="tenant-1"}',
+                                   'grove_tpu_queue_dominant_share{name="tenant-2"}',
+                                   'grove_tpu_queue_dominant_share{name="tenant-3"}',
+                                   'grove_tpu_queue_dominant_share{name="tenant-4"}',
+                                   'grove_tpu_queue_dominant_share{name="tenant-5"}',
+                                   'grove_tpu_queue_dominant_share{name="tenant-6"}',
+                                   'grove_tpu_queue_dominant_share{name="tenant-7"}',
+                                   'grove_tpu_queue_pending_gangs{name="tenant-0"}',
+                                   'grove_tpu_queue_pending_gangs{name="tenant-1"}',
+                                   'grove_tpu_queue_pending_gangs{name="tenant-2"}',
+                                   'grove_tpu_queue_pending_gangs{name="tenant-3"}',
+                                   'grove_tpu_queue_pending_gangs{name="tenant-4"}',
+                                   'grove_tpu_queue_pending_gangs{name="tenant-5"}',
+                                   'grove_tpu_queue_pending_gangs{name="tenant-6"}',
+                                   'grove_tpu_queue_pending_gangs{name="tenant-7"}',
+                                   'grove_tpu_quota_order_seconds_count',
+                                   'grove_tpu_quota_order_seconds_sum',
+                                   'grove_tpu_quota_order_seconds{quantile="0.5"}',
+                                   'grove_tpu_quota_order_seconds{quantile="0.9"}',
+                                   'grove_tpu_quota_order_seconds{quantile="0.99"}'],
+             'journeys_completed_total': 10231},
+ 'explain': {'explain tenant-0/g5768-0': {'sha256': '4aed2651a35708bb2a6dc136b0a35fc1511d8077bed4425a61b11a2d09daa232',
+                                          'state': 'pending',
+                                          'fits_now': True,
+                                          'binding_constraint': None,
+                                          'detail': None},
+             'explain tenant-0/g6232-0': {'sha256': '5203bfe46525d270a56f4a740f255e3505969f64019bb94a0d7736c44ee23b6b',
+                                          'state': 'pending',
+                                          'fits_now': True,
+                                          'binding_constraint': None,
+                                          'detail': None},
+             'explain tenant-0/g8536-0': {'sha256': 'fad41c189eafa907b433c1bb72effeea5a46be9751706d711e6b1bba1a7a87e7',
+                                          'state': 'pending',
+                                          'fits_now': True,
+                                          'binding_constraint': None,
+                                          'detail': None},
+             'explain tenant-0/g8608-0': {'sha256': 'eed720669795a0a28831feb57e8eb8cc9d2e8c01b84ebd030733eb3ec986d215',
+                                          'state': 'pending',
+                                          'fits_now': True,
+                                          'binding_constraint': None,
+                                          'detail': None},
+             'explain tenant-0/g8784-0': {'sha256': '52ca4525179735c58bf90da0f4129323d9a5aecd07e6427058d08f5e436a6e25',
+                                          'state': 'pending',
+                                          'fits_now': True,
+                                          'binding_constraint': None,
+                                          'detail': None},
+             'explain tenant-0/g9248-0': {'sha256': 'db45ee29127157b756570f6b5117e80c305cd16b8534c77bb0f468e793df5ae4',
+                                          'state': 'pending',
+                                          'fits_now': True,
+                                          'binding_constraint': None,
+                                          'detail': None},
+             'explain tenant-0/g9616-0': {'sha256': 'a3b854c795cc53995b21343f49ec24a68a93428fd16682f1703e8cd497d0e880',
+                                          'state': 'pending',
+                                          'fits_now': True,
+                                          'binding_constraint': None,
+                                          'detail': None},
+             'explain tenant-0/g9968-0': {'sha256': '4a50e2eb349f2e702dc1719101689b6df99d2ba423fb8a89ef5e69b0aa3573cd',
+                                          'state': 'pending',
+                                          'fits_now': False,
+                                          'binding_constraint': 'quota',
+                                          'detail': 'queue-position'},
+             'explain tenant-0/g9992-0': {'sha256': '403f895fd89b18e027fcaa73cdf7d0a611288b764ad6652ea054417f4ae194aa',
+                                          'state': 'pending',
+                                          'fits_now': True,
+                                          'binding_constraint': None,
+                                          'detail': None},
+             'explain tenant-0/g0-0': {'sha256': 'e41b33717e1d0e055fa816bdb5e00f12f7a161fdf16be8c97d4fa83d1d9ec008',
+                                       'state': 'scheduled',
+                                       'fits_now': True,
+                                       'binding_constraint': None},
+             'explain default/no-such-gang': {'sha256': '74234e98afe7498fb5daf1f36ac2d78acc339464f950703b8c019892f982b90b'},
+             'capacity': {'sha256': '6d3123f79ade0bff0e4af41c814da12ae684c18dcb22fd7a4fb3553a284fce04'},
+             'whatif drain-node node-0': {'sha256': '19a23951fc3e008f98034ea2686ad891904bd738de10d597349155df340bbc6c',
+                                          'state': 'pending',
+                                          'fits_now': True,
+                                          'binding_constraint': None,
+                                          'detail': None,
+                                          'flipped': False},
+             'whatif set-queue tenant-0': {'sha256': '3dec3f2ebd0d4ad64ff30fe4a0a99f9bb34f5d210e73d67547da3498a0bc0f4a',
+                                           'state': 'pending',
+                                           'fits_now': True,
+                                           'binding_constraint': None,
+                                           'detail': None,
+                                           'flipped': False}}}
+PROM_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_]+="[^"]*",?)+\})? (\S+)$')
+
+
+def phase_observe(q_wall_s, card, device="cuda", n_nodes=None, n_gangs=None,
+                  reference=JAX_OBSERVE_REFERENCE) -> dict:
+    """[observe]: (q)'s round with the glass-box layer on, then an explain
+    burst over the same store, each held to the JAX package's."""
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.models.scenarios import (
+        EventCapture, doc_digests, explain_burst, observe_summary, round_summary,
+        scheduler_world)
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.observability.explain import ExplainEngine
+    from grove_tpu_torch.observability.journey import JOURNEY_PHASES, JOURNEYS
+    from grove_tpu_torch.observability.metrics import METRICS
+    from grove_tpu_torch.observability.profile import PROFILER, disabled_check_cost_ns
+    from grove_tpu_torch.observability.tracing import TRACER, validate_chrome_trace
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    layers = (TRACER, JOURNEYS, PROFILER)
+    for layer in layers:
+        layer.reset()
+        layer.enable()
+    METRICS.reset()
+    world = scheduler_world("q", n_nodes, n_gangs)
+    store = Store(VirtualClock(0.0))
+    cluster = SimCluster(store, make_nodes(*world["nodes"]))
+    sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"], device=device)
+    EVENTS.reset()
+    EVENTS.clock = store.clock
+    t0 = time.perf_counter()
+    for doc in world["queues"] + world["rounds"][0]:
+        store.create(decode_object(doc), consume=True)
+    load_s = time.perf_counter() - t0
+    TRACER.reset()
+    PROFILER.reset()
+    METRICS.reset()
+    fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+    with EventCapture(EVENTS) as cap:
+        t0 = time.perf_counter()
+        sched.schedule_pending()
+        wall = time.perf_counter() - t0
+    launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                "drf_merge": merge_cuda.launches}
+    for layer in layers:
+        layer.disable()
+    tag = "observe (q) round 1"
+    if n_nodes is None and n_gangs is None:
+        got = round_summary(store, cluster, cap.events)
+        want = dict(JAX_SCHEDULER_REFERENCE["q"][0])
+        if not np.isclose(got["score_sum"], want.pop("score_sum"), rtol=1e-6, atol=0):
+            _fail(f"{tag}: score sum {got['score_sum']} != the JAX package's")
+        for key, value in want.items():
+            if got[key] != value:
+                _fail(f"{tag}: {key} {got[key]} != the JAX package's {value}")
+    check_world_valid(tag, store, cluster)
+    summary = observe_summary(TRACER, METRICS, JOURNEYS)
+    for key, value in reference["summary"].items():
+        if summary[key] != value:
+            _fail(f"{tag}: {key} {summary[key]} != the JAX package's {value}")
+    if device != "cpu" and not all(launches.values()):
+        _fail(f"{tag}: the round did not launch every kernel: {launches}")
+    problems = validate_chrome_trace(TRACER.chrome_trace())
+    if problems:
+        _fail(f"{tag}: the Chrome trace is malformed: {problems[:5]}")
+    prom = METRICS.prometheus_text().splitlines()
+    bad = [ln for ln in prom if not (m := PROM_LINE.match(ln)) or not _is_float(m.group(3))]
+    if bad or not prom:
+        _fail(f"{tag}: Prometheus lines that do not parse: {bad[:5]}")
+    admitted = incomplete = 0
+    for gang in store.scan("PodGang"):
+        if not any(c.type == "Scheduled" and c.status == "True" for c in gang.status.conditions):
+            continue
+        admitted += 1
+        doc = JOURNEYS.journey(gang.metadata.namespace, gang.metadata.name)
+        if doc is None or [p["phase"] for p in doc["phases"]] != list(JOURNEY_PHASES):
+            incomplete += 1
+    if not admitted or incomplete:
+        _fail(f"{tag}: {incomplete} of {admitted} admitted gangs' journeys are not complete")
+    report = PROFILER.report(wall_seconds=wall, top=6)
+    if report["coverage"] < 0.95:
+        _fail(f"{tag}: the profiler attributes {report['coverage']:.4f} of the round's wall")
+    print(f"[observe] (q) round 1 traced (tracer, journeys, profiler on; world load {load_s:.3f} s"
+          f" before it): wall {wall:.3f} s beside [sched]'s (q) round 1 {q_wall_s:.3f} s; equal to"
+          f" the JAX package's: round, {sum(summary['spans'].values())} spans"
+          f" ({len(summary['spans'])} name<parent pairs), {len(summary['gauges'])} gauges,"
+          f" {len(prom)} Prometheus lines ({len(summary['prometheus_series'])} series), journeys"
+          f" completed {summary['journeys_completed_total']} (all {admitted} admitted complete);"
+          f" Chrome trace valid ({len(TRACER.spans())} events); profiler coverage"
+          f" {report['coverage']:.4f}; launches fill {launches['fill']}, DRF"
+          f" {launches['drf_shares']} + {launches['drf_merge']} | {card}", flush=True)
+    print("[observe] profiler, top phases by self time: " + "; ".join(
+        f"{r['controller']}/{r['phase']}@{r['shard']} {r['total_s']:.3f} s ({r['count']} x)"
+        for r in report["phases"]) + f" | {card}", flush=True)
+    # the explain burst, read-only over the same store
+    engine = ExplainEngine(sched)
+    pin = store.resource_version_vector()
+    METRICS.reset()
+    fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+    t0 = time.perf_counter()
+    burst = doc_digests(explain_burst(engine, store, cluster))
+    burst_s = time.perf_counter() - t0
+    explain_launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                        "drf_merge": merge_cuda.launches}
+    if store.resource_version_vector() != pin:
+        _fail(f"observe: the explain burst moved the store ({pin} -> "
+              f"{store.resource_version_vector()})")
+    if list(burst) != list(reference["explain"]):
+        _fail(f"observe: explain burst asked {list(burst)}, the JAX one {list(reference['explain'])}")
+    for key, want in reference["explain"].items():
+        if burst[key] != want:
+            _fail(f"observe: {key}: {burst[key]} != the JAX engine's {want}")
+    if device != "cpu" and not all(explain_launches.values()):
+        _fail(f"observe: the explain burst did not launch every kernel: {explain_launches}")
+    latency = sorted(METRICS.histograms.get("explain_verdict_seconds", []))
+    out = {"wall_s": wall, "load_s": load_s, "q_sched_wall_s": q_wall_s,
+           "coverage": report["coverage"], "top_phases": report["phases"],
+           "disabled_check_ns": disabled_check_cost_ns(),
+           "explain_burst_s": burst_s, "explains": len(latency),
+           "explain_p50_s": _percentile(latency, 0.5), "explain_p99_s": _percentile(latency, 0.99),
+           **{f"{k}_launches": v for k, v in launches.items()},
+           **{f"explain_{k}_launches": v for k, v in explain_launches.items()}}
+    print(f"[observe] explain burst ({len(burst)} documents: {len(latency)} explains, capacity, a"
+          f" drain and a queue what-if) {burst_s:.3f} s, each document equal to the JAX engine's;"
+          f" explain latency p50 {out['explain_p50_s'] * 1e3:.1f} ms, p99"
+          f" {out['explain_p99_s'] * 1e3:.1f} ms; trial solves launched fill"
+          f" {explain_launches['fill']}, order views DRF {explain_launches['drf_shares']} +"
+          f" {explain_launches['drf_merge']}; store untouched; all-off check"
+          f" {out['disabled_check_ns']:.1f} ns | {card}", flush=True)
+    return out
+
+
+def _is_float(text: str) -> bool:
+    try:
+        float(text)
+    except ValueError:
+        return False
+    return True
+
+
 def _timed(phase, *args):
     t0 = time.perf_counter()
     out = phase(*args)
@@ -2304,6 +2639,7 @@ def main() -> int:
     delta = _timed(phase_delta)
     front = _timed(phase_frontier, delta["rounds"][0])
     sharded = _timed(phase_sharded)
+    observe = _timed(phase_observe, sched["rounds"]["q1"]["wall_s"], card)
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
@@ -2311,8 +2647,10 @@ def main() -> int:
         "replaces": "grove_tpu/ops/pallas_fill.py:69",
         "launches": main_path["launches"] + stats["fill_launches"] + stats["exact_fill_launches"]
         + sched["fill_launches"] + delta["fill_launches"] + front["fill_launches"]
-        + sharded["single_fill_launches"] + sharded["fill_launches"],
+        + sharded["single_fill_launches"] + sharded["fill_launches"]
+        + observe["fill_launches"] + observe["explain_fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
+        "explain_launches": observe["explain_fill_launches"],
         "sharded_rank_launches": sharded["fill_launches"],
         "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"]]
                            + [cs["max_abs_err"] for cs in cases]),
@@ -2331,7 +2669,9 @@ def main() -> int:
             "source": "grove_tpu_torch/csrc/drf.cu",
             "replaces": "grove_tpu/quota/ordering.py:41",
             "launches": sched[f"drf_{phase}_launches"] + delta[f"drf_{phase}_launches"]
-            + front[f"drf_{phase}_launches"],
+            + front[f"drf_{phase}_launches"] + observe[f"drf_{phase}_launches"]
+            + observe[f"explain_drf_{phase}_launches"],
+            "explain_launches": observe[f"explain_drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
             "plain_ms": drf[f"plain_{phase}_ms"],
@@ -2351,7 +2691,8 @@ def main() -> int:
                       "delta": {k: v for k, v in delta.items() if k != "rounds"},
                       "delta_rounds": delta["rounds"],
                       "frontier": {k: v for k, v in front.items() if k != "rounds"},
-                      "frontier_rounds": front["rounds"], "sharded": sharded}))
+                      "frontier_rounds": front["rounds"], "sharded": sharded,
+                      "observe": observe}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -11,13 +11,16 @@ port's store and into the JAX package's alike. ``scheduler_world`` holds the
 scheduler worlds (s), (q) and (r), the churn world ``delta`` whose ticks
 ``apply_tick`` applies to either package's store, and the frontier's world
 (phi); ``EventCapture``, ``round_summary``, ``delta_counters`` and
-``frontier_counters`` read a round the same way on either side. This part
-is plain Python.
+``frontier_counters`` read a round the same way on either side;
+``observe_summary`` reads a traced round's spans, metrics and journeys and
+``explain_burst`` drives an explain engine over a world, again the same way
+on either side. This part is plain Python.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import random
 from collections import Counter
 from typing import Callable, Dict, List, Optional
@@ -501,3 +504,113 @@ def round_summary(store, cluster, events: List[tuple]) -> dict:
         "admitted_per_queue": dict(sorted(per_queue.items())),
         "events_by_reason": dict(sorted(Counter(e[4] for e in events).items())),
     }
+
+
+# spans and metrics whose values depend on the process (the JAX package's
+# XLA compile cache, the port's first load of a CUDA library), not the round
+_PROCESS_SPANS = ("solver.compile",)
+_PROCESS_METRICS = ("gang_solve_compile_seconds",)
+
+
+def span_multiset(spans) -> Dict[str, int]:
+    """``"name<parent"`` -> count over finished spans, the process-dependent
+    spans and their children left out."""
+    counts = Counter(
+        f"{sp.name}<{sp.parent}"
+        for sp in spans
+        if sp.name not in _PROCESS_SPANS and sp.parent not in _PROCESS_SPANS
+    )
+    return dict(sorted(counts.items()))
+
+
+def observe_summary(tracer, metrics, journeys) -> dict:
+    """What a traced round recorded that does not depend on time, read the
+    same way from either package's tracer, metrics registry and journey
+    tracker: the span multiset, every counter and gauge, each histogram's
+    observation count (never its values), the Prometheus series names, and
+    the journeys completed."""
+    series = sorted(
+        {
+            line.rpartition(" ")[0]
+            for line in metrics.prometheus_text().splitlines()
+            if line and not any(m in line for m in _PROCESS_METRICS)
+        }
+    )
+    return {
+        "spans": span_multiset(tracer.spans()),
+        "counters": dict(sorted(metrics.counters.items())),
+        "gauges": dict(sorted(metrics.gauges.items())),
+        "histogram_counts": {
+            k: v for k, v in sorted(metrics.hist_count.items()) if k not in _PROCESS_METRICS
+        },
+        "prometheus_series": series,
+        "journeys_completed_total": journeys.completed_total,
+    }
+
+
+def strip_timing(doc):
+    """An explain, capacity or what-if document less its timing fields
+    (``evaluated_in_ms``), at every depth."""
+    if isinstance(doc, dict):
+        return {k: strip_timing(v) for k, v in doc.items() if k != "evaluated_in_ms"}
+    if isinstance(doc, list):
+        return [strip_timing(v) for v in doc]
+    return doc
+
+
+def _scheduled(gang) -> bool:
+    return any(c.type == "Scheduled" and c.status == "True" for c in gang.status.conditions)
+
+
+def explain_burst(engine, store, cluster) -> dict:
+    """Drive an explain engine (either package's) over a world after a
+    round: ``explain`` of every PodGang still pending, of the first
+    scheduled one and of an unknown name; ``capacity()``; a ``whatif``
+    draining the node of the scheduled gang's first bound pod, for the
+    first pending gang; and a ``whatif`` doubling the first pending gang's
+    queue's deserved share (or, with no Queue CRs, setting one on
+    ``default``). Returns the documents less their timing fields, keyed by
+    what was asked."""
+    gangs = sorted(store.scan("PodGang"), key=lambda g: (g.metadata.namespace, g.metadata.name))
+    pending = [g for g in gangs if not _scheduled(g)]
+    admitted = next(g for g in gangs if _scheduled(g))
+    out = {}
+    for g in pending + [admitted]:
+        ns, name = g.metadata.namespace, g.metadata.name
+        out[f"explain {ns}/{name}"] = strip_timing(engine.explain(ns, name))
+    out["explain default/no-such-gang"] = engine.explain("default", "no-such-gang")
+    out["capacity"] = strip_timing(engine.capacity())
+    if not pending:
+        return out
+    target = {"namespace": pending[0].metadata.namespace, "name": pending[0].metadata.name}
+    ref = admitted.spec.pod_groups[0].pod_references[0]
+    node = cluster.bindings[(ref.namespace, ref.name)]
+    out[f"whatif drain-node {node}"] = strip_timing(
+        engine.whatif({"gang": target, "actions": [{"action": "drain-node", "node": node}]})
+    )
+    queue = pending[0].metadata.labels.get(namegen.LABEL_QUEUE) or "default"
+    cr = engine.scheduler.quota.queue_crs().get(queue)
+    deserved = {r: 2.0 * v for r, v in cr.spec.deserved.items()} if cr is not None else {"cpu": 1.0}
+    out[f"whatif set-queue {queue}"] = strip_timing(
+        engine.whatif(
+            {"gang": target, "actions": [{"action": "set-queue", "queue": queue, "deserved": deserved}]}
+        )
+    )
+    return out
+
+
+def doc_digests(burst: dict) -> dict:
+    """An explain burst as, per document, the sha256 of its canonical JSON
+    and the verdict fields a reader checks first (for a what-if, those of
+    its ``after``)."""
+    out = {}
+    for key, doc in burst.items():
+        row = {"sha256": _digest([json.dumps(doc, sort_keys=True)])}
+        verdict = (doc or {}).get("after", doc) or {}
+        for field in ("state", "fits_now", "binding_constraint", "detail", "partition"):
+            if field in verdict:
+                row[field] = verdict[field]
+        if "flipped" in (doc or {}):
+            row["flipped"] = doc["flipped"]
+        out[key] = row
+    return out

@@ -1,7 +1,8 @@
 """Kubernetes-style event recorder with dedup-and-count.
 
 Counterpart of ``grove_tpu/observability/events.py``, cut to the reasons
-and deferral details the scheduler round records. ``record`` dedups on
+the scheduler round records and the deferral details it and the explain
+engine cite. ``record`` dedups on
 (kind, namespace, name, type, reason), bumps ``count`` and keeps the latest
 message; the oldest groups drop past ``max_events``.
 """
@@ -32,6 +33,9 @@ DETAIL_TOPOLOGY_FRAGMENTATION = "topology-fragmentation"
 DETAIL_NODE_FRAGMENTATION = "node-fragmentation"
 DETAIL_UNSATISFIABLE = "unsatisfiable-constraint"
 DETAIL_QUOTA_CEILING = "quota-ceiling"
+# explain verdicts only: outcompeted in the solve order, and a monitor hold
+DETAIL_QUEUE_POSITION = "queue-position"
+DETAIL_DISRUPTION_HOLD = "disruption-hold"
 
 
 @dataclass

@@ -6,6 +6,12 @@ covers the source and the flags, so an edited source rebuilds) and loaded
 with ``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
 ``load_all`` starts one nvcc per missing source, all together. Nothing is
 built when a module is imported.
+
+A ``load_all`` that loads a library not yet loaded runs inside a
+``solver.compile`` span (``kernel``: the libraries' names) and observes its
+wall, the build included, as ``gang_solve_compile_seconds``: the port's
+counterpart of the JAX package's XLA compile of a solver program, which
+happens once per process and library here.
 """
 
 from __future__ import annotations
@@ -16,8 +22,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
+
+from grove_tpu_torch.observability.metrics import METRICS
+from grove_tpu_torch.observability.tracing import TRACER
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "grove_tpu_torch"
@@ -86,29 +96,35 @@ def load_all(names) -> Dict[str, ctypes.CDLL]:
     together. Raises ``RuntimeError`` with nvcc's output when a build
     fails."""
     with _LOCK:
-        procs = {
-            name: _compile(name)
-            for name in names
-            if name not in _LIBS and not library_path(name).exists()
-        }
-        try:
-            for name, (proc, tmp) in procs.items():
-                BUILD_LOGS[name] = proc.communicate()[0]
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-                        + BUILD_LOGS[name]
-                    )
-                os.replace(tmp, library_path(name))
-        finally:
-            for proc, _ in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        for name in names:
-            if name not in _LIBS:
-                _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        missing = [name for name in names if name not in _LIBS]
+        if missing:
+            t0 = time.perf_counter()
+            with TRACER.span("solver.compile", kernel=",".join(missing)):
+                _build_and_load(missing)
+            METRICS.observe("gang_solve_compile_seconds", time.perf_counter() - t0)
         return {name: _LIBS[name] for name in names}
+
+
+def _build_and_load(names) -> None:
+    """Compile every library of ``names`` that has no build, one nvcc each,
+    all started together; then load them all."""
+    procs = {name: _compile(name) for name in names if not library_path(name).exists()}
+    try:
+        for name, (proc, tmp) in procs.items():
+            BUILD_LOGS[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
+                    + BUILD_LOGS[name]
+                )
+            os.replace(tmp, library_path(name))
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name in names:
+        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -76,14 +76,18 @@ class QuotaManager:
         gang_specs: List[dict],
         crs: Optional[Dict[str, object]] = None,
         usage: Optional[Dict[str, Dict[str, float]]] = None,
+        record_rows: bool = True,
     ) -> Tuple[List[dict], List[Tuple[dict, str]]]:
         """The gang solve order. Returns (ordered_specs, held): held is
         [(spec, reason)] for gangs whose queue is at its ceiling.
-        ``crs``/``usage`` replace the live queue tree and usage."""
+        ``crs``/``usage`` replace the live queue tree and usage (the
+        explain engine's what-if trials). ``record_rows=False`` leaves
+        ``last_rows``, the rows the round's status writer reads, alone."""
         if crs is None:
             crs = self.queue_crs()
         if not crs:
-            self.last_rows = []
+            if record_rows:
+                self.last_rows = []
             return sorted(gang_specs, key=_flat_key), []
 
         if usage is None:
@@ -174,5 +178,6 @@ class QuotaManager:
             }
             for qi, name in enumerate(names)
         ]
-        self.last_rows = rows
+        if record_rows:
+            self.last_rows = rows
         return ordered, held

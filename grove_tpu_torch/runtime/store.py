@@ -13,7 +13,12 @@ cache, cut to what the scheduler round and the loading of a world use:
 - the label index: a selector on an indexed label resolves to its
   candidate set instead of a scan of the kind (the scheduler looks up each
   clique's pods by ``grove.io/podclique``);
-- ``shard_index`` / ``shard_emitted``: the one-shard answers.
+- ``shard_index`` / ``shard_emitted`` / ``resource_version_vector``: the
+  one-shard answers;
+- the glass-box hooks, one boolean check each while off: PodGang creations
+  and deletions stamp their journeys (``JOURNEYS.note_created`` /
+  ``note_deleted``), and reads and writes open the wall profiler's
+  ``snapshot``, ``store-commit`` and ``status-write`` phases.
 
 Committed objects are immutable: every write commits a new object.
 """
@@ -22,9 +27,16 @@ from __future__ import annotations
 
 import copy as _copy
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 from grove_tpu_torch.api.meta import deep_copy, next_uid
+from grove_tpu_torch.observability.journey import JOURNEYS
+from grove_tpu_torch.observability.profile import (
+    PHASE_SNAPSHOT,
+    PHASE_STATUS_WRITE,
+    PHASE_STORE_COMMIT,
+    PROFILER,
+)
 from grove_tpu_torch.runtime.clock import Clock
 from grove_tpu_torch.runtime.errors import ERR_CONFLICT, ERR_NOT_FOUND, GroveError
 
@@ -91,6 +103,15 @@ class Store:
         """Events emitted so far (moves on every commit and delete)."""
         return self.emitted
 
+    @property
+    def resource_version(self) -> int:
+        """The store's resourceVersion watermark: the count of commits."""
+        return self.rv
+
+    def resource_version_vector(self) -> Tuple[int, ...]:
+        """Per-shard resourceVersions (one shard here)."""
+        return (self.rv,)
+
     # -- watch -----------------------------------------------------------
 
     def subscribe_system(self, fn: Callable[[WatchEvent], None]) -> None:
@@ -99,6 +120,11 @@ class Store:
     def _emit(self, type_: str, obj, old=None) -> None:
         ev = WatchEvent(type=type_, kind=obj.kind, obj=obj, old=old)
         self.emitted += 1
+        if JOURNEYS.enabled and obj.kind == "PodGang":
+            if type_ == ADDED:
+                JOURNEYS.note_created(obj.metadata.namespace, obj.metadata.name)
+            elif type_ == DELETED:
+                JOURNEYS.note_deleted(obj.metadata.namespace, obj.metadata.name)
         for w in self._system_watchers:
             w(ev)
 
@@ -162,10 +188,15 @@ class Store:
     def get(self, kind: str, namespace: str, name: str, readonly: bool = False):
         """One object, or None. ``readonly=True`` returns the committed
         object itself: the caller must not mutate it."""
-        obj = self._committed.get(kind, {}).get(f"{namespace}/{name}")
-        if obj is None or readonly:
-            return obj
-        return deep_copy(obj)
+        prof = PROFILER.phase(PHASE_SNAPSHOT) if PROFILER.enabled else None
+        try:
+            obj = self._committed.get(kind, {}).get(f"{namespace}/{name}")
+            if obj is None or readonly:
+                return obj
+            return deep_copy(obj)
+        finally:
+            if prof is not None:
+                prof.end()
 
     def scan(
         self,
@@ -192,9 +223,14 @@ class Store:
     ) -> List[object]:
         """Private copies of the matching objects, sorted by (namespace,
         name)."""
-        out = [deep_copy(o) for o in self.scan(kind, namespace, label_selector)]
-        out.sort(key=lambda o: (o.metadata.namespace, o.metadata.name))
-        return out
+        prof = PROFILER.phase(PHASE_SNAPSHOT) if PROFILER.enabled else None
+        try:
+            out = [deep_copy(o) for o in self.scan(kind, namespace, label_selector)]
+            out.sort(key=lambda o: (o.metadata.namespace, o.metadata.name))
+            return out
+        finally:
+            if prof is not None:
+                prof.end()
 
     # -- writes ----------------------------------------------------------
 
@@ -202,25 +238,30 @@ class Store:
         """Commit a new object. ``consume=True`` hands ``obj`` over: it
         becomes the committed object and the caller must not touch it
         again; otherwise a private copy is committed."""
-        kind_objs = self._committed.setdefault(obj.kind, {})
-        key = obj_key(obj)
-        if key in kind_objs:
-            raise GroveError(ERR_CONFLICT, f"{obj.kind} {key} already exists", "create")
-        stored = obj if consume else deep_copy(obj)
-        meta = stored.metadata
-        self.rv += 1
-        meta.uid = meta.uid or next_uid()
-        meta.resource_version = self.rv
-        meta.generation = 1
-        meta.creation_timestamp = self.clock.now()
-        self._commit(stored)
-        self._emit(ADDED, stored)
-        if not consume:
-            obj.metadata.uid = meta.uid
-            obj.metadata.resource_version = meta.resource_version
-            obj.metadata.generation = meta.generation
-            obj.metadata.creation_timestamp = meta.creation_timestamp
-        return obj
+        prof = PROFILER.phase(PHASE_STORE_COMMIT) if PROFILER.enabled else None
+        try:
+            kind_objs = self._committed.setdefault(obj.kind, {})
+            key = obj_key(obj)
+            if key in kind_objs:
+                raise GroveError(ERR_CONFLICT, f"{obj.kind} {key} already exists", "create")
+            stored = obj if consume else deep_copy(obj)
+            meta = stored.metadata
+            self.rv += 1
+            meta.uid = meta.uid or next_uid()
+            meta.resource_version = self.rv
+            meta.generation = 1
+            meta.creation_timestamp = self.clock.now()
+            self._commit(stored)
+            self._emit(ADDED, stored)
+            if not consume:
+                obj.metadata.uid = meta.uid
+                obj.metadata.resource_version = meta.resource_version
+                obj.metadata.generation = meta.generation
+                obj.metadata.creation_timestamp = meta.creation_timestamp
+            return obj
+        finally:
+            if prof is not None:
+                prof.end()
 
     def _current(self, obj):
         current = self._committed.get(obj.kind, {}).get(obj_key(obj))
@@ -232,32 +273,37 @@ class Store:
         """Write a caller-owned object. A resourceVersion behind the
         committed one raises ERR_CONFLICT; a write equal to the committed
         object commits nothing."""
-        current = self._current(obj)
-        meta = obj.metadata
-        if meta.resource_version and meta.resource_version != current.metadata.resource_version:
-            raise GroveError(
-                ERR_CONFLICT,
-                f"{obj.kind} {obj_key(obj)}: resourceVersion {meta.resource_version}"
-                f" != {current.metadata.resource_version}",
-                "update",
-            )
-        cm = current.metadata
-        meta.resource_version = cm.resource_version
-        meta.generation = cm.generation
-        meta.uid = cm.uid
-        meta.creation_timestamp = cm.creation_timestamp
-        if obj == current:
+        prof = PROFILER.phase(PHASE_STORE_COMMIT) if PROFILER.enabled else None
+        try:
+            current = self._current(obj)
+            meta = obj.metadata
+            if meta.resource_version and meta.resource_version != current.metadata.resource_version:
+                raise GroveError(
+                    ERR_CONFLICT,
+                    f"{obj.kind} {obj_key(obj)}: resourceVersion {meta.resource_version}"
+                    f" != {current.metadata.resource_version}",
+                    "update",
+                )
+            cm = current.metadata
+            meta.resource_version = cm.resource_version
+            meta.generation = cm.generation
+            meta.uid = cm.uid
+            meta.creation_timestamp = cm.creation_timestamp
+            if obj == current:
+                return obj
+            stored = deep_copy(obj)
+            self.rv += 1
+            stored.metadata.resource_version = self.rv
+            stored.metadata.generation = cm.generation + (1 if bump_generation else 0)
+            self._unindex_labels(current)
+            self._commit(stored)
+            self._emit(MODIFIED, stored, old=current)
+            meta.resource_version = stored.metadata.resource_version
+            meta.generation = stored.metadata.generation
             return obj
-        stored = deep_copy(obj)
-        self.rv += 1
-        stored.metadata.resource_version = self.rv
-        stored.metadata.generation = cm.generation + (1 if bump_generation else 0)
-        self._unindex_labels(current)
-        self._commit(stored)
-        self._emit(MODIFIED, stored, old=current)
-        meta.resource_version = stored.metadata.resource_version
-        meta.generation = stored.metadata.generation
-        return obj
+        finally:
+            if prof is not None:
+                prof.end()
 
     def update_status(self, obj) -> object:
         """Status write: no generation bump."""
@@ -267,45 +313,55 @@ class Store:
         """Copy-on-write status commit against a readonly ``view``: the new
         committed object shares everything but its status. Conflicts and
         no-op suppression as ``update``. Returns the committed object."""
-        current = self._current(view)
-        if (
-            current is not view
-            and view.metadata.resource_version
-            and view.metadata.resource_version != current.metadata.resource_version
-        ):
-            raise GroveError(
-                ERR_CONFLICT,
-                f"{view.kind} {obj_key(view)}: resourceVersion"
-                f" {view.metadata.resource_version} != {current.metadata.resource_version}",
-                "update",
-            )
-        if status == current.status:
-            return current
-        stored = _copy.copy(current)
-        stored.status = status
-        meta = stored.metadata = _copy.copy(stored.metadata)
-        self.rv += 1
-        meta.resource_version = self.rv
-        self._unindex_labels(current)
-        self._commit(stored)
-        self._emit(MODIFIED, stored, old=current)
-        return stored
+        prof = PROFILER.phase(PHASE_STATUS_WRITE) if PROFILER.enabled else None
+        try:
+            current = self._current(view)
+            if (
+                current is not view
+                and view.metadata.resource_version
+                and view.metadata.resource_version != current.metadata.resource_version
+            ):
+                raise GroveError(
+                    ERR_CONFLICT,
+                    f"{view.kind} {obj_key(view)}: resourceVersion"
+                    f" {view.metadata.resource_version} != {current.metadata.resource_version}",
+                    "update",
+                )
+            if status == current.status:
+                return current
+            stored = _copy.copy(current)
+            stored.status = status
+            meta = stored.metadata = _copy.copy(stored.metadata)
+            self.rv += 1
+            meta.resource_version = self.rv
+            self._unindex_labels(current)
+            self._commit(stored)
+            self._emit(MODIFIED, stored, old=current)
+            return stored
+        finally:
+            if prof is not None:
+                prof.end()
 
     def delete(self, kind: str, namespace: str, name: str) -> None:
         """Delete an object; one with finalizers gets its deletion
         timestamp instead and stays until they drain."""
-        obj = self._committed.get(kind, {}).get(f"{namespace}/{name}")
-        if obj is None:
-            raise GroveError(ERR_NOT_FOUND, f"{kind} {namespace}/{name} not found", "delete")
-        if obj.metadata.finalizers:
-            if obj.metadata.deletion_timestamp is None:
-                stored = deep_copy(obj)
-                stored.metadata.deletion_timestamp = self.clock.now()
-                self.rv += 1
-                stored.metadata.resource_version = self.rv
-                self._unindex_labels(obj)
-                self._commit(stored)
-                self._emit(MODIFIED, stored, old=obj)
-            return
-        self._uncommit(obj)
-        self._emit(DELETED, obj)
+        prof = PROFILER.phase(PHASE_STORE_COMMIT) if PROFILER.enabled else None
+        try:
+            obj = self._committed.get(kind, {}).get(f"{namespace}/{name}")
+            if obj is None:
+                raise GroveError(ERR_NOT_FOUND, f"{kind} {namespace}/{name} not found", "delete")
+            if obj.metadata.finalizers:
+                if obj.metadata.deletion_timestamp is None:
+                    stored = deep_copy(obj)
+                    stored.metadata.deletion_timestamp = self.clock.now()
+                    self.rv += 1
+                    stored.metadata.resource_version = self.rv
+                    self._unindex_labels(obj)
+                    self._commit(stored)
+                    self._emit(MODIFIED, stored, old=obj)
+                return
+            self._uncommit(obj)
+            self._emit(DELETED, obj)
+        finally:
+            if prof is not None:
+                prof.end()

@@ -211,6 +211,9 @@ class SimCluster:
         self.bindings[key] = node_name
         self.last_node[key] = node_name
 
+    def node(self, node_name: str) -> Optional[Node]:
+        return next((n for n in self.nodes if n.name == node_name), None)
+
     def unschedulable_names(self) -> set:
         """Names of nodes no solve may target (cordoned or not Ready)."""
         return {n.name for n in self.nodes if not n.schedulable}

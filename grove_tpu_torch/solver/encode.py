@@ -260,6 +260,14 @@ class StickyGroupPad:
             self._width = max(self._width, batch_max, 1)
             return self._width
 
+    def peek(self, gang_specs: List[dict]) -> int:
+        """The width :meth:`grow` would return for this batch, without
+        keeping it: a read-only replay (the explain engine) pads as the
+        next real solve will and leaves the sticky width alone."""
+        batch_max = max((len(s["groups"]) for s in gang_specs), default=1)
+        with self._lock:
+            return max(self._width, batch_max, 1)
+
 
 class NodeEncoding:
     """Cached node-side arrays for repeat solves over an unchanged topology:

@@ -32,8 +32,8 @@ composite equal bit for bit: admissions, placements, scores and
 allocations. A tick with one slab, or with every gang residual, returns
 None and the caller runs the global solve.
 
-The JAX module's journey stamp (``JOURNEYS.note_partition``) is not
-ported: the port has no gang journeys.
+With gang journeys on, every gang's journey records the partition that
+solves it, or -1 for the residual (``JOURNEYS.note_partition``).
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from grove_tpu_torch.observability.journey import JOURNEYS
 from grove_tpu_torch.observability.metrics import METRICS
 from grove_tpu_torch.observability.tracing import TRACER
 from grove_tpu_torch.solver.encode import (
@@ -267,6 +268,10 @@ class FrontierState:
             METRICS.inc("frontier_degenerate_total")
             return None
         part_of = self.assign(plan, enc, free, gang_specs)
+        if JOURNEYS.enabled:
+            # the lane that will solve each gang (-1: the residual pass)
+            for i, spec in enumerate(gang_specs):
+                JOURNEYS.note_partition(spec["namespace"], spec["gang_name"], int(part_of[i]))
         parts_used = sorted({int(k) for k in part_of if k >= 0})
         if not parts_used:
             self.degenerate += 1

@@ -14,9 +14,18 @@ Counterpart of ``grove_tpu/solver/kernel.py``:
   dispatch over every lane (the partitioned frontier, ``solver/frontier.py``).
 
 Grouped, pinned and spread problems take the same paths with the static
-flags derived from the problem as the JAX package derives them. Of the JAX
-module's metrics and tracing spans only the stacked solve's
-``solver.execute`` span is ported.
+flags derived from the problem as the JAX package derives them.
+
+Spans and metrics as in the JAX module: a ``solver.wave`` span per wave of
+``solve_waves`` and the ``gang_solve_waves`` gauge; a ``solver.execute``
+span around the exact solve, the stats program and each stacked dispatch,
+each closed after the first host read of the device's answer (the read
+that waits for the device, so the span covers the device work without a
+synchronize of its own); ``gang_solve_tail`` when the stats path runs its
+tail. The JAX module's ``solver.compile`` span and
+``gang_solve_compile_seconds`` time an XLA compile per program signature;
+the port compiles no program, and its counterpart is the one build and
+load of each CUDA library (``ops/_build.load_all``).
 """
 
 from __future__ import annotations
@@ -29,8 +38,9 @@ import numpy as np
 import torch
 
 from grove_tpu_torch.convert import problem_to_device
-from grove_tpu_torch.ops.fill import fill_batch
+from grove_tpu_torch.observability.metrics import METRICS
 from grove_tpu_torch.observability.tracing import TRACER
+from grove_tpu_torch.ops.fill import fill_batch
 from grove_tpu_torch.ops.packing import (
     solve_packing,
     solve_wave_chunk,
@@ -205,67 +215,84 @@ def solve_waves(
 
     _sync(device)
     t0 = time.perf_counter()
+    waves_used = 0
     for wave in range(max_waves):
         if not pending.any():
             break
+        # one span a wave (host values only); the chunk dispatches nest
+        # inside it by time
+        wave_span = (
+            TRACER.span("solver.wave", wave=wave, pending=int(pending.sum()))
+            if TRACER.enabled
+            else None
+        )
         progress = False
+        waves_used += 1
         seeds = np.arange(g_pad, dtype=np.int32) + np.int32(wave * 7919)
-        for c in range(n_chunks):
-            sl = slice(c * chunk_size, (c + 1) * chunk_size)
-            mask = pending[sl]
-            if not mask.any():
-                continue
-            (
-                dem_c, cnt_c, mn_c, rq_c, pf_c, grq_c, gpin_c, gangpin_c,
-                slvl_c, smin_c, sreq_c, sseed_c, pidx_c,
-            ) = chunk_const[c]
-            out = solve_wave_chunk(
-                free, topo, seg_starts, seg_ends,
-                dem_c, cnt_c, mn_c, rq_c, pf_c,
-                _upload(mask, device), _upload(narrow_cap[sl], device),
-                _upload(seeds[sl], device),
-                group_req=grq_c,
-                group_pin=gpin_c,
-                gang_pin=gangpin_c,
-                spread_level=slvl_c,
-                spread_min=smin_c,
-                spread_required=sreq_c,
-                spread_seed=sseed_c,
-                pair_demand=pair_demand,
-                pair_count=pair_count,
-                pair_idx=pidx_c,
-                grouped=grouped,
-                pinned=pinned,
-                spread=spread,
-                uniform=uniform,
-                level_widths=level_widths,
-                fill=fill,
-            )
-            committed = out["admitted"].cpu().numpy()
-            retry = out["retry"].cpu().numpy()
-            free = out["free_after"]
-            admitted[sl] |= committed
-            placed[sl] = np.where(
-                committed[:, None], out["placed"].cpu().numpy(), placed[sl]
-            )
-            score[sl] = np.where(committed, out["score"].cpu().numpy(), score[sl])
-            chosen_level[sl] = np.where(
-                committed, out["chosen_level"].cpu().numpy(), chosen_level[sl]
-            )
-            narrow_cap[sl] = out["new_cap"].cpu().numpy()
-            if with_alloc:
-                alloc[sl] = np.where(
-                    committed[:, None, None], out["alloc"].cpu().numpy(), alloc[sl]
+        try:
+            for c in range(n_chunks):
+                sl = slice(c * chunk_size, (c + 1) * chunk_size)
+                mask = pending[sl]
+                if not mask.any():
+                    continue
+                (
+                    dem_c, cnt_c, mn_c, rq_c, pf_c, grq_c, gpin_c, gangpin_c,
+                    slvl_c, smin_c, sreq_c, sseed_c, pidx_c,
+                ) = chunk_const[c]
+                out = solve_wave_chunk(
+                    free, topo, seg_starts, seg_ends,
+                    dem_c, cnt_c, mn_c, rq_c, pf_c,
+                    _upload(mask, device), _upload(narrow_cap[sl], device),
+                    _upload(seeds[sl], device),
+                    group_req=grq_c,
+                    group_pin=gpin_c,
+                    gang_pin=gangpin_c,
+                    spread_level=slvl_c,
+                    spread_min=smin_c,
+                    spread_required=sreq_c,
+                    spread_seed=sseed_c,
+                    pair_demand=pair_demand,
+                    pair_count=pair_count,
+                    pair_idx=pidx_c,
+                    grouped=grouped,
+                    pinned=pinned,
+                    spread=spread,
+                    uniform=uniform,
+                    level_widths=level_widths,
+                    fill=fill,
                 )
-            pending[sl] = mask & retry
-            # retry counts as progress: the narrow-cap fallback walk admits
-            # gangs in LATER waves even when this one committed nothing
-            progress |= bool(committed.any() or retry.any())
+                committed = out["admitted"].cpu().numpy()
+                retry = out["retry"].cpu().numpy()
+                free = out["free_after"]
+                admitted[sl] |= committed
+                placed[sl] = np.where(
+                    committed[:, None], out["placed"].cpu().numpy(), placed[sl]
+                )
+                score[sl] = np.where(committed, out["score"].cpu().numpy(), score[sl])
+                chosen_level[sl] = np.where(
+                    committed, out["chosen_level"].cpu().numpy(), chosen_level[sl]
+                )
+                narrow_cap[sl] = out["new_cap"].cpu().numpy()
+                if with_alloc:
+                    alloc[sl] = np.where(
+                        committed[:, None, None], out["alloc"].cpu().numpy(), alloc[sl]
+                    )
+                pending[sl] = mask & retry
+                # retry counts as progress: the narrow-cap fallback walk admits
+                # gangs in LATER waves even when this one committed nothing
+                progress |= bool(committed.any() or retry.any())
+        finally:
+            # end even on an error: a leaked span mis-parents every later
+            # span on this thread
+            if wave_span is not None:
+                wave_span.set("admitted", int(admitted.sum()))
+                wave_span.end()
         if not progress:
             break
     free_after = free.cpu().numpy()
     _sync(device)
     elapsed = time.perf_counter() - t0
+    METRICS.set("gang_solve_waves", waves_used)
 
     return PackingResult(
         admitted=admitted[:g],
@@ -296,11 +323,12 @@ def solve(
     grouped, pinned, spread, uniform = _flags(host)
     _sync(device)
     t0 = time.perf_counter()
-    out = solve_packing(
-        *args, with_alloc=with_alloc, grouped=grouped, pinned=pinned, spread=spread,
-        uniform=uniform, level_widths=level_widths_of(problem), fill=fill,
-    )
-    admitted = out["admitted"].cpu().numpy()
+    with TRACER.span("solver.execute", kernel="solve_packing", gangs=problem.num_gangs):
+        out = solve_packing(
+            *args, with_alloc=with_alloc, grouped=grouped, pinned=pinned, spread=spread,
+            uniform=uniform, level_widths=level_widths_of(problem), fill=fill,
+        )
+        admitted = out["admitted"].cpu().numpy()  # waits for the device
     elapsed = time.perf_counter() - t0
     return PackingResult(
         admitted=admitted,
@@ -342,14 +370,15 @@ def solve_waves_stats(
     }
     _sync(device)
     t0 = time.perf_counter()
-    out = solve_waves_device(
-        *args, **extra, n_chunks=n_chunks, max_waves=max_waves, grouped=grouped,
-        pinned=pinned, spread=spread, uniform=uniform,
-        # all-or-nothing populations defer cluster rescues to the next
-        # compacted wave instead of paying an in-wave second fill
-        lazy_rescue=uniform, level_widths=level_widths_of(problem), fill=fill,
-    )
-    admitted = out["admitted"][:g].cpu().numpy()
+    with TRACER.span("solver.execute", kernel="solve_waves_device", gangs=g):
+        out = solve_waves_device(
+            *args, **extra, n_chunks=n_chunks, max_waves=max_waves, grouped=grouped,
+            pinned=pinned, spread=spread, uniform=uniform,
+            # all-or-nothing populations defer cluster rescues to the next
+            # compacted wave instead of paying an in-wave second fill
+            lazy_rescue=uniform, level_widths=level_widths_of(problem), fill=fill,
+        )
+        admitted = out["admitted"][:g].cpu().numpy()  # waits for the device
     elapsed = time.perf_counter() - t0
     placed = out["placed"][:g].cpu().numpy()
     score = out["score"][:g].cpu().numpy()
@@ -384,6 +413,8 @@ def solve_waves_stats(
             tail_admit, tail_res.chosen_level[:n_pending], chosen_level[idx]
         )
         free_after = tail_res.free_after
+        METRICS.set("gang_solve_tail", n_pending)
+    METRICS.set("gang_solve_waves", int(out["waves"]))
     return PackingResult(
         admitted=admitted,
         placed=placed,
@@ -489,9 +520,9 @@ def solve_waves_stacked(
                         grq, gpin, gangpin, slvl, smin, sreq, sseed,
                         grouped=grouped, pinned=pinned, spread=spread, uniform=uniform,
                     )
+                    free, accept_d, retry_d, new_cap_d, placed_d, score_d, chosen_d, alloc_d = out
+                    committed = accept_d.cpu().numpy()  # waits for the device
                 dispatches += 1
-                free, accept_d, retry_d, new_cap_d, placed_d, score_d, chosen_d, alloc_d = out
-                committed = accept_d.cpu().numpy()
                 retry = retry_d.cpu().numpy()
                 admitted[:, sl] |= committed
                 placed[:, sl] = np.where(committed[:, :, None], placed_d.cpu().numpy(), placed[:, sl])

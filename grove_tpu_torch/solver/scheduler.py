@@ -21,13 +21,20 @@ per-slab subproblems stacked into batched dispatches, plus a global
 residual pass, and with ``frontier_selfcheck`` holds every stacked lane to
 a solo solve.
 
-Not part of this port: the gRPC sidecar branch,
-the speculative-encode cache, the disruption broker, the node-health
-monitor, gang journeys and the wall profiler. With none of them the JAX
-scheduler runs exactly this round (a bare scheduler has no broker and no
-monitor: every eviction is ungated, nothing is held). Besides the JAX
-package's spans this round opens ``scheduler.preempt`` around priority
-preemption.
+The round opens the JAX round's spans and observes its metrics, and with
+the wall profiler (``observability/profile.py``) on it attributes its time
+to the ``schedule`` (controller ``scheduler``), ``pending-scan``,
+``encode``, ``solve`` and ``commit`` phases; with gang journeys
+(``observability/journey.py``) on it stamps each gang's first scan, the
+round's encode and solve walls, its commit and its Scheduled=True. Every
+site costs one boolean check while off, and the round's results are the
+same on and off.
+
+Not part of this port: the gRPC sidecar branch, the speculative-encode
+cache, the disruption broker and the node-health monitor (``broker`` and
+``monitor`` stay None). With none of them the JAX scheduler runs exactly
+this round (a bare scheduler has no broker and no monitor: every eviction
+is ungated, nothing is held).
 """
 
 from __future__ import annotations
@@ -65,7 +72,9 @@ from grove_tpu_torch.observability.events import (
     TYPE_NORMAL,
     TYPE_WARNING,
 )
+from grove_tpu_torch.observability.journey import JOURNEYS
 from grove_tpu_torch.observability.metrics import METRICS
+from grove_tpu_torch.observability.profile import PROFILER
 from grove_tpu_torch.observability.tracing import TRACER
 from grove_tpu_torch.quota.manager import QuotaManager, spec_demand
 from grove_tpu_torch.quota.oracle import dominant_share_of
@@ -133,6 +142,16 @@ class GangScheduler:
         # delta A/B then pins the encode only, and the frontier self-check
         # owns the solve comparison
         self._frontier_solved = False
+        # the disruption broker and the node-health monitor are not ported:
+        # a bare scheduler, as the JAX package's without them
+        self.broker = None
+        self.monitor = None
+        # shards whose pending_namespaces gauge was set last round (zeroed
+        # when they drain)
+        self._pending_ns_shards: set = set()
+        # wall stamp of the round's encode end, set only while JOURNEYS is
+        # on: splits encode from solve in the admission decomposition
+        self._journey_encode_end = None
 
     def enable_delta(self) -> bool:
         """Attach the incremental delta-solve state. The port's in-memory
@@ -166,15 +185,22 @@ class GangScheduler:
         and no solve at all when the solver input equals the last tick's
         (equal fingerprints give equal arrays, and the wave solve is
         deterministic). Returns (PackingResult, PackingProblem)."""
-        with TRACER.span(
-            "solve.delta_encode", gangs=len(gang_specs), nodes=len(nodes)
-        ) as span:
-            problem, fingerprint = self.delta.encode(
-                nodes,
-                gang_specs,
-                pad_groups=self._pad_groups.grow(gang_specs),
-            )
-            span.set("reencoded", self.delta.last_reencoded)
+        prof = PROFILER.phase("encode") if PROFILER.enabled else None
+        try:
+            with TRACER.span(
+                "solve.delta_encode", gangs=len(gang_specs), nodes=len(nodes)
+            ) as span:
+                problem, fingerprint = self.delta.encode(
+                    nodes,
+                    gang_specs,
+                    pad_groups=self._pad_groups.grow(gang_specs),
+                )
+                span.set("reencoded", self.delta.last_reencoded)
+        finally:
+            if prof is not None:
+                prof.end()
+        if JOURNEYS.enabled:
+            self._journey_encode_end = JOURNEYS.t()
         key = (fingerprint, self.chunk_size, self.max_waves)
         if self._delta_last is not None and self._delta_last[0] == key:
             self.delta.solve_reuses += 1
@@ -188,7 +214,12 @@ class GangScheduler:
             # partitioned frontier: slab subproblems in batched dispatches
             # plus a global residual pass; None (one slab, or every gang
             # residual) falls through to the global solve below
-            result = self.frontier.solve(self, gang_specs, problem)
+            prof = PROFILER.phase("solve") if PROFILER.enabled else None
+            try:
+                result = self.frontier.solve(self, gang_specs, problem)
+            finally:
+                if prof is not None:
+                    prof.end()
             if result is not None:
                 self._solve_reused = False
                 self._frontier_solved = True
@@ -257,22 +288,34 @@ class GangScheduler:
         and ``free_capacity`` is unused."""
         self._solve_reused = False  # a real solve runs
         if problem is None:
-            with TRACER.span("scheduler.encode", gangs=len(gang_specs), nodes=len(nodes)):
-                problem = build_problem(
-                    nodes,
-                    gang_specs,
-                    self.topology,
-                    free_capacity=free_capacity,
-                    pad_groups=self._pad_groups.grow(gang_specs),
+            prof = PROFILER.phase("encode") if PROFILER.enabled else None
+            try:
+                with TRACER.span("scheduler.encode", gangs=len(gang_specs), nodes=len(nodes)):
+                    problem = build_problem(
+                        nodes,
+                        gang_specs,
+                        self.topology,
+                        free_capacity=free_capacity,
+                        pad_groups=self._pad_groups.grow(gang_specs),
+                    )
+            finally:
+                if prof is not None:
+                    prof.end()
+            if JOURNEYS.enabled:
+                self._journey_encode_end = JOURNEYS.t()
+        prof = PROFILER.phase("solve") if PROFILER.enabled else None
+        try:
+            with TRACER.span("scheduler.solve", gangs=len(gang_specs), where="in-process"):
+                result = solve_waves(
+                    problem,
+                    chunk_size=self.chunk_size,
+                    max_waves=self.max_waves,
+                    with_alloc=with_alloc,
+                    device=self.device,
                 )
-        with TRACER.span("scheduler.solve", gangs=len(gang_specs), where="in-process"):
-            result = solve_waves(
-                problem,
-                chunk_size=self.chunk_size,
-                max_waves=self.max_waves,
-                with_alloc=with_alloc,
-                device=self.device,
-            )
+        finally:
+            if prof is not None:
+                prof.end()
         return result, problem
 
     # -- main loop -------------------------------------------------------
@@ -281,10 +324,22 @@ class GangScheduler:
         """Schedule pending work. namespace=None covers every namespace with
         pending pods in one priority-ordered global solve (nodes are shared
         cluster-wide)."""
-        with TRACER.span("scheduler.schedule") as span:
-            bound = self._schedule_pending(namespace)
-            span.set("bound", bound)
-            return bound
+        # wall attribution: everything below lands under controller
+        # "scheduler"; this phase's self time is the ordering, quota,
+        # preemption and reclaim glue between its child phases
+        prof = (
+            PROFILER.phase("schedule", controller="scheduler")
+            if PROFILER.enabled
+            else None
+        )
+        try:
+            with TRACER.span("scheduler.schedule") as span:
+                bound = self._schedule_pending(namespace)
+                span.set("bound", bound)
+                return bound
+        finally:
+            if prof is not None:
+                prof.end()
 
     def _schedule_pending(self, namespace: Optional[str] = None) -> int:
         if namespace is None:
@@ -296,6 +351,18 @@ class GangScheduler:
             ) or ["default"]
         else:
             namespaces = [namespace]
+        if namespace is None and getattr(self.store, "num_shards", 1) > 1:
+            # a full round's pending namespaces per keyspace shard; shards
+            # that drained since the last full round are zeroed
+            by_shard: Dict[int, int] = {}
+            for ns in namespaces:
+                idx = self.store.shard_index(ns)
+                by_shard[idx] = by_shard.get(idx, 0) + 1
+            previous, self._pending_ns_shards = self._pending_ns_shards, set(by_shard)
+            for idx in sorted(previous - set(by_shard)):
+                METRICS.set(f"pending_namespaces@{idx}", 0)
+            for idx, count in sorted(by_shard.items()):
+                METRICS.set(f"pending_namespaces@{idx}", count)
         self.cluster._gc_bindings()
         if self.delta is not None:
             # before the pending scan: a topology change (cordon, flap,
@@ -308,17 +375,31 @@ class GangScheduler:
         loose_pods: List = []  # (namespace, pod)
         with TRACER.span("scheduler.pending-scan", namespaces=len(namespaces)):
             for ns in namespaces:
-                self.update_gang_phases(ns)
-                self.update_gang_health(ns)
-                pending = self._pending_pods(ns)
-                if not pending:
-                    continue
-                sticky, pending = self._bind_with_reused_reservations(ns, pending)
-                sticky_bound += sticky
-                specs, pods, loose = self._encode_pending(ns, pending)
-                gang_specs.extend(specs)
-                gang_pods.update(pods)
-                loose_pods.extend((ns, p) for p in loose)
+                # the scan is the round's namespace-partitioned work: its
+                # rows are attributed per keyspace shard
+                prof = (
+                    PROFILER.phase("pending-scan", shard=self.store.shard_index(ns))
+                    if PROFILER.enabled and getattr(self.store, "shard_index", None) is not None
+                    else None
+                )
+                try:
+                    self.update_gang_phases(ns)
+                    self.update_gang_health(ns)
+                    pending = self._pending_pods(ns)
+                    if not pending:
+                        continue
+                    sticky, pending = self._bind_with_reused_reservations(ns, pending)
+                    sticky_bound += sticky
+                    specs, pods, loose = self._encode_pending(ns, pending)
+                    gang_specs.extend(specs)
+                    gang_pods.update(pods)
+                    loose_pods.extend((ns, p) for p in loose)
+                    if JOURNEYS.enabled:
+                        for spec in specs:
+                            JOURNEYS.note_seen(ns, spec["gang_name"])
+                finally:
+                    if prof is not None:
+                        prof.end()
 
         # global solve order: the fair-share pass when Queue CRs exist,
         # else the flat (-priority, name) sort
@@ -336,17 +417,27 @@ class GangScheduler:
             # cordoned and unhealthy nodes never reach the solver
             nodes = [n for n in self.cluster.nodes if n.schedulable]
             if nodes:
+                jz = JOURNEYS.enabled
+                if jz:
+                    t_enc0 = JOURNEYS.t()
+                    self._journey_encode_end = None
                 if self.delta is not None:
                     result, problem = self._solve_batch_delta(nodes, gang_specs)
                 else:
                     free = self.cluster.node_free_all(nodes)
                     result, problem = self._solve_batch(nodes, gang_specs, free)
+                if jz:
+                    # the round's stamps: every gang of the batch saw the
+                    # same encode and solve walls
+                    t_solve1 = JOURNEYS.t()
+                    JOURNEYS.note_round(t_enc0, self._journey_encode_end or t_enc0, t_solve1)
+                    for spec in gang_specs:
+                        JOURNEYS.note_encoded(spec["namespace"], spec["gang_name"])
                 if self.delta is not None and self.delta_selfcheck:
                     self._delta_ab_check(nodes, gang_specs, problem, result)
                 if not self._solve_reused:
                     METRICS.observe("gang_solve_seconds", result.solve_seconds)
-                with TRACER.span("scheduler.preempt"):
-                    preempted, preempt_free = self._maybe_preempt(gang_specs, result)
+                preempted, preempt_free = self._maybe_preempt(gang_specs, result)
                 if self.quota.active():
                     with TRACER.span("quota.reclaim") as rspan:
                         reclaimed = self._maybe_reclaim(
@@ -360,11 +451,16 @@ class GangScheduler:
                 if not result.admitted[: len(gang_specs)].all():
                     defer_details = classify_rejections(problem, result, gang_specs)
                 to_mark = []
-                self._commit_admitted(
-                    gang_specs, result, assignments, gang_pods, preempted, to_mark,
-                    defer_details,
-                )
-                bound += self._last_commit_bound
+                prof = PROFILER.phase("commit") if PROFILER.enabled else None
+                try:
+                    self._commit_admitted(
+                        gang_specs, result, assignments, gang_pods, preempted, to_mark,
+                        defer_details,
+                    )
+                    bound += self._last_commit_bound
+                finally:
+                    if prof is not None:
+                        prof.end()
                 with TRACER.span("scheduler.status-write", gangs=len(to_mark)):
                     for ns, gang_name, score in to_mark:
                         self._mark_scheduled(ns, gang_name, score)
@@ -425,6 +521,8 @@ class GangScheduler:
                     REASON_GANG_ADMITTED,
                     f"placement score {float(result.score[gi]):.4f}",
                 )
+                if JOURNEYS.enabled:
+                    JOURNEYS.note_commit(ns, spec["gang_name"])
                 to_mark.append(
                     (ns, spec["gang_name"], None if partial else float(result.score[gi]))
                 )
@@ -440,7 +538,9 @@ class GangScheduler:
         nodes_by_name = {n.name: n for n in self.cluster.nodes}
         gang_cache: Dict[str, object] = {}
         for pod in pending:
-            prev = self._reuse_bind_target(namespace, pod, nodes_by_name, gang_cache)
+            prev = self._reuse_bind_target(
+                namespace, pod, nodes_by_name, gang_cache, self.cluster.fits
+            )
             if prev is not None:
                 self.cluster.bind(pod, prev)
                 EVENTS.record(
@@ -454,8 +554,12 @@ class GangScheduler:
                 remaining.append(pod)
         return bound, remaining
 
-    def _reuse_bind_target(self, namespace: str, pod, nodes_by_name, gang_cache):
-        """The node a pending pod would be sticky-rebound to, or None."""
+    def _reuse_bind_target(self, namespace: str, pod, nodes_by_name, gang_cache, fits):
+        """The node a pending pod would be sticky-rebound to, or None. The
+        whole rule lives here, so the binding loop and the explain engine's
+        read-only replica (``solver/introspect.py``) judge reuse alike;
+        ``fits`` is the capacity check (``cluster.fits`` live, a snapshot
+        check in the replica)."""
         gang_name = pod.metadata.labels.get(namegen.LABEL_PODGANG)
         if gang_name and gang_name not in gang_cache:
             gang_cache[gang_name] = self.store.get(
@@ -475,7 +579,7 @@ class GangScheduler:
             and cond.is_true()
             and prev in nodes_by_name
             and nodes_by_name[prev].schedulable
-            and self.cluster.fits(nodes_by_name[prev], pod)
+            and fits(nodes_by_name[prev], pod)
             and self._reuse_respects_pack_constraint(
                 namespace, gang, nodes_by_name, nodes_by_name[prev]
             )
@@ -800,6 +904,10 @@ class GangScheduler:
                     self.store.clock.now(),
                 )
             if self._commit_status_tolerant(gang, st):
+                if JOURNEYS.enabled:
+                    # Scheduled=True is committed: the journey completes (a
+                    # re-mark of a completed gang is a no-op)
+                    JOURNEYS.note_scheduled(namespace, gang_name)
                 return
 
     # -- preemption ------------------------------------------------------

@@ -31,6 +31,18 @@ prints what ``delta`` prints and the deterministic fields of the frontier
 state's ``stats()`` (``frontier_counters``); ``chip_smoke.py`` holds the
 port's frontier rounds to them (``JAX_FRONTIER_REFERENCE``).
 
+``observe`` is (q)'s round with the glass-box layer on: the tracer, the gang
+journeys and the wall profiler enabled before the world loads (so every
+PodGang's ``created`` is stamped), the metrics registry reset. It prints
+``observe_summary`` of the round (the span multiset, counters, gauges,
+histogram counts, Prometheus series and completed journeys) and, after the
+round, ``explain_burst`` through a JAX ``ExplainEngine``: every pending
+gang, one scheduled gang, an unknown name, ``capacity()``, a drain what-if
+and a queue what-if, each document less its timing fields as the sha256 of
+its canonical JSON (``doc_digest``) beside its verdict fields.
+``chip_smoke.py`` holds the port's ``[observe]`` phase to them
+(``JAX_OBSERVE_REFERENCE``).
+
 A world can be cut for a quick look: ``--nodes N --gangs G`` (and
 ``--ticks T --seed S`` for ``delta``).
 """
@@ -51,6 +63,11 @@ import jax  # noqa: E402
 from grove_tpu.api.topology import ClusterTopology  # noqa: E402
 from grove_tpu.api.wire import decode_object  # noqa: E402
 from grove_tpu.observability.events import EVENTS  # noqa: E402
+from grove_tpu.observability.explain import ExplainEngine  # noqa: E402
+from grove_tpu.observability.journey import JOURNEYS  # noqa: E402
+from grove_tpu.observability.metrics import METRICS  # noqa: E402
+from grove_tpu.observability.profile import PROFILER  # noqa: E402
+from grove_tpu.observability.tracing import TRACER  # noqa: E402
 from grove_tpu.runtime.clock import VirtualClock  # noqa: E402
 from grove_tpu.runtime.store import Store  # noqa: E402
 from grove_tpu.sim.cluster import SimCluster, make_nodes  # noqa: E402
@@ -59,7 +76,10 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     EventCapture,
     apply_tick,
     delta_counters,
+    doc_digests,
+    explain_burst,
     frontier_counters,
+    observe_summary,
     round_summary,
     scheduler_world,
 )
@@ -127,6 +147,33 @@ def run_delta(n_nodes=None, n_gangs=None, ticks=None, seed=0, frontier=False) ->
     return rounds
 
 
+def run_observe(n_nodes=None, n_gangs=None) -> dict:
+    world = scheduler_world("q", n_nodes, n_gangs)
+    for layer in (TRACER, JOURNEYS, PROFILER):
+        layer.reset()
+        layer.enable()
+    store = Store(VirtualClock(0.0))
+    cluster = SimCluster(store=store, nodes=make_nodes(*world["nodes"]))
+    scheduler = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"])
+    for doc in world["queues"] + world["rounds"][0]:
+        store.create(decode_object(doc))
+    TRACER.reset()
+    PROFILER.reset()
+    METRICS.reset()
+    t0 = time.perf_counter()
+    with EventCapture(EVENTS) as cap:
+        scheduler.schedule_pending()
+    seconds = time.perf_counter() - t0
+    summary = observe_summary(TRACER, METRICS, JOURNEYS)
+    for layer in (TRACER, JOURNEYS, PROFILER):
+        layer.disable()
+    burst = explain_burst(ExplainEngine(scheduler), store, cluster)
+    print(f"[observe] round {seconds:.3f} s, explain burst {time.perf_counter() - t0 - seconds:.3f}"
+          f" s: {json.dumps(round_summary(store, cluster, cap.events))}", file=sys.stderr,
+          flush=True)
+    return {"summary": summary, "explain": doc_digests(burst)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("worlds", nargs="*", default=["s", "q", "r"])
@@ -137,7 +184,9 @@ def main() -> int:
     args = parser.parse_args()
     out = {"jax": jax.__version__, "backend": jax.default_backend()}
     for name in args.worlds:
-        if name in ("delta", "frontier"):
+        if name == "observe":
+            out[name] = run_observe(args.nodes, args.gangs)
+        elif name in ("delta", "frontier"):
             out[name] = run_delta(args.nodes, args.gangs, args.ticks, args.seed,
                                   frontier=name == "frontier")
         else:

@@ -766,3 +766,85 @@ def test_cuda_spawn_local_cluster(cuda, ranks):
 
     _build.load("fill")
     assert spawn_local_cluster(num_processes=ranks, timeout=300.0)
+
+
+@pytest.mark.gpu
+def test_cuda_explain_matches_the_cpu_twin(cuda):
+    """A cut of world (q) after its round, on the card and on the CPU: the
+    explain burst (every pending gang, a scheduled one, an unknown name,
+    capacity, a drain and a queue what-if) gives equal documents less their
+    timing fields; on the card its trial solves launch the fill kernel and
+    its order views both DRF kernels, and the read-only pin holds."""
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.models.scenarios import explain_burst, scheduler_world
+    from grove_tpu_torch.observability.explain import ExplainEngine
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    world = scheduler_world("q", 64, 192)
+    bursts = []
+    for device in (cuda, "cpu"):
+        store = Store(VirtualClock(0.0))
+        cluster = SimCluster(store, make_nodes(*world["nodes"]))
+        sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"],
+                              device=device)
+        for doc in world["queues"] + world["rounds"][0]:
+            store.create(decode_object(doc), consume=True)
+        sched.schedule_pending()
+        rv = store.resource_version_vector()
+        fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+        bursts.append(explain_burst(ExplainEngine(sched), store, cluster))
+        launches = (fill_batch.launches, share_table_cuda.launches, merge_cuda.launches)
+        assert store.resource_version_vector() == rv
+        if device is cuda:
+            assert all(n > 0 for n in launches), launches
+    card, cpu = bursts
+    assert list(card) == list(cpu)
+    for key in cpu:
+        assert card[key] == cpu[key], key
+    assert sum(1 for k in cpu if k.startswith("explain")) > 3
+
+
+@pytest.mark.gpu
+def test_cuda_execute_span_covers_the_device_work(cuda):
+    """On a stats solve on the card, the ``solver.execute`` span lasts at
+    least as long as the CUDA-event time of the device work inside it: the
+    span closes after the read that waits for the device. Events bracket
+    the wave program (recorded just before it is called and just after it
+    returns); the span's µs are truncated, hence one µs of slack."""
+    from grove_tpu_torch.observability.tracing import TRACER
+    from grove_tpu_torch.solver import kernel
+
+    problem = build_stress_problem(1024, 2048, seed=0)
+    solve_waves_stats(problem, device=cuda)  # warm-up
+    events = []
+    inner = kernel.solve_waves_device
+
+    def bracketed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    TRACER.reset()
+    TRACER.enable()
+    kernel.solve_waves_device = bracketed
+    try:
+        solve_waves_stats(problem, device=cuda)
+    finally:
+        kernel.solve_waves_device = inner
+        TRACER.disable()
+    torch.cuda.synchronize()
+    spans = [sp for sp in TRACER.spans() if sp.name == "solver.execute"
+             and sp.attrs["kernel"] == "solve_waves_device"]
+    TRACER.reset()
+    assert len(spans) == 1 and len(events) == 1
+    device_us = events[0][0].elapsed_time(events[0][1]) * 1e3
+    assert device_us > 0.0
+    assert spans[0].dur_us + 1 >= device_us, (spans[0].dur_us, device_us)

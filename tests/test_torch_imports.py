@@ -30,7 +30,9 @@ def test_port_modules_import_with_jax_and_grove_tpu_blocked():
     mods = _port_modules()
     assert "grove_tpu_torch.ops.packing" in mods and len(mods) >= 20
     assert "grove_tpu_torch.solver.frontier" in mods
-    for name in ("parallel.sharded", "parallel.ring", "parallel.multihost", "ops.nodeaxis"):
+    for name in ("parallel.sharded", "parallel.ring", "parallel.multihost", "ops.nodeaxis",
+                 "observability.journey", "observability.profile", "observability.explain",
+                 "solver.introspect"):
         assert f"grove_tpu_torch.{name}" in mods
     script = textwrap.dedent(
         f"""

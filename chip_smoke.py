@@ -140,7 +140,26 @@ Phases (any failure raises and the script exits non-zero):
      kernel and its order views both DRF kernels (counted apart). Prints
      the traced wall beside [sched]'s (q) round 1, the profiler's top
      phases, explain p50/p99 and the all-off check's cost.
- 13. prints the kernels line, the card line, and last the ok line.
+ 13. [sidecar] the sidecar's wire layer (cluster/grpcsolver.py), when grpcio
+     and protobuf are installed (else one line names the missing package and
+     the phase runs nothing): the port's SolverServer on the card inside
+     this process; (a) through SolverClient, every placement (admission,
+     score, chosen level, assignments) equal to [main]'s solve_decoded
+     answer; (q) round 1 through a GangScheduler whose solves (the round's
+     and the reclaim trials') go to the sidecar, held to
+     JAX_SCHEDULER_REFERENCE with no fallback; a health Check (SERVING) and
+     a malformed request (INVALID_ARGUMENT). Prints the request and
+     response sizes, the RPC wall beside [main]'s and the launches.
+ 14. [slo] the SLO observatory (observability/{timeseries,slo,forecast,
+     flightrec}.py) on (delta)'s world at full width: round 1 and 12 churn
+     ticks with the clock 10 s a round, the tracer, journeys, time series,
+     SLO engine (two objectives: one breached, one met), forecaster and
+     flight recorder on, the serving collector installed
+     (models/scenarios.run_slo_world). Every round's summary and series
+     windows, the final windows, the SLO status, the forecast and the
+     flight bundle less timing equal to JAX_SLO_REFERENCE. Prints the round
+     and tick walls beside [delta]'s, the all-off check and the launches.
+ 15. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -620,8 +639,10 @@ def phase_main_path() -> dict:
         print(f"[main] {tag}: solve_seconds {s:.3f} (wall incl. encode {wall:.3f}),"
               f" admitted {admitted}/{len(specs)}, {len(specs) / s:.1f} gangs/s,"
               f" fill launches {launches}; valid", flush=True)
-        summary[tag[0]] = {"solve_seconds": s, "admitted": admitted, "gangs": len(specs),
-                           "fill_launches": launches}
+        summary[tag[0]] = {"solve_seconds": s, "wall_s": wall, "admitted": admitted,
+                           "gangs": len(specs), "fill_launches": launches}
+        if tag[0] == "a":
+            summary["a_response"] = response  # [sidecar] holds its RPC to it
     total = sum(counts)
     if min(counts) == 0:
         _fail(f"main path did not launch the fill kernel (launches {counts})")
@@ -2609,6 +2630,764 @@ def phase_observe(q_wall_s, card, device="cuda", n_nodes=None, n_gangs=None,
     return out
 
 
+# JAX_SLO_REFERENCE: the SLO world (models/scenarios.run_slo_world: the churn
+# world's (q) round and its first 12 ticks, the clock 10 s a round, the
+# tracer, journeys, time series, SLO engine, forecaster and flight recorder
+# on), from `JAX_PLATFORMS=cpu python scripts/scheduler_reference.py slo`
+# (JAX 0.9.0 on the CPU): per round round_summary and the sha256 of the
+# series windows; then the windows, the SLO status, the forecast and the
+# flight bundle's summary.
+JAX_SLO_REFERENCE = {'rounds': [{'admitted': 10231,
+             'bound': 34833,
+             'score_sum': 10084.246239542961,
+             'bindings': 34833,
+             'bindings_sha256': '7ff9f94016b74cc5ea0e31eb3c29f4ea4fe0ae8f674ab4586e1f50bd4f7c744a',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-0': 1271,
+                                    'tenant-1': 1280,
+                                    'tenant-2': 1280,
+                                    'tenant-3': 1280,
+                                    'tenant-4': 1280,
+                                    'tenant-5': 1280,
+                                    'tenant-6': 1280,
+                                    'tenant-7': 1280},
+             'events_by_reason': {'GangAdmitted': 10231, 'GangDeferred': 9, 'PodBound': 34833},
+             'windows_sha256': '8b9416db0baa3340875fde022650ae382ab3d7ad451eaffbb551bb0ab63ecb2f'},
+            {'admitted': 6,
+             'bound': 47,
+             'score_sum': 3.846746325492859,
+             'bindings': 34880,
+             'bindings_sha256': 'cebb696007c67301b1c42dd66443189972f1a61a61b86a3bb314a7ed44df32a1',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-0': 6},
+             'events_by_reason': {'GangAdmitted': 6, 'GangDeferred': 5, 'PodBound': 47},
+             'windows_sha256': 'd299f883dcad01719a840d3d755835bd45a4d0d5d95d62d5dc953aef09f76170'},
+            {'admitted': 4,
+             'bound': 21,
+             'score_sum': 2.885926067829132,
+             'bindings': 34900,
+             'bindings_sha256': '37fbfb16f5bfe96f5041383a85523a7d7811865a33ef0d3bf1484a7b3ae665cc',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-0': 4},
+             'events_by_reason': {'GangAdmitted': 4, 'GangDeferred': 2, 'PodBound': 21},
+             'windows_sha256': '0383aeaef4811316db598877118391dd690c2a58b1ed8c20642cd51258ab9ced'},
+            {'admitted': 2,
+             'bound': 12,
+             'score_sum': 1.7916667461395264,
+             'bindings': 34912,
+             'bindings_sha256': '01ad51b0c30b3a40f9c6b2bf99358126a4fec14cf729c8d05c9e8f16d3888e52',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-0': 1, 'tenant-1': 1},
+             'events_by_reason': {'GangAdmitted': 2, 'GangDeferred': 2, 'PodBound': 12},
+             'windows_sha256': 'd0e38cf2de33be9f9f75e88b6c557d265b1edb5d7ac3d22e4da391b022f91ed8'},
+            {'admitted': 2,
+             'bound': 4,
+             'score_sum': 2.0,
+             'bindings': 34916,
+             'bindings_sha256': '6d6f734446588fd3e66c8df26850b5a876cb3979dbbfa97bdcea944254c35192',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-2': 1, 'tenant-3': 1},
+             'events_by_reason': {'GangAdmitted': 2, 'GangDeferred': 2, 'PodBound': 4},
+             'windows_sha256': 'af264f9abc452d61ccfa436c69537cbce5083592be6893dd4be58589b042d665'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34916,
+             'bindings_sha256': '6d6f734446588fd3e66c8df26850b5a876cb3979dbbfa97bdcea944254c35192',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'FlightRecorderDumped': 1, 'GangDeferred': 2, 'SloBreach': 1},
+             'windows_sha256': '4e021a2db5e4ee1dacbd64992dcef23952e2a9bfd116a5e54cde1b89d18e5c61'},
+            {'admitted': 1,
+             'bound': 4,
+             'score_sum': 1.0,
+             'bindings': 34920,
+             'bindings_sha256': '16c9dab416c52572af7ccb6bd7484fb0a0660b24967ea982c5c43e4a012881cf',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-4': 1},
+             'events_by_reason': {'GangAdmitted': 1, 'GangDeferred': 2, 'PodBound': 4, 'SloBurnRateHigh': 1},
+             'windows_sha256': '5b8523cf4d4a4fe0ee372b41cc0a7ab4b116fb7960800e7f58b9a430c6dc7a94'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34912,
+             'bindings_sha256': '9462513fc7d335b94364b03debe2d38532d0c9fa1a407f976a7f844a7e09674e',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'GangDeferred': 2},
+             'windows_sha256': '89df55d02e0ce5c85830f1203273976e1187a2c0a7b9ac033416dcda219a98c2'},
+            {'admitted': 1,
+             'bound': 3,
+             'score_sum': 1.0,
+             'bindings': 34915,
+             'bindings_sha256': 'b35562f58361a2d01d50fecc1b2cc5808a3cfcb04fda923fca91e8aafb1103d0',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-5': 1},
+             'events_by_reason': {'GangAdmitted': 1, 'GangDeferred': 2, 'PodBound': 3},
+             'windows_sha256': 'adb8ff511fc138a0195fd5fd317553e2e20e6f54b39366b867c6ed18a4f8cf49'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34911,
+             'bindings_sha256': 'e5abbbe71d6a627dbab8215a178533c803426118a687e6e55cd9b4dbed73453e',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'GangDeferred': 2},
+             'windows_sha256': '0f6d6653b5da3d1f3b70a7cd62ce385b0a7f4f8a72a290e2175d23996ca24cb8'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34911,
+             'bindings_sha256': 'e5abbbe71d6a627dbab8215a178533c803426118a687e6e55cd9b4dbed73453e',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'GangDeferred': 2},
+             'windows_sha256': '2c41b393b8505a3006352f40e90f97af15d51bdcba320b80ad0066feffa17ce3'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34909,
+             'bindings_sha256': '98360279b024e059939a400763dd77fdacba82357501ec3ead41ab416656ac32',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'GangDeferred': 2},
+             'windows_sha256': '68c16c691e2ec5a2f25c468b6a60817be392433348d856fd128a46a82f7414b6'},
+            {'admitted': 1,
+             'bound': 1,
+             'score_sum': 1.0,
+             'bindings': 34909,
+             'bindings_sha256': 'bff193bc45cc5f57d9a630a644deac88d8807dcd0985dce10784890933296dfa',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-0': 1},
+             'events_by_reason': {'GangAdmitted': 1, 'GangDeferred': 2, 'PodBound': 1},
+             'windows_sha256': '5745aa6322e5122ae641dfad0a83ac81b7e8572bda17bf37d2644fc4364605a9'}],
+ 'windows': {'admission_latency': {'count': 10248},
+             'admission_latency_vt': {'kind': 'dist',
+                                      'count': 10248,
+                                      'rate': 34.16,
+                                      'mean': 10.00975800156128,
+                                      'max': 30.0,
+                                      'p50': 12.582912,
+                                      'p99': 12.582912},
+             'queue_usage/tenant-0': {'kind': 'gauge',
+                                      'n': 13,
+                                      'mean': 35669.38461538462,
+                                      'max': 35726.0,
+                                      'min': 35376.0,
+                                      'last': 35690.0,
+                                      'p50': 35690.0,
+                                      'p99': 35726.0},
+             'queue_usage/tenant-1': {'kind': 'gauge',
+                                      'n': 13,
+                                      'mean': 7671.692307692308,
+                                      'max': 7676.0,
+                                      'min': 7668.0,
+                                      'last': 7668.0,
+                                      'p50': 7668.0,
+                                      'p99': 7676.0},
+             'queue_usage/tenant-2': {'kind': 'gauge',
+                                      'n': 13,
+                                      'mean': 7698.153846153846,
+                                      'max': 7700.0,
+                                      'min': 7696.0,
+                                      'last': 7696.0,
+                                      'p50': 7700.0,
+                                      'p99': 7700.0},
+             'queue_usage/tenant-3': {'kind': 'gauge',
+                                      'n': 13,
+                                      'mean': 7782.7692307692305,
+                                      'max': 7784.0,
+                                      'min': 7780.0,
+                                      'last': 7784.0,
+                                      'p50': 7784.0,
+                                      'p99': 7784.0},
+             'queue_usage/tenant-4': {'kind': 'gauge',
+                                      'n': 13,
+                                      'mean': 7658.307692307692,
+                                      'max': 7662.0,
+                                      'min': 7654.0,
+                                      'last': 7662.0,
+                                      'p50': 7662.0,
+                                      'p99': 7662.0},
+             'queue_usage/tenant-5': {'kind': 'gauge',
+                                      'n': 13,
+                                      'mean': 7680.307692307692,
+                                      'max': 7684.0,
+                                      'min': 7678.0,
+                                      'last': 7684.0,
+                                      'p50': 7678.0,
+                                      'p99': 7684.0},
+             'queue_usage/tenant-6': {'kind': 'gauge',
+                                      'n': 13,
+                                      'mean': 7630.0,
+                                      'max': 7630.0,
+                                      'min': 7630.0,
+                                      'last': 7630.0,
+                                      'p50': 7630.0,
+                                      'p99': 7630.0},
+             'queue_usage/tenant-7': {'kind': 'gauge',
+                                      'n': 13,
+                                      'mean': 7714.0,
+                                      'max': 7714.0,
+                                      'min': 7714.0,
+                                      'last': 7714.0,
+                                      'p50': 7714.0,
+                                      'p99': 7714.0},
+             'queue_wait_vt/tenant-0': {'kind': 'gauge',
+                                        'n': 13,
+                                        'mean': 61.53846153846154,
+                                        'max': 120.0,
+                                        'min': 10.0,
+                                        'last': 120.0,
+                                        'p50': 60.0,
+                                        'p99': 120.0},
+             'queue_wait_vt/tenant-1': {'kind': 'gauge',
+                                        'n': 12,
+                                        'mean': 65.0,
+                                        'max': 120.0,
+                                        'min': 10.0,
+                                        'last': 120.0,
+                                        'p50': 60.0,
+                                        'p99': 120.0},
+             'rate:journeys_completed_total': {'kind': 'gauge',
+                                               'n': 13,
+                                               'mean': 788.3076923076923,
+                                               'max': 10231.0,
+                                               'min': 0.0,
+                                               'last': 1.0,
+                                               'p50': 1.0,
+                                               'p99': 10231.0},
+             'ready_fraction': {'kind': 'gauge',
+                                'n': 13,
+                                'mean': 0.0,
+                                'max': 0.0,
+                                'min': 0.0,
+                                'last': 0.0,
+                                'p50': 0.0,
+                                'p99': 0.0},
+             'slo:admission:good': {'kind': 'gauge',
+                                    'n': 12,
+                                    'mean': 1.0,
+                                    'max': 1.0,
+                                    'min': 1.0,
+                                    'last': 1.0,
+                                    'p50': 1.0,
+                                    'p99': 1.0},
+             'slo:backlog-wait:good': {'kind': 'gauge',
+                                       'n': 13,
+                                       'mean': 0.38461538461538464,
+                                       'max': 1.0,
+                                       'min': 0.0,
+                                       'last': 0.0,
+                                       'p50': 0.0,
+                                       'p99': 1.0}},
+ 'status': {'enabled': True,
+            'objectives': [{'name': 'backlog-wait',
+                            'spec': 'queue_wait_vt/tenant-0:last < 45 over 10s target 90% budget 60s burn 2x '
+                                    '10s/60s',
+                            'series': 'queue_wait_vt/tenant-0',
+                            'state': 'breached',
+                            'value': 120.0,
+                            'attainment': 0.0,
+                            'budget_remaining': 0.0,
+                            'burn_rate_fast': 10.0,
+                            'burn_rate_slow': 10.0,
+                            'evaluations': 13,
+                            'good': 5,
+                            'bad': 8,
+                            'breaches': 1,
+                            'recoveries': 0},
+                           {'name': 'admission',
+                            'spec': 'admission_latency_vt:max < 60 over 30s target 90% budget 180s burn 6x '
+                                    '30s/180s',
+                            'series': 'admission_latency_vt',
+                            'state': 'ok',
+                            'value': 0.0,
+                            'attainment': 1.0,
+                            'budget_remaining': 1.0,
+                            'burn_rate_fast': 0.0,
+                            'burn_rate_slow': 0.0,
+                            'evaluations': 12,
+                            'good': 12,
+                            'bad': 0,
+                            'breaches': 0,
+                            'recoveries': 0}],
+            'series': {'admission_latency_vt': {'kind': 'dist',
+                                                'count': 10248,
+                                                'rate': 34.16,
+                                                'mean': 10.00975800156128,
+                                                'max': 30.0,
+                                                'p50': 12.582912,
+                                                'p99': 12.582912},
+                       'queue_usage/tenant-0': {'kind': 'gauge',
+                                                'n': 13,
+                                                'mean': 35669.38461538462,
+                                                'max': 35726.0,
+                                                'min': 35376.0,
+                                                'last': 35690.0,
+                                                'p50': 35690.0,
+                                                'p99': 35726.0},
+                       'queue_usage/tenant-1': {'kind': 'gauge',
+                                                'n': 13,
+                                                'mean': 7671.692307692308,
+                                                'max': 7676.0,
+                                                'min': 7668.0,
+                                                'last': 7668.0,
+                                                'p50': 7668.0,
+                                                'p99': 7676.0},
+                       'queue_usage/tenant-2': {'kind': 'gauge',
+                                                'n': 13,
+                                                'mean': 7698.153846153846,
+                                                'max': 7700.0,
+                                                'min': 7696.0,
+                                                'last': 7696.0,
+                                                'p50': 7700.0,
+                                                'p99': 7700.0},
+                       'queue_usage/tenant-3': {'kind': 'gauge',
+                                                'n': 13,
+                                                'mean': 7782.7692307692305,
+                                                'max': 7784.0,
+                                                'min': 7780.0,
+                                                'last': 7784.0,
+                                                'p50': 7784.0,
+                                                'p99': 7784.0},
+                       'queue_usage/tenant-4': {'kind': 'gauge',
+                                                'n': 13,
+                                                'mean': 7658.307692307692,
+                                                'max': 7662.0,
+                                                'min': 7654.0,
+                                                'last': 7662.0,
+                                                'p50': 7662.0,
+                                                'p99': 7662.0},
+                       'queue_usage/tenant-5': {'kind': 'gauge',
+                                                'n': 13,
+                                                'mean': 7680.307692307692,
+                                                'max': 7684.0,
+                                                'min': 7678.0,
+                                                'last': 7684.0,
+                                                'p50': 7678.0,
+                                                'p99': 7684.0},
+                       'queue_usage/tenant-6': {'kind': 'gauge',
+                                                'n': 13,
+                                                'mean': 7630.0,
+                                                'max': 7630.0,
+                                                'min': 7630.0,
+                                                'last': 7630.0,
+                                                'p50': 7630.0,
+                                                'p99': 7630.0},
+                       'queue_usage/tenant-7': {'kind': 'gauge',
+                                                'n': 13,
+                                                'mean': 7714.0,
+                                                'max': 7714.0,
+                                                'min': 7714.0,
+                                                'last': 7714.0,
+                                                'p50': 7714.0,
+                                                'p99': 7714.0},
+                       'queue_wait_vt/tenant-0': {'kind': 'gauge',
+                                                  'n': 13,
+                                                  'mean': 61.53846153846154,
+                                                  'max': 120.0,
+                                                  'min': 10.0,
+                                                  'last': 120.0,
+                                                  'p50': 60.0,
+                                                  'p99': 120.0},
+                       'queue_wait_vt/tenant-1': {'kind': 'gauge',
+                                                  'n': 12,
+                                                  'mean': 65.0,
+                                                  'max': 120.0,
+                                                  'min': 10.0,
+                                                  'last': 120.0,
+                                                  'p50': 60.0,
+                                                  'p99': 120.0},
+                       'rate:journeys_completed_total': {'kind': 'gauge',
+                                                         'n': 13,
+                                                         'mean': 788.3076923076923,
+                                                         'max': 10231.0,
+                                                         'min': 0.0,
+                                                         'last': 1.0,
+                                                         'p50': 1.0,
+                                                         'p99': 10231.0},
+                       'ready_fraction': {'kind': 'gauge',
+                                          'n': 13,
+                                          'mean': 0.0,
+                                          'max': 0.0,
+                                          'min': 0.0,
+                                          'last': 0.0,
+                                          'p50': 0.0,
+                                          'p99': 0.0},
+                       'slo:admission:good': {'kind': 'gauge',
+                                              'n': 12,
+                                              'mean': 1.0,
+                                              'max': 1.0,
+                                              'min': 1.0,
+                                              'last': 1.0,
+                                              'p50': 1.0,
+                                              'p99': 1.0},
+                       'slo:backlog-wait:good': {'kind': 'gauge',
+                                                 'n': 13,
+                                                 'mean': 0.38461538461538464,
+                                                 'max': 1.0,
+                                                 'min': 0.0,
+                                                 'last': 0.0,
+                                                 'p50': 0.0,
+                                                 'p99': 1.0}}},
+ 'forecast': {'series': 'queue_usage/tenant-0',
+              'n': 13,
+              'now': 130.0,
+              'horizon_s': 300.0,
+              'period_s': 600.0,
+              'model': 'diurnal-trend',
+              'last': 35690.0,
+              'slope_per_s': 1.1857142857142857,
+              'sigma': 3.288579734763426,
+              'points': [{'at_s': 155.0,
+                          'mean': 35770.170329670334,
+                          'lo': 35763.59317020081,
+                          'hi': 35776.74748913986},
+                         {'at_s': 180.0,
+                          'mean': 35799.81318681319,
+                          'lo': 35793.236027343664,
+                          'hi': 35806.390346282715},
+                         {'at_s': 205.0,
+                          'mean': 35829.456043956045,
+                          'lo': 35822.87888448652,
+                          'hi': 35836.03320342557},
+                         {'at_s': 230.0,
+                          'mean': 35859.0989010989,
+                          'lo': 35852.521741629374,
+                          'hi': 35865.676060568425},
+                         {'at_s': 255.0,
+                          'mean': 35888.74175824176,
+                          'lo': 35882.16459877224,
+                          'hi': 35895.31891771129},
+                         {'at_s': 280.0,
+                          'mean': 35918.38461538462,
+                          'lo': 35911.80745591509,
+                          'hi': 35924.96177485414},
+                         {'at_s': 305.0,
+                          'mean': 35948.02747252747,
+                          'lo': 35941.45031305795,
+                          'hi': 35954.604631997},
+                         {'at_s': 330.0,
+                          'mean': 35977.670329670334,
+                          'lo': 35971.09317020081,
+                          'hi': 35984.24748913986},
+                         {'at_s': 355.0,
+                          'mean': 36007.31318681319,
+                          'lo': 36000.736027343664,
+                          'hi': 36013.890346282715},
+                         {'at_s': 380.0,
+                          'mean': 36036.956043956045,
+                          'lo': 36030.37888448652,
+                          'hi': 36043.53320342557},
+                         {'at_s': 405.0,
+                          'mean': 36066.5989010989,
+                          'lo': 36060.021741629374,
+                          'hi': 36073.176060568425},
+                         {'at_s': 430.0,
+                          'mean': 36096.24175824176,
+                          'lo': 36089.66459877224,
+                          'hi': 36102.81891771129}],
+              'peak': {'at_s': 430.0, 'mean': 36096.24175824176}},
+ 'dumps': 1,
+ 'flight': {'reason': 'SloBreach',
+            'detail': 'objective=backlog-wait window=60s attainment=0.8333 target=0.9 '
+                      'indicator=queue_wait_vt/tenant-0:last < 45 over 10s target 90% budget 60s burn 2x '
+                      '10s/60s',
+            'vt': 60.0,
+            'records': 1024,
+            'commits': 945,
+            'commits_sha256': 'fad040ca20b6d337eb20d83c7875b1e9233d175d40e6377225f7f132cdce57ef',
+            'events': 1024,
+            'events_sha256': 'ff23646e9092bbfba7fddceab2ea758a5f41863e608dbb9b9b927907bfafd79c',
+            'spans': {'quota.order': 5,
+                      'quota.reclaim': 5,
+                      'scheduler.commit': 5,
+                      'scheduler.encode': 10,
+                      'scheduler.pending-scan': 5,
+                      'scheduler.schedule': 6,
+                      'scheduler.solve': 15,
+                      'scheduler.status-write': 6,
+                      'solve.delta_encode': 5,
+                      'solver.wave': 17},
+            'errors': 0}}
+
+# [sidecar]: the port's gRPC sidecar in the smoke process. grpcio and
+# protobuf are optional dependencies of the port: without them the phase
+# says which one is missing and runs nothing.
+SIDECAR_RPC_TIMEOUT_S = 600.0
+
+
+def _sidecar_missing():
+    """The missing optional package and its ImportError, or None."""
+    from grove_tpu_torch.cluster import grpcsolver
+
+    if grpcsolver.grpc is None:
+        return "grpcio", grpcsolver._GRPC_IMPORT_ERROR
+    if grpcsolver.pb is None:
+        return "protobuf", grpcsolver._PROTOBUF_IMPORT_ERROR
+    return None
+
+
+def phase_sidecar(main_path, card, device="cuda", n_nodes=None, n_gangs=None) -> dict:
+    """[sidecar]: the port's SolverServer on the card inside this process:
+    (a) through SolverClient equal to [main]'s solve_decoded answer, (q)
+    round 1 through a GangScheduler whose solves go to the sidecar equal to
+    the JAX round, a health Check and a malformed request. ``device`` and
+    the cut (``n_nodes``, ``n_gangs``; the JAX round is held only uncut)
+    rehearse the phase on the CPU, with ``main_path["a_response"]`` the
+    solve_decoded answer of the same cut."""
+    missing = _sidecar_missing()
+    if missing is not None:
+        print(f"[sidecar] {missing[0]} is not installed ({type(missing[1]).__name__}:"
+              f" {missing[1]}); the wire layer has only its CPU tests here", flush=True)
+        return {"skipped": f"{missing[0]}: {missing[1]}"}
+    import grpc
+
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.cluster import grpcsolver
+    from grove_tpu_torch.cluster.grpcsolver import solve_decoded
+    from grove_tpu_torch.models.scenarios import (
+        STRESS_CAPACITY, EventCapture, round_summary, scheduler_world, stress_gang_specs)
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
+    from grove_tpu_torch.solver.encode import StickyGroupPad
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    # the endpoint's sticky padding starts fresh, as [main]'s did for (a)
+    grpcsolver._PAD_GROUPS = StickyGroupPad()
+    server = grpcsolver.SolverServer(device=device).start()
+    client = grpcsolver.SolverClient(server.address)
+    out = {"address": server.address}
+    try:
+        if not client.healthy(timeout=30.0):
+            _fail("sidecar: the health Check does not read SERVING")
+        nodes = make_nodes(n_nodes or 5120, dict(STRESS_CAPACITY), 8, 8)
+        t0 = time.perf_counter()
+        specs = stress_gang_specs(n_gangs or 10240, seed=0)
+        request = grpcsolver.build_request(nodes, specs, ClusterTopology())
+        encode_s = time.perf_counter() - t0
+        fill_batch.launches = 0
+        t0 = time.perf_counter()
+        response = client.solve(request, timeout=SIDECAR_RPC_TIMEOUT_S)
+        rpc_s = time.perf_counter() - t0
+        fills = fill_batch.launches
+        want = main_path["a_response"]["placements"]
+        if len(response.placements) != len(want):
+            _fail(f"sidecar (a): {len(response.placements)} placements, [main] {len(want)}")
+        for got, row in zip(response.placements, want):
+            assignments = [(a.group, a.node, a.count) for a in got.assignments]
+            fields = ((got.gang, row["gang"]), (got.admitted, row["admitted"]),
+                      (got.placement_score, row["placement_score"]),
+                      (got.chosen_level_key, row["chosen_level_key"]),
+                      (assignments, row["assignments"]))
+            if any(a != b for a, b in fields):
+                _fail(f"sidecar (a): gang {row['gang']} differs from [main]'s solve_decoded")
+        if fills == 0 and device != "cpu":
+            _fail("sidecar (a): the RPC's solve did not launch the fill kernel")
+        # [main]'s (a) was the process's first solve; the same solve in
+        # process once more, warm, is the wall the RPC's is compared with
+        t0 = time.perf_counter()
+        warm = solve_decoded(nodes, specs, ClusterTopology(), device=device,
+                             pad_groups=StickyGroupPad())
+        warm_s = time.perf_counter() - t0
+        if warm["placements"] != want:
+            _fail("sidecar (a): a second solve_decoded of (a) differs from [main]'s")
+        admitted = sum(p.admitted for p in response.placements)
+        out["a"] = {"request_bytes": request.ByteSize(), "response_bytes": response.ByteSize(),
+                    "build_request_s": encode_s, "rpc_wall_s": rpc_s,
+                    "solve_seconds": response.solve_seconds, "warm_wall_s": warm_s,
+                    "warm_solve_seconds": warm["solve_seconds"],
+                    "main_wall_s": main_path["a"]["wall_s"],
+                    "main_solve_seconds": main_path["a"]["solve_seconds"],
+                    "admitted": admitted, "fill_launches": fills}
+        print(f"[sidecar] (a) {len(request.gangs)} gangs x {len(nodes)} nodes through"
+              f" SolverClient -> SolverServer ({server.address}, {device}): request {request.ByteSize()} bytes (built in"
+              f" {encode_s:.3f} s), response {response.ByteSize()} bytes; RPC wall"
+              f" {rpc_s:.3f} s (solve_seconds {response.solve_seconds:.3f}) beside"
+              f" solve_decoded's {warm_s:.3f} s (solve_seconds {warm['solve_seconds']:.3f})"
+              f" right after it, and [main]'s {main_path['a']['wall_s']:.3f} s (solve_seconds"
+              f" {main_path['a']['solve_seconds']:.3f}; the process's first solve); admitted"
+              f" {admitted}, every placement equal to [main]'s; fill launches of the RPC"
+              f" {fills} | {card}", flush=True)
+        # (q) round 1 with every solve of the round going to the sidecar
+        world = scheduler_world("q", n_nodes, n_gangs)
+        store = Store(VirtualClock(0.0))
+        cluster = SimCluster(store, make_nodes(*world["nodes"]))
+        sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"],
+                              solver_sidecar=server.address, device=device)
+        sched.sidecar_timeout = SIDECAR_RPC_TIMEOUT_S
+        EVENTS.reset()
+        EVENTS.clock = store.clock
+        for doc in world["queues"] + world["rounds"][0]:
+            store.create(decode_object(doc), consume=True)
+        fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+        with EventCapture(EVENTS) as cap:
+            t0 = time.perf_counter()
+            sched.schedule_pending()
+            wall = time.perf_counter() - t0
+        launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                    "drf_merge": merge_cuda.launches}
+        tag = "sidecar (q) round 1"
+        got = round_summary(store, cluster, cap.events)
+        if n_nodes is None and n_gangs is None:
+            want = dict(JAX_SCHEDULER_REFERENCE["q"][0])
+            if not np.isclose(got["score_sum"], want.pop("score_sum"), rtol=1e-6, atol=0):
+                _fail(f"{tag}: score sum {got['score_sum']} != the JAX package's")
+            for key, value in want.items():
+                if got[key] != value:
+                    _fail(f"{tag}: {key} {got[key]} != the JAX package's {value}")
+        check_world_valid(tag, store, cluster)
+        if sched.sidecar_fallbacks:
+            _fail(f"{tag}: {sched.sidecar_fallbacks} solves fell back in process")
+        if device != "cpu" and not all(launches.values()):
+            _fail(f"{tag}: the round did not launch every kernel: {launches}")
+        out["q"] = {"wall_s": wall, "sidecar_fallbacks": sched.sidecar_fallbacks,
+                    **{f"{k}_launches": v for k, v in launches.items()},
+                    **{k: got[k] for k in ("admitted", "bound", "evicted")}}
+        print(f"[sidecar] (q) round 1 through GangScheduler(solver_sidecar=...): wall"
+              f" {wall:.3f} s; admitted {got['admitted']}, bound {got['bound']}; equal to the JAX"
+              f" package's, valid; sidecar fallbacks 0; launches fill {launches['fill']}"
+              f" (the sidecar's solves), DRF {launches['drf_shares']} +"
+              f" {launches['drf_merge']} (the round's order) | {card}", flush=True)
+        # one malformed request: a required key that is no level of the topology
+        bad = grpcsolver.build_request(
+            nodes[:8], [{"name": "bad", "required_key": "example.com/no-such-level",
+                         "groups": [{"name": "bad-0", "demand": {"cpu": 1.0}, "count": 1,
+                                     "min_count": 1}]}], ClusterTopology())
+        try:
+            client.solve(bad, timeout=60.0)
+        except grpc.RpcError as exc:
+            if exc.code() != grpc.StatusCode.INVALID_ARGUMENT:
+                _fail(f"sidecar: a malformed request gave {exc.code()}, not INVALID_ARGUMENT")
+        else:
+            _fail("sidecar: a malformed request was answered")
+        if not client.healthy(timeout=30.0):
+            _fail("sidecar: the health Check does not read SERVING after the requests")
+        print("[sidecar] health Check SERVING; a malformed request INVALID_ARGUMENT",
+              flush=True)
+    finally:
+        client.close()
+        server.stop(grace=1.0)
+    return out
+
+
+def phase_slo(delta, card, device="cuda", n_nodes=None, n_gangs=None, ticks=None,
+              reference=JAX_SLO_REFERENCE) -> dict:
+    """[slo]: the SLO world (models/scenarios.run_slo_world) at full width on
+    the card with the observatory on, every part held to
+    JAX_SLO_REFERENCE. ``device``, a cut and its ``reference`` (the "slo"
+    object of `scripts/scheduler_reference.py slo --nodes N --gangs G
+    --ticks T`) rehearse the phase on the CPU."""
+    import tempfile
+    import types
+
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.models.scenarios import SLO_STEP_S, run_slo_world
+    from grove_tpu_torch.observability import (
+        EVENTS, FLIGHTREC, JOURNEYS, METRICS, SLO, TIMESERIES, TRACER, SloSpec)
+    from grove_tpu_torch.observability.flightrec import load_bundle
+    from grove_tpu_torch.observability.forecast import FORECASTER
+    from grove_tpu_torch.observability.profile import disabled_check_cost_ns
+    from grove_tpu_torch.observability.timeseries import install_serving_collector
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    pkg = types.SimpleNamespace(
+        Store=Store, VirtualClock=VirtualClock, SimCluster=SimCluster, make_nodes=make_nodes,
+        GangScheduler=GangScheduler, ClusterTopology=ClusterTopology,
+        decode_object=decode_object, EVENTS=EVENTS, METRICS=METRICS, TRACER=TRACER,
+        JOURNEYS=JOURNEYS, TIMESERIES=TIMESERIES, SLO=SLO, SloSpec=SloSpec,
+        FORECASTER=FORECASTER, FLIGHTREC=FLIGHTREC,
+        install_serving_collector=install_serving_collector, load_bundle=load_bundle)
+    ref = reference
+    rows = []
+    launches = {"fill": 0, "drf_shares": 0, "drf_merge": 0}
+
+    def before(index):
+        fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+
+    def after(index, wall_s, observe_s, summary):
+        counts = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                  "drf_merge": merge_cuda.launches}
+        for k, v in counts.items():
+            launches[k] += v
+        tag = f"slo round {index + 1}"
+        want = dict(ref["rounds"][index])
+        got = dict(summary)
+        if not np.isclose(got.pop("score_sum"), want.pop("score_sum"), rtol=1e-6, atol=0):
+            _fail(f"{tag}: score sum {summary['score_sum']} != the JAX package's")
+        for key, value in want.items():
+            if got[key] != value:
+                _fail(f"{tag}: {key} {got[key]} != the JAX package's {value}")
+        rows.append({"wall_s": wall_s, "observatory_s": observe_s,
+                     **{f"{k}_launches": v for k, v in counts.items()},
+                     **{k: got[k] for k in ("admitted", "bound", "evicted")}})
+        print(f"[slo] round {index + 1} (vt {SLO_STEP_S * (index + 1):.0f} s): wall"
+              f" {wall_s:.3f} s, sample + evaluate {observe_s * 1e3:.2f} ms; admitted"
+              f" {got['admitted']}, events {got['events_by_reason']}; launches fill"
+              f" {counts['fill']}, DRF {counts['drf_shares']} + {counts['drf_merge']};"
+              f" round and series windows equal to the JAX package's", flush=True)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        got = run_slo_world(pkg, n_nodes, n_gangs, ticks, out_dir=out_dir,
+                            scheduler_kwargs={"device": device}, before_round=before,
+                            after_round=after)
+    if len(got["rounds"]) != len(ref["rounds"]):
+        _fail(f"slo: {len(got['rounds'])} rounds, the JAX run {len(ref['rounds'])}")
+    for key in ("windows", "status", "forecast", "dumps", "flight"):
+        if got[key] != ref[key]:
+            _fail(f"slo: {key} differs from the JAX package's: {got[key]} != {ref[key]}")
+    if device != "cpu" and not all(launches.values()):
+        _fail(f"slo: the phase did not launch every kernel: {launches}")
+    check_ns = disabled_check_cost_ns()
+    ticks = [r["wall_s"] for r in rows[1:]]
+    delta_ticks = [max(0.0, r["wall_s"] - r["selfcheck_s"]) for r in delta["rounds"][1:]]
+    delta_r1 = delta["rounds"][0]["wall_s"] - delta["rounds"][0]["selfcheck_s"]
+    out = {"round1_wall_s": rows[0]["wall_s"], "tick_p50_s": _percentile(ticks, 0.5),
+           "tick_p99_s": _percentile(ticks, 0.99), "delta_round1_wall_s": delta_r1,
+           "delta_tick_p50_s": _percentile(delta_ticks, 0.5),
+           "observatory_p50_ms": _percentile([r["observatory_s"] for r in rows], 0.5) * 1e3,
+           "disabled_check_ns": check_ns, "series": len(got["windows"]),
+           "objectives": {o["name"]: o["state"] for o in got["status"]["objectives"]},
+           "flight": {k: got["flight"][k] for k in ("reason", "vt", "records", "commits")},
+           **{f"{k}_launches": v for k, v in launches.items()}, "rounds": rows}
+    print(f"[slo] (delta)'s world with the observatory on ({len(rows)} rounds, the clock"
+          f" {SLO_STEP_S:.0f} s a round): round 1 wall {out['round1_wall_s']:.3f} s beside"
+          f" [delta]'s {delta_r1:.3f} s (less its self-check); ticks p50 {out['tick_p50_s']:.4f} s,"
+          f" p99 {out['tick_p99_s']:.4f} s beside [delta]'s p50 {out['delta_tick_p50_s']:.4f} s;"
+          f" sample + evaluate p50 {out['observatory_p50_ms']:.2f} ms; {out['series']} series,"
+          f" SLO status, forecast and flight bundle ({got['flight']['reason']} at vt"
+          f" {got['flight']['vt']}, {got['flight']['commits']} commit digests) equal to the JAX"
+          f" package's; objectives {out['objectives']}; all-off check (flight recorder in the"
+          f" flag) {check_ns:.1f} ns; launches fill {launches['fill']}, DRF"
+          f" {launches['drf_shares']} + {launches['drf_merge']} | {card}", flush=True)
+    return out
+
+
 def _is_float(text: str) -> bool:
     try:
         float(text)
@@ -2640,6 +3419,8 @@ def main() -> int:
     front = _timed(phase_frontier, delta["rounds"][0])
     sharded = _timed(phase_sharded)
     observe = _timed(phase_observe, sched["rounds"]["q1"]["wall_s"], card)
+    sidecar = _timed(phase_sidecar, main_path, card)
+    slo = _timed(phase_slo, delta, card)
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
@@ -2648,7 +3429,12 @@ def main() -> int:
         "launches": main_path["launches"] + stats["fill_launches"] + stats["exact_fill_launches"]
         + sched["fill_launches"] + delta["fill_launches"] + front["fill_launches"]
         + sharded["single_fill_launches"] + sharded["fill_launches"]
-        + observe["fill_launches"] + observe["explain_fill_launches"],
+        + observe["fill_launches"] + observe["explain_fill_launches"]
+        + sidecar.get("a", {}).get("fill_launches", 0) + sidecar.get("q", {}).get("fill_launches", 0)
+        + slo["fill_launches"],
+        "sidecar_launches": sidecar.get("a", {}).get("fill_launches", 0)
+        + sidecar.get("q", {}).get("fill_launches", 0),
+        "slo_launches": slo["fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
         "explain_launches": observe["explain_fill_launches"],
         "sharded_rank_launches": sharded["fill_launches"],
@@ -2670,7 +3456,10 @@ def main() -> int:
             "replaces": "grove_tpu/quota/ordering.py:41",
             "launches": sched[f"drf_{phase}_launches"] + delta[f"drf_{phase}_launches"]
             + front[f"drf_{phase}_launches"] + observe[f"drf_{phase}_launches"]
-            + observe[f"explain_drf_{phase}_launches"],
+            + observe[f"explain_drf_{phase}_launches"]
+            + sidecar.get("q", {}).get(f"drf_{phase}_launches", 0) + slo[f"drf_{phase}_launches"],
+            "sidecar_launches": sidecar.get("q", {}).get(f"drf_{phase}_launches", 0),
+            "slo_launches": slo[f"drf_{phase}_launches"],
             "explain_launches": observe[f"explain_drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
@@ -2684,7 +3473,7 @@ def main() -> int:
     drf_pass = {k: drf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "steps",
                                     "merge_past_g_loop_ms", "merge_per_step",
                                     "merge_global_counts")}
-    paths = {k: v for k, v in main_path.items() if k != "launches"}
+    paths = {k: v for k, v in main_path.items() if k not in ("launches", "a_response")}
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [kernel, *drf_kernels], "main_path": paths, "stats_path": stats,
                       "scheduler": sched["rounds"], "drf_pass": drf_pass,
@@ -2692,7 +3481,7 @@ def main() -> int:
                       "delta_rounds": delta["rounds"],
                       "frontier": {k: v for k, v in front.items() if k != "rounds"},
                       "frontier_rounds": front["rounds"], "sharded": sharded,
-                      "observe": observe}))
+                      "observe": observe, "sidecar": sidecar, "slo": slo}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ from __future__ import annotations
 LABEL_PART_OF = "app.kubernetes.io/part-of"
 LABEL_PODCLIQUE = "grove.io/podclique"
 LABEL_PODGANG = "grove.io/podgang"
+LABEL_POD_TEMPLATE_HASH = "grove.io/pod-template-hash"
 # tenant queue, propagated from the PodCliqueSet to PodCliques, Pods and
 # PodGangs
 LABEL_QUEUE = "scheduler.grove.io/queue"

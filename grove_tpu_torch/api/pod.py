@@ -1,8 +1,8 @@
 """The Pod model and its status predicates.
 
 Counterpart of ``grove_tpu/api/pod.py``, cut to what the scheduler round
-reads: ``is_scheduled``, ``is_terminating``, ``is_schedule_gated``,
-``is_ready``.
+and the store's pod aggregates read: ``is_scheduled``, ``is_terminating``,
+``is_schedule_gated``, ``is_ready``, ``has_erroneous_exit``.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from grove_tpu_torch.api.meta import Condition, ObjectMeta, get_condition
 from grove_tpu_torch.api.types import PodSpec
 
 POD_PENDING = "Pending"
+POD_FAILED = "Failed"
 
 COND_POD_SCHEDULED = "PodScheduled"
 COND_POD_READY = "Ready"
@@ -61,3 +62,13 @@ def is_scheduled(pod: Pod) -> bool:
 def is_ready(pod: Pod) -> bool:
     cond = get_condition(pod.status.conditions, COND_POD_READY)
     return cond is not None and cond.is_true()
+
+
+def has_erroneous_exit(pod: Pod) -> bool:
+    """A container has terminated with a non-zero exit code (or the pod
+    failed): such a pod is not available for MinAvailableBreached."""
+    if pod.status.phase == POD_FAILED:
+        return True
+    return any(
+        cs.exit_code is not None and cs.exit_code != 0 for cs in pod.status.container_statuses
+    )

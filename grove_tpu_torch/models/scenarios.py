@@ -614,3 +614,157 @@ def doc_digests(burst: dict) -> dict:
             row["flipped"] = doc["flipped"]
         out[key] = row
     return out
+
+
+# -- the SLO world ------------------------------------------------------------
+
+SLO_TICKS = 12  # the churn world's first ticks
+SLO_STEP_S = 10.0  # virtual seconds the clock moves before each round
+SLO_WINDOW_S = 300.0  # the series windows read after each round: every round
+SLO_TRACKED_COUNTER = "journeys_completed_total"  # mirrored as rate:<name>
+SLO_FORECAST_SERIES = "queue_usage/tenant-0"
+# (name, objective): the standing backlog's wait breaches the first (it
+# ages one step a round); the second is met (the JAX run at full width
+# admits every gang within three steps of its arrival: 30 s at most)
+SLO_OBJECTIVES = (
+    ("backlog-wait", "queue_wait_vt/tenant-0:last < 45s over 10s target 90% budget 60s"
+                     " burn 2x 10s/60s"),
+    ("admission", "admission_latency_vt:max < 60s over 30s target 90%"),
+)
+SLO_WALL_SERIES = ("admission_latency",)  # wall-clock seconds: counts only
+
+
+def slo_windows(timeseries, seconds: float = SLO_WINDOW_S) -> dict:
+    """Every series of a time-series store (either package's) reduced over
+    one window; a wall-clock series as its sample count only."""
+    out = {}
+    for name in timeseries.series_names():
+        doc = timeseries.window(name, seconds)
+        out[name] = {"count": doc.get("count", 0)} if name in SLO_WALL_SERIES else doc
+    return out
+
+
+def slo_status(slo, seconds: float = SLO_WINDOW_S) -> dict:
+    """An SLO engine's ``status()`` less its wall-clock series."""
+    doc = slo.status(seconds)
+    doc["series"] = {k: v for k, v in doc["series"].items() if k not in SLO_WALL_SERIES}
+    return doc
+
+
+def flight_summary(manifest: dict) -> dict:
+    """The deterministic part of a flight-recorder bundle (either
+    package's): its trigger, the commit-digest ring less wall stamps (count
+    and sha256), its events less wall stamps (count and sha256) and the
+    multiset of its spans' names."""
+    records = [r for shard in manifest["shards"] for r in shard["records"]]
+    commits = [{k: r[k] for k in ("vt", "op", "kind", "ns", "name", "rv")}
+               for r in records if r["rec"] == "commit"]
+    events = [{k: v for k, v in e.items() if k != "t"} for e in manifest["events"]]
+    return {
+        "reason": manifest["reason"],
+        "detail": manifest["detail"],
+        "vt": manifest["vt"],
+        "records": len(records),
+        "commits": len(commits),
+        "commits_sha256": _digest([json.dumps(commits, sort_keys=True)]),
+        "events": len(events),
+        "events_sha256": _digest([json.dumps(events, sort_keys=True)]),
+        "spans": dict(sorted(Counter(r["name"] for r in records if r["rec"] == "span").items())),
+        "errors": len(manifest["errors"]),
+    }
+
+
+def run_slo_world(pkg, n_nodes: Optional[int] = None, n_gangs: Optional[int] = None,
+                  ticks: Optional[int] = None, seed: int = 0, out_dir: Optional[str] = None,
+                  scheduler_kwargs: Optional[dict] = None, before_round=None,
+                  after_round=None) -> dict:
+    """The SLO world through either package: ``pkg`` names its ``Store``,
+    ``VirtualClock``, ``SimCluster``, ``make_nodes``, ``GangScheduler``,
+    ``ClusterTopology``, ``decode_object``, ``EVENTS``, ``METRICS``,
+    ``TRACER``, ``JOURNEYS``, ``TIMESERIES``, ``SLO``, ``SloSpec``,
+    ``FORECASTER``, ``FLIGHTREC``, ``install_serving_collector`` and
+    ``load_bundle``.
+
+    The churn world (``scheduler_world("delta")``, ``SLO_TICKS`` ticks)
+    through a delta scheduler with the tracer, journeys, time series, SLO
+    engine, forecaster and flight recorder on (every layer on the world's
+    virtual clock, the serving collector installed, ``SLO_OBJECTIVES``
+    added, ``SLO_TRACKED_COUNTER`` tracked). Before each round the tick's
+    documents are applied and the clock moves ``SLO_STEP_S``; after it come
+    ``TIMESERIES.sample(now)`` and ``SLO.evaluate(now)``, as the JAX
+    harness does at a tick boundary. Per round: ``round_summary`` (events
+    of the round and of its evaluation) and the sha256 of
+    :func:`slo_windows`. Then: the windows, the wall series' counts, the SLO
+    status (:func:`slo_status`), the forecast of ``SLO_FORECAST_SERIES``,
+    and the first flight bundle's :func:`flight_summary`.
+
+    ``before_round(index)`` runs just before a round's ``schedule_pending``
+    and ``after_round(index, wall_s, observe_s, summary)`` just after its
+    evaluation (the card's launch counts and timings)."""
+    import time
+
+    world = scheduler_world("delta", n_nodes, n_gangs, SLO_TICKS if ticks is None else ticks,
+                            seed)
+    store = pkg.Store(pkg.VirtualClock(0.0))
+    clock = store.clock
+    cluster = pkg.SimCluster(store, pkg.make_nodes(*world["nodes"]))
+    sched = pkg.GangScheduler(store, cluster, pkg.ClusterTopology(), world["priority_map"],
+                              **(scheduler_kwargs or {}))
+    assert sched.enable_delta()
+    layers = (pkg.TRACER, pkg.JOURNEYS, pkg.TIMESERIES, pkg.SLO, pkg.FORECASTER, pkg.FLIGHTREC)
+    for layer in layers:
+        layer.reset()
+    pkg.METRICS.reset()
+    pkg.EVENTS.reset()
+    pkg.TRACER.clock = pkg.EVENTS.clock = pkg.JOURNEYS.clock = clock
+    pkg.TRACER.enable()
+    pkg.JOURNEYS.enable()
+    pkg.TIMESERIES.enable(clock=clock)
+    pkg.SLO.enable()
+    pkg.FORECASTER.enable(clock=clock)
+    pkg.FLIGHTREC.enable(out_dir=out_dir, clock=clock)
+    collector = None
+    try:
+        for name, text in SLO_OBJECTIVES:
+            pkg.SLO.add(pkg.SloSpec.parse(text, name=name))
+        pkg.TIMESERIES.track_counter(SLO_TRACKED_COUNTER)
+        collector = pkg.install_serving_collector(store, sched, clock)
+        for doc in world["queues"] + world["rounds"][0]:
+            store.create(pkg.decode_object(doc), consume=True)
+        rounds = []
+        for index, tick in enumerate([None] + world["ticks"]):
+            if tick:
+                apply_tick(store, cluster, tick, pkg.decode_object)
+            clock.advance(SLO_STEP_S)
+            if before_round is not None:
+                before_round(index)
+            with EventCapture(pkg.EVENTS) as cap:
+                t0 = time.perf_counter()
+                sched.schedule_pending()
+                t1 = time.perf_counter()
+                now = clock.now()
+                pkg.TIMESERIES.sample(now)
+                pkg.SLO.evaluate(now)
+                t2 = time.perf_counter()
+            summary = round_summary(store, cluster, cap.events)
+            summary["windows_sha256"] = _digest(
+                [json.dumps(slo_windows(pkg.TIMESERIES), sort_keys=True)])
+            if after_round is not None:
+                after_round(index, t1 - t0, t2 - t1, summary)
+            rounds.append(summary)
+        now = clock.now()
+        dumps = list(pkg.FLIGHTREC.dumps)
+        return {
+            "rounds": rounds,
+            "windows": slo_windows(pkg.TIMESERIES),
+            "status": slo_status(pkg.SLO),
+            "forecast": pkg.FORECASTER.forecast(SLO_FORECAST_SERIES, now=now),
+            "dumps": len(dumps),
+            "flight": flight_summary(pkg.load_bundle(dumps[0])) if dumps else None,
+        }
+    finally:
+        if collector is not None:
+            pkg.TIMESERIES.remove_collector(collector)
+        for layer in layers:
+            layer.disable()
+        pkg.TRACER.clock = pkg.JOURNEYS.clock = None

@@ -1,10 +1,12 @@
 """Kubernetes-style event recorder with dedup-and-count.
 
 Counterpart of ``grove_tpu/observability/events.py``, cut to the reasons
-the scheduler round records and the deferral details it and the explain
-engine cite. ``record`` dedups on
-(kind, namespace, name, type, reason), bumps ``count`` and keeps the latest
-message; the oldest groups drop past ``max_events``.
+the scheduler round, the SLO observatory, the flight recorder and the
+decision ledger record, and the deferral details the round and the explain
+engine cite. ``record`` dedups on (kind, namespace, name, type, reason),
+bumps ``count`` and keeps the latest message; the oldest groups drop past
+``max_events``. Each updated record goes to ``sink`` when one is installed
+(the flight recorder's ``note_event``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
+from typing import List, Optional
 
 TYPE_NORMAL = "Normal"
 TYPE_WARNING = "Warning"
@@ -25,6 +28,17 @@ REASON_PREEMPTED = "Preempted"
 # gang evicted so a queue below its deserved share can place
 REASON_QUEUE_PENDING = "QueuePending"
 REASON_QUOTA_RECLAIM = "QuotaReclaim"
+# the flight recorder froze its rings into a postmortem bundle
+REASON_FLIGHT_RECORDED = "FlightRecorderDumped"
+# SLO observatory: an objective's attainment dropped below target (edge
+# triggered; also freezes a flight bundle), its burn rate crossed the factor
+# on the fast and the slow window, and a breached objective recovered
+REASON_SLO_BREACH = "SloBreach"
+REASON_SLO_BURN_RATE_HIGH = "SloBurnRateHigh"
+REASON_SLO_RECOVERED = "SloRecovered"
+# decision ledger: a remediation executed, or considered and skipped
+REASON_REMEDIATION_EXECUTED = "RemediationExecuted"
+REASON_REMEDIATION_SKIPPED = "RemediationSkipped"
 
 # deferral-detail slugs: GangDeferred / QueuePending messages start with one
 DETAIL_NO_NODES = "no-schedulable-nodes"
@@ -49,6 +63,8 @@ class EventRecord:
     count: int
     first_timestamp: float
     last_timestamp: float
+    # keyspace shard of the object's namespace: 0 on the one-shard store
+    shard: int = 0
 
 
 class EventRecorder:
@@ -57,6 +73,9 @@ class EventRecorder:
         self.clock = clock
         self._lock = threading.Lock()
         self._events: "OrderedDict[tuple, EventRecord]" = OrderedDict()
+        # flight-recorder sink: receives each updated record; installed by
+        # FLIGHTREC.enable(), one attribute check a record otherwise
+        self.sink = None
 
     def _now(self) -> float:
         return self.clock.now() if self.clock is not None else time.time()
@@ -80,7 +99,25 @@ class EventRecorder:
                 self._events[key] = rec
                 while len(self._events) > self.max_events:
                     self._events.popitem(last=False)
+        if self.sink is not None:
+            self.sink.note_event(rec)
         return rec
+
+    def list(
+        self,
+        namespace: Optional[str] = None,
+        reason: Optional[str] = None,
+        kind: Optional[str] = None,
+    ) -> List[EventRecord]:
+        with self._lock:
+            records = list(self._events.values())
+        return [
+            r
+            for r in records
+            if (namespace is None or r.namespace == namespace)
+            and (reason is None or r.reason == reason)
+            and (kind is None or r.kind == kind)
+        ]
 
     def reset(self) -> None:
         with self._lock:

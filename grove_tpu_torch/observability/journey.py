@@ -19,11 +19,11 @@ the rest (``solver/scheduler.py``, ``solver/frontier.py``). Off by default
 (``GROVE_TPU_JOURNEY=1`` or ``JOURNEYS.enable()``); every call site costs
 one boolean check while off.
 
-Waiting for the SLO slice: the time-series feed of a completed journey
-(``TIMESERIES.observe`` of the wall and virtual admission latency in
-``note_scheduled``) and the windows of ``window_summary``, which until
-then returns the empty shells the JAX module returns while its engine is
-off.
+A completed journey feeds the SLO observatory's time series
+(``observability/timeseries.py``): ``note_scheduled`` observes its wall
+admission latency (the segments' sum) and its virtual one (created to
+scheduled on the virtual clock), and ``window_summary`` reads both back
+through the same windowed reducers the SLO layer judges with.
 """
 
 from __future__ import annotations
@@ -35,6 +35,11 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 from grove_tpu_torch.observability.metrics import METRICS, _quantile
+from grove_tpu_torch.observability.timeseries import (
+    SERIES_ADMISSION,
+    SERIES_ADMISSION_VT,
+    TIMESERIES,
+)
 
 # journey phases, in causal order
 JOURNEY_PHASES = (
@@ -49,9 +54,6 @@ JOURNEY_PHASES = (
 JOURNEY_SEGMENTS = ("queue_wait", "encode", "solve", "commit", "status")
 
 PARTITION_RESIDUAL = -1  # solved by the global residual pass (or global solve)
-
-# what the JAX module's time-series windows return while the engine is off
-_ABSENT_WINDOW = {"kind": "absent", "n": 0, "count": 0}
 
 
 class _Journey:
@@ -223,6 +225,21 @@ class JourneyTracker:
             while len(self._done) > self.max_completed:
                 self._done.popitem(last=False)
         METRICS.inc("journeys_completed_total")
+        # the SLO observatory's feed (one boolean check while it is off):
+        # wall seconds (the segments' sum, the number decomposition()
+        # reports) and virtual seconds (created to scheduled)
+        if TIMESERIES.enabled:
+            if j.segments is not None:
+                TIMESERIES.observe(SERIES_ADMISSION, sum(j.segments.values()))
+            created = j.marks.get("created") or j.marks.get("first-scan")
+            sched = j.marks.get("scheduled")
+            if (
+                created is not None
+                and sched is not None
+                and created[1] is not None
+                and sched[1] is not None
+            ):
+                TIMESERIES.observe(SERIES_ADMISSION_VT, max(sched[1] - created[1], 0.0))
 
     # -- read side -------------------------------------------------------
 
@@ -285,14 +302,15 @@ class JourneyTracker:
         return sorted(oldest.items())
 
     def window_summary(self, seconds: float = 300.0) -> dict:
-        """The windowed admission-latency summary. The port has no
-        time-series engine yet: the shells the JAX module returns while its
-        engine is off (``decomposition`` serves the all-time numbers)."""
+        """The windowed admission-latency summary, read through the time
+        series the SLO layer judges (so both cite the same numbers); empty
+        shells while the engine is off (``decomposition`` serves the
+        all-time numbers)."""
         return {
             "window_s": seconds,
-            "enabled": False,
-            "wall": dict(_ABSENT_WINDOW),
-            "virtual": dict(_ABSENT_WINDOW),
+            "enabled": TIMESERIES.enabled,
+            "wall": TIMESERIES.window(SERIES_ADMISSION, seconds),
+            "virtual": TIMESERIES.window(SERIES_ADMISSION_VT, seconds),
         }
 
     def decomposition(self) -> dict:

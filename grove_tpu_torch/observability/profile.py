@@ -267,13 +267,17 @@ class WallProfiler:
 
 def disabled_check_cost_ns(iters: int = 200_000) -> float:
     """The measured cost of one all-off check, the boolean every guarded
-    site pays while tracing, profiling and journeys are off."""
+    site pays while tracing, profiling, journeys and the flight recorder
+    are off."""
+    from grove_tpu_torch.observability.flightrec import FLIGHTREC
     from grove_tpu_torch.observability.journey import JOURNEYS
     from grove_tpu_torch.observability.tracing import TRACER
 
     t0 = time.perf_counter()
     for _ in range(iters):
-        if TRACER.enabled or PROFILER.enabled or JOURNEYS.enabled:  # pragma: no cover
+        if (
+            TRACER.enabled or PROFILER.enabled or JOURNEYS.enabled or FLIGHTREC.enabled
+        ):  # pragma: no cover
             pass
     return (time.perf_counter() - t0) / iters * 1e9
 

@@ -19,11 +19,12 @@ read that waits for the device (``.cpu()``), never after a
 ``torch.cuda.synchronize`` of its own: a traced run takes the untraced
 run's path.
 
-Waiting for modules the port does not have yet: ``set_shard`` /
-``set_worker`` (the keyspace-sharded engine's shard and worker stamps) and
-the sanitizer and flight-recorder span hooks (``SPAN_HOOK``,
-``FLIGHT_SINK``). Until then a span's Chrome ``shard`` column is -1 unless
-its caller passes an integer ``shard`` attribute.
+Finished spans also go to ``FLIGHT_SINK`` when the flight recorder
+(``observability/flightrec.py``) installs itself there. Waiting for modules
+the port does not have yet: ``set_shard`` / ``set_worker`` (the
+keyspace-sharded engine's shard and worker stamps) and the sanitizer's span
+hook (``SPAN_HOOK``). Until then a span's Chrome ``shard`` column is -1
+unless its caller passes an integer ``shard`` attribute.
 """
 
 from __future__ import annotations
@@ -57,6 +58,11 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+# Flight-recorder sink (observability/flightrec.py): an object with
+# note_span(span), installed by FLIGHTREC.enable() so finished spans land in
+# its postmortem rings. One global load a span while tracing is on.
+FLIGHT_SINK = None
+
 
 class Span:
     __slots__ = ("name", "attrs", "parent", "tid", "ts_us", "dur_us", "_t0", "_tracer", "_done")
@@ -84,6 +90,8 @@ class Span:
             return
         self._done = True
         self.dur_us = int((time.perf_counter() - self._t0) * 1e6)
+        if FLIGHT_SINK is not None:
+            FLIGHT_SINK.note_span(self)
         tracer = self._tracer
         stack = tracer._stack()
         # tolerate out-of-order ends (a span ended from a finally after its

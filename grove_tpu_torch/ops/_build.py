@@ -12,6 +12,13 @@ A ``load_all`` that loads a library not yet loaded runs inside a
 wall, the build included, as ``gang_solve_compile_seconds``: the port's
 counterpart of the JAX package's XLA compile of a solver program, which
 happens once per process and library here.
+
+``BUILD_DIR`` is also the port's counterpart of the JAX package's
+persistent compile cache (``grove_tpu/utils/platform.py``,
+``enable_compile_cache``): a library built once is reused by every later
+process of the checkout, keyed by its source and flags instead of by a
+program signature, and a stale entry can only miss, never load the wrong
+code. It needs no switch: it is always on, inside the checkout.
 """
 
 from __future__ import annotations

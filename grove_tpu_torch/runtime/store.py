@@ -15,8 +15,13 @@ cache, cut to what the scheduler round and the loading of a world use:
   clique's pods by ``grove.io/podclique``);
 - ``shard_index`` / ``shard_emitted`` / ``resource_version_vector``: the
   one-shard answers;
-- the glass-box hooks, one boolean check each while off: PodGang creations
-  and deletions stamp their journeys (``JOURNEYS.note_created`` /
+- ``pod_counters`` / ``pod_summary``: per-PodClique pod counters and the
+  cluster's (total, ready) live pods, folded at commit from each pod delta
+  (``runtime/aggregate.py``); over one shard the JAX store's level-2
+  summary tree is its one leaf;
+- the glass-box hooks, one boolean check each while off: every commit goes
+  to the flight recorder's digest ring (``FLIGHTREC.note_commit``), PodGang
+  creations and deletions stamp their journeys (``JOURNEYS.note_created`` /
   ``note_deleted``), and reads and writes open the wall profiler's
   ``snapshot``, ``store-commit`` and ``status-write`` phases.
 
@@ -30,13 +35,16 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 from grove_tpu_torch.api.meta import deep_copy, next_uid
+from grove_tpu_torch.observability.flightrec import FLIGHTREC
 from grove_tpu_torch.observability.journey import JOURNEYS
+from grove_tpu_torch.observability.metrics import METRICS
 from grove_tpu_torch.observability.profile import (
     PHASE_SNAPSHOT,
     PHASE_STATUS_WRITE,
     PHASE_STORE_COMMIT,
     PROFILER,
 )
+from grove_tpu_torch.runtime.aggregate import PodAggregate, PodCounters
 from grove_tpu_torch.runtime.clock import Clock
 from grove_tpu_torch.runtime.errors import ERR_CONFLICT, ERR_NOT_FOUND, GroveError
 
@@ -59,6 +67,7 @@ class WatchEvent:
     kind: str
     obj: object  # the committed object: read-only
     old: Optional[object] = field(default=None, repr=False, compare=False)
+    shard: int = 0  # the owning keyspace shard: one shard here
 
 
 def obj_key(obj) -> str:
@@ -93,6 +102,8 @@ class Store:
         # kind -> (label key, value) -> keys
         self._label_index: Dict[str, Dict[tuple, Dict[str, None]]] = {}
         self._system_watchers: List[Callable[[WatchEvent], None]] = []
+        # pod-status counters folded from every committed pod delta
+        self._agg = PodAggregate()
 
     # -- one shard -------------------------------------------------------
 
@@ -120,6 +131,11 @@ class Store:
     def _emit(self, type_: str, obj, old=None) -> None:
         ev = WatchEvent(type=type_, kind=obj.kind, obj=obj, old=old)
         self.emitted += 1
+        # fold the delta into the pod aggregate (kind-gated inside; `old`
+        # is the previous committed object)
+        self._agg.apply(type_, obj, old)
+        if FLIGHTREC.enabled:
+            FLIGHTREC.note_commit(ev)
         if JOURNEYS.enabled and obj.kind == "PodGang":
             if type_ == ADDED:
                 JOURNEYS.note_created(obj.metadata.namespace, obj.metadata.name)
@@ -127,6 +143,20 @@ class Store:
                 JOURNEYS.note_deleted(obj.metadata.namespace, obj.metadata.name)
         for w in self._system_watchers:
             w(ev)
+
+    # -- pod aggregates --------------------------------------------------
+
+    def pod_counters(self, namespace: str, name: str) -> PodCounters:
+        """Aggregated pod-status counters of one PodClique, equal to a full
+        rescan of its pods. The row is read-only."""
+        return self._agg.counters(namespace, name)
+
+    def pod_summary(self) -> Tuple[int, int]:
+        """Cluster-wide (total, ready) over live (non-terminating) pods.
+        The JAX store folds its shards' partials up a fan-in-8 tree; one
+        shard is a tree of depth 1 whose root is that shard's partial."""
+        METRICS.set("aggregate_fold_depth", 1)
+        return self._agg.grand_total, self._agg.grand_ready
 
     # -- indices ---------------------------------------------------------
 

@@ -30,11 +30,21 @@ round's encode and solve walls, its commit and its Scheduled=True. Every
 site costs one boolean check while off, and the round's results are the
 same on and off.
 
-Not part of this port: the gRPC sidecar branch, the speculative-encode
-cache, the disruption broker and the node-health monitor (``broker`` and
-``monitor`` stay None). With none of them the JAX scheduler runs exactly
-this round (a bare scheduler has no broker and no monitor: every eviction
-is ungated, nothing is held).
+With ``solver_sidecar`` (host:port) the batch solve goes over gRPC
+(``cluster/grpcsolver.py``): the identical request, built from the round's
+free-capacity dicts, answered by the sidecar and mapped back onto the
+locally encoded problem's index space, so binding, preemption trials and
+recovery pins do not care where the solve ran. A sidecar that fails solves
+that batch in process, on the round's ``device``, and counts
+``sidecar_fallbacks``; a per-request failure (DEADLINE_EXCEEDED,
+RESOURCE_EXHAUSTED, INVALID_ARGUMENT) also skips the sidecar for
+``sidecar_backoff_s``, a connectivity failure reattaches at the next round.
+The frontier stays off with a sidecar.
+
+Not part of this port: the speculative-encode cache, the disruption broker
+and the node-health monitor (``broker`` and ``monitor`` stay None). With
+none of them the JAX scheduler runs exactly this round (a bare scheduler has
+no broker and no monitor: every eviction is ungated, nothing is held).
 """
 
 from __future__ import annotations
@@ -98,6 +108,7 @@ class GangScheduler:
         priority_map: Optional[Dict[str, int]] = None,
         chunk_size: int = 32,
         max_waves: int = 16,
+        solver_sidecar: Optional[str] = None,
         device=None,
     ) -> None:
         self.store = store
@@ -108,6 +119,21 @@ class GangScheduler:
         self.chunk_size = chunk_size
         self.max_waves = max_waves
         self.device = resolve_device(device)
+        # the packing solve through a gRPC sidecar (host:port) instead of in
+        # process: the boundary the reference's scheduler plugin puts KAI
+        # behind
+        self.solver_sidecar = solver_sidecar
+        self._sidecar_client = None
+        # per-solve gRPC deadline: past it the sidecar aborts the solve
+        # (DEADLINE_EXCEEDED) and the batch is solved in process
+        self.sidecar_timeout = 120.0
+        # batches solved in process because the sidecar failed (the client
+        # is rebuilt after each failure, so a restarted sidecar reattaches)
+        self.sidecar_fallbacks = 0
+        # a per-request failure is doomed on an identical retry: skip the
+        # sidecar this long instead of re-sending the request every round
+        self.sidecar_backoff_s = 60.0
+        self._sidecar_skip_until = 0.0
         # sticky group-axis padding: grows to the widest template seen
         self._pad_groups = StickyGroupPad()
         # with no Queue CRs the quota subsystem is inert: the solve order
@@ -168,11 +194,12 @@ class GangScheduler:
 
     def enable_frontier(self) -> bool:
         """Attach the partitioned solver frontier (solver/frontier.py). Needs
-        the delta state: the plan rides its cached NodeEncoding and
-        maintained free matrix. Safe to call twice."""
+        the delta state (the plan rides its cached NodeEncoding and
+        maintained free matrix) and an in-process solver (the sidecar keeps
+        the global solve). Safe to call twice."""
         if self.frontier is not None:
             return True
-        if not self.enable_delta():
+        if self.solver_sidecar is not None or not self.enable_delta():
             return False
         from grove_tpu_torch.solver.frontier import FrontierState
 
@@ -210,7 +237,7 @@ class GangScheduler:
             self._solve_reused = True
             return self._delta_last[1], problem
         self._frontier_solved = False
-        if self.frontier is not None:
+        if self.frontier is not None and self.solver_sidecar is None:
             # partitioned frontier: slab subproblems in batched dispatches
             # plus a global residual pass; None (one slab, or every gang
             # residual) falls through to the global solve below
@@ -225,7 +252,11 @@ class GangScheduler:
                 self._frontier_solved = True
                 self._delta_last = (key, result)
                 return result, problem
-        result, problem = self._solve_batch(nodes, gang_specs, None, problem=problem)
+        # the sidecar's request is built from free-capacity dicts: serve them
+        # from the kept matrix (an in-process solve takes the problem's
+        # arrays and needs none)
+        free = self.delta.free_dicts(nodes) if self.solver_sidecar is not None else None
+        result, problem = self._solve_batch(nodes, gang_specs, free, problem=problem)
         self._delta_last = (key, result)
         return result, problem
 
@@ -282,10 +313,12 @@ class GangScheduler:
         with_alloc: bool = True,
         problem=None,
     ):
-        """One batch solve against a free-capacity snapshot. Returns
-        (PackingResult, PackingProblem). ``problem``: an encode built
-        already (the delta path); the from-scratch encode is then skipped
-        and ``free_capacity`` is unused."""
+        """One batch solve against a free-capacity snapshot, in process or,
+        with ``solver_sidecar`` set (and not backing off), through the
+        sidecar. Returns (PackingResult, PackingProblem). ``problem``: an
+        encode built already (the delta path); the from-scratch encode is
+        then skipped and ``free_capacity`` only feeds the sidecar's
+        request."""
         self._solve_reused = False  # a real solve runs
         if problem is None:
             prof = PROFILER.phase("encode") if PROFILER.enabled else None
@@ -305,17 +338,122 @@ class GangScheduler:
                 self._journey_encode_end = JOURNEYS.t()
         prof = PROFILER.phase("solve") if PROFILER.enabled else None
         try:
-            with TRACER.span("scheduler.solve", gangs=len(gang_specs), where="in-process"):
-                result = solve_waves(
-                    problem,
-                    chunk_size=self.chunk_size,
-                    max_waves=self.max_waves,
-                    with_alloc=with_alloc,
-                    device=self.device,
-                )
+            if self.solver_sidecar is None or time.monotonic() < self._sidecar_skip_until:
+                with TRACER.span("scheduler.solve", gangs=len(gang_specs), where="in-process"):
+                    result = solve_waves(
+                        problem,
+                        chunk_size=self.chunk_size,
+                        max_waves=self.max_waves,
+                        with_alloc=with_alloc,
+                        device=self.device,
+                    )
+                return result, problem
+            with TRACER.span("scheduler.solve", gangs=len(gang_specs), where="sidecar"):
+                return self._solve_remote(problem, nodes, gang_specs, free_capacity, with_alloc)
         finally:
             if prof is not None:
                 prof.end()
+
+    def _solve_remote(self, problem, nodes, gang_specs, free_capacity, with_alloc: bool):
+        """The batch through the sidecar, mapped back onto ``problem``'s
+        index space. The local encode still runs on this path: its name,
+        level and group maps and the problem itself are what binding, trial
+        usage and recovery pins read, and it is host numpy only."""
+        import logging
+
+        import grpc
+
+        from grove_tpu_torch.cluster.grpcsolver import SolverClient, build_request
+        from grove_tpu_torch.sim.cluster import Node
+        from grove_tpu_torch.solver.types import PackingResult
+
+        snapshot = [
+            Node(
+                name=n.name,
+                capacity=dict(free_capacity.get(n.name, n.capacity)),
+                labels=dict(n.labels),
+            )
+            for n in nodes
+        ]
+        request = build_request(snapshot, gang_specs, self.topology)
+        request.options.chunk_size = self.chunk_size
+        request.options.max_waves = self.max_waves
+        request.options.stats_only = not with_alloc
+        if self._sidecar_client is None:
+            self._sidecar_client = SolverClient(self.solver_sidecar)
+        try:
+            response = self._sidecar_client.solve(request, timeout=self.sidecar_timeout)
+        except grpc.RpcError as e:
+            # a crashed, restarting or slow sidecar must never stall
+            # admission: solve this batch in process, on the round's device,
+            # and drop the client so a later round reattaches
+            self._sidecar_client = None
+            self.sidecar_fallbacks += 1
+            code = e.code()
+            log = logging.getLogger("grove_tpu_torch.solver")
+            if code in (
+                grpc.StatusCode.DEADLINE_EXCEEDED,
+                grpc.StatusCode.RESOURCE_EXHAUSTED,
+                grpc.StatusCode.INVALID_ARGUMENT,
+            ):
+                # a per-request failure: the identical retry is doomed
+                self._sidecar_skip_until = time.monotonic() + self.sidecar_backoff_s
+                log.error(
+                    "solver sidecar %s rejected the request (%s); solving in process"
+                    " and skipping the sidecar for %.0fs (fallback #%d)",
+                    self.solver_sidecar,
+                    code,
+                    self.sidecar_backoff_s,
+                    self.sidecar_fallbacks,
+                )
+            else:
+                log.warning(
+                    "solver sidecar %s unavailable (%s); solved in process"
+                    " (fallback #%d), will reattach",
+                    self.solver_sidecar,
+                    code,
+                    self.sidecar_fallbacks,
+                )
+            result = solve_waves(
+                problem,
+                chunk_size=self.chunk_size,
+                max_waves=self.max_waves,
+                with_alloc=with_alloc,
+                device=self.device,
+            )
+            return result, problem
+
+        g = problem.num_gangs
+        p_max = problem.max_groups
+        n_nodes = problem.num_nodes
+        node_index = {name: i for i, name in enumerate(problem.node_names)}
+        admitted = np.zeros((g,), dtype=bool)
+        score = np.zeros((g,), dtype=np.float32)
+        chosen_level = np.full((g,), -1, dtype=np.int32)
+        placed = np.zeros((g, p_max), dtype=np.int32)
+        alloc = np.zeros((g, p_max, n_nodes), dtype=np.int32)
+        level_index = {key: i for i, key in enumerate(problem.level_keys)}
+        for gi, placement in enumerate(response.placements[:g]):
+            admitted[gi] = placement.admitted
+            score[gi] = placement.placement_score
+            chosen_level[gi] = level_index.get(placement.chosen_level_key, -1)
+            group_index = {name: pi for pi, name in enumerate(problem.group_names[gi])}
+            for asg in placement.assignments:
+                pi = group_index.get(asg.group)
+                ni = node_index.get(asg.node)
+                if pi is None or ni is None:
+                    continue
+                alloc[gi, pi, ni] += asg.count
+                placed[gi, pi] += asg.count
+        result = PackingResult(
+            admitted=admitted,
+            placed=placed,
+            score=score,
+            chosen_level=chosen_level,
+            alloc=alloc,
+            free_after=problem.capacity,  # not read on this path
+            solve_seconds=response.solve_seconds,
+        )
         return result, problem
 
     # -- main loop -------------------------------------------------------

@@ -13,7 +13,7 @@ admitted gangs per queue and event counts by reason. ``chip_smoke.py``
 holds the port's rounds on the card against these numbers (its
 ``JAX_SCHEDULER_REFERENCE``). Run on the CPU, one world at a time or all:
 
-    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta]
+    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo]
 
 ``delta`` is the churn world: (q)'s round, then its churn ticks
 (``scheduler_world("delta")``, ``apply_tick`` with the JAX decoder), through
@@ -43,6 +43,16 @@ its canonical JSON (``doc_digest``) beside its verdict fields.
 ``chip_smoke.py`` holds the port's ``[observe]`` phase to them
 (``JAX_OBSERVE_REFERENCE``).
 
+``slo`` is the SLO world (``run_slo_world``): the churn world's (q) round
+and its first ``SLO_TICKS`` ticks through a JAX delta scheduler with the
+tracer, journeys, time series, SLO engine, forecaster and flight recorder
+on, the virtual clock moving ``SLO_STEP_S`` before each round and the
+series sampled and the objectives evaluated after it. It prints every
+round's ``round_summary`` with the sha256 of its series windows, then the
+windows, the SLO status, the forecast and the flight bundle's summary;
+``chip_smoke.py`` holds the port's ``[slo]`` phase to them
+(``JAX_SLO_REFERENCE``).
+
 A world can be cut for a quick look: ``--nodes N --gangs G`` (and
 ``--ticks T --seed S`` for ``delta``).
 """
@@ -54,7 +64,9 @@ import hashlib
 import json
 import os
 import sys
+import tempfile
 import time
+import types
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -62,11 +74,14 @@ import jax  # noqa: E402
 
 from grove_tpu.api.topology import ClusterTopology  # noqa: E402
 from grove_tpu.api.wire import decode_object  # noqa: E402
+from grove_tpu.observability import forecast, timeseries  # noqa: E402
 from grove_tpu.observability.events import EVENTS  # noqa: E402
 from grove_tpu.observability.explain import ExplainEngine  # noqa: E402
+from grove_tpu.observability.flightrec import FLIGHTREC, load_bundle  # noqa: E402
 from grove_tpu.observability.journey import JOURNEYS  # noqa: E402
 from grove_tpu.observability.metrics import METRICS  # noqa: E402
 from grove_tpu.observability.profile import PROFILER  # noqa: E402
+from grove_tpu.observability.slo import SLO, SloSpec  # noqa: E402
 from grove_tpu.observability.tracing import TRACER  # noqa: E402
 from grove_tpu.runtime.clock import VirtualClock  # noqa: E402
 from grove_tpu.runtime.store import Store  # noqa: E402
@@ -81,6 +96,7 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     frontier_counters,
     observe_summary,
     round_summary,
+    run_slo_world,
     scheduler_world,
 )
 
@@ -174,6 +190,24 @@ def run_observe(n_nodes=None, n_gangs=None) -> dict:
     return {"summary": summary, "explain": doc_digests(burst)}
 
 
+def run_slo(n_nodes=None, n_gangs=None, ticks=None, seed=0) -> dict:
+    pkg = types.SimpleNamespace(
+        Store=Store, VirtualClock=VirtualClock, SimCluster=SimCluster, make_nodes=make_nodes,
+        GangScheduler=GangScheduler, ClusterTopology=ClusterTopology,
+        decode_object=decode_object, EVENTS=EVENTS, METRICS=METRICS, TRACER=TRACER,
+        JOURNEYS=JOURNEYS, TIMESERIES=timeseries.TIMESERIES, SLO=SLO, SloSpec=SloSpec,
+        FORECASTER=forecast.FORECASTER, FLIGHTREC=FLIGHTREC,
+        install_serving_collector=timeseries.install_serving_collector, load_bundle=load_bundle)
+
+    def after(index, wall_s, observe_s, summary):
+        print(f"[slo] round {index + 1} ({wall_s:.3f} s, observatory {observe_s:.3f} s):"
+              f" {json.dumps(summary)}", file=sys.stderr, flush=True)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        return run_slo_world(pkg, n_nodes, n_gangs, ticks, seed, out_dir=out_dir,
+                             after_round=after)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("worlds", nargs="*", default=["s", "q", "r"])
@@ -186,6 +220,8 @@ def main() -> int:
     for name in args.worlds:
         if name == "observe":
             out[name] = run_observe(args.nodes, args.gangs)
+        elif name == "slo":
+            out[name] = run_slo(args.nodes, args.gangs, args.ticks, args.seed)
         elif name in ("delta", "frontier"):
             out[name] = run_delta(args.nodes, args.gangs, args.ticks, args.seed,
                                   frontier=name == "frontier")

@@ -848,3 +848,60 @@ def test_cuda_execute_span_covers_the_device_work(cuda):
     device_us = events[0][0].elapsed_time(events[0][1]) * 1e3
     assert device_us > 0.0
     assert spans[0].dur_us + 1 >= device_us, (spans[0].dur_us, device_us)
+
+
+def _sidecar_request(n_nodes=1024, n_gangs=2048):
+    from grove_tpu_torch.cluster.grpcsolver import build_request
+    from grove_tpu_torch.models.scenarios import stress_gang_specs
+
+    nodes = make_nodes(n_nodes, dict(STRESS_CAPACITY), 8, 8)
+    return build_request(nodes, stress_gang_specs(n_gangs, seed=4), ClusterTopology())
+
+
+def _plain(response):
+    """A response's bytes less solve_seconds."""
+    response.solve_seconds = 0.0
+    return response.SerializeToString()
+
+
+@pytest.mark.gpu
+def test_cuda_solve_request_equals_the_cpu_path(cuda):
+    """The sidecar's solve of a 1,024-node request on the card equals the
+    plain path on the CPU byte for byte (the same code; the fill kernel
+    equals its plain version bit for bit)."""
+    pytest.importorskip("google.protobuf", reason="the wire layer needs protobuf")
+    from grove_tpu_torch.cluster import grpcsolver
+    from grove_tpu_torch.solver.encode import StickyGroupPad
+
+    request = _sidecar_request()
+    answers = []
+    for device in ("cpu", "cuda"):
+        grpcsolver._PAD_GROUPS = StickyGroupPad()
+        fill_batch.launches = 0
+        answers.append(grpcsolver.solve_request(request, device=device))
+        assert (fill_batch.launches > 0) == (device == "cuda")
+    assert sum(p.admitted for p in answers[0].placements) > 0
+    assert _plain(answers[1]) == _plain(answers[0])
+
+
+@pytest.mark.gpu
+def test_cuda_sidecar_round_trip(cuda):
+    """One request through the port's SolverServer on the card and its
+    SolverClient: the same answer as the in-process solve."""
+    pytest.importorskip("grpc", reason="the sidecar needs grpcio")
+    pytest.importorskip("google.protobuf", reason="the wire layer needs protobuf")
+    from grove_tpu_torch.cluster import grpcsolver
+    from grove_tpu_torch.solver.encode import StickyGroupPad
+
+    request = _sidecar_request(n_gangs=512)
+    grpcsolver._PAD_GROUPS = StickyGroupPad()
+    server = grpcsolver.SolverServer(device="cuda").start()
+    try:
+        client = grpcsolver.SolverClient(server.address)
+        assert client.healthy(timeout=30.0)
+        got = client.solve(request, timeout=300.0)
+        client.close()
+    finally:
+        server.stop(grace=1.0)
+    grpcsolver._PAD_GROUPS = StickyGroupPad()
+    assert _plain(got) == _plain(grpcsolver.solve_request(request, device="cuda"))

@@ -159,7 +159,24 @@ Phases (any failure raises and the script exits non-zero):
      windows, the final windows, the SLO status, the forecast and the
      flight bundle less timing equal to JAX_SLO_REFERENCE. Prints the round
      and tick walls beside [delta]'s, the all-off check and the launches.
- 15. prints the kernels line, the card line, and last the ok line.
+ 15. [disruption] the disruption layer (disruption/{broker,drain}.py,
+     controller/{nodehealth,remediate}.py, autoscale/hpa.py, wired into the
+     scheduler's preemption, reclaim and encode) on (omega) at full width
+     (models/scenarios.run_disruption_world: (q)'s gangs with a
+     PodCliqueSet and a disruption budget each, a delta scheduler with a
+     broker and a node-health monitor, a drain controller and a
+     remediator, the clock 10 s a round): the admission round, a fill, a
+     preemption storm that opens the breaker, its close, two node crashes
+     (a rescue and a requeue with a held round), a drain that relocates
+     and one held by a budget, a fail-slow node the remediator drains.
+     Every round's record (round_summary, trial solves, would_allow calls
+     and refusals, broker, monitor, drains, ledger, events) and the
+     script's choices equal to JAX_DISRUPTION_REFERENCE, every scripted
+     event shown, the world valid at the end; the preemption, drain and
+     what-if trials must launch the fill kernel and the phase both DRF
+     kernels. Prints each round's walls and launches, the trials by kind
+     and the grants, denials, breaker flips, rescues, requeues and drains.
+ 16. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -3388,6 +3405,1213 @@ def phase_slo(delta, card, device="cuda", n_nodes=None, n_gangs=None, ticks=None
     return out
 
 
+# JAX_DISRUPTION_REFERENCE: the disruption world (omega,
+# models/scenarios.run_disruption_world: (q)'s gangs with a PodCliqueSet and a
+# disruption budget each, a broker, a node-health monitor, a drain controller
+# and a remediator, the storm, crash, drains and fail-slow node of its
+# script, the clock 10 s a round), from `JAX_PLATFORMS=cpu python
+# scripts/scheduler_reference.py disruption` (JAX 0.9.0 on the CPU): every
+# round's record and the nodes the script chose.
+JAX_DISRUPTION_REFERENCE = {'rounds': [{'admitted': 10232,
+             'bound': 34826,
+             'score_sum': 10086.266505539417,
+             'bindings': 34826,
+             'bindings_sha256': '2dc721d8f178aabc5a3a72dd1879931fc47539ff97e13b5f3fac88eccebe617c',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'default': 1,
+                                    'tenant-0': 1271,
+                                    'tenant-1': 1280,
+                                    'tenant-2': 1280,
+                                    'tenant-3': 1280,
+                                    'tenant-4': 1280,
+                                    'tenant-5': 1280,
+                                    'tenant-6': 1280,
+                                    'tenant-7': 1280},
+             'events_by_reason': {'GangAdmitted': 10232, 'GangDeferred': 9, 'PodBound': 34826},
+             'round': 1,
+             'script': ['cordon node-5119; create the world'],
+             'trials': 9,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 2.0, 'breaker_open': False, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [],
+                         'states': {'Ready': 5120},
+                         'nodes_sha256': 'd9d9dca2b24aee1c1d7bf74d8713da608d86286032c5b939a8c0b05b53ed4f0b'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [['PodGang',
+                         'tenant-0',
+                         'g6224-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (node-fragmentation: aggregate capacity covers '
+                         'the floor, but no feasible packing exists on current per-node free '
+                         'capacity)'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g7928-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (node-fragmentation: aggregate capacity covers '
+                         'the floor, but no feasible packing exists on current per-node free '
+                         'capacity)'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g8712-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (node-fragmentation: aggregate capacity covers '
+                         'the floor, but no feasible packing exists on current per-node free '
+                         'capacity)'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g8944-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (node-fragmentation: aggregate capacity covers '
+                         'the floor, but no feasible packing exists on current per-node free '
+                         'capacity)'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g8992-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (node-fragmentation: aggregate capacity covers '
+                         'the floor, but no feasible packing exists on current per-node free '
+                         'capacity)'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g9016-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (node-fragmentation: aggregate capacity covers '
+                         'the floor, but no feasible packing exists on current per-node free '
+                         'capacity)'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g904-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (node-fragmentation: aggregate capacity covers '
+                         'the floor, but no feasible packing exists on current per-node free '
+                         'capacity)'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g9736-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (node-fragmentation: aggregate capacity covers '
+                         'the floor, but no feasible packing exists on current per-node free '
+                         'capacity)'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g9744-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (node-fragmentation: aggregate capacity covers '
+                         'the floor, but no feasible packing exists on current per-node free '
+                         'capacity)']],
+             'events_sha256': '1214bd2d82efaf09a3821dddc7d104b59bcece04c0383aeafdd192ca840cde27'},
+            {'admitted': 2206,
+             'bound': 2206,
+             'score_sum': 2206.0,
+             'bindings': 37032,
+             'bindings_sha256': '6dc92308d1e2065110e5869f721610219b4e8aa52c0749556c01b38b3906df38',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'default': 2206},
+             'events_by_reason': {'GangAdmitted': 2206, 'PodBound': 2206},
+             'round': 2,
+             'script': ['delete 9 pending gangs; create 2206 fillers'],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 2.0, 'breaker_open': False, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [],
+                         'states': {'Ready': 5120},
+                         'nodes_sha256': 'c0d7a229d6f0da30140279c465b6e1ed77e6921a7d3f95b76afe629994306f2a'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [],
+             'events_sha256': 'df860bb91f690891ec8d190a04ceb2fa7c7b309b19a2dc18f8832d2395d70559'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 37032,
+             'bindings_sha256': '6dc92308d1e2065110e5869f721610219b4e8aa52c0749556c01b38b3906df38',
+             'evicted': 2,
+             'evicted_sha256': 'd3fb34dfca204d433b10d3bb064d5f929703f271dbaa363e51486aced9b84544',
+             'admitted_per_queue': {},
+             'events_by_reason': {'BreakerOpen': 1,
+                                  'DisruptionThrottled': 1,
+                                  'GangDeferred': 4,
+                                  'Preempted': 2},
+             'round': 3,
+             'script': ['create 4 critical gangs in tenant-1'],
+             'trials': 14,
+             'would_allow': 61459,
+             'refused': 39484,
+             'broker': {'tokens': 0.0, 'breaker_open': True, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [],
+                         'states': {'Ready': 5120},
+                         'nodes_sha256': 'c0d7a229d6f0da30140279c465b6e1ed77e6921a7d3f95b76afe629994306f2a'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [['PodGang',
+                         'filler',
+                         'fill0-0',
+                         'Warning',
+                         'Preempted',
+                         'preempted by higher-priority gang tenant-1/storm0-0'],
+                        ['PodGang',
+                         'filler',
+                         'fill1-0',
+                         'Warning',
+                         'Preempted',
+                         'preempted by higher-priority gang tenant-1/storm1-0'],
+                        ['DisruptionBroker',
+                         '',
+                         'cluster',
+                         'Warning',
+                         'BreakerOpen',
+                         'disruption-storm circuit breaker opened: voluntary-eviction budget '
+                         'exhausted (preemption asked for 1 eviction(s), 0.0 token(s) left); all '
+                         'voluntary disruptions denied until 30s of quiet'],
+                        ['PodGang',
+                         'filler',
+                         'fill10-0',
+                         'Warning',
+                         'DisruptionThrottled',
+                         'preemption denied: eviction storm (breaker opened)'],
+                        ['PodGang',
+                         'tenant-1',
+                         'storm0-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (insufficient-capacity: cluster free tpu cannot '
+                         'cover the gang floor (1 tpu needed))'],
+                        ['PodGang',
+                         'tenant-1',
+                         'storm1-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (insufficient-capacity: cluster free tpu cannot '
+                         'cover the gang floor (1 tpu needed))'],
+                        ['PodGang',
+                         'tenant-1',
+                         'storm2-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (insufficient-capacity: cluster free tpu cannot '
+                         'cover the gang floor (1 tpu needed))'],
+                        ['PodGang',
+                         'tenant-1',
+                         'storm3-0',
+                         'Warning',
+                         'GangDeferred',
+                         'not admitted this round (insufficient-capacity: cluster free tpu cannot '
+                         'cover the gang floor (1 tpu needed))']],
+             'events_sha256': 'fed21ae8258f74b398cb136c77b390ce00c9eb4f26c4b6869188a55b933c99b3'},
+            {'admitted': 4,
+             'bound': 4,
+             'score_sum': 4.0,
+             'bindings': 34830,
+             'bindings_sha256': 'dbdad84a91f0c0b3f352d07154e2826417952f989daa53ac356539c29ff1654b',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-1': 4},
+             'events_by_reason': {'GangAdmitted': 4, 'PodBound': 4},
+             'round': 4,
+             'script': ['delete 2206 fillers'],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 0.0, 'breaker_open': True, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [],
+                         'states': {'Ready': 5120},
+                         'nodes_sha256': '2519551778e6c6696a47af703c9cce9088776e091c5639aa02cb453d6d968d51'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [],
+             'events_sha256': 'b31b041b1c6324168b64aac9bf129f2bafb5a674f23644eb2de6e27cde55c2d8'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': 'dbdad84a91f0c0b3f352d07154e2826417952f989daa53ac356539c29ff1654b',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {},
+             'round': 5,
+             'script': [],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 0.0, 'breaker_open': True, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [],
+                         'states': {'Ready': 5120},
+                         'nodes_sha256': '2519551778e6c6696a47af703c9cce9088776e091c5639aa02cb453d6d968d51'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [],
+             'events_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': 'dbdad84a91f0c0b3f352d07154e2826417952f989daa53ac356539c29ff1654b',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'BreakerClosed': 1},
+             'round': 6,
+             'script': [],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 2.0, 'breaker_open': False, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [],
+                         'states': {'Ready': 5120},
+                         'nodes_sha256': '2519551778e6c6696a47af703c9cce9088776e091c5639aa02cb453d6d968d51'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [['DisruptionBroker',
+                         '',
+                         'cluster',
+                         'Normal',
+                         'BreakerClosed',
+                         'quiet window (30s) elapsed; breaker closed']],
+             'events_sha256': 'd56649254181fa58f6d5558320ff0df1c86062b2081ea7b591ace212522790cc'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': 'dbdad84a91f0c0b3f352d07154e2826417952f989daa53ac356539c29ff1654b',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'NodeNotReady': 2},
+             'round': 7,
+             'script': ['crash node-0 and node-2736'],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 2.0, 'breaker_open': False, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [],
+                         'states': {'NotReady': 2, 'Ready': 5118},
+                         'nodes_sha256': 'c2bf5bf81c1dfa75e23b2a263f384ca88a3fdf02a05b69984bddd09d078df738'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [['Node',
+                         '',
+                         'node-0',
+                         'Warning',
+                         'NodeNotReady',
+                         'no heartbeat for 10.0s (grace 30s)'],
+                        ['Node',
+                         '',
+                         'node-2736',
+                         'Warning',
+                         'NodeNotReady',
+                         'no heartbeat for 10.0s (grace 30s)']],
+             'events_sha256': 'e1ea2dee1b8323ca0dbfea6cf883dcb6a91b173c7ab499ed235d23b33e4f9808'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': 'dbdad84a91f0c0b3f352d07154e2826417952f989daa53ac356539c29ff1654b',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {},
+             'round': 8,
+             'script': [],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 2.0, 'breaker_open': False, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [],
+                         'states': {'NotReady': 2, 'Ready': 5118},
+                         'nodes_sha256': '0d09a2a0f54aa664761230edfdcf93ec51689167ec93075f7e771a6cf8a9ef22'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [],
+             'events_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855'},
+            {'admitted': 1,
+             'bound': 1,
+             'score_sum': 0.833333432674408,
+             'bindings': 34819,
+             'bindings_sha256': 'd7a6f0d032f418b80a84c548e61098148a4341cf983431c822f11f833049287e',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'default': 1},
+             'events_by_reason': {'GangAdmitted': 1,
+                                  'GangRequeued': 2,
+                                  'NodeLost': 4,
+                                  'PodBound': 1},
+             'round': 9,
+             'script': ['uncordon node-5119'],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 2.0, 'breaker_open': False, 'last_grant': []},
+             'monitor': {'held': ['tenant-0/g6504-0', 'tenant-3/g10003-0'],
+                         'probation': [],
+                         'rescue_pending': ['default/serve0-0'],
+                         'rescues': [],
+                         'states': {'Lost': 2, 'Ready': 5118},
+                         'nodes_sha256': '1329ab852d83c09d1176207bd0777bd3851598f192bb87103520154a6b4a4595'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [['Node',
+                         '',
+                         'node-0',
+                         'Warning',
+                         'NodeLost',
+                         'heartbeat grace period (30s) exceeded; failing its pods'],
+                        ['Node',
+                         '',
+                         'node-2736',
+                         'Warning',
+                         'NodeLost',
+                         'heartbeat grace period (30s) exceeded; failing its pods'],
+                        ['Node',
+                         '',
+                         'node-0',
+                         'Warning',
+                         'NodeLost',
+                         'failed 1 pod(s) bound to lost node node-0'],
+                        ['Node',
+                         '',
+                         'node-2736',
+                         'Warning',
+                         'NodeLost',
+                         'failed 7 pod(s) bound to lost node node-2736'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g6504-0',
+                         'Warning',
+                         'GangRequeued',
+                         'node node-2736 lost; survivors below MinReplicas (g6504-0-g6504-0=0/3, '
+                         'g6504-0-g6504-1=0/1); gang terminated and requeued'],
+                        ['PodGang',
+                         'tenant-3',
+                         'g10003-0',
+                         'Warning',
+                         'GangRequeued',
+                         'node node-2736 lost; survivors below MinReplicas '
+                         '(g10003-0-g10003-0=0/3); gang terminated and requeued']],
+             'events_sha256': '5f0a47102e2dbbdca04f8b4b9f38efde95d97c9279251ac3fb7cb5d60f2ab3e3'},
+            {'admitted': 2,
+             'bound': 11,
+             'score_sum': 1.7916667461395264,
+             'bindings': 34830,
+             'bindings_sha256': '3672e6b1acf9f2a4f85508501c1554c674125d7316e55e1b324a4bb472b19110',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-0': 1, 'tenant-3': 1},
+             'events_by_reason': {'GangAdmitted': 2,
+                                  'GangBackoffReleased': 2,
+                                  'GangRescued': 1,
+                                  'PodBound': 11},
+             'round': 10,
+             'script': [],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 2.0, 'breaker_open': False, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': ['tenant-0/g6504-0', 'tenant-3/g10003-0'],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Lost': 2, 'Ready': 5118},
+                         'nodes_sha256': '318c414fcad54c5e9a5ad56ad62c3ab1ab0d87c8908743cbe2fb5137113e1ed5'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [['PodGang',
+                         'tenant-0',
+                         'g6504-0',
+                         'Normal',
+                         'GangBackoffReleased',
+                         'backoff expired after 1 attempt(s); re-entering the all-or-nothing '
+                         'solve'],
+                        ['PodGang',
+                         'tenant-3',
+                         'g10003-0',
+                         'Normal',
+                         'GangBackoffReleased',
+                         'backoff expired after 1 attempt(s); re-entering the all-or-nothing '
+                         'solve'],
+                        ['PodGang',
+                         'default',
+                         'serve0-0',
+                         'Normal',
+                         'GangRescued',
+                         'gang whole again after losing node-0']],
+             'events_sha256': 'df47b8066da7840254389644f3a0a9ee976e203e452d4c0a2f04ef60bd0462ed'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': '3672e6b1acf9f2a4f85508501c1554c674125d7316e55e1b324a4bb472b19110',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {},
+             'round': 11,
+             'script': [],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 2.0, 'breaker_open': False, 'last_grant': []},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Lost': 2, 'Ready': 5118},
+                         'nodes_sha256': '29111171a9e3981f0d79781f753eb72e362416ecf7e4d5a66f5fab52d371ed76'},
+             'drain': {},
+             'drained_gangs': [],
+             'ledger': [],
+             'events': [],
+             'events_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855'},
+            {'admitted': 1,
+             'bound': 4,
+             'score_sum': 1.0,
+             'bindings': 34830,
+             'bindings_sha256': '945fc2d856355a681bd53678eda598a241f27ad916803be23b0d79725f3cd788',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-7': 1},
+             'events_by_reason': {'DisruptionThrottled': 1,
+                                  'GangAdmitted': 1,
+                                  'GangDrained': 1,
+                                  'NodeDraining': 2,
+                                  'PodBound': 4},
+             'round': 12,
+             'script': ['drain node-253 and node-2'],
+             'trials': 1,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 1.0,
+                        'breaker_open': False,
+                        'last_grant': [['tenant-7/g8567', 120.0]]},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Lost': 2, 'Ready': 5118},
+                         'nodes_sha256': '22231c0a04fa9a2f7795996529779ad33993780a1b3300af3031854e7fc420e0'},
+             'drain': {'node-2': 'Draining', 'node-253': 'Draining'},
+             'drained_gangs': [{'namespace': 'tenant-7',
+                                'gang': 'g8567-0',
+                                'node': 'node-253',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-127', 'node-127', 'node-127', 'node-127'],
+                                'at': 120.0}],
+             'ledger': [],
+             'events': [['Node',
+                         '',
+                         'node-253',
+                         'Normal',
+                         'NodeDraining',
+                         'drain requested: node cordoned; evicting its gangs whole, '
+                         'budget-checked'],
+                        ['Node',
+                         '',
+                         'node-2',
+                         'Normal',
+                         'NodeDraining',
+                         'drain requested: node cordoned; evicting its gangs whole, '
+                         'budget-checked'],
+                        ['PodGang',
+                         'tenant-0',
+                         'g1080-0',
+                         'Warning',
+                         'DisruptionThrottled',
+                         'drain denied: disruptionBudget of tenant-0/g1080 '
+                         '(maxUnavailableGangs=0) would be exceeded'],
+                        ['PodGang',
+                         'tenant-7',
+                         'g8567-0',
+                         'Warning',
+                         'GangDrained',
+                         'node node-253 draining; gang evicted whole (placement on remaining '
+                         'nodes verified before eviction)']],
+             'events_sha256': '66939200a1663d6dac501db6602dba56f4215ebd2242a30f63421b0e81280914'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': '945fc2d856355a681bd53678eda598a241f27ad916803be23b0d79725f3cd788',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'DisruptionThrottled': 1, 'NodeDrained': 1},
+             'round': 13,
+             'script': [],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 1.0,
+                        'breaker_open': False,
+                        'last_grant': [['tenant-7/g8567', 120.0]]},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Lost': 2, 'Ready': 5118},
+                         'nodes_sha256': 'b669fd5f30798109f65694a9de8f3844f0cf4e7030ed3343fe55b36ac26a2f80'},
+             'drain': {'node-2': 'Draining', 'node-253': 'Drained'},
+             'drained_gangs': [{'namespace': 'tenant-7',
+                                'gang': 'g8567-0',
+                                'node': 'node-253',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-127', 'node-127', 'node-127', 'node-127'],
+                                'at': 120.0}],
+             'ledger': [],
+             'events': [['PodGang',
+                         'tenant-0',
+                         'g1080-0',
+                         'Warning',
+                         'DisruptionThrottled',
+                         'drain denied: disruptionBudget of tenant-0/g1080 '
+                         '(maxUnavailableGangs=0) would be exceeded'],
+                        ['Node',
+                         '',
+                         'node-253',
+                         'Normal',
+                         'NodeDrained',
+                         'no bound pods remain; node drained (still cordoned until uncordon)']],
+             'events_sha256': '1d2e89a53ffecf5d839a8ae1ca7a297286c9470cda087148744013bf9dae6884'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': '945fc2d856355a681bd53678eda598a241f27ad916803be23b0d79725f3cd788',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'NodeUncordoned': 1},
+             'round': 14,
+             'script': ['uncordon node-2; enable the remediator; fail-slow node-318'],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 1.0,
+                        'breaker_open': False,
+                        'last_grant': [['tenant-7/g8567', 120.0]]},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Lost': 2, 'Ready': 5118},
+                         'nodes_sha256': '490916fe6c37c234567dded750b2effb0d9edcdcc5b463560095a9548c020ff4'},
+             'drain': {'node-253': 'Drained'},
+             'drained_gangs': [{'namespace': 'tenant-7',
+                                'gang': 'g8567-0',
+                                'node': 'node-253',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-127', 'node-127', 'node-127', 'node-127'],
+                                'at': 120.0}],
+             'ledger': [],
+             'events': [['Node',
+                         '',
+                         'node-2',
+                         'Normal',
+                         'NodeUncordoned',
+                         'node uncordoned; schedulable again']],
+             'events_sha256': 'eb50e03a8d2b377e702456b3d68302b1149edc055567fb20274d6b755570defa'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': '945fc2d856355a681bd53678eda598a241f27ad916803be23b0d79725f3cd788',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {},
+             'round': 15,
+             'script': [],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 1.0,
+                        'breaker_open': False,
+                        'last_grant': [['tenant-7/g8567', 120.0]]},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Lost': 2, 'Ready': 5118},
+                         'nodes_sha256': 'fd8b509f56ba4eaf19e38d49c522065c3032f694928c29b2b7379b29e03d4cf9'},
+             'drain': {'node-253': 'Drained'},
+             'drained_gangs': [{'namespace': 'tenant-7',
+                                'gang': 'g8567-0',
+                                'node': 'node-253',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-127', 'node-127', 'node-127', 'node-127'],
+                                'at': 120.0}],
+             'ledger': [],
+             'events': [],
+             'events_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': '945fc2d856355a681bd53678eda598a241f27ad916803be23b0d79725f3cd788',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'NodeDegraded': 1, 'NodeDraining': 1, 'RemediationExecuted': 1},
+             'round': 16,
+             'script': [],
+             'trials': 0,
+             'would_allow': 1,
+             'refused': 0,
+             'broker': {'tokens': 1.0,
+                        'breaker_open': False,
+                        'last_grant': [['tenant-7/g8567', 120.0]]},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Degraded': 1, 'Lost': 2, 'Ready': 5117},
+                         'nodes_sha256': '26879529c2ffde9a286106567a7bcae7690368ea36ae0219453ffc6f7cd5424d'},
+             'drain': {'node-253': 'Drained', 'node-318': 'Draining'},
+             'drained_gangs': [{'namespace': 'tenant-7',
+                                'gang': 'g8567-0',
+                                'node': 'node-253',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-127', 'node-127', 'node-127', 'node-127'],
+                                'at': 120.0}],
+             'ledger': [{'id': 1,
+                         'vt': 160.0,
+                         'trigger': {'kind': 'fail-slow',
+                                     'detail': 'node node-318 Degraded (fail-slow suspicion over '
+                                               'threshold)'},
+                         'diagnosis': {'node': 'node-318', 'victims': ['tenant-1/g7777-0']},
+                         'simulation': {'flipped': True,
+                                        'victims': [{'gang': 'tenant-1/g7777-0',
+                                                     'fits_after': True,
+                                                     'after': None}]},
+                         'action': {'kind': 'drain-node',
+                                    'target': 'node-318',
+                                    'mechanism': 'drain',
+                                    'victims': ['tenant-1/g7777-0']},
+                         'outcome': 'executed',
+                         'reason': '',
+                         'effect': None}],
+             'events': [['Node',
+                         '',
+                         'node-318',
+                         'Warning',
+                         'NodeDegraded',
+                         'fail-slow suspicion 1.76s exceeds 1.5s (EWMA of heartbeat lateness); '
+                         'masking from new placements, running pods stay bound'],
+                        ['Node',
+                         '',
+                         'node-318',
+                         'Normal',
+                         'NodeDraining',
+                         'drain requested: node cordoned; evicting its gangs whole, '
+                         'budget-checked'],
+                        ['Remediation',
+                         '',
+                         'node-318',
+                         'Normal',
+                         'RemediationExecuted',
+                         'fail-slow -> drain-node on node-318']],
+             'events_sha256': '98ff5e1065d052e362639a4eb5727c74725bcac38aec60f4f81aeec2be9aeb43'},
+            {'admitted': 1,
+             'bound': 4,
+             'score_sum': 1.0,
+             'bindings': 34830,
+             'bindings_sha256': '2e304607b580d664e398187aeb7dd6acb27e9414d6b6557dc4d8d89fff4361a8',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {'tenant-1': 1},
+             'events_by_reason': {'GangAdmitted': 1, 'GangDrained': 1, 'PodBound': 4},
+             'round': 17,
+             'script': [],
+             'trials': 1,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 0.0,
+                        'breaker_open': False,
+                        'last_grant': [['tenant-1/g7777', 170.0], ['tenant-7/g8567', 120.0]]},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Degraded': 1, 'Lost': 2, 'Ready': 5117},
+                         'nodes_sha256': '8ee7c8cbce999d58e6c40e87b66a9134284396b20bd5aac7ede54c6745b797a8'},
+             'drain': {'node-253': 'Drained', 'node-318': 'Draining'},
+             'drained_gangs': [{'namespace': 'tenant-7',
+                                'gang': 'g8567-0',
+                                'node': 'node-253',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-127', 'node-127', 'node-127', 'node-127'],
+                                'at': 120.0},
+                               {'namespace': 'tenant-1',
+                                'gang': 'g7777-0',
+                                'node': 'node-318',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-69', 'node-69', 'node-69', 'node-69'],
+                                'at': 170.0}],
+             'ledger': [{'id': 1,
+                         'vt': 160.0,
+                         'trigger': {'kind': 'fail-slow',
+                                     'detail': 'node node-318 Degraded (fail-slow suspicion over '
+                                               'threshold)'},
+                         'diagnosis': {'node': 'node-318', 'victims': ['tenant-1/g7777-0']},
+                         'simulation': {'flipped': True,
+                                        'victims': [{'gang': 'tenant-1/g7777-0',
+                                                     'fits_after': True,
+                                                     'after': None}]},
+                         'action': {'kind': 'drain-node',
+                                    'target': 'node-318',
+                                    'mechanism': 'drain',
+                                    'victims': ['tenant-1/g7777-0']},
+                         'outcome': 'executed',
+                         'reason': '',
+                         'effect': None}],
+             'events': [['PodGang',
+                         'tenant-1',
+                         'g7777-0',
+                         'Warning',
+                         'GangDrained',
+                         'node node-318 draining; gang evicted whole (placement on remaining '
+                         'nodes verified before eviction)']],
+             'events_sha256': '2fc5503bbd94a4ee452358c7cb02c78c9d6b20ffcf9d3651516527ac1f4e5521'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': '2e304607b580d664e398187aeb7dd6acb27e9414d6b6557dc4d8d89fff4361a8',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {'NodeDrained': 1},
+             'round': 18,
+             'script': [],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 0.0,
+                        'breaker_open': False,
+                        'last_grant': [['tenant-1/g7777', 170.0], ['tenant-7/g8567', 120.0]]},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Degraded': 1, 'Lost': 2, 'Ready': 5117},
+                         'nodes_sha256': '941f0d493adf35f788150ffcec6fbb9bb6f7db36cdbf7ca59a2151292cb3361d'},
+             'drain': {'node-253': 'Drained', 'node-318': 'Drained'},
+             'drained_gangs': [{'namespace': 'tenant-7',
+                                'gang': 'g8567-0',
+                                'node': 'node-253',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-127', 'node-127', 'node-127', 'node-127'],
+                                'at': 120.0},
+                               {'namespace': 'tenant-1',
+                                'gang': 'g7777-0',
+                                'node': 'node-318',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-69', 'node-69', 'node-69', 'node-69'],
+                                'at': 170.0}],
+             'ledger': [{'id': 1,
+                         'vt': 160.0,
+                         'trigger': {'kind': 'fail-slow',
+                                     'detail': 'node node-318 Degraded (fail-slow suspicion over '
+                                               'threshold)'},
+                         'diagnosis': {'node': 'node-318', 'victims': ['tenant-1/g7777-0']},
+                         'simulation': {'flipped': True,
+                                        'victims': [{'gang': 'tenant-1/g7777-0',
+                                                     'fits_after': True,
+                                                     'after': None}]},
+                         'action': {'kind': 'drain-node',
+                                    'target': 'node-318',
+                                    'mechanism': 'drain',
+                                    'victims': ['tenant-1/g7777-0']},
+                         'outcome': 'executed',
+                         'reason': '',
+                         'effect': None}],
+             'events': [['Node',
+                         '',
+                         'node-318',
+                         'Normal',
+                         'NodeDrained',
+                         'no bound pods remain; node drained (still cordoned until uncordon)']],
+             'events_sha256': 'f05e6f718811e8f488f97295eb524ae5f05164656846d103555b0f31d6052cb7'},
+            {'admitted': 0,
+             'bound': 0,
+             'score_sum': 0.0,
+             'bindings': 34830,
+             'bindings_sha256': '2e304607b580d664e398187aeb7dd6acb27e9414d6b6557dc4d8d89fff4361a8',
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'admitted_per_queue': {},
+             'events_by_reason': {},
+             'round': 19,
+             'script': ['done'],
+             'trials': 0,
+             'would_allow': 0,
+             'refused': 0,
+             'broker': {'tokens': 0.0,
+                        'breaker_open': False,
+                        'last_grant': [['tenant-1/g7777', 170.0], ['tenant-7/g8567', 120.0]]},
+             'monitor': {'held': [],
+                         'probation': [],
+                         'rescue_pending': [],
+                         'rescues': [{'namespace': 'default',
+                                      'gang': 'serve0-0',
+                                      'lost_node': 'node-0',
+                                      'survivors': {'serve0-0-serve0-0': 1},
+                                      'domain_key': None,
+                                      'domain': None,
+                                      'since': 90.0,
+                                      'completed_at': 100.0,
+                                      'placement_nodes': ['node-5119', 'node-1']}],
+                         'states': {'Degraded': 1, 'Lost': 2, 'Ready': 5117},
+                         'nodes_sha256': 'e2d30a86e8488b31f5c18d11379f5684b9b6396056664a4fefe2743157b0ee6b'},
+             'drain': {'node-253': 'Drained', 'node-318': 'Drained'},
+             'drained_gangs': [{'namespace': 'tenant-7',
+                                'gang': 'g8567-0',
+                                'node': 'node-253',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-127', 'node-127', 'node-127', 'node-127'],
+                                'at': 120.0},
+                               {'namespace': 'tenant-1',
+                                'gang': 'g7777-0',
+                                'node': 'node-318',
+                                'pre_placed': True,
+                                'planned_nodes': ['node-69', 'node-69', 'node-69', 'node-69'],
+                                'at': 170.0}],
+             'ledger': [{'id': 1,
+                         'vt': 160.0,
+                         'trigger': {'kind': 'fail-slow',
+                                     'detail': 'node node-318 Degraded (fail-slow suspicion over '
+                                               'threshold)'},
+                         'diagnosis': {'node': 'node-318', 'victims': ['tenant-1/g7777-0']},
+                         'simulation': {'flipped': True,
+                                        'victims': [{'gang': 'tenant-1/g7777-0',
+                                                     'fits_after': True,
+                                                     'after': None}]},
+                         'action': {'kind': 'drain-node',
+                                    'target': 'node-318',
+                                    'mechanism': 'drain',
+                                    'victims': ['tenant-1/g7777-0']},
+                         'outcome': 'executed',
+                         'reason': '',
+                         'effect': None}],
+             'events': [],
+             'events_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855'}],
+ 'names': {'reserved': 'node-5119',
+           'deleted_pending': ['tenant-0/g6224-0',
+                               'tenant-0/g7928-0',
+                               'tenant-0/g8712-0',
+                               'tenant-0/g8944-0',
+                               'tenant-0/g8992-0',
+                               'tenant-0/g9016-0',
+                               'tenant-0/g904-0',
+                               'tenant-0/g9736-0',
+                               'tenant-0/g9744-0'],
+           'fillers': 2206,
+           'rescue': 'node-0',
+           'requeue': 'node-2736',
+           'requeued': ['tenant-0/g6504-0', 'tenant-3/g10003-0'],
+           'drain': 'node-253',
+           'held': 'node-2',
+           'failslow': 'node-318'}}
+
+
+def _trial_probe():
+    """Class-level wrappers that attribute the scheduler's trial solves, the
+    drain's trial pre-placement and the remediator's what-ifs: calls, trial
+    solves, wall and fill launches per kind. Returns (stats, undo)."""
+    from grove_tpu_torch.disruption.drain import NodeDrainController
+    from grove_tpu_torch.observability.explain import ExplainEngine
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    kinds = (("preemption", GangScheduler, "_maybe_preempt"),
+             ("reclaim", GangScheduler, "_maybe_reclaim"),
+             ("drain", NodeDrainController, "_trial_preplacement"),
+             ("whatif", ExplainEngine, "whatif"))
+    stats = {k: {"calls": 0, "trials": 0, "wall_s": 0.0, "fill_launches": 0} for k, _, _ in kinds}
+    current = []
+    saved = []
+
+    def wrap(kind, fn):
+        def wrapper(*args, **kwargs):
+            current.append(kind)
+            launches, t0 = fill_batch.launches, time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                current.pop()
+                row = stats[kind]
+                row["calls"] += 1
+                row["wall_s"] += time.perf_counter() - t0
+                row["fill_launches"] += fill_batch.launches - launches
+        return wrapper
+
+    for kind, cls, name in kinds:
+        saved.append((cls, name, cls.__dict__[name]))
+        setattr(cls, name, wrap(kind, cls.__dict__[name]))
+    solve = GangScheduler.__dict__["_solve_batch"]
+
+    def counted(self, *args, **kwargs):
+        if current and "problem" not in kwargs:
+            stats[current[-1]]["trials"] += 1
+        return solve(self, *args, **kwargs)
+
+    saved.append((GangScheduler, "_solve_batch", solve))
+    GangScheduler._solve_batch = counted
+
+    def undo():
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+    return stats, undo
+
+
+def phase_disruption(card, device="cuda", n_nodes=None, n_gangs=None,
+                     reference=None) -> dict:
+    """[disruption]: the disruption world (models/scenarios.run_disruption_world)
+    at full width on the card, every round and the script's choices held to
+    JAX_DISRUPTION_REFERENCE, the world checked valid at the end. ``device``,
+    a cut and its ``reference`` (the "disruption" object of
+    `scripts/scheduler_reference.py disruption --nodes N --gangs G`) rehearse
+    the phase on the CPU."""
+    import types
+
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.autoscale.hpa import HorizontalAutoscaler, StaticMetricsProvider
+    from grove_tpu_torch.controller.nodehealth import NodeHealthMonitor
+    from grove_tpu_torch.controller.remediate import RemediationController
+    from grove_tpu_torch.disruption import DisruptionBroker, NodeDrainController
+    from grove_tpu_torch.models.scenarios import (
+        DISRUPTION_STEP_S, disruption_missing, run_disruption_world)
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.observability.explain import ExplainEngine
+    from grove_tpu_torch.observability.ledger import LEDGER
+    from grove_tpu_torch.observability.metrics import METRICS
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    ref = JAX_DISRUPTION_REFERENCE if reference is None else reference
+    pkg = types.SimpleNamespace(
+        Store=Store, VirtualClock=VirtualClock, SimCluster=SimCluster, make_nodes=make_nodes,
+        GangScheduler=GangScheduler, ClusterTopology=ClusterTopology,
+        decode_object=decode_object, EVENTS=EVENTS, METRICS=METRICS, LEDGER=LEDGER,
+        DisruptionBroker=DisruptionBroker, NodeDrainController=NodeDrainController,
+        NodeHealthMonitor=NodeHealthMonitor, RemediationController=RemediationController,
+        HorizontalAutoscaler=HorizontalAutoscaler, StaticMetricsProvider=StaticMetricsProvider,
+        ExplainEngine=ExplainEngine)
+    rows = []
+    launches = {"fill": 0, "drf_shares": 0, "drf_merge": 0}
+
+    def before(index):
+        fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+
+    def after(index, walls, record):
+        counts = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                  "drf_merge": merge_cuda.launches}
+        for k, v in counts.items():
+            launches[k] += v
+        tag = f"disruption round {index + 1}"
+        if index >= len(ref["rounds"]):
+            _fail(f"{tag}: the JAX run ended after {len(ref['rounds'])} rounds")
+        want = dict(ref["rounds"][index])
+        got = dict(record)
+        if not np.isclose(got.pop("score_sum"), want.pop("score_sum"), rtol=1e-6, atol=0):
+            _fail(f"{tag}: score sum {record['score_sum']} != the JAX package's")
+        for key, value in want.items():
+            if got[key] != value:
+                _fail(f"{tag}: {key} {got[key]} != the JAX package's {value}")
+        rows.append({**walls, **{f"{k}_launches": v for k, v in counts.items()},
+                     **{k: got[k] for k in ("admitted", "bound", "evicted", "trials")}})
+        print(f"[disruption] round {index + 1} (vt {DISRUPTION_STEP_S * (index + 1):.0f} s)"
+              f" {record['script']}: wall {walls['round_s']:.3f} s (schedule"
+              f" {walls['schedule_s']:.3f}, monitor {walls['monitor_s']:.3f}, drain"
+              f" {walls['drain_s']:.3f}, remediator {walls['remediate_s']:.3f}); trials"
+              f" {got['trials']}, would_allow {got['would_allow']} ({got['refused']} refused);"
+              f" events {got['events_by_reason']}; launches fill {counts['fill']}, DRF"
+              f" {counts['drf_shares']} + {counts['drf_merge']}; equal to the JAX package's",
+              flush=True)
+
+    def valid(store, cluster):
+        check_world_valid("disruption (final)", store, cluster)
+
+    stats, undo = _trial_probe()
+    try:
+        got = run_disruption_world(pkg, n_nodes, n_gangs, before_round=before, after_round=after,
+                                   scheduler_kwargs={"device": device}, inspect=valid)
+    finally:
+        undo()
+    if len(got["rounds"]) != len(ref["rounds"]):
+        _fail(f"disruption: {len(got['rounds'])} rounds, the JAX run {len(ref['rounds'])}")
+    if got["names"] != ref["names"]:
+        _fail(f"disruption: the script chose {got['names']}, the JAX run {ref['names']}")
+    missing = disruption_missing(got)
+    if missing:
+        _fail(f"disruption: the run did not show {missing}")
+    if device != "cpu":
+        if not all(launches.values()):
+            _fail(f"disruption: the phase did not launch every kernel: {launches}")
+        for kind in ("preemption", "drain", "whatif"):
+            if not stats[kind]["fill_launches"]:
+                _fail(f"disruption: the {kind} trials did not launch the fill kernel: {stats}")
+    reasons = {}
+    for rec in got["rounds"]:
+        for k, v in rec["events_by_reason"].items():
+            reasons[k] = reasons.get(k, 0) + v
+    tally = {k: reasons.get(k, 0) for k in (
+        "Preempted", "DisruptionThrottled", "BreakerOpen", "BreakerClosed", "GangRescued",
+        "GangRequeued", "GangBackoffReleased", "GangDrained", "NodeDegraded",
+        "RemediationExecuted")}
+    held_rounds = sum(1 for rec in got["rounds"] if rec["monitor"]["held"])
+    refused = sum(rec["refused"] for rec in got["rounds"])
+    walls = [r["round_s"] for r in rows]
+    out = {"rounds": rows, "names": got["names"], "events": tally, "held_rounds": held_rounds,
+           "would_allow_refused": refused, "trials": stats,
+           "round1_wall_s": walls[0], "phase_rounds_s": sum(walls),
+           "tick_p50_s": _percentile(walls[3:], 0.5), "tick_p99_s": _percentile(walls[3:], 0.99),
+           **{f"{k}_launches": v for k, v in launches.items()}}
+    size = sum(got["rounds"][0]["monitor"]["states"].values())
+    print(f"[disruption] (omega) on {size} nodes, {len(rows)} rounds, every one equal to the JAX"
+          f" package's, the world valid: round 1 {walls[0]:.3f} s, fill round {walls[1]:.3f} s,"
+          f" storm round {walls[2]:.3f} s, later rounds p50 {out['tick_p50_s']:.3f} s, p99"
+          f" {out['tick_p99_s']:.3f} s; " + "; ".join(
+              f"{k} {v['calls']} calls, {v['trials']} trial solves, {v['wall_s']:.3f} s, fill"
+              f" {v['fill_launches']}" for k, v in stats.items())
+          + f"; grants (Preempted) {tally['Preempted']}, denials {tally['DisruptionThrottled']}"
+          f" + {refused} refused by would_allow, breaker open/close {tally['BreakerOpen']}/"
+          f"{tally['BreakerClosed']}, rescues {tally['GangRescued']}, requeues"
+          f" {tally['GangRequeued']} (held rounds {held_rounds}, released"
+          f" {tally['GangBackoffReleased']}), drained gangs {tally['GangDrained']}, fail-slow"
+          f" {tally['NodeDegraded']} -> remediation {tally['RemediationExecuted']}; script"
+          f" {got['names']['rescue']}/{got['names']['requeue']} crashed, {got['names']['drain']}"
+          f" and {got['names']['held']} drained, {got['names']['failslow']} fail-slow;"
+          f" launches fill {launches['fill']}, DRF {launches['drf_shares']} +"
+          f" {launches['drf_merge']} | {card}", flush=True)
+    return out
+
+
 def _is_float(text: str) -> bool:
     try:
         float(text)
@@ -3421,6 +4645,7 @@ def main() -> int:
     observe = _timed(phase_observe, sched["rounds"]["q1"]["wall_s"], card)
     sidecar = _timed(phase_sidecar, main_path, card)
     slo = _timed(phase_slo, delta, card)
+    disruption = _timed(phase_disruption, card)
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
@@ -3431,10 +4656,11 @@ def main() -> int:
         + sharded["single_fill_launches"] + sharded["fill_launches"]
         + observe["fill_launches"] + observe["explain_fill_launches"]
         + sidecar.get("a", {}).get("fill_launches", 0) + sidecar.get("q", {}).get("fill_launches", 0)
-        + slo["fill_launches"],
+        + slo["fill_launches"] + disruption["fill_launches"],
         "sidecar_launches": sidecar.get("a", {}).get("fill_launches", 0)
         + sidecar.get("q", {}).get("fill_launches", 0),
         "slo_launches": slo["fill_launches"],
+        "disruption_launches": disruption["fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
         "explain_launches": observe["explain_fill_launches"],
         "sharded_rank_launches": sharded["fill_launches"],
@@ -3457,9 +4683,11 @@ def main() -> int:
             "launches": sched[f"drf_{phase}_launches"] + delta[f"drf_{phase}_launches"]
             + front[f"drf_{phase}_launches"] + observe[f"drf_{phase}_launches"]
             + observe[f"explain_drf_{phase}_launches"]
-            + sidecar.get("q", {}).get(f"drf_{phase}_launches", 0) + slo[f"drf_{phase}_launches"],
+            + sidecar.get("q", {}).get(f"drf_{phase}_launches", 0) + slo[f"drf_{phase}_launches"]
+            + disruption[f"drf_{phase}_launches"],
             "sidecar_launches": sidecar.get("q", {}).get(f"drf_{phase}_launches", 0),
             "slo_launches": slo[f"drf_{phase}_launches"],
+            "disruption_launches": disruption[f"drf_{phase}_launches"],
             "explain_launches": observe[f"explain_drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
@@ -3481,7 +4709,8 @@ def main() -> int:
                       "delta_rounds": delta["rounds"],
                       "frontier": {k: v for k, v in front.items() if k != "rounds"},
                       "frontier_rounds": front["rounds"], "sharded": sharded,
-                      "observe": observe, "sidecar": sidecar, "slo": slo}))
+                      "observe": observe, "sidecar": sidecar, "slo": slo,
+                      "disruption": disruption}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Wire codec: camelCase documents → typed API objects.
 
 Counterpart of the decode half of ``grove_tpu/api/wire.py`` for the kinds
-the scheduler round reads: Pod, PodGang, PodClique and Queue. A document the
+the scheduler round and the disruption layer read: Pod, PodGang, PodClique,
+Queue, PodCliqueSet, and the generic HorizontalPodAutoscaler and NodeDrain
+(``GenericObject``: the spec stays a dict). A document the
 JAX package writes (``grove_tpu/api/serialize.py::export_object``) decodes
 here into the port's own classes; keys a class does not model go into its
 ``extra`` field when it has one and are dropped otherwise.
@@ -16,7 +18,15 @@ from typing import Any, Dict
 
 from grove_tpu_torch.api.meta import ObjectMeta, parse_quantity
 from grove_tpu_torch.api.pod import Pod
-from grove_tpu_torch.api.types import Container, PodClique, PodGang, Queue
+from grove_tpu_torch.api.types import (
+    Container,
+    GenericObject,
+    PodClique,
+    PodCliqueSet,
+    PodGang,
+    Queue,
+    parse_duration,
+)
 
 # kind -> (class, namespaced)
 KINDS: Dict[str, tuple] = {
@@ -24,6 +34,10 @@ KINDS: Dict[str, tuple] = {
     "PodGang": (PodGang, True),
     "PodClique": (PodClique, True),
     "Queue": (Queue, False),
+    "PodCliqueSet": (PodCliqueSet, True),
+    "HorizontalPodAutoscaler": (GenericObject, True),
+    # the persisted node-drain intent (disruption/drain.py)
+    "NodeDrain": (GenericObject, False),
 }
 
 
@@ -38,10 +52,18 @@ def _snake(name: str) -> str:
     return "".join(out)
 
 
-def _coerce_scalar(hint: type, value: Any) -> Any:
+def _coerce_scalar(hint: type, value: Any, quantity: bool = False) -> Any:
     if hint is float:
-        # a string is a quantity ("200m"); these kinds hold no durations
-        return parse_quantity(value) if isinstance(value, str) else float(value)
+        if isinstance(value, str):
+            # resource maps hold quantities ("200m" = 0.2 cpu), scalar
+            # float fields durations ("4h"): the m/h suffixes collide
+            if quantity:
+                return parse_quantity(value)
+            try:
+                return parse_duration(value)
+            except ValueError:
+                return parse_quantity(value)
+        return float(value)
     if hint is int:
         return int(value)
     if hint is bool:
@@ -80,7 +102,7 @@ def _decode_value(hint: Any, value: Any) -> Any:
         args = typing.get_args(hint)
         val_hint = args[1] if len(args) == 2 else Any
         if val_hint in (float, int):
-            return {k: _coerce_scalar(val_hint, v) for k, v in value.items()}
+            return {k: _coerce_scalar(val_hint, v, quantity=True) for k, v in value.items()}
         return dict(value)
     if dataclasses.is_dataclass(hint):
         return decode_dataclass(hint, value)
@@ -127,6 +149,8 @@ def decode_object(doc: Dict[str, Any]):
         meta.namespace = "default"
     if not namespaced:
         meta.namespace = ""
+    if cls is GenericObject:
+        return GenericObject(kind=kind, metadata=meta, spec=dict(doc.get("spec") or {}))
     kwargs: Dict[str, Any] = {"metadata": meta}
     for part in ("spec", "status"):
         if doc.get(part) is not None:

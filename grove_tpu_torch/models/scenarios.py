@@ -117,6 +117,7 @@ def gang_world_docs(
     namespace_of: Callable[[int, dict], str] = lambda i, spec: "default",
     queue_of: Callable[[int, dict], Optional[str]] = lambda i, spec: None,
     priority_class_of: Callable[[int, dict], str] = lambda i, spec: "",
+    budget_of: Optional[Callable[[int, dict], Optional[dict]]] = None,
 ) -> List[dict]:
     """Wire documents of the world a PodCliqueSet controller leaves for gang
     specs: per spec (a PodCliqueSet of one replica named after the spec),
@@ -125,7 +126,13 @@ def gang_world_docs(
     group's floor is its PodGroup's ``minReplicas``; the gang's
     ``required_key``/``preferred_key`` and spread, and each group's
     ``required_key``, become the PodGang's topology constraints. Queue
-    labels go on every object when ``queue_of`` names a queue."""
+    labels go on every object when ``queue_of`` names a queue.
+
+    With ``budget_of`` each spec also gets its PodCliqueSet document (one
+    clique template per group), first among its documents, carrying
+    ``spec.template.disruptionBudget`` when ``budget_of(i, spec)`` returns
+    one (a wire dict: ``maxUnavailableGangs``, ``quietWindow``). Without
+    it the documents are the same as before the parameter existed."""
     docs: List[dict] = []
     for i, spec in enumerate(specs):
         ns = namespace_of(i, spec)
@@ -136,6 +143,8 @@ def gang_world_docs(
         if queue:
             labels[namegen.LABEL_QUEUE] = queue
         pod_groups, cliques, pods = [], [], []
+        if budget_of is not None:
+            docs.append(_pcs_doc(spec, ns, labels, budget_of(i, spec)))
         for grp in spec["groups"]:
             pclq = namegen.podclique_name(pcs, 0, grp["name"])
             pod_names = [namegen.pod_name(pclq, k) for k in range(grp["count"])]
@@ -192,6 +201,27 @@ def gang_world_docs(
     return docs
 
 
+def _pcs_doc(spec: dict, ns: str, labels: Dict[str, str], budget: Optional[dict]) -> dict:
+    """The PodCliqueSet document of one gang spec (one replica, a clique
+    template per group), with ``budget`` as its disruptionBudget."""
+    cliques = [
+        {"name": grp["name"],
+         "spec": {"roleName": grp["name"], "replicas": grp["count"],
+                  "minAvailable": grp["min_count"],
+                  "podSpec": {"containers": [{"name": "main", "requests": dict(grp["demand"])}]}}}
+        for grp in spec["groups"]
+    ]
+    template: Dict[str, object] = {"cliques": cliques}
+    if budget is not None:
+        template["disruptionBudget"] = dict(budget)
+    meta_labels = {k: v for k, v in labels.items() if k != namegen.LABEL_PART_OF}
+    meta: Dict[str, object] = {"name": spec["name"], "namespace": ns}
+    if meta_labels:
+        meta["labels"] = meta_labels
+    return {"apiVersion": "grove.io/v1alpha1", "kind": "PodCliqueSet", "metadata": meta,
+            "spec": {"replicas": 1, "template": template}}
+
+
 def queue_docs(deserved: Dict[str, Dict[str, float]],
                ceiling: Optional[Dict[str, Dict[str, float]]] = None) -> List[dict]:
     """Queue documents (cluster-scoped), one per name of ``deserved``."""
@@ -246,10 +276,16 @@ def scheduler_world(name: str, n_nodes: Optional[int] = None, n_gangs: Optional[
     - ``frontier``: (phi), the world of the partitioned frontier: ``delta``
       with 16 churn ticks by default (tick 8 cordons a node, tick 16
       uncordons it). Its 5,120 nodes are 80 slices of 64, so the frontier
-      cuts 80 subproblems."""
+      cuts 80 subproblems.
+    - ``disruption``: (omega), the disruption world: (q)'s nodes, queues
+      and gangs, each gang with its PodCliqueSet and disruption budget, and
+      the serving gang ``serve``; :func:`disruption_world` holds its
+      settings and :func:`run_disruption_world` its script."""
     capacity = dict(STRESS_CAPACITY)
     if name == "frontier":
         return scheduler_world("delta", n_nodes, n_gangs, 16 if ticks is None else ticks, seed)
+    if name == "disruption":
+        return disruption_world(n_nodes, n_gangs)
     if name == "delta":
         world = scheduler_world("q", n_nodes, n_gangs)
         world["ticks"] = churn_ticks(
@@ -768,3 +804,419 @@ def run_slo_world(pkg, n_nodes: Optional[int] = None, n_gangs: Optional[int] = N
         for layer in layers:
             layer.disable()
         pkg.TRACER.clock = pkg.JOURNEYS.clock = None
+
+
+# -- the disruption world -----------------------------------------------------
+
+DISRUPTION_STEP_S = 10.0  # virtual seconds the clock moves before each round
+# the broker and monitor settings (those of the JAX package's disruption and
+# gray-failure tests) and the fail-slow fault's lag window
+DISRUPTION_BROKER = {"bucket_capacity": 2, "refill_per_second": 0.0, "close_after": 30.0}
+DISRUPTION_MONITOR = {"failslow_threshold": 1.5}
+DISRUPTION_LAG = (2.0, 4.5)
+DISRUPTION_STORM = 4  # critical preemptors in tenant-1
+DISRUPTION_MAX_ROUNDS = 30
+_NOTABLE_SKIP = ("GangAdmitted", "PodBound")
+
+
+def _parity_budget(i: int, spec: dict) -> dict:
+    """Gang i's disruption budget: none may go for even i, one at a time
+    and 30 s apart for odd i."""
+    if i % 2 == 0:
+        return {"maxUnavailableGangs": 0}
+    return {"maxUnavailableGangs": 1, "quietWindow": "30s"}
+
+
+def _unit_specs(prefix: str, n: int, demand: Dict[str, float], count: int = 1,
+                min_count: int = 1) -> List[dict]:
+    return [{"name": f"{prefix}{k}", "required_key": None, "preferred_key": None, "priority": 0,
+             "groups": [{"name": f"{prefix}{k}-0", "demand": dict(demand), "count": count,
+                         "min_count": min_count}]} for k in range(n)]
+
+
+def disruption_world(n_nodes: Optional[int] = None, n_gangs: Optional[int] = None) -> dict:
+    """(omega)'s settings: (q)'s nodes, queues and gangs (gang i in tenant-(i
+    % 8)), each gang with its PodCliqueSet and a disruption budget by the
+    parity of i (:func:`_parity_budget`), and ``serve`` in ``default`` (no
+    queue, budget 0): one clique of two 8-chip pods of which one may be
+    lost, so each of its pods holds a node alone. ``reserved`` is the node
+    cordoned before round 1 and returned for the crash's replacement."""
+    n_nodes = n_nodes or 5120
+    specs = stress_gang_specs(n_gangs or 10240, seed=0)
+    share = {r: v * n_nodes / 8 for r, v in STRESS_CAPACITY.items()}
+    docs = gang_world_docs(_unit_specs("serve", 1, {"tpu": 8.0, "cpu": 16.0}, count=2),
+                           budget_of=lambda i, spec: {"maxUnavailableGangs": 0})
+    docs += gang_world_docs(specs, namespace_of=_tenant, queue_of=_tenant,
+                            budget_of=_parity_budget)
+    return {
+        "nodes": (n_nodes, dict(STRESS_CAPACITY), 8, 8),
+        "priority_map": {"critical": 100},
+        "queues": queue_docs({f"tenant-{k}": share for k in range(8)}),
+        "rounds": [docs],
+        "reserved": f"node-{n_nodes - 1}",
+    }
+
+
+def _gang_of(doc: dict) -> tuple:
+    meta = doc["metadata"]
+    if doc["kind"] in ("PodGang", "PodCliqueSet"):
+        name = meta["name"] if doc["kind"] == "PodGang" else namegen.base_podgang_name(meta["name"], 0)
+    else:
+        name = meta["labels"][namegen.LABEL_PODGANG]
+    return meta.get("namespace", "default"), name
+
+
+def _delete_gang(store, docs: List[dict]) -> None:
+    """Delete one gang's objects that still exist: pods, cliques, PodGang,
+    PodCliqueSet."""
+    order = {"Pod": 0, "PodClique": 1, "PodGang": 2, "PodCliqueSet": 3}
+    for doc in sorted(docs, key=lambda d: order[d["kind"]]):
+        key = (doc["kind"], doc["metadata"]["namespace"], doc["metadata"]["name"])
+        if store.get(*key, readonly=True) is not None:
+            store.delete(*key)
+
+
+def _event_key(event: tuple) -> list:
+    """An event as compared across packages: a GangAdmitted message (its
+    placement score to four places) is left out, the score being held at
+    rtol 1e-6 through ``score_sum``."""
+    return list(event[:5]) if event[4] == "GangAdmitted" else list(event)
+
+
+def run_disruption_world(pkg, n_nodes: Optional[int] = None, n_gangs: Optional[int] = None,
+                         seed: int = 0, before_round=None, after_round=None,
+                         scheduler_kwargs: Optional[dict] = None, inspect=None) -> dict:
+    """The disruption world (omega) through either package: ``pkg`` names
+    its ``Store``, ``VirtualClock``, ``SimCluster``, ``make_nodes``,
+    ``GangScheduler``, ``ClusterTopology``, ``decode_object``, ``EVENTS``,
+    ``METRICS``, ``LEDGER``, ``DisruptionBroker``, ``NodeDrainController``,
+    ``NodeHealthMonitor``, ``RemediationController``,
+    ``HorizontalAutoscaler``, ``StaticMetricsProvider`` and
+    ``ExplainEngine``.
+
+    One delta scheduler with a broker (``DISRUPTION_BROKER``) and a
+    node-health monitor (``DISRUPTION_MONITOR``), a drain controller, an
+    autoscaler, an explain engine and a remediator over one store. Each
+    round the clock moves ``DISRUPTION_STEP_S``, then: the script's step,
+    ``monitor.tick()``, ``drainer.tick()``, the world recreates every pod
+    of a live gang that is gone (under its name, as the PodClique
+    controller would), ``schedule_pending()``, ``cluster.heartbeat_tick()``
+    and ``remediator.tick()`` (the JAX harness's order). The script, each
+    step decided from the state the same way on either side:
+
+    1. ``reserved`` is cordoned, the queues and the world are created:
+       the admission round (the broker is armed by the budgets).
+    2. ``serve`` must be placed; every gang still pending is deleted, and
+       one-pod filler gangs (``filler/fill<k>``, one chip and one cpu, no
+       budget, no queue) as many as the schedulable nodes' free chips
+       fill the cluster.
+    3. The storm: ``DISRUPTION_STORM`` one-chip gangs of priority class
+       ``critical`` in tenant-1 (``storm<k>``) fit nowhere. Every gang of
+       budget 0 is refused by ``would_allow``; fillers (no budget) go
+       first in the victim order: the first two preemptors are granted a
+       filler each, the third empties the token bucket and opens the
+       breaker (``BreakerOpen``, ``DisruptionThrottled``), the fourth
+       finds no victim the open breaker allows.
+    4. Every filler is deleted (the preemptors place on the capacity it
+       returns); quiet rounds until the breaker closes (``BreakerClosed``,
+       30 s after it opened, which refills the bucket).
+    5. The round after: ``crash_node`` on ``rescue`` (the node of
+       ``serve``'s first pod, which holds nothing else) and ``requeue``
+       (the node of the first bound pod of tenant-3's first scheduled
+       gang by name). 30 s later both are Lost: ``serve`` keeps its floor
+       and is rescued once its recreated pod lands on ``reserved``,
+       uncordoned in that round; every gang on ``requeue`` breaks its
+       floor and is requeued (``GangRequeued``), held for that round with
+       its pods pending, and released (``GangBackoffReleased``) into the
+       next.
+    6. Once no gang is held, on probation or mid-rescue: drains of
+       ``drain`` (the first schedulable node holding exactly one gang, of
+       budget 1: pre-placed by its trial, evicted whole, readmitted) and
+       ``held`` (the first holding only tenants' gangs of budget 0: denied
+       by the budget every round, it stays Draining).
+    7. Once ``drain`` reports Drained: ``held`` is uncordoned, the
+       remediator enabled, and ``inject_failslow(failslow, seed, 2.0,
+       4.5)`` arms the fail-slow fault on ``failslow`` (chosen as ``drain``
+       was, among the nodes left). The monitor turns it Degraded; the remediator's what-if
+       proves its gang re-places, requests the drain and records a ledger
+       entry; the drain evicts and the gang is readmitted. The world ends
+       one round after ``failslow`` reports Drained.
+
+    Per round: ``round_summary`` and the script's step, trial solves
+    (``_solve_batch`` calls outside the round's own solve), ``would_allow``
+    calls and refusals, the broker's tokens, breaker and last grants, the
+    monitor's held, probation, rescue sets, rescues and the sha256 of
+    ``node_snapshot()``, ``drainer.states()`` and its evictions, the
+    ledger's entries less timing, and the round's events (all but
+    GangAdmitted and PodBound in full, every event as a sha256, a
+    GangAdmitted one less its message).
+    ``before_round(index)`` runs first in a round, ``after_round(index,
+    walls, record)`` last (``walls``: seconds of the round and of its
+    monitor, drain, schedule and remediator parts), and ``inspect(store,
+    cluster)`` once after the last round. Returns ``{"rounds", "names"}``
+    (``names``: what the script chose)."""
+    import time
+
+    world = scheduler_world("disruption", n_nodes, n_gangs)
+    store = pkg.Store(pkg.VirtualClock(0.0))
+    clock = store.clock
+    cluster = pkg.SimCluster(store, pkg.make_nodes(*world["nodes"]))
+    sched = pkg.GangScheduler(store, cluster, pkg.ClusterTopology(), world["priority_map"],
+                              **(scheduler_kwargs or {}))
+    assert sched.enable_delta()
+    broker = pkg.DisruptionBroker(store, **DISRUPTION_BROKER)
+    monitor = pkg.NodeHealthMonitor(store, cluster, **DISRUPTION_MONITOR)
+    sched.broker, sched.monitor = broker, monitor
+    drainer = pkg.NodeDrainController(store, cluster, sched, monitor, broker)
+    monitor.drain_states = drainer.states
+    autoscaler = pkg.HorizontalAutoscaler(store, pkg.StaticMetricsProvider(),
+                                          scale_down_stabilization=60.0)
+    remediator = pkg.RemediationController(store, cluster, sched, drainer, broker, autoscaler,
+                                           pkg.ExplainEngine(sched))
+    remediator.disable()
+    pkg.EVENTS.reset()
+    pkg.METRICS.reset()
+    pkg.LEDGER.reset()
+    pkg.LEDGER.enable(clock=clock)
+    pkg.EVENTS.clock = clock
+
+    counts = {"trials": 0, "would_allow": 0, "refused": 0}
+    allow, solve = broker.would_allow, sched._solve_batch
+
+    def counted_allow(gang, now=None):
+        ok = allow(gang, now)
+        counts["would_allow"] += 1
+        counts["refused"] += not ok
+        return ok
+
+    def counted_solve(*args, **kwargs):
+        if "problem" not in kwargs:  # the round's own solve passes its problem
+            counts["trials"] += 1
+        return solve(*args, **kwargs)
+
+    broker.would_allow, sched._solve_batch = counted_allow, counted_solve
+    nodes = {n.name: n for n in cluster.nodes}
+    gangs: Dict[tuple, List[dict]] = {}  # live gangs' documents
+    names: Dict[str, object] = {"reserved": world["reserved"]}
+
+    def create(docs):
+        for doc in docs:
+            store.create(pkg.decode_object(doc))
+            if doc["kind"] != "Queue":
+                gangs.setdefault(_gang_of(doc), []).append(doc)
+
+    def delete(keys):
+        for key in sorted(keys):
+            _delete_gang(store, gangs.pop(key))
+
+    def scheduled(key) -> bool:
+        gang = store.get("PodGang", key[0], key[1], readonly=True)
+        return gang is not None and _scheduled(gang)
+
+    def gangs_by_node() -> Dict[str, set]:
+        out: Dict[str, set] = {}
+        for (ns, pod), node in cluster.bindings.items():
+            view = store.get("Pod", ns, pod, readonly=True)
+            if view is not None:
+                out.setdefault(node, set()).add((ns, view.metadata.labels[namegen.LABEL_PODGANG]))
+        return out
+
+    def budget(key):
+        pcs = store.get("PodCliqueSet", key[0], key[1].rsplit("-", 1)[0], readonly=True)
+        db = pcs.spec.template.disruption_budget if pcs is not None else None
+        return None if db is None else db.max_unavailable_gangs
+
+    def pick(taken, want) -> str:
+        by_node = gangs_by_node()
+        for node in cluster.nodes:
+            held = sorted(by_node.get(node.name, ()))
+            if node.schedulable and node.name not in taken and held and want(held):
+                return node.name
+        raise AssertionError("disruption world: no node fits the script")
+
+    def recreate():
+        for key, docs in gangs.items():
+            for doc in docs:
+                if doc["kind"] == "Pod" and store.get(
+                        "Pod", key[0], doc["metadata"]["name"], readonly=True) is None:
+                    store.create(pkg.decode_object(doc))
+
+    def record(index, script, events) -> dict:
+        rec = round_summary(store, cluster, events)
+        snapshot = monitor.node_snapshot()
+        rec.update({
+            "round": index + 1,
+            "script": script,
+            "trials": counts["trials"],
+            "would_allow": counts["would_allow"],
+            "refused": counts["refused"],
+            "broker": {"tokens": broker._tokens, "breaker_open": broker.breaker_open,
+                       "last_grant": sorted([f"{k[0]}/{k[1]}", v]
+                                            for k, v in broker._last_grant.items())},
+            "monitor": {
+                "held": sorted(f"{k[0]}/{k[1]}" for k in monitor._held),
+                "probation": sorted(f"{k[0]}/{k[1]}" for k in monitor._probation),
+                "rescue_pending": sorted(f"{k[0]}/{k[1]}" for k in monitor._rescue_pending),
+                "rescues": json.loads(json.dumps(monitor.rescues)),
+                "states": dict(sorted(Counter(row["state"] for row in snapshot).items())),
+                "nodes_sha256": _digest([json.dumps(snapshot, sort_keys=True)]),
+            },
+            "drain": dict(sorted(drainer.states().items())),
+            "drained_gangs": json.loads(json.dumps(drainer.drained_gangs)),
+            "ledger": strip_timing(json.loads(json.dumps(pkg.LEDGER.entries()))),
+            "events": [list(e) for e in events if e[4] not in _NOTABLE_SKIP],
+            "events_sha256": _digest([json.dumps(_event_key(e)) for e in events]),
+        })
+        return rec
+
+    phase = "admission"
+    denied_rounds = 0
+    rounds = []
+    try:
+        for index in range(DISRUPTION_MAX_ROUNDS):
+            if before_round is not None:
+                before_round(index)
+            counts.update(trials=0, would_allow=0, refused=0)
+            t0 = time.perf_counter()
+            clock.advance(DISRUPTION_STEP_S)
+            script: List[str] = []
+            with EventCapture(pkg.EVENTS) as cap:
+                if phase == "admission":
+                    nodes[world["reserved"]].cordoned = True
+                    create(world["queues"] + world["rounds"][0])
+                    script.append(f"cordon {world['reserved']}; create the world")
+                    phase = "fill"
+                elif phase == "fill":
+                    assert scheduled(("default", "serve0-0")), "serve was not placed"
+                    stuck = [k for k in gangs if not scheduled(k)]
+                    delete(stuck)
+                    live = [n for n in cluster.nodes if n.schedulable]
+                    free = cluster.node_free_all(live)
+                    n_fill = sum(int(min(free[n.name].get("tpu", 0.0), free[n.name].get("cpu", 0.0)))
+                                 for n in live)
+                    create(gang_world_docs(_unit_specs("fill", n_fill, {"tpu": 1.0, "cpu": 1.0}),
+                                           namespace_of=lambda i, spec: "filler",
+                                           budget_of=lambda i, spec: None))
+                    names.update(deleted_pending=[f"{k[0]}/{k[1]}" for k in sorted(stuck)],
+                                 fillers=n_fill)
+                    script.append(f"delete {len(stuck)} pending gangs; create {n_fill} fillers")
+                    phase = "storm"
+                elif phase == "storm":
+                    create(gang_world_docs(
+                        _unit_specs("storm", DISRUPTION_STORM, {"tpu": 1.0, "cpu": 1.0}),
+                        namespace_of=lambda i, spec: "tenant-1", queue_of=lambda i, spec: "tenant-1",
+                        priority_class_of=lambda i, spec: "critical", budget_of=lambda i, spec: None))
+                    script.append(f"create {DISRUPTION_STORM} critical gangs in tenant-1")
+                    phase = "calm"
+                elif phase == "calm":
+                    gone = [k for k in gangs if k[0] == "filler"]
+                    delete(gone)
+                    script.append(f"delete {len(gone)} fillers")
+                    phase = "quiet"
+                elif phase == "quiet" and not broker.breaker_open:
+                    serve_pods = sorted((ns, pod) for (ns, pod) in cluster.bindings
+                                        if ns == "default" and pod.startswith("serve0-"))
+                    rescue = cluster.bindings[serve_pods[0]]
+                    tenant3 = sorted(k for k in gangs if k[0] == "tenant-3" and scheduled(k))
+                    by_node = gangs_by_node()
+                    requeue = next(node.name for node in cluster.nodes
+                                   if tenant3[0] in by_node.get(node.name, ())
+                                   and node.name != rescue)
+                    cluster.crash_node(rescue)
+                    cluster.crash_node(requeue)
+                    names.update(rescue=rescue, requeue=requeue,
+                                 requeued=[f"{k[0]}/{k[1]}" for k in sorted(by_node[requeue])])
+                    script.append(f"crash {rescue} and {requeue}")
+                    phase = "crashed"
+                elif phase == "crashed" and (
+                        clock.now() - nodes[names["rescue"]].last_heartbeat >= monitor.lost_after):
+                    nodes[world["reserved"]].cordoned = False
+                    script.append(f"uncordon {world['reserved']}")
+                    phase = "recovering"
+                elif phase == "recovering" and monitor.rescues and not (
+                        monitor._held or monitor._probation or monitor._rescue_pending):
+                    taken = {names["rescue"], names["requeue"], world["reserved"]}
+                    drain = pick(taken, lambda held: len(held) == 1 and budget(held[0]) == 1)
+                    held_node = pick(taken | {drain}, lambda held: all(
+                        k[0] != "default" and budget(k) == 0 for k in held))
+                    drainer.request_drain(drain)
+                    drainer.request_drain(held_node)
+                    names.update(drain=drain, held=held_node)
+                    script.append(f"drain {drain} and {held_node}")
+                    phase = "draining"
+                elif phase == "draining":
+                    denied_rounds += 1
+                    if drainer.states().get(names["drain"]) == "Drained" and denied_rounds >= 2:
+                        taken = {names[k] for k in ("rescue", "requeue", "reserved", "drain",
+                                                    "held")}
+                        failslow = pick(taken, lambda held: len(held) == 1 and budget(held[0]) == 1)
+                        drainer.uncordon(names["held"])
+                        remediator.enable()
+                        cluster.inject_failslow(failslow, seed, *DISRUPTION_LAG)
+                        names["failslow"] = failslow
+                        script.append(f"uncordon {names['held']}; enable the remediator;"
+                                      f" fail-slow {failslow}")
+                        phase = "failslow"
+                elif phase == "failslow" and drainer.states().get(names["failslow"]) == "Drained":
+                    phase = "done"
+                    script.append("done")
+                t_monitor = time.perf_counter()
+                monitor.tick()
+                t_drain = time.perf_counter()
+                drainer.tick()
+                t_recreate = time.perf_counter()
+                recreate()
+                t_sched = time.perf_counter()
+                sched.schedule_pending()
+                t_heartbeat = time.perf_counter()
+                cluster.heartbeat_tick()
+                t_remediate = time.perf_counter()
+                remediator.tick()
+                t_end = time.perf_counter()
+            rec = record(index, script, cap.events)
+            walls = {"round_s": t_end - t0, "monitor_s": t_drain - t_monitor,
+                     "drain_s": t_recreate - t_drain, "schedule_s": t_heartbeat - t_sched,
+                     "remediate_s": t_end - t_remediate}
+            if after_round is not None:
+                after_round(index, walls, rec)
+            rounds.append(rec)
+            if phase == "done":
+                break
+        if inspect is not None:
+            inspect(store, cluster)
+        return {"rounds": rounds, "names": names}
+    finally:
+        del broker.would_allow, sched._solve_batch
+        pkg.LEDGER.disable()
+        pkg.EVENTS.clock = None
+
+
+def disruption_missing(result: dict) -> List[str]:
+    """The scripted events of :func:`run_disruption_world` that its run did
+    not show (empty when every one showed)."""
+    rounds, names = result["rounds"], result["names"]
+    reasons = Counter(e[4] for rec in rounds for e in rec["events"])
+    reasons.update({k: v for rec in rounds for k, v in rec["events_by_reason"].items()
+                    if k in _NOTABLE_SKIP})
+    last = rounds[-1] if rounds else {}
+    drained = {(d["node"], d["pre_placed"]) for d in last.get("drained_gangs", [])}
+    checks = {
+        "a budget-0 victim refused by would_allow": any(r["refused"] for r in rounds),
+        "a budget denial": any(e[4] == "DisruptionThrottled" and "disruptionBudget" in e[5]
+                               for rec in rounds for e in rec["events"]),
+        "a granted preemption": reasons["Preempted"] > 0,
+        "the breaker opening": reasons["BreakerOpen"] > 0,
+        "the breaker closing": reasons["BreakerClosed"] > 0,
+        "a rescue": reasons["GangRescued"] > 0,
+        "a requeue": reasons["GangRequeued"] > 0,
+        "a held round": any(r["monitor"]["held"] for r in rounds),
+        "a release": reasons["GangBackoffReleased"] > 0,
+        "a drain that relocates": (names.get("drain"), True) in drained,
+        "a drain held by a budget": any(r["drain"].get(names.get("held")) == "Draining"
+                                        for r in rounds),
+        "a fail-slow node": reasons["NodeDegraded"] > 0,
+        "a fail-slow drain": (names.get("failslow"), True) in drained and any(
+            e["outcome"] == "executed" and e["trigger"]["kind"] == "fail-slow"
+            for e in last.get("ledger", [])),
+    }
+    return [what for what, shown in checks.items() if not shown]

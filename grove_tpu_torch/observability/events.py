@@ -1,8 +1,8 @@
 """Kubernetes-style event recorder with dedup-and-count.
 
 Counterpart of ``grove_tpu/observability/events.py``, cut to the reasons
-the scheduler round, the SLO observatory, the flight recorder and the
-decision ledger record, and the deferral details the round and the explain
+the scheduler round, the SLO observatory, the flight recorder, the decision
+ledger, the node-health monitor and the disruption layer record, and the deferral details the round and the explain
 engine cite. ``record`` dedups on (kind, namespace, name, type, reason),
 bumps ``count`` and keeps the latest message; the oldest groups drop past
 ``max_events``. Each updated record goes to ``sink`` when one is installed
@@ -39,6 +39,27 @@ REASON_SLO_RECOVERED = "SloRecovered"
 # decision ledger: a remediation executed, or considered and skipped
 REASON_REMEDIATION_EXECUTED = "RemediationExecuted"
 REASON_REMEDIATION_SKIPPED = "RemediationSkipped"
+# node-health monitor: heartbeat transitions, the fail-slow (gray) state
+# flips, and the gang-recovery outcomes: rescued (the survivors kept their
+# floors and the replacements placed), requeued (below a floor: torn down
+# and held in backoff) and released from that backoff
+REASON_NODE_NOT_READY = "NodeNotReady"
+REASON_NODE_LOST = "NodeLost"
+REASON_NODE_READY = "NodeReady"
+REASON_NODE_DEGRADED = "NodeDegraded"
+REASON_NODE_RECOVERED = "NodeRecovered"
+REASON_GANG_RESCUED = "GangRescued"
+REASON_GANG_REQUEUED = "GangRequeued"
+REASON_GANG_RELEASED = "GangBackoffReleased"
+# voluntary-disruption layer: the drain lifecycle, budget and breaker
+# denials, and the storm breaker's flips
+REASON_NODE_DRAINING = "NodeDraining"
+REASON_NODE_DRAINED = "NodeDrained"
+REASON_NODE_UNCORDONED = "NodeUncordoned"
+REASON_GANG_DRAINED = "GangDrained"
+REASON_DISRUPTION_THROTTLED = "DisruptionThrottled"
+REASON_BREAKER_OPEN = "BreakerOpen"
+REASON_BREAKER_CLOSED = "BreakerClosed"
 
 # deferral-detail slugs: GangDeferred / QueuePending messages start with one
 DETAIL_NO_NODES = "no-schedulable-nodes"

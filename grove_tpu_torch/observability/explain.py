@@ -29,9 +29,10 @@ verdict again over an overlay (drain, remove or add nodes, rewrite a
 queue's deserved share or ceiling), gangs drained from a node re-pending
 whole.
 
-The port's scheduler has no disruption broker (``sched.broker`` is None),
-so the disruption stage reads as the JAX engine's over a bare scheduler;
-the ``cluster`` stage's ``cluster_context`` waits for the federation tier.
+The disruption stage reads the scheduler's node-health monitor (a held gang
+is ``held``, never ``fits_now``) and its disruption broker (an open storm
+breaker while armed); the ``cluster`` stage's ``cluster_context`` waits for
+the federation tier.
 """
 
 from __future__ import annotations

@@ -1,19 +1,24 @@
 """Simulated cluster: nodes and the binder the scheduler places pods with.
 
 Counterpart of ``grove_tpu/sim/cluster.py``'s ``Node``, ``SimCluster`` and
-``make_nodes``, without the kubelet, the heartbeats and the fail-slow
-injection: the scheduler round binds pods, reads free capacity and the
-not-Ready working set, and never starts a container.
+``make_nodes``, with the node lifecycle the node-health monitor drives
+(heartbeats, kubelet crash and restart, the seeded fail-slow fault, node
+and pod failure) and without the kubelet's container starts: the scheduler
+round binds pods, reads free capacity and the not-Ready working set.
 """
 
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from grove_tpu_torch.api.meta import Condition, clone_status, set_condition
+from grove_tpu_torch.api.meta import Condition, clone_status, deep_copy, set_condition
 from grove_tpu_torch.api.pod import (
+    COND_POD_READY,
     COND_POD_SCHEDULED,
+    POD_PENDING,
+    ContainerStatus,
     Pod,
     is_ready,
     is_scheduled,
@@ -21,9 +26,22 @@ from grove_tpu_torch.api.pod import (
 )
 from grove_tpu_torch.runtime.store import commit_status
 
-# node lifecycle state that takes placements (the others: NotReady, Lost,
-# Degraded)
+
+# node lifecycle states (docs/robustness.md): Ready nodes heartbeat and
+# accept placements; NotReady nodes missed heartbeats but are inside the
+# grace window (pods stay bound, nothing new lands); Lost nodes exceeded
+# the grace window — the node-health monitor fails their pods and drives
+# gang rescue / requeue (controller/nodehealth.py)
 NODE_READY = "Ready"
+NODE_NOT_READY = "NotReady"
+NODE_LOST = "Lost"
+# gray failure (docs/robustness.md "Gray failures"): the node heartbeats
+# — late but inside the grace window — and its pods keep running, yet the
+# monitor's suspicion score says it is fail-slow. Degraded masks the node
+# from NEW placements (same `schedulable` predicate every solve path
+# consumes) without evicting anything; only the remediation controller
+# may drain it, behind a what-if-proven flip and the disruption budget.
+NODE_DEGRADED = "Degraded"
 
 
 @dataclass
@@ -33,6 +51,10 @@ class Node:
     labels: Dict[str, str] = field(default_factory=dict)  # topology keys
     cordoned: bool = False
     state: str = NODE_READY
+    # virtual timestamp of the last kubelet heartbeat (frozen while crashed)
+    last_heartbeat: float = 0.0
+    # the node's kubelet is down (crash_node): no heartbeats
+    crashed: bool = False
 
     @property
     def schedulable(self) -> bool:
@@ -48,6 +70,7 @@ class SimCluster:
     bindings: Dict[tuple, str] = field(default_factory=dict)
     # sticky history that survives a pod's deletion (reservation reuse)
     last_node: Dict[tuple, str] = field(default_factory=dict)
+    start_delay: float = 0.0  # container start latency (virtual seconds)
 
     def __post_init__(self) -> None:
         # epoch of rewrites of `bindings` outside the watch stream
@@ -59,6 +82,9 @@ class SimCluster:
         self._deleted_since_gc = True  # the first gc pass always runs
         # requests are immutable for a pod's lifetime: memo per uid
         self._requests_by_uid: Dict[str, Dict[str, float]] = {}
+        # fail-slow fault registry: node name -> (seed, lag_min, lag_max,
+        # start_penalty); only inject_failslow / heal_failslow write it
+        self._failslow: Dict[str, tuple] = {}
         self.store.subscribe_system(self._track_pod_event)
 
     def _track_pod_event(self, ev) -> None:
@@ -211,12 +237,159 @@ class SimCluster:
         self.bindings[key] = node_name
         self.last_node[key] = node_name
 
+    # -- kubelet heartbeats and the node lifecycle -------------------------
+
+    def heartbeat_tick(self) -> None:
+        """One kubelet heartbeat round: every node whose kubelet is alive
+        reports in. Crashed nodes stay silent — their last_heartbeat
+        freezes and the node-health monitor's grace-period math takes over
+        (virtual-time jumps between ticks therefore never fake a cluster-
+        wide heartbeat loss: a node only ages while actually crashed)."""
+        now = self.store.clock.now()
+        for node in self.nodes:
+            if not node.crashed:
+                node.last_heartbeat = now
+        if self._failslow:
+            # fail-slow nodes heartbeat LATE: the report that lands this
+            # tick was produced `lag` seconds ago. The lag stays inside the
+            # monitor's NotReady grace window by default, so the binary
+            # lifecycle never fires — only the suspicion EWMA sees it.
+            for name in self._failslow:
+                node = self.node(name)
+                if node is not None and not node.crashed:
+                    node.last_heartbeat = now - self.failslow_lag(name, now)
+
     def node(self, node_name: str) -> Optional[Node]:
         return next((n for n in self.nodes if n.name == node_name), None)
 
+    def crash_node(self, node_name: str) -> bool:
+        """Kill the node's kubelet: heartbeats stop, containers freeze. The
+        node stays Ready (and keeps its pods bound) until the node-health
+        monitor's grace period expires — the realistic failure path, unlike
+        `fail_node`'s immediate cordon-and-evict."""
+        node = self.node(node_name)
+        if node is None:
+            return False
+        node.crashed = True
+        return True
+
+    def restart_node(self, node_name: str) -> bool:
+        """Bring the node's kubelet back: heartbeats resume (fresh from this
+        instant) and the monitor flips the node back to Ready on its next
+        tick. A restart inside the grace window is a harmless flap."""
+        node = self.node(node_name)
+        if node is None:
+            return False
+        node.crashed = False
+        node.last_heartbeat = self.store.clock.now()
+        return True
+
+    def inject_failslow(
+        self,
+        node_name: str,
+        seed: int,
+        lag_min: float = 3.0,
+        lag_max: float = 8.0,
+        start_penalty: float = 120.0,
+    ) -> bool:
+        """Arm the fail-slow (gray) fault on a node: heartbeats arrive
+        `lag_min..lag_max` seconds late (seeded per-tick draw, below the
+        monitor's 10s NotReady grace by default — the BINARY detector never
+        fires) and bound pods start only after `start_penalty` seconds of
+        scheduling age. Nothing crashes; the node looks alive everywhere
+        except to the suspicion EWMA."""
+        if self.node(node_name) is None:
+            return False
+        self._failslow[node_name] = (seed, lag_min, lag_max, start_penalty)
+        return True
+
+    def heal_failslow(self, node_name: str) -> bool:
+        """Clear the fail-slow fault: heartbeats arrive on time again from
+        the next tick; the monitor's hysteresis flips Degraded → Ready once
+        the suspicion score decays below the recovery threshold."""
+        return self._failslow.pop(node_name, None) is not None
+
+    def failslow_lag(self, node_name: str, now: float) -> float:
+        """The seeded heartbeat lag for a fail-slow node at virtual time
+        `now` — a PURE function of (seed, node, tick): crc32, not random
+        or hash(), so replays and the suspicion-oracle test (NumPy EWMA
+        over this exact trace) see identical values. 0.0 when the node is
+        not registered."""
+        fs = self._failslow.get(node_name)
+        if fs is None:
+            return 0.0
+        seed, lag_min, lag_max, _penalty = fs
+        u = (
+            zlib.crc32(f"{seed}:{node_name}:{int(now)}".encode()) & 0xFFFF
+        ) / float(1 << 16)
+        return lag_min + (lag_max - lag_min) * u
+
+    def failslow_spec(self, node_name: str):
+        """(seed, lag_min, lag_max, start_penalty) of an armed fail-slow
+        fault, or None — the re-injection handle for harness swaps
+        (leader failover / control-plane crash rebuild a SimCluster; the
+        kubelet-side fault must survive, it is node state, not leader
+        memory)."""
+        return self._failslow.get(node_name)
+
+    def failslow_names(self) -> set:
+        """Nodes currently under the fail-slow fault (chaos invariants +
+        the grayfail smoke read this; nothing outside this module writes
+        the registry — GL022)."""
+        return set(self._failslow)
+
     def unschedulable_names(self) -> set:
-        """Names of nodes no solve may target (cordoned or not Ready)."""
+        """Names of nodes no solve may target (cordoned or unhealthy) —
+        the set recovery-pin resolution avoids pinning to."""
         return {n.name for n in self.nodes if not n.schedulable}
+
+    def fail_node(self, node_name: str) -> int:
+        """Node loss: cordon the node and evict (delete) every pod bound to
+        it — the node-controller behavior after a node goes NotReady. The
+        PCLQ controllers recreate the pods gated; the scheduler's recovery
+        delta-solve places them on surviving nodes (honoring gang/group
+        recovery pins). Returns the number of pods evicted."""
+        node = next((n for n in self.nodes if n.name == node_name), None)
+        if node is None:
+            return 0
+        node.cordoned = True
+        self._gc_bindings()  # stale entries must not count as evictions
+        victims = [
+            (ns, pod_name)
+            for (ns, pod_name), bound in self.bindings.items()
+            if bound == node_name
+        ]
+        evicted = 0
+        for ns, pod_name in victims:
+            if self.store.get("Pod", ns, pod_name) is not None:
+                self.store.delete("Pod", ns, pod_name)
+                evicted += 1
+        return evicted
+
+    def fail_pod(self, namespace: str, name: str, exit_code: int = 1) -> None:
+        """Crash a pod's containers (fault injection for breach tests)."""
+        view = self.store.get("Pod", namespace, name, readonly=True)
+        if view is None:
+            return
+        st = deep_copy(view.status)
+        st.phase = POD_PENDING
+        for cs in st.container_statuses:
+            cs.ready = False
+            cs.exit_code = exit_code
+            cs.restart_count += 1
+        if not st.container_statuses:
+            st.container_statuses = [
+                ContainerStatus(name=c.name, started=True, exit_code=exit_code)
+                for c in view.spec.containers
+            ]
+        set_condition(
+            st.conditions,
+            Condition(type=COND_POD_READY, status="False", reason="CrashLoop"),
+            self.store.clock.now(),
+        )
+        commit_status(self.store, view, st)
+
+
 
 
 def make_nodes(

@@ -41,10 +41,15 @@ RESOURCE_EXHAUSTED, INVALID_ARGUMENT) also skips the sidecar for
 ``sidecar_backoff_s``, a connectivity failure reattaches at the next round.
 The frontier stays off with a sidecar.
 
-Not part of this port: the speculative-encode cache, the disruption broker
-and the node-health monitor (``broker`` and ``monitor`` stay None). With
-none of them the JAX scheduler runs exactly this round (a bare scheduler has
-no broker and no monitor: every eviction is ungated, nothing is held).
+``broker`` (``disruption/broker.DisruptionBroker``) gates every voluntary
+eviction: resolved once a round (``_active_broker``), its ``would_allow``
+keeps protected gangs out of the preemption and reclaim trials and its
+``grant`` must pass a victim set before anything is evicted. ``monitor``
+(``controller/nodehealth.NodeHealthMonitor``) holds requeued gangs out of
+the encode (``gang_held``) until it releases them. Both stay None on a bare
+scheduler, as in the JAX package (every eviction ungated, nothing held);
+an un-armed broker is inert. Not part of this port: the speculative-encode
+cache.
 """
 
 from __future__ import annotations
@@ -168,9 +173,13 @@ class GangScheduler:
         # delta A/B then pins the encode only, and the frontier self-check
         # owns the solve comparison
         self._frontier_solved = False
-        # the disruption broker and the node-health monitor are not ported:
-        # a bare scheduler, as the JAX package's without them
+        # disruption broker (disruption/broker.py): preemption and quota
+        # reclaim must be granted their victim sets before evicting. None:
+        # ungated; an un-armed broker (no budgets, no drains) is inert
         self.broker = None
+        # node-health monitor (controller/nodehealth.py): gangs it holds in
+        # requeue backoff stay out of the solve until released. None: no
+        # holds
         self.monitor = None
         # shards whose pending_namespaces gauge was set last round (zeroed
         # when they drain)
@@ -837,6 +846,11 @@ class GangScheduler:
         gang_specs: List[dict] = []
         gang_pods: Dict[str, Dict[str, List]] = {}
         for gang_name, pods in sorted(by_gang.items()):
+            if self.monitor is not None and self.monitor.gang_held(namespace, gang_name):
+                # a requeued gang in rate-limited backoff: its pods stay
+                # pending (gang pods, not loose) until the monitor releases
+                # it into a later round
+                continue
             if self.delta is not None:
                 # warm start: a gang with no relevant pod or PodGang delta
                 # since its spec was built, and the same pending pod set,
@@ -1072,14 +1086,22 @@ class GangScheduler:
         nodes = [n for n in self.cluster.nodes if n.schedulable]
         if not nodes:
             return set(), None
+        # resolve the broker once a round: active() scans PodCliqueSets
+        # while un-armed, and would_allow runs per candidate victim
+        broker = self._active_broker()
         # one free-capacity snapshot for every preemptor (evictions below
         # must not double-spend capacity earmarked for an earlier one)
         base_free = self.cluster.node_free_each(nodes)
         all_victim_keys: set = set()
         for preemptor in rejected:
             victims_chosen, free_delta = self._select_preemption_victims(
-                preemptor, nodes, base_free, exclude=all_victim_keys
+                preemptor, nodes, base_free, exclude=all_victim_keys, broker=broker
             )
+            if victims_chosen and broker is not None and not broker.grant(victims_chosen, "preemption"):
+                # the budget or the breaker denied the victim set: nothing
+                # is evicted or folded into the snapshot, the preemptor
+                # stays pending for a later round
+                continue
             for gang in victims_chosen:
                 self._evict_victim(gang, preemptor)
                 all_victim_keys.add((gang.metadata.namespace, gang.metadata.name))
@@ -1105,10 +1127,21 @@ class GangScheduler:
                     caps[r] = caps.get(r, 0.0) - q * k
         return usage
 
-    def _select_preemption_victims(self, preemptor: dict, nodes: List, base_free: Dict, exclude: set):
+    def _active_broker(self):
+        """The disruption broker when it is active (budgets exist or a drain
+        armed it), else None: callers resolve it once a round, so the inert
+        path costs one scan, not one per candidate victim."""
+        if self.broker is not None and self.broker.active():
+            return self.broker
+        return None
+
+    def _select_preemption_victims(
+        self, preemptor: dict, nodes: List, base_free: Dict, exclude: set, broker=None
+    ):
         """An inclusion-minimal set of scheduled lower-priority gangs whose
         eviction makes the preemptor placeable; empty when none helps.
-        Returns (victims, free_delta)."""
+        A gang the ``broker`` would not allow to go never enters the
+        trials. Returns (victims, free_delta)."""
         # a gang that fits the current free capacity alone places next
         # round: never evict for it (but reserve its planned placement)
         solo, solo_problem = self._solve_batch(nodes, [preemptor], base_free)
@@ -1124,6 +1157,10 @@ class GangScheduler:
                 continue
             victim_priority = self.priority_map.get(gang.spec.priority_class_name, 0)
             if victim_priority >= preemptor["priority"]:
+                continue
+            if broker is not None and not broker.would_allow(gang):
+                # its set's disruptionBudget (or the storm breaker) would
+                # deny the eviction: a doomed victim set is never selected
                 continue
             victims.append((victim_priority, gang))
         if not victims:
@@ -1320,6 +1357,8 @@ class GangScheduler:
         # preemptors' planned placements are already taken off there
         base_free = preempt_free or self.cluster.node_free_each(nodes)
         pool = self._reclaim_pool(crs, already_evicted)
+        # one broker resolution a round (see _maybe_preempt)
+        broker = self._active_broker()
 
         def claimant_key(spec):
             share = dominant_share_of(
@@ -1334,6 +1373,10 @@ class GangScheduler:
             if share >= 1.0 - 1e-6:
                 continue  # queue reached deserved (an earlier claimant did it)
             candidates = self._reclaim_candidates(pool, claimant, usage_sim, evicted)
+            if broker is not None and candidates:
+                # budget-protected gangs are not reclaim fodder: filtered
+                # before the trials
+                candidates = [(g, f) for g, f in candidates if broker.would_allow(g)]
             # a gang that fits the current free capacity places next round
             # on its own: never evict for it (but take off its placement)
             solo, solo_problem = self._solve_batch(nodes, [claimant], base_free)
@@ -1345,6 +1388,10 @@ class GangScheduler:
                     claimant, nodes, base_free, [g for g, _ in candidates]
                 )
             else:
+                continue
+            if victims and broker is not None and not broker.grant(victims, "quota-reclaim"):
+                # denied between the filter and the trial (budgets recount
+                # live state): evict nothing, fold nothing
                 continue
             freed_by_key = {
                 (g.metadata.namespace, g.metadata.name): freed for g, freed in candidates

@@ -13,7 +13,7 @@ admitted gangs per queue and event counts by reason. ``chip_smoke.py``
 holds the port's rounds on the card against these numbers (its
 ``JAX_SCHEDULER_REFERENCE``). Run on the CPU, one world at a time or all:
 
-    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo]
+    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo] [disruption]
 
 ``delta`` is the churn world: (q)'s round, then its churn ticks
 (``scheduler_world("delta")``, ``apply_tick`` with the JAX decoder), through
@@ -53,6 +53,15 @@ windows, the SLO status, the forecast and the flight bundle's summary;
 ``chip_smoke.py`` holds the port's ``[slo]`` phase to them
 (``JAX_SLO_REFERENCE``).
 
+``disruption`` is the disruption world (``run_disruption_world``, (omega)):
+the (q) world with a PodCliqueSet and a disruption budget per gang through a
+JAX delta scheduler with a disruption broker, a node-health monitor, a drain
+controller and a remediator, its scripted storm, crash, drains and fail-slow
+node on a virtual clock 10 s a round. It asserts that the run showed every
+scripted event (``disruption_missing``) before it prints every round's
+record and the nodes the script chose; ``chip_smoke.py`` holds the port's
+``[disruption]`` phase to them (``JAX_DISRUPTION_REFERENCE``).
+
 A world can be cut for a quick look: ``--nodes N --gangs G`` (and
 ``--ticks T --seed S`` for ``delta``).
 """
@@ -79,6 +88,7 @@ from grove_tpu.observability.events import EVENTS  # noqa: E402
 from grove_tpu.observability.explain import ExplainEngine  # noqa: E402
 from grove_tpu.observability.flightrec import FLIGHTREC, load_bundle  # noqa: E402
 from grove_tpu.observability.journey import JOURNEYS  # noqa: E402
+from grove_tpu.observability.ledger import LEDGER  # noqa: E402
 from grove_tpu.observability.metrics import METRICS  # noqa: E402
 from grove_tpu.observability.profile import PROFILER  # noqa: E402
 from grove_tpu.observability.slo import SLO, SloSpec  # noqa: E402
@@ -87,15 +97,21 @@ from grove_tpu.runtime.clock import VirtualClock  # noqa: E402
 from grove_tpu.runtime.store import Store  # noqa: E402
 from grove_tpu.sim.cluster import SimCluster, make_nodes  # noqa: E402
 from grove_tpu.solver.scheduler import GangScheduler  # noqa: E402
+from grove_tpu.autoscale.hpa import HorizontalAutoscaler, StaticMetricsProvider  # noqa: E402
+from grove_tpu.controller.nodehealth import NodeHealthMonitor  # noqa: E402
+from grove_tpu.controller.remediate import RemediationController  # noqa: E402
+from grove_tpu.disruption import DisruptionBroker, NodeDrainController  # noqa: E402
 from grove_tpu_torch.models.scenarios import (  # noqa: E402
     EventCapture,
     apply_tick,
     delta_counters,
+    disruption_missing,
     doc_digests,
     explain_burst,
     frontier_counters,
     observe_summary,
     round_summary,
+    run_disruption_world,
     run_slo_world,
     scheduler_world,
 )
@@ -208,6 +224,27 @@ def run_slo(n_nodes=None, n_gangs=None, ticks=None, seed=0) -> dict:
                              after_round=after)
 
 
+def run_disruption(n_nodes=None, n_gangs=None, seed=0) -> dict:
+    pkg = types.SimpleNamespace(
+        Store=Store, VirtualClock=VirtualClock, SimCluster=SimCluster, make_nodes=make_nodes,
+        GangScheduler=GangScheduler, ClusterTopology=ClusterTopology,
+        decode_object=decode_object, EVENTS=EVENTS, METRICS=METRICS, LEDGER=LEDGER,
+        DisruptionBroker=DisruptionBroker, NodeDrainController=NodeDrainController,
+        NodeHealthMonitor=NodeHealthMonitor, RemediationController=RemediationController,
+        HorizontalAutoscaler=HorizontalAutoscaler, StaticMetricsProvider=StaticMetricsProvider,
+        ExplainEngine=ExplainEngine)
+
+    def after(index, walls, record):
+        print(f"[disruption] round {index + 1} ({walls['round_s']:.3f} s, schedule"
+              f" {walls['schedule_s']:.3f} s): {json.dumps(record['script'])}"
+              f" {json.dumps(record['events_by_reason'])}", file=sys.stderr, flush=True)
+
+    out = run_disruption_world(pkg, n_nodes, n_gangs, seed, after_round=after)
+    missing = disruption_missing(out)
+    assert not missing, f"the disruption world did not show: {missing}"
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("worlds", nargs="*", default=["s", "q", "r"])
@@ -222,6 +259,8 @@ def main() -> int:
             out[name] = run_observe(args.nodes, args.gangs)
         elif name == "slo":
             out[name] = run_slo(args.nodes, args.gangs, args.ticks, args.seed)
+        elif name == "disruption":
+            out[name] = run_disruption(args.nodes, args.gangs, args.seed)
         elif name in ("delta", "frontier"):
             out[name] = run_delta(args.nodes, args.gangs, args.ticks, args.seed,
                                   frontier=name == "frontier")

@@ -905,3 +905,83 @@ def test_cuda_sidecar_round_trip(cuda):
         server.stop(grace=1.0)
     grpcsolver._PAD_GROUPS = StickyGroupPad()
     assert _plain(got) == _plain(grpcsolver.solve_request(request, device="cuda"))
+
+
+def _port_pkg():
+    import types
+
+    from grove_tpu_torch.api.wire import decode_object
+    from grove_tpu_torch.autoscale.hpa import HorizontalAutoscaler, StaticMetricsProvider
+    from grove_tpu_torch.controller.nodehealth import NodeHealthMonitor
+    from grove_tpu_torch.controller.remediate import RemediationController
+    from grove_tpu_torch.disruption import DisruptionBroker, NodeDrainController
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.observability.explain import ExplainEngine
+    from grove_tpu_torch.observability.ledger import LEDGER
+    from grove_tpu_torch.observability.metrics import METRICS
+    from grove_tpu_torch.runtime.clock import VirtualClock
+    from grove_tpu_torch.runtime.store import Store
+    from grove_tpu_torch.sim.cluster import SimCluster
+    from grove_tpu_torch.solver.scheduler import GangScheduler
+
+    return types.SimpleNamespace(
+        Store=Store, VirtualClock=VirtualClock, SimCluster=SimCluster, make_nodes=make_nodes,
+        GangScheduler=GangScheduler, ClusterTopology=ClusterTopology,
+        decode_object=decode_object, EVENTS=EVENTS, METRICS=METRICS, LEDGER=LEDGER,
+        DisruptionBroker=DisruptionBroker, NodeDrainController=NodeDrainController,
+        NodeHealthMonitor=NodeHealthMonitor, RemediationController=RemediationController,
+        HorizontalAutoscaler=HorizontalAutoscaler, StaticMetricsProvider=StaticMetricsProvider,
+        ExplainEngine=ExplainEngine)
+
+
+@pytest.mark.gpu
+def test_cuda_disruption_world_equals_the_cpu_run(cuda):
+    """The disruption world cut to 256 nodes and 160 gangs on the card
+    equals the same cut on the CPU round by round (which the CPU tests hold
+    against the JAX package), and shows every scripted event."""
+    from grove_tpu_torch.models.scenarios import disruption_missing, run_disruption_world
+
+    runs = [run_disruption_world(_port_pkg(), 256, 160, scheduler_kwargs={"device": device})
+            for device in ("cpu", "cuda")]
+    assert not disruption_missing(runs[1])
+    assert runs[1]["names"] == runs[0]["names"]
+    assert len(runs[1]["rounds"]) == len(runs[0]["rounds"])
+    for got, want in zip(runs[1]["rounds"], runs[0]["rounds"]):
+        got, want = dict(got), dict(want)
+        assert np.isclose(got.pop("score_sum"), want.pop("score_sum"), rtol=1e-6, atol=0)
+        assert got == want
+
+
+@pytest.mark.gpu
+def test_cuda_drain_trial_and_whatif_launch_the_fill_kernel(cuda):
+    """A drain's trial pre-placement and a what-if drain on a scheduler on
+    the card launch the fill kernel (its launch counter moves)."""
+    from grove_tpu_torch.models.scenarios import gang_world_docs, stress_gang_specs
+
+    pkg = _port_pkg()
+    store = pkg.Store(pkg.VirtualClock(0.0))
+    cluster = pkg.SimCluster(store, make_nodes(64, dict(STRESS_CAPACITY), 8, 8))
+    sched = pkg.GangScheduler(store, cluster, ClusterTopology(), {}, device="cuda")
+    broker = pkg.DisruptionBroker(store)
+    monitor = pkg.NodeHealthMonitor(store, cluster)
+    sched.broker, sched.monitor = broker, monitor
+    drainer = pkg.NodeDrainController(store, cluster, sched, monitor, broker)
+    for doc in gang_world_docs(stress_gang_specs(32, seed=3),
+                               budget_of=lambda i, spec: {"maxUnavailableGangs": 1}):
+        store.create(pkg.decode_object(doc))
+    sched.schedule_pending()
+    node = next(n for (_ns, _pod), n in sorted(cluster.bindings.items()))
+    gang = next(g for g in sorted(store.scan("PodGang"), key=lambda g: g.metadata.name)
+                if cluster.bindings.get((g.spec.pod_groups[0].pod_references[0].namespace,
+                                         g.spec.pod_groups[0].pod_references[0].name)) == node)
+    fill_batch.launches = 0
+    report = pkg.ExplainEngine(sched).whatif(
+        {"gang": {"namespace": gang.metadata.namespace, "name": gang.metadata.name},
+         "actions": [{"action": "drain-node", "node": node}]})
+    assert report["after"]["fits_now"]
+    assert fill_batch.launches > 0
+    fill_batch.launches = 0
+    drainer.request_drain(node)
+    assert drainer.tick() > 0
+    assert fill_batch.launches > 0
+    assert drainer.drained_gangs and all(d["pre_placed"] for d in drainer.drained_gangs)

@@ -36,7 +36,10 @@ def test_port_modules_import_with_jax_and_grove_tpu_blocked():
                  "cluster.protos.health_pb2", "observability.timeseries", "observability.slo",
                  "observability.forecast", "observability.ledger", "observability.flightrec",
                  "observability.logging", "observability.hostinfo", "runtime.aggregate",
-                 "utils.platform"):
+                 "utils.platform", "disruption", "disruption.broker", "disruption.drain",
+                 "controller", "controller.nodehealth", "controller.remediate",
+                 "runtime.backoff", "runtime.shards", "runtime.workqueue", "autoscale",
+                 "autoscale.hpa"):
         assert f"grove_tpu_torch.{name}" in mods
     script = textwrap.dedent(
         f"""

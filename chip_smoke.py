@@ -45,8 +45,8 @@ Phases (any failure raises and the script exits non-zero):
      against the JAX package's. Launch counts are set to 0 just before
      each solve and read just after it.
   6. each solver with the kernel vs the same solver with the plain fill,
-     on reduced problems (1,024 nodes; stress and non-uniform at 2,048
-     gangs, grouped, pinned and spread at 1,024): the binding path, the
+     on reduced problems (1,024 nodes; stress and non-uniform at 1,024
+     gangs, grouped, pinned and spread at 512): the binding path, the
      stats path and the exact solve (of the first 256 gangs), every result
      field bit-equal.
   7. [sched] the scheduler round end to end (solver/scheduler.GangScheduler
@@ -176,7 +176,29 @@ Phases (any failure raises and the script exits non-zero):
      what-if trials must launch the fill kernel and the phase both DRF
      kernels. Prints each round's walls and launches, the trials by kind
      and the grants, denials, breaker flips, rescues, requeues and drains.
- 16. prints the kernels line, the card line, and last the ok line.
+ 16. [operator] the operator (runtime/engine.py, the PodCliqueSet,
+     PodCliqueScalingGroup and PodClique controllers with the rolling
+     update, admission, the store's lagged cache, the kubelet) through the
+     port's sim/harness.SimHarness on (iota) at full width
+     (models/scenarios.run_operator_world: BASELINE's integrated
+     population, 10,240 PodCliqueSets on 5,120 nodes, converged with
+     cyclic GC off, then the rolling update of the 640 simple1 sets and a
+     second converge): every tick's (work, bound, started) and
+     round_summary, and after each converge the store's census,
+     resourceVersion, reconcile counts, canonical digest (uids as their
+     creation rank), event counts and bindings hash equal to
+     JAX_OPERATOR_REFERENCE, every pod Ready; then the ten samples
+     (run_samples_world), each tree() and digest equal. The fill kernel
+     must launch in (iota) and both DRF kernels in the samples (the Queue
+     sample). The script runs under PYTHONHASHSEED=0 (it re-runs itself
+     so): the controllers iterate sets of strings, and the reference was
+     taken under that seed. The first fill calls of (iota), and the
+     first of each other shape it gives the kernel (R=3: cpu, memory and
+     tpu in the encode's rescaled units), are held against the plain fill
+     on the same card tensors, bit for bit. Prints the apply and converge walls and ticks, the
+     solver's share, microseconds per reconcile, the rolling update's
+     wall and ticks, and the launches.
+ 17. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -792,6 +814,12 @@ def phase_stats_path() -> dict:
     return out
 
 
+# stress and non-uniform gangs of [path_kernel_vs_plain] (grouped, pinned and
+# spread take half): 2,048 until [operator] came, halved to keep the smoke's
+# phases nearer 900 s (uncut, they took 1,039.5 s on an H100 80GB HBM3, 700 W)
+PATH_GANGS = 1024
+
+
 def phase_path_kernel_vs_plain() -> None:
     """Each solver with the kernel against the same solver with the plain
     fill, on reduced problems (1,024 nodes): the binding path (with
@@ -808,11 +836,13 @@ def phase_path_kernel_vs_plain() -> None:
         return solve(problem, with_alloc=False, **kw)
 
     nodes = make_nodes(1024, dict(STRESS_CAPACITY), 8, 8)
-    for tag, specs in (("stress", stress_gang_specs(2048, seed=3)),
-                       ("non-uniform", nonuniform_specs(2048, seed=4)),
-                       ("grouped", disagg_specs(1024, seed=7)),
-                       ("pinned", spread_recovery_specs(1024, 8, 1024, kinds=("recovery",))),
-                       ("spread", spread_recovery_specs(1024, 9, 1024, kinds=("spread", "soft")))):
+    for tag, specs in (("stress", stress_gang_specs(PATH_GANGS, seed=3)),
+                       ("non-uniform", nonuniform_specs(PATH_GANGS, seed=4)),
+                       ("grouped", disagg_specs(PATH_GANGS // 2, seed=7)),
+                       ("pinned", spread_recovery_specs(PATH_GANGS // 2, 8, 1024,
+                                                        kinds=("recovery",))),
+                       ("spread", spread_recovery_specs(PATH_GANGS // 2, 9, 1024,
+                                                        kinds=("spread", "soft")))):
         problem = build_problem(nodes, specs, ClusterTopology())
         flag = {"grouped": problem.group_req, "pinned": problem.gang_pin,
                 "spread": problem.spread_level}.get(tag)
@@ -4612,6 +4642,744 @@ def phase_disruption(card, device="cuda", n_nodes=None, n_gangs=None,
     return out
 
 
+# (iota), the operator world (models/scenarios.run_operator_world: BASELINE's
+# integrated population, 10,240 PodCliqueSets on 5,120 nodes, then the
+# rolling update of the 640 simple1 sets), and the ten samples each
+# converged in a fresh harness (run_samples_world), through the JAX
+# package's SimHarness: from `JAX_PLATFORMS=cpu python
+# scripts/scheduler_reference.py operator` (JAX 0.9.0 on the CPU, under
+# PYTHONHASHSEED=0), its "operator" object without the host walls.
+JAX_OPERATOR_REFERENCE = {'world': {'n_sets': 10240, 'n_nodes': 5120, 'update_every': 16},
+ 'apply': {'resource_version': 10241,
+           'census': {'ClusterTopology': [1, 1], 'PodCliqueSet': [10240, 10241]}},
+ 'converges': [{'ticks': [{'work': 194720,
+                           'bound': 46400,
+                           'started': 45120,
+                           'round': {'admitted': 10240,
+                                     'bound': 46400,
+                                     'score_sum': 10151.270415246487,
+                                     'bindings': 46400,
+                                     'bindings_sha256': '2c63f0c74ab7f4bbc7bab08c2e1fd7747ec6084f9b63aa755ececfdc73421f80',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {'default': 10240},
+                                     'events_by_reason': {'GangAdmitted': 10240,
+                                                          'PodBound': 46400}}},
+                          {'work': 32000,
+                           'bound': 0,
+                           'started': 640,
+                           'round': {'admitted': 0,
+                                     'bound': 0,
+                                     'score_sum': 0.0,
+                                     'bindings': 46400,
+                                     'bindings_sha256': '2c63f0c74ab7f4bbc7bab08c2e1fd7747ec6084f9b63aa755ececfdc73421f80',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {},
+                                     'events_by_reason': {}}},
+                          {'work': 25280,
+                           'bound': 800,
+                           'started': 1440,
+                           'round': {'admitted': 160,
+                                     'bound': 800,
+                                     'score_sum': 128.0000114440918,
+                                     'bindings': 47200,
+                                     'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {'default': 160},
+                                     'events_by_reason': {'GangAdmitted': 160, 'PodBound': 800}}},
+                          {'work': 2080,
+                           'bound': 0,
+                           'started': 0,
+                           'round': {'admitted': 0,
+                                     'bound': 0,
+                                     'score_sum': 0.0,
+                                     'bindings': 47200,
+                                     'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {},
+                                     'events_by_reason': {}}},
+                          {'work': 0,
+                           'bound': 0,
+                           'started': 0,
+                           'round': {'admitted': 0,
+                                     'bound': 0,
+                                     'score_sum': 0.0,
+                                     'bindings': 47200,
+                                     'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {},
+                                     'events_by_reason': {}}}],
+                'events': {'GangAdmitted/PodGang': 10400,
+                           'PCSGCreateSuccessful/PodCliqueScalingGroup': 960,
+                           'PodBound/Pod': 47200,
+                           'PodCliqueCreateSuccessful/PodClique': 20800,
+                           'PodCreateSuccessful/Pod': 47200,
+                           'PodGangCreateSuccessful/PodGang': 10400},
+                'summary': {'all_ready': True,
+                            'resource_version': 599521,
+                            'census': {'ClusterTopology': [1, 1],
+                                       'Event': [1000, 343841],
+                                       'HorizontalPodAutoscaler': [1280, 146994],
+                                       'Pod': [47200, 597601],
+                                       'PodClique': [23040, 598401],
+                                       'PodCliqueScalingGroup': [960, 598561],
+                                       'PodCliqueSet': [10240, 599521],
+                                       'PodGang': [10400, 599041],
+                                       'Role': [10240, 147192],
+                                       'RoleBinding': [10240, 147193],
+                                       'Secret': [10240, 147194],
+                                       'Service': [10240, 147195],
+                                       'ServiceAccount': [10240, 147191]},
+                            'reconcile_total': {'podclique': 162240.0,
+                                                'podcliquescalinggroup': 6080.0,
+                                                'podcliqueset': 85760.0},
+                            'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                       'HorizontalPodAutoscaler': 'bbf1ec8295b54e1551e74e9c4341679fe434ce9009c619bd49518ba73c25474e',
+                                       'Pod': '2c1ed4f6766ce4d5e2d3628500d11ebbf71db1219dbe89c05cc4de8b48bf9a0e',
+                                       'PodClique': 'c4f7a4c09af86aa1c01493bb0bad3bcec4eef1bd4c20a026723d57b6e63f3068',
+                                       'PodCliqueScalingGroup': 'affcb3ef93949cb31c598a40aeb2b8c30ae03f28eb8ec909905aa3f1b254dbc9',
+                                       'PodCliqueSet': '8f003ecd58c2e00ff6a50cc5d7b8ebd5daa1ce61f426d8ba7c610907fa51138b',
+                                       'PodGang': '3285e86ae3b7fdc0efcf42cde07a32e62f98d6f2ee8e751fe6b333dcad48cf8b',
+                                       'Role': '78767fc81e01aec7e64ac861ee666083e1470794d231dfda1489f2d086a14a34',
+                                       'RoleBinding': '3687792b1112af8cfae18fa10dbc0f912cf71716501728042b09a574478cbcd1',
+                                       'Secret': '00ef6f58ff2e21a1afef38b3bfe81a4e68ff1a866839b3713a795af388e33ba0',
+                                       'Service': '5ebacd1ade6d546ddfa421786a6ffb064fef8a479a1c364ad5edb472d99165e4',
+                                       'ServiceAccount': '43959ebc96a88dd4818dc819f10963d6c06e2020cb36c0d2ce8d4f93748a9912'},
+                            'scored_gangs': 10400,
+                            'score_sum': 10279.270426690578,
+                            'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205'}},
+               {'ticks': [{'work': 34560,
+                           'bound': 2560,
+                           'started': 2560,
+                           'round': {'admitted': 0,
+                                     'bound': 2560,
+                                     'score_sum': 0.0,
+                                     'bindings': 47200,
+                                     'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {},
+                                     'events_by_reason': {'PodBound': 2560}}},
+                          {'work': 10880,
+                           'bound': 2560,
+                           'started': 2560,
+                           'round': {'admitted': 0,
+                                     'bound': 2560,
+                                     'score_sum': 0.0,
+                                     'bindings': 47200,
+                                     'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {},
+                                     'events_by_reason': {'PodBound': 2560}}},
+                          {'work': 10240,
+                           'bound': 640,
+                           'started': 640,
+                           'round': {'admitted': 0,
+                                     'bound': 640,
+                                     'score_sum': 0.0,
+                                     'bindings': 47200,
+                                     'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {},
+                                     'events_by_reason': {'PodBound': 640}}},
+                          {'work': 640,
+                           'bound': 0,
+                           'started': 0,
+                           'round': {'admitted': 0,
+                                     'bound': 0,
+                                     'score_sum': 0.0,
+                                     'bindings': 47200,
+                                     'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {},
+                                     'events_by_reason': {}}},
+                          {'work': 640,
+                           'bound': 0,
+                           'started': 0,
+                           'round': {'admitted': 0,
+                                     'bound': 0,
+                                     'score_sum': 0.0,
+                                     'bindings': 47200,
+                                     'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {},
+                                     'events_by_reason': {}}},
+                          {'work': 0,
+                           'bound': 0,
+                           'started': 0,
+                           'round': {'admitted': 0,
+                                     'bound': 0,
+                                     'score_sum': 0.0,
+                                     'bindings': 47200,
+                                     'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                                     'evicted': 0,
+                                     'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                     'admitted_per_queue': {},
+                                     'events_by_reason': {}}}],
+                'events': {'PodBound/Pod': 5760,
+                           'PodCreateSuccessful/Pod': 5760,
+                           'PodUpdateDeleteSuccessful/Pod': 5760,
+                           'RollingUpdateCompleted/PodCliqueScalingGroup': 640,
+                           'RollingUpdateCompleted/PodCliqueSet': 640,
+                           'RollingUpdateReplicaCompleted/PodCliqueSet': 640,
+                           'RollingUpdateReplicaStarted/PodCliqueScalingGroup': 640,
+                           'RollingUpdateReplicaStarted/PodCliqueSet': 640,
+                           'RollingUpdateStarted/PodCliqueSet': 640},
+                'summary': {'all_ready': True,
+                            'resource_version': 682721,
+                            'census': {'ClusterTopology': [1, 1],
+                                       'Event': [1000, 679520],
+                                       'HorizontalPodAutoscaler': [1280, 146994],
+                                       'Pod': [47200, 673121],
+                                       'PodClique': [23040, 682081],
+                                       'PodCliqueScalingGroup': [960, 669921],
+                                       'PodCliqueSet': [10240, 679521],
+                                       'PodGang': [10400, 682721],
+                                       'Role': [10240, 147192],
+                                       'RoleBinding': [10240, 147193],
+                                       'Secret': [10240, 147194],
+                                       'Service': [10240, 147195],
+                                       'ServiceAccount': [10240, 147191]},
+                            'reconcile_total': {'podclique': 199360.0,
+                                                'podcliquescalinggroup': 13760.0,
+                                                'podcliqueset': 97920.0},
+                            'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                       'HorizontalPodAutoscaler': 'bbf1ec8295b54e1551e74e9c4341679fe434ce9009c619bd49518ba73c25474e',
+                                       'Pod': 'fcaeb0fb12d06adfe5fb5bf4fcd571c2b9952f1bcdef194b455e92d36b2bc58e',
+                                       'PodClique': 'cd55697d26d764adefa84550d074683ebcde8b63b0770e1e07565b38b048da62',
+                                       'PodCliqueScalingGroup': '12555232932a87af47124c5be7dea6782a7b2bcbacf5fe11282cf666a422eb31',
+                                       'PodCliqueSet': '329431c56985e38ce6c3eaf7bfac29750b32fac5aaa46678ac99a8260b523c02',
+                                       'PodGang': 'be3492597fc9ddeb7ddfcf36e2b909aeae54d6ec9d93303ff7a8b49a2e3af01c',
+                                       'Role': '78767fc81e01aec7e64ac861ee666083e1470794d231dfda1489f2d086a14a34',
+                                       'RoleBinding': '3687792b1112af8cfae18fa10dbc0f912cf71716501728042b09a574478cbcd1',
+                                       'Secret': '00ef6f58ff2e21a1afef38b3bfe81a4e68ff1a866839b3713a795af388e33ba0',
+                                       'Service': '5ebacd1ade6d546ddfa421786a6ffb064fef8a479a1c364ad5edb472d99165e4',
+                                       'ServiceAccount': '43959ebc96a88dd4818dc819f10963d6c06e2020cb36c0d2ce8d4f93748a9912'},
+                            'scored_gangs': 10400,
+                            'score_sum': 10279.270426690578,
+                            'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205'}}],
+ 'samples': {'agentic-pipeline.yaml': {'ticks': 5,
+                                       'tree_sha256': '79ee424795e852bd3e63daa10fcb6cf012a4103ef539c61d82d6b6cde6b89a73',
+                                       'tree_lines': 15,
+                                       'resource_version': 95,
+                                       'census': {'ClusterTopology': [1, 1],
+                                                  'Event': [14, 47],
+                                                  'Pod': [9, 92],
+                                                  'PodClique': [4, 93],
+                                                  'PodCliqueSet': [1, 95],
+                                                  'PodGang': [1, 94],
+                                                  'Role': [1, 6],
+                                                  'RoleBinding': [1, 7],
+                                                  'Secret': [1, 8],
+                                                  'Service': [1, 9],
+                                                  'ServiceAccount': [1, 5]},
+                                       'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                                  'Pod': '11425ec0e676f4693b29b091f33b9787aad9a16324f2450e77edd0fedc9b1dab',
+                                                  'PodClique': 'be97a7681db33d3f4b0a6dd0a9f494846ccd3c55f8cc6c3e495890bc7e35e1b4',
+                                                  'PodCliqueSet': 'e39aba151f2ed170c790d46767bd895357b4ff68afe46aa0e85ab09dc4535ba4',
+                                                  'PodGang': '7a85a6631b29b34fff53b1838427a9c786f39de146021293cde4de61b94b88a1',
+                                                  'Role': '729e72eb64c40a53644ee9034dd8d835f33095bc3992add0fb03b0636a80ef40',
+                                                  'RoleBinding': 'e55975bccc1ea2da848635a895e24bd76f33354186a151974101556f0e39bb72',
+                                                  'Secret': '8b0f135841592b588f02906a7a351340ef3bc600e02fd9927b62b648ef4970d1',
+                                                  'Service': '8b197a80a7f986b0aa16f64d7377828d01b060c6c71c61125b120efcf01ee3ee',
+                                                  'ServiceAccount': 'e49c99bdac487e8dbf7d0c8300cc05c63e0544aebdebe06ada1ec03aa90a9ed2'},
+                                       'scored_gangs': 1,
+                                       'score_sum': 0.8518519401550293,
+                                       'bindings_sha256': '207105ba00a51e65a7224a8a9f1489f379997aa95d269e951984c8a5b8a41357'},
+             'cluster-topology-tpu.yaml': {'ticks': 1,
+                                           'tree_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                                           'tree_lines': 0,
+                                           'resource_version': 1,
+                                           'census': {'ClusterTopology': [1, 1]},
+                                           'digest': {'ClusterTopology': 'ff96591c98f53dc3e79fd9b83a9c46adcb8dde6b31ef92514ec1141b963e76c2'},
+                                           'scored_gangs': 0,
+                                           'score_sum': 0,
+                                           'bindings_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855'},
+             'drain-budget.yaml': {'ticks': 4,
+                                   'tree_sha256': '32f9f3bad23bb82b48dd761d1eacbd27c971fd399cc3734a6d447f369749ecd5',
+                                   'tree_lines': 13,
+                                   'resource_version': 83,
+                                   'census': {'ClusterTopology': [1, 1],
+                                              'Event': [12, 43],
+                                              'Pod': [6, 74],
+                                              'PodClique': [3, 78],
+                                              'PodCliqueSet': [1, 83],
+                                              'PodGang': [3, 82],
+                                              'Role': [1, 6],
+                                              'RoleBinding': [1, 7],
+                                              'Secret': [1, 8],
+                                              'Service': [3, 11],
+                                              'ServiceAccount': [1, 5]},
+                                   'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                              'Pod': '542b9788e3ec7feb9ae20bb91c8031e7f381099ebe334c88daab523e14b352c6',
+                                              'PodClique': '46486b4a60b2381b9f012f9464ebbe1c273e10167da36f3108c101d633d6e1fc',
+                                              'PodCliqueSet': 'd4430e3c6deda9ac625de2627dd7028de227732ead12600e6727a8b8b0972233',
+                                              'PodGang': 'f60177d6634215ef8d85dbe5e8ac7991cd0251b70181f300ccc14583630f209b',
+                                              'Role': '76646fd9bfebbf5cbb3f90acdb3bf1e6974531b2fbedec58fa1584dcde45e774',
+                                              'RoleBinding': 'b59958f63b1a3325a397e70304957b3f6ce570757953eadddf43e7eeba4e2c48',
+                                              'Secret': '11e1413cd68c0b522dd0639f7e58c42d45f4316e63d696967d644898ed5c8854',
+                                              'Service': '7522eb76361c43b33d92ecb7dd373e2dbbb2dc30760792dbcf6902a38bcdcc74',
+                                              'ServiceAccount': '31510c1d5a4314a1f405f49338afe2179d588dd12cfe47926236a3aa5bd61e15'},
+                                   'scored_gangs': 3,
+                                   'score_sum': 3.0,
+                                   'bindings_sha256': '171379a4a10ff4771bc1be6f471c7654f356ab459463aa1030faf9047962d36f'},
+             'multinode-disaggregated.yaml': {'ticks': 5,
+                                              'tree_sha256': '2cc468f996ebe4a786f18c4b67cd7380ef0f072ffb9816ec7e09ca8c31da4ca8',
+                                              'tree_lines': 24,
+                                              'resource_version': 143,
+                                              'census': {'ClusterTopology': [1, 1],
+                                                         'Event': [17, 69],
+                                                         'Pod': [13, 137],
+                                                         'PodClique': [6, 140],
+                                                         'PodCliqueScalingGroup': [2, 141],
+                                                         'PodCliqueSet': [1, 143],
+                                                         'PodGang': [2, 142],
+                                                         'Role': [1, 6],
+                                                         'RoleBinding': [1, 7],
+                                                         'Secret': [1, 8],
+                                                         'Service': [1, 9],
+                                                         'ServiceAccount': [1, 5]},
+                                              'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                                         'Pod': '02d88f49a35fde7379e011bd63c0dffba679004a9dcf60e1ca3d56b20ca7aed3',
+                                                         'PodClique': 'ddceb435a3f9fa809a82b6e351cc4630b996fd2176b7cdde72b7aed217d2937b',
+                                                         'PodCliqueScalingGroup': '50a6463ad7d08d98806260a627ac4e037f6badb6f7e5fa07e882bf359d26c2b4',
+                                                         'PodCliqueSet': '6cc5eddc7f26cbdfc0377d3c21ac677435b8ec11b9bd6abfffef93de05c86aa1',
+                                                         'PodGang': 'cc306b4e1dfc6b57f73852a1308971f4b91e45372c8e3b548bf7abd52cf9a8fb',
+                                                         'Role': '68500e01ba73c77148c834f9773b43b2b1132acc7a8efa683bd4833711cada11',
+                                                         'RoleBinding': '8b5f7a9cbd14daf6f3422f2b65adb69c03c8c8fe5137eee0e49390fbcb31416e',
+                                                         'Secret': '2a53e42e53d097ae0a1f5246de7a064efa74c2ce4cb2aef3c97045c935ec56a9',
+                                                         'Service': '961373d4dba314467b103e9458b6254229af01cb0d3c376a23443d45eee20573',
+                                                         'ServiceAccount': '3381ba821d534e8de1dcf7c031a661ba3a7fd9c31e5aff0a2d83922b182e20db'},
+                                              'scored_gangs': 2,
+                                              'score_sum': 1.6333335041999817,
+                                              'bindings_sha256': '6dd46c93a2c59381cd903d6a31254d5eeb3e4adf3491e203eeeae072879ae10b'},
+             'multitenant-queues.yaml': {'ticks': 4,
+                                         'tree_sha256': 'f0bb105393be9fac94de0da360bbfeaf57deee57f226bbc30370d2dce4c7f707',
+                                         'tree_lines': 10,
+                                         'resource_version': 79,
+                                         'census': {'ClusterTopology': [1, 1],
+                                                    'Event': [8, 43],
+                                                    'Pod': [4, 67],
+                                                    'PodClique': [2, 71],
+                                                    'PodCliqueSet': [2, 79],
+                                                    'PodGang': [2, 75],
+                                                    'Queue': [2, 77],
+                                                    'Role': [2, 20],
+                                                    'RoleBinding': [2, 21],
+                                                    'Secret': [2, 22],
+                                                    'Service': [2, 23],
+                                                    'ServiceAccount': [2, 19]},
+                                         'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                                    'Pod': '041137d17a1418403b59f596c22625e7ac0f2a6d571f3ec216555af9437b4d1c',
+                                                    'PodClique': '33ce2ccc61026216b15475f2e74cb846902e1482b107d2e06ee3012f94962ff2',
+                                                    'PodCliqueSet': 'db4275bcc0d1d2962c3b23c284c1e3168574d1c9463e0be851812225fc66d789',
+                                                    'PodGang': '3ac5b2bf4d000cbd5b80ba615cee44c1159ac146a7d4d1678ec2bff8ba71379e',
+                                                    'Queue': '82e11d9d3d440a9aaddc004be4f13798236fb3d95e295ee549faae0630c9fe5d',
+                                                    'Role': '287c937c65637e24cb01f4a3035fafd2c79754d305fdbbe71ac1f3923b760a42',
+                                                    'RoleBinding': '82011a08a8cd60bcd18525a20d46d080625f7e01c1ba55538809092451030a9a',
+                                                    'Secret': '1cbd42689db19f05cdf6e1c9ac10e99ca5bd989ea7256d63168a71b722eb36c8',
+                                                    'Service': 'f0e3e3804f3e63f399650cbe285f024f9042fbb92c07bb43097d503b7faa4e7b',
+                                                    'ServiceAccount': 'e431ad28e391ed4143fcf3d3b9fd103057b9d1e7b6bb30998acd340fc1e31263'},
+                                         'scored_gangs': 2,
+                                         'score_sum': 2.0,
+                                         'bindings_sha256': '1f672032001be9076489e6aec193e51637c22ab1dc2cc7445e858b32c55cc276'},
+             'simple1.yaml': {'ticks': 4,
+                              'tree_sha256': '7c988802358934518bbd16650ee2717317187d38aae7bdfde4ad1a130b1c149a',
+                              'tree_lines': 16,
+                              'resource_version': 100,
+                              'census': {'ClusterTopology': [1, 1],
+                                         'Event': [13, 54],
+                                         'HorizontalPodAutoscaler': [2, 11],
+                                         'Pod': [9, 91],
+                                         'PodClique': [4, 96],
+                                         'PodCliqueScalingGroup': [1, 97],
+                                         'PodCliqueSet': [1, 100],
+                                         'PodGang': [1, 99],
+                                         'Role': [1, 6],
+                                         'RoleBinding': [1, 7],
+                                         'Secret': [1, 8],
+                                         'Service': [1, 9],
+                                         'ServiceAccount': [1, 5]},
+                              'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                         'HorizontalPodAutoscaler': '4a8d396129b9de061721b348de64c919ad8efb68f3adace21c329a9af27bbc4f',
+                                         'Pod': 'ec381d02b308fb6a4dd81f5d3b94dac42a1b5113d399de947e3db755e06fd0ca',
+                                         'PodClique': '4ca1cc4527ecb4b11cf386cd3862dcf10e35dcd4452dfb465f45d5ae8c92d5f9',
+                                         'PodCliqueScalingGroup': '7634ba434b41bc25d2a031042cc6a0c940785862eff481e328f78121f3bc3dda',
+                                         'PodCliqueSet': 'c19ae9e9606889e11233db3317dbd1a2e69a8ad20e72efdf2a8bdbc35b2f1121',
+                                         'PodGang': '0f763667857a137d34e9a1b282fbe8ef7f45880ca7ec47967e8b472528387c32',
+                                         'Role': 'd8f4513c33fc8ae65081f39b3109809a8dbd58eeec1795ee8c6e806568ee9a26',
+                                         'RoleBinding': '8a2a99cafe12daab3be8eadfe3aac88f502613220e3e9ad4f5f2d8d75eebac04',
+                                         'Secret': '0dc4ff82c3544ef5806159b938c6358bb2b23de333750d85347d1cb39c1a2c19',
+                                         'Service': '939590905bb42504cbb66a0a4e4961c9fcbfe370e3281fc45bdb85e7f82df257',
+                                         'ServiceAccount': '74be9c6da80b82c142d2d9f69eb8ff3491db1e1a64fffa3d995611320b505215'},
+                              'scored_gangs': 1,
+                              'score_sum': 1.0,
+                              'bindings_sha256': 'bdb3072106075a7efecca893ba4a2f8087e3ecac549593a476191d63e0392436'},
+             'simple2-explicit-startup-order.yaml': {'ticks': 5,
+                                                     'tree_sha256': 'f4c809059367cbbf8630837ce39e96841c8955b0e4bc5c16f2ba8dcd2184cadb',
+                                                     'tree_lines': 15,
+                                                     'resource_version': 97,
+                                                     'census': {'ClusterTopology': [1, 1],
+                                                                'Event': [14, 48],
+                                                                'HorizontalPodAutoscaler': [1, 10],
+                                                                'Pod': [9, 94],
+                                                                'PodClique': [4, 95],
+                                                                'PodCliqueSet': [1, 97],
+                                                                'PodGang': [1, 96],
+                                                                'Role': [1, 6],
+                                                                'RoleBinding': [1, 7],
+                                                                'Secret': [1, 8],
+                                                                'Service': [1, 9],
+                                                                'ServiceAccount': [1, 5]},
+                                                     'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                                                'HorizontalPodAutoscaler': '56b5a226a64bc628002e65b0522bbb37bc2ae62e3ce483dcc30ca2408b297965',
+                                                                'Pod': 'a6b1d38fa5623a866be84fe172916ff36fe791880aec66f867dd98022bfb8eff',
+                                                                'PodClique': 'c234edf9424d33fb66cd7178382c6cab2a94736483972ed1076633e03769899a',
+                                                                'PodCliqueSet': '68d23020b9e31808e4bfcfed3f01299a6a5b1dbdd88d8da4eb9fce0ed7be6b08',
+                                                                'PodGang': '714d8bd49bb6b24415a7d1de59cf31b0cede9a866acf7eff58f4c4554687ead9',
+                                                                'Role': '9c5b4f84de74cdb93207a1f27d0e2bc89dfa7ed027b584f9877cc93c4ffd53e8',
+                                                                'RoleBinding': '02f3db71659dd285176ec0135b5bdfdd5b47d8cec9c2fe3f68f73db647e06bed',
+                                                                'Secret': '6ed1bcb486b20254d38eff18c10a3ae62521c776ad737d4e3edbb578120d15a3',
+                                                                'Service': '2ed59c16546eda80c3844c0a8b6030c7b5391df26fd884d018442a35f59c89b4',
+                                                                'ServiceAccount': '5860d618e91732b7d78d9b87f24aaadd28db123a6050d7c6cf060f15849f1205'},
+                                                     'scored_gangs': 1,
+                                                     'score_sum': 1.0,
+                                                     'bindings_sha256': '818c364ea2137ab0cec215290bdd12bd06e059d483d8a95934152179e65eb873'},
+             'simple3-explicit-startup-order.yaml': {'ticks': 5,
+                                                     'tree_sha256': 'ea3af79327fc3f67939ddcbedb07b3d88061ed39f11ecc8e1827f30345788060',
+                                                     'tree_lines': 18,
+                                                     'resource_version': 115,
+                                                     'census': {'ClusterTopology': [1, 1],
+                                                                'Event': [14, 59],
+                                                                'HorizontalPodAutoscaler': [2, 11],
+                                                                'Pod': [10, 111],
+                                                                'PodClique': [5, 113],
+                                                                'PodCliqueScalingGroup': [1, 101],
+                                                                'PodCliqueSet': [1, 115],
+                                                                'PodGang': [1, 114],
+                                                                'Role': [1, 6],
+                                                                'RoleBinding': [1, 7],
+                                                                'Secret': [1, 8],
+                                                                'Service': [1, 9],
+                                                                'ServiceAccount': [1, 5]},
+                                                     'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                                                'HorizontalPodAutoscaler': 'a0bf27831bbee572082da2e3a5ad6b8d9b141cb176cbce92fd65f8945f83d7e2',
+                                                                'Pod': 'f83b57bca474c6e3b6aa042c73546b29f184f89624e0b66b20a4e9092d3dd0a9',
+                                                                'PodClique': '9621d9c49ae247272e6be1586ad163b953d944bfacfba5c249f0c32d73ad8261',
+                                                                'PodCliqueScalingGroup': 'e544f0f15272aa19e316b7aca6aeba06349c54dd8866ab6e938d9296a1bc2d45',
+                                                                'PodCliqueSet': 'c09184b511897f455d442b962fa0ff24bc0b6696bc08eb71d1a665aafb70ed62',
+                                                                'PodGang': '9f83c4d9d03809e11c96bda4f059dd0adede8781f80a34b75b30a91746d83954',
+                                                                'Role': '458aea26ce91a9b37bf68c810042a66edade306642cf84e313b2e6b71c27d4a6',
+                                                                'RoleBinding': 'eb7efa18d87c06dfcb4ae358c865468c20558c80f69c59dcb80a39a1e751482a',
+                                                                'Secret': '88c203fd0e1b50bfde6d81f8a21fc8ff055dc4d9850d86844eef7fff19c11216',
+                                                                'Service': 'ee5623e76d14376b79c43c3b1a984173e28729fc6d1c24833fad9cd2ec9b7ce2',
+                                                                'ServiceAccount': '6ec4b87cf98952777ff244b302d9bc6f5841fa86cef52b09ccf25639c8f3071b'},
+                                                     'scored_gangs': 1,
+                                                     'score_sum': 1.0,
+                                                     'bindings_sha256': '8c0b26731bc55a75c3ff755f786228d4139050fe4c8932fe712d89f127e55550'},
+             'single-node-disaggregated.yaml': {'ticks': 4,
+                                                'tree_sha256': 'c14f389c8edc020f51f90ce83eae37a69b863280adcce74b92ed5b2d07be828b',
+                                                'tree_lines': 7,
+                                                'resource_version': 50,
+                                                'census': {'ClusterTopology': [1, 1],
+                                                           'Event': [4, 29],
+                                                           'HorizontalPodAutoscaler': [1, 10],
+                                                           'Pod': [2, 43],
+                                                           'PodClique': [2, 46],
+                                                           'PodCliqueScalingGroup': [1, 47],
+                                                           'PodCliqueSet': [1, 50],
+                                                           'PodGang': [1, 49],
+                                                           'Role': [1, 6],
+                                                           'RoleBinding': [1, 7],
+                                                           'Secret': [1, 8],
+                                                           'Service': [1, 9],
+                                                           'ServiceAccount': [1, 5]},
+                                                'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                                           'HorizontalPodAutoscaler': 'c499943652a839028ad9ce81901227862b000c467b66577f0872884e5aeed98b',
+                                                           'Pod': 'a2c694e6e3f3f8084b6d63d3baf27a959f996a80bc94fc5b253c9af9f2e96f8f',
+                                                           'PodClique': 'ea8a349d129656d7795737211aa414f247be7ee096691ce50bc46f75ba9f012d',
+                                                           'PodCliqueScalingGroup': '3cd3c51f1b814422cfe080dd2936c67fee44988a16d1473f2d36de491d4f6adc',
+                                                           'PodCliqueSet': 'dc6fbc5ba0e9b94f85328364007320b7841d5aa36557f4690df90f4e4c07f994',
+                                                           'PodGang': 'a603034d734be56cac7212030c8e6781f0f8f8efb532728b92dd97c4c2b5e78e',
+                                                           'Role': 'dfb99eeb7a32d650c0c18ff79c4ce6891fb3e7c3ef067e143558046243191fd8',
+                                                           'RoleBinding': '0bb9d1eac042b2aef372508e14a6a9cb02cc521590f5ca029a67c7f23db88f2b',
+                                                           'Secret': 'd9729fae86e90f823db01d1cc31b51b8c0d4cf1e1d594cd54ff8fe21120d0932',
+                                                           'Service': 'ad6f7a13567a157e23d4b807e4234668b02ca031aaac690169edfd968d58e584',
+                                                           'ServiceAccount': '4c22da20ff6f3ddaacf238e251a80d0b3bf8e67d7be398c177b836bd4641275b'},
+                                                'scored_gangs': 1,
+                                                'score_sum': 0.833333432674408,
+                                                'bindings_sha256': '8d99c940166b99457c3e24defd26e0809d1de44bf65a6ac70400b7cb78029623'},
+             'spread-serving.yaml': {'ticks': 4,
+                                     'tree_sha256': '3099b90fd7267bc011176fdd24cf00537b438bcd44108b7030bb8b6f2100358f',
+                                     'tree_lines': 12,
+                                     'resource_version': 74,
+                                     'census': {'ClusterTopology': [1, 1],
+                                                'Event': [11, 37],
+                                                'Pod': [8, 68],
+                                                'PodClique': [2, 71],
+                                                'PodCliqueSet': [1, 74],
+                                                'PodGang': [1, 73],
+                                                'Role': [1, 6],
+                                                'RoleBinding': [1, 7],
+                                                'Secret': [1, 8],
+                                                'Service': [1, 9],
+                                                'ServiceAccount': [1, 5]},
+                                     'digest': {'ClusterTopology': '02b841404e7e330cdc38d9f771e094f47d83e7e69b9d047b64d95199fc940420',
+                                                'Pod': '3a588f6dcce41e2e57551d588df78a9a9974b546454986bf30fb2938d11e6183',
+                                                'PodClique': 'd818357b2a5b6056378387b596f2a5c99feec3522a6dd83ed1d417feef37ee0b',
+                                                'PodCliqueSet': '948411d7d69cf0b3bc1a3611d923292dd143ca9c577c3b9afa0a3d901e43fd3f',
+                                                'PodGang': '1b57f95b78385fbc791488458b139ad6ce718d0c44641ae089186be06055bb0a',
+                                                'Role': 'bf848118e9d85f9b945b2b2d55786cd7ab8de0f936deea18f2bf3ced9581c9ee',
+                                                'RoleBinding': '51de7793243d69df8c6a8890fed91669dfb639c6108309c00cf396e69e749447',
+                                                'Secret': '49f8c5e476a432f7d9b799ce1717a35f38c4e5e1604dbfa62fb1af6447718ec8',
+                                                'Service': '9427c49c8ffcf92aa5d208d859b71c8a2420c5268e59e86b8513f18c50c48566',
+                                                'ServiceAccount': 'e5a547ee02caaaa83307368f1e1c0270534851f7b5bc9ff90bf824a0f922a9ba'},
+                                     'scored_gangs': 1,
+                                     'score_sum': 1.0,
+                                     'bindings_sha256': 'ffc220ea09ee218786c435a726a81761fafb4758807949c38a7f431afecc4daf'}}}
+
+
+def _pin_string_hash() -> None:
+    """Re-run this script under PYTHONHASHSEED=0 unless it already is: the
+    controllers iterate Python sets of strings (the store's label index, the
+    kubelet's not-Ready set), so the order of commits, and with it every
+    resourceVersion that [operator] holds to JAX_OPERATOR_REFERENCE, follows
+    the string hash; the reference was taken under seed 0."""
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        sys.stdout.flush()
+        os.execve(sys.executable, [sys.executable] + sys.argv,
+                  dict(os.environ, PYTHONHASHSEED="0"))
+
+
+def operator_pkg():
+    """The port's names that models/scenarios.run_operator_world and
+    run_samples_world drive."""
+    import types
+
+    from grove_tpu_torch.api import meta
+    from grove_tpu_torch.api.load import load_manifest_objects, load_podcliquesets
+    from grove_tpu_torch.api.pod import is_ready
+    from grove_tpu_torch.api.serialize import export_object
+    from grove_tpu_torch.config.operator import OperatorConfiguration
+    from grove_tpu_torch.observability.events import EVENTS
+    from grove_tpu_torch.observability.flightrec import FLIGHTREC
+    from grove_tpu_torch.observability.journey import JOURNEYS
+    from grove_tpu_torch.observability.metrics import METRICS
+    from grove_tpu_torch.observability.timeseries import TIMESERIES
+    from grove_tpu_torch.observability.tracing import TRACER
+    from grove_tpu_torch.sim.harness import SimHarness
+
+    return types.SimpleNamespace(
+        SimHarness=SimHarness, load_podcliquesets=load_podcliquesets,
+        load_manifest_objects=load_manifest_objects,
+        OperatorConfiguration=OperatorConfiguration, deep_copy=meta.deep_copy,
+        reset_uid_namespace=meta.reset_uid_namespace, export_object=export_object,
+        is_ready=is_ready, METRICS=METRICS, EVENTS=EVENTS, TRACER=TRACER, JOURNEYS=JOURNEYS,
+        FLIGHTREC=FLIGHTREC, TIMESERIES=TIMESERIES)
+
+
+def _check_same(tag, got, want) -> None:
+    if got != want:
+        keys = sorted(set(got) | set(want)) if isinstance(got, dict) and isinstance(
+            want, dict) else []
+        diff = [k for k in keys if got.get(k) != want.get(k)]
+        _fail(f"{tag}: {diff or got} differs from the JAX package's"
+              + (f" ({got.get(diff[0])} != {want.get(diff[0])})" if diff else ""))
+
+
+# the first fill calls of (iota) that [operator] holds against the plain
+# fill, beside the first call of every other shape the run gives the kernel
+OPERATOR_FILL_CALLS = 8
+
+
+class _RecordedFills:
+    """While active, the scheduler's solves (solver.scheduler.solve_waves)
+    take a `fill=` that runs the kernel as usual and keeps a copy of the
+    arguments of the first `first` calls and of the first call of each
+    other shape (free, mask, demand and count shapes, with_free_after)."""
+
+    def __init__(self, first):
+        self.first = first
+        self.calls = []  # (tag, (free, mask, demand, count), with_free_after)
+        self._shapes = set()
+
+    def fill(self, free, mask, demand, count, with_free_after=True):
+        from grove_tpu_torch.ops.fill import fill_batch
+
+        shape = (tuple(free.shape), tuple(mask.shape), tuple(demand.shape),
+                 tuple(count.shape), with_free_after)
+        if len(self.calls) < self.first or shape not in self._shapes:
+            tag = (f"call {len(self.calls)}" if len(self.calls) < self.first
+                   else "first of its shape")
+            self._shapes.add(shape)
+            self.calls.append((tag, tuple(t.clone() for t in (free, mask, demand, count)),
+                               with_free_after))
+        return fill_batch(free, mask, demand, count, with_free_after=with_free_after)
+
+    def __enter__(self):
+        import functools
+
+        import grove_tpu_torch.solver.scheduler as scheduler
+
+        self._solve_waves = scheduler.solve_waves
+        scheduler.solve_waves = functools.partial(self._solve_waves, fill=self.fill)
+        return self
+
+    def __exit__(self, *exc):
+        import grove_tpu_torch.solver.scheduler as scheduler
+
+        scheduler.solve_waves = self._solve_waves
+        return False
+
+
+def check_recorded_fills(recorded, phase):
+    """Each recorded fill call through the kernel and the plain fill on the
+    same tensors: alloc, placed and free_after bit for bit. The launches
+    made here are not counted (the counter is restored)."""
+    from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
+
+    if not recorded.calls:
+        _fail(f"{phase}: the run made no fill call")
+    launches, max_err = fill_batch.launches, 0.0
+    for i, (tag, args, with_free_after) in enumerate(recorded.calls):
+        free, mask, demand, count = args
+        out = fill_batch(*args, with_free_after=with_free_after)
+        ref = fill_batch_ref(*args, with_free_after=with_free_after)
+        name = f"{phase} fill {i} ({tag})"
+        max_err = max(max_err, _check_equal(name, out, ref))
+        if with_free_after and not torch.equal(out[2].view(torch.int32),
+                                               ref[2].view(torch.int32)):
+            _fail(f"fill kernel != plain ({name}: free_after bits)")
+        c, p, r = demand.shape
+        print(f"[{phase}] fill {i} ({tag}): C={c} P={p} N={mask.shape[-1]} R={r}, free"
+              f" {'shared' if free.dim() == 2 else 'per-gang'} (max"
+              f" {float(free.max()):.6g}), free_after {'yes' if with_free_after else 'no'},"
+              f" placed {int(out[1].sum())}: kernel == plain bit for bit", flush=True)
+    fill_batch.launches = launches
+    return max_err
+
+
+
+def phase_operator(card, device="cuda", n_sets=None, n_nodes=None, update_every=None,
+                   reference=None) -> dict:
+    """[operator]: (iota) at full width through the port's SimHarness on the
+    card, every converge tick (tick_once's work, bound and started, and
+    round_summary of its schedule) and after each converge the store's
+    census, resourceVersion, reconcile counts, canonical digest, event
+    counts and bindings hash held to JAX_OPERATOR_REFERENCE, every pod
+    Ready; then the ten samples, each tree() and digest equal. The fill
+    kernel must launch in (iota) and both DRF kernels in the samples (the
+    Queue sample). The first fill calls of (iota) and the first of each
+    other shape are held against the plain fill (_RecordedFills).
+    ``device``, a cut and its ``reference`` (the "operator"
+    object of `scripts/scheduler_reference.py operator --sets N --nodes M`)
+    rehearse the phase on the CPU."""
+    from grove_tpu_torch.models.scenarios import (
+        operator_missing, run_operator_world, run_samples_world)
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+
+    ref = JAX_OPERATOR_REFERENCE if reference is None else reference
+    pkg = operator_pkg()
+    def after_tick(step, index, wall_s, tick):
+        ticks = ref["converges"][("converge", "rolling_update").index(step)]["ticks"]
+        tag = f"operator {step} tick {index}"
+        if index > len(ticks):
+            _fail(f"{tag}: the JAX run converged in {len(ticks)} ticks")
+        want = dict(ticks[index - 1])
+        got = dict(tick)
+        want_round, got_round = dict(want.pop("round")), dict(got.pop("round"))
+        if not np.isclose(got_round.pop("score_sum"), want_round.pop("score_sum"), rtol=1e-6,
+                          atol=0):
+            _fail(f"{tag}: score sum {tick['round']['score_sum']} != the JAX package's")
+        _check_same(tag, got, want)
+        _check_same(f"{tag} round", got_round, want_round)
+        print(f"[operator] {step} tick {index}: {wall_s:.3f} s; work {tick['work']}, bound"
+              f" {tick['bound']}, started {tick['started']}, events"
+              f" {tick['round']['events_by_reason']}; equal to the JAX package's", flush=True)
+
+    fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+    with _RecordedFills(OPERATOR_FILL_CALLS) as recorded:
+        got = run_operator_world(pkg, n_sets, n_nodes, update_every, device=device,
+                                 after_tick=after_tick)
+    launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                "drf_merge": merge_cuda.launches}
+    fill_err = check_recorded_fills(recorded, "operator")
+    walls = got.pop("walls")
+    _check_same("operator world", got["world"], ref["world"])
+    _check_same("operator apply", got["apply"], ref["apply"])
+    if len(got["converges"]) != len(ref["converges"]):
+        _fail("operator: the converges differ in number from the JAX package's")
+    for step, g, w in zip(("converge", "rolling_update"), got["converges"], ref["converges"]):
+        if len(g["ticks"]) != len(w["ticks"]):
+            _fail(f"operator {step}: {len(g['ticks'])} ticks, the JAX run {len(w['ticks'])}")
+        _check_same(f"operator {step} events", g["events"], w["events"])
+        got_summary, want_summary = dict(g["summary"]), dict(w["summary"])
+        if not np.isclose(got_summary.pop("score_sum"), want_summary.pop("score_sum"),
+                          rtol=1e-6, atol=0):
+            _fail(f"operator {step}: score sum {g['summary']['score_sum']} != the JAX"
+                  f" package's {w['summary']['score_sum']}")
+        _check_same(f"operator {step} summary", got_summary, want_summary)
+    missing = operator_missing(got)
+    if missing:
+        _fail(f"operator: the run did not show {missing}")
+    fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+    t0 = time.perf_counter()
+    samples = run_samples_world(pkg, device=device)
+    samples_s = time.perf_counter() - t0
+    sample_launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                       "drf_merge": merge_cuda.launches}
+    for name, want in ref["samples"].items():
+        got_sample, want = dict(samples.get(name) or {}), dict(want)
+        if not np.isclose(got_sample.pop("score_sum", None), want.pop("score_sum"), rtol=1e-6,
+                          atol=0):
+            _fail(f"operator sample {name}: score sum differs from the JAX package's")
+        _check_same(f"operator sample {name}", got_sample, want)
+    if set(samples) != set(ref["samples"]):
+        _fail(f"operator: samples {sorted(samples)} != the JAX package's")
+    if device != "cpu":
+        if not launches["fill"]:
+            _fail(f"operator: (iota) did not launch the fill kernel: {launches}")
+        if not (sample_launches["drf_shares"] and sample_launches["drf_merge"]):
+            _fail(f"operator: the samples did not launch both DRF kernels: {sample_launches}")
+    conv, roll = walls["converge"], walls["rolling_update"]
+    out = {
+        "sets": got["world"]["n_sets"], "nodes": got["world"]["n_nodes"],
+        "apply_s": walls["apply_s"], "converge_s": conv["wall_s"], "ticks": conv["ticks"],
+        "solver_s": conv["solver_s"], "solver_share": conv["solver_s"] / conv["wall_s"],
+        "reconciles": conv["reconciles"],
+        "us_per_reconcile": 1e6 * conv["wall_s"] / max(conv["reconciles"], 1),
+        "update_apply_s": walls["update_apply_s"], "rolling_update_s": roll["wall_s"],
+        "rolling_update_ticks": roll["ticks"], "rolling_update_reconciles": roll["reconciles"],
+        "pods": got["converges"][0]["summary"]["census"]["Pod"][0],
+        "samples_s": samples_s,
+        **{f"{k}_launches": v for k, v in launches.items()},
+        **{f"samples_{k}_launches": v for k, v in sample_launches.items()},
+        "fill_calls_checked": len(recorded.calls), "fill_max_abs_err": fill_err,
+    }
+    print(f"[operator] (iota) {out['sets']} sets on {out['nodes']} nodes, {out['pods']} pods"
+          f" all Ready, every tick and digest equal to the JAX package's: apply"
+          f" {out['apply_s']:.3f} s, converge {out['converge_s']:.3f} s in {out['ticks']} ticks"
+          f" (solver {out['solver_s']:.3f} s, share {out['solver_share']:.4f};"
+          f" {out['reconciles']:.0f} reconciles, {out['us_per_reconcile']:.1f} us each);"
+          f" rolling update of {len(range(0, out['sets'], got['world']['update_every']))} sets"
+          f" {out['rolling_update_s']:.3f} s in {out['rolling_update_ticks']} ticks; launches fill"
+          f" {launches['fill']}, DRF {launches['drf_shares']} + {launches['drf_merge']};"
+          f" ten samples {samples_s:.3f} s, each tree and digest equal, launches fill"
+          f" {sample_launches['fill']}, DRF {sample_launches['drf_shares']} +"
+          f" {sample_launches['drf_merge']}; {len(recorded.calls)} of (iota)'s fill calls"
+          f" equal to the plain fill bit for bit | {card}", flush=True)
+    return out
+
+
 def _is_float(text: str) -> bool:
     try:
         float(text)
@@ -4629,6 +5397,7 @@ def _timed(phase, *args):
 
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    _pin_string_hash()
     t_start = time.perf_counter()
     card = _timed(phase_device)
     _timed(phase_build)
@@ -4646,6 +5415,7 @@ def main() -> int:
     sidecar = _timed(phase_sidecar, main_path, card)
     slo = _timed(phase_slo, delta, card)
     disruption = _timed(phase_disruption, card)
+    operator = _timed(phase_operator, card)
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
@@ -4656,15 +5426,18 @@ def main() -> int:
         + sharded["single_fill_launches"] + sharded["fill_launches"]
         + observe["fill_launches"] + observe["explain_fill_launches"]
         + sidecar.get("a", {}).get("fill_launches", 0) + sidecar.get("q", {}).get("fill_launches", 0)
-        + slo["fill_launches"] + disruption["fill_launches"],
+        + slo["fill_launches"] + disruption["fill_launches"]
+        + operator["fill_launches"] + operator["samples_fill_launches"],
         "sidecar_launches": sidecar.get("a", {}).get("fill_launches", 0)
         + sidecar.get("q", {}).get("fill_launches", 0),
         "slo_launches": slo["fill_launches"],
         "disruption_launches": disruption["fill_launches"],
+        "operator_launches": operator["fill_launches"] + operator["samples_fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
         "explain_launches": observe["explain_fill_launches"],
         "sharded_rank_launches": sharded["fill_launches"],
-        "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"]]
+        "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"],
+                            operator["fill_max_abs_err"]]
                            + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -4684,10 +5457,13 @@ def main() -> int:
             + front[f"drf_{phase}_launches"] + observe[f"drf_{phase}_launches"]
             + observe[f"explain_drf_{phase}_launches"]
             + sidecar.get("q", {}).get(f"drf_{phase}_launches", 0) + slo[f"drf_{phase}_launches"]
-            + disruption[f"drf_{phase}_launches"],
+            + disruption[f"drf_{phase}_launches"] + operator[f"drf_{phase}_launches"]
+            + operator[f"samples_drf_{phase}_launches"],
             "sidecar_launches": sidecar.get("q", {}).get(f"drf_{phase}_launches", 0),
             "slo_launches": slo[f"drf_{phase}_launches"],
             "disruption_launches": disruption[f"drf_{phase}_launches"],
+            "operator_launches": operator[f"drf_{phase}_launches"]
+            + operator[f"samples_drf_{phase}_launches"],
             "explain_launches": observe[f"explain_drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
@@ -4710,7 +5486,7 @@ def main() -> int:
                       "frontier": {k: v for k, v in front.items() if k != "rounds"},
                       "frontier_rounds": front["rounds"], "sharded": sharded,
                       "observe": observe, "sidecar": sidecar, "slo": slo,
-                      "disruption": disruption}))
+                      "disruption": disruption, "operator": operator}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

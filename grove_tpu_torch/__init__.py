@@ -11,7 +11,11 @@ kernel in ``csrc/fill.cu``; the stats path and the exact solve; and the
 scheduler round, ``solver.scheduler.GangScheduler`` over the port's own
 store (``runtime.store``), whose DRF fair-share order
 (``quota.ordering.fair_order``) runs the hand-written kernel in
-``csrc/drf.cu``.
+``csrc/drf.cu``; and the operator in front of it: ``sim.harness.SimHarness``
+applies a PodCliqueSet through admission, and the reconcile engine
+(``runtime.engine``) drives the PodCliqueSet, PodCliqueScalingGroup and
+PodClique controllers (``controller/``), whose PodGangs the scheduler admits
+and whose pods the simulated kubelet starts.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no card present they raise (never a silent CPU

@@ -1,11 +1,11 @@
-"""The API kinds the scheduler round reads and writes.
+"""The operator's API kinds.
 
-Counterpart of ``grove_tpu/api/types.py``, cut to PodGang, PodClique,
-Queue, PodCliqueSet (with its template, scaling-group configs, disruption
-budget and status types), ``GenericObject`` and the pod template
-(``PodSpec``, ``Container``), with the phase and condition constants and
-``parse_duration``. Field names and wire names match the JAX package's, so
-a document it exports decodes here unchanged (``api/wire.py``).
+Counterpart of ``grove_tpu/api/types.py``: PodCliqueSet, PodClique,
+PodCliqueScalingGroup, PodGang, Queue and ``GenericObject`` as dataclasses
+with the reference's camelCase wire names. Field names and defaults match
+the JAX package's one for one: ``api/hashing.py`` normalises dataclasses by
+field name, so a renamed or missing field would change every pod-template
+hash.
 """
 
 from __future__ import annotations
@@ -14,24 +14,50 @@ import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-from grove_tpu_torch.api.meta import Condition, NamespacedName, ObjectMeta, parse_resource_map
+from grove_tpu_torch.api.meta import (
+    Condition,
+    NamespacedName,
+    ObjectMeta,
+    parse_resource_map,
+)
 
-# PodGang phases
+# ---------------------------------------------------------------------------
+# Constants / enums
+# ---------------------------------------------------------------------------
+
+API_GROUP = "grove.io"
+SCHEDULER_API_GROUP = "scheduler.grove.io"
+
+# CliqueStartupType — podcliqueset.go:243-255
+STARTUP_ANY_ORDER = "CliqueStartupTypeAnyOrder"
+STARTUP_IN_ORDER = "CliqueStartupTypeInOrder"
+STARTUP_EXPLICIT = "CliqueStartupTypeExplicit"
+STARTUP_TYPES = (STARTUP_ANY_ORDER, STARTUP_IN_ORDER, STARTUP_EXPLICIT)
+
+# PodGangPhase — scheduler podgang.go:139-151 and operator podcliqueset.go:267-284
 PHASE_PENDING = "Pending"
 PHASE_STARTING = "Starting"
 PHASE_RUNNING = "Running"
 
-# condition types
+# Condition types
+COND_POD_CLIQUE_SCHEDULED = "PodCliqueScheduled"
 COND_MIN_AVAILABLE_BREACHED = "MinAvailableBreached"
 COND_PODGANG_SCHEDULED = "Scheduled"
+COND_PODGANG_READY = "Ready"
 COND_PODGANG_UNHEALTHY = "Unhealthy"
 COND_PODGANG_DISRUPTION_TARGET = "DisruptionTarget"
 
-SPREAD_DO_NOT_SCHEDULE = "DoNotSchedule"
-SPREAD_SCHEDULE_ANYWAY = "ScheduleAnyway"
+# Default gang-termination delay — podcliqueset.go:146-153 (4 hours)
+DEFAULT_TERMINATION_DELAY_SECONDS = 4 * 60 * 60.0
 
-# queue gangs land in when they carry no queue label
-DEFAULT_QUEUE = "default"
+# Scheduling gate applied to every grove-managed pod at creation
+# (reference: podclique/components/pod/pod.go:68 "grove.io/podgang-pending-creation")
+PODGANG_SCHEDULING_GATE = "grove.io/podgang-pending-creation"
+
+
+# ---------------------------------------------------------------------------
+# Pod template subset
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -43,7 +69,22 @@ class Container:
     requests: Dict[str, float] = field(default_factory=dict)
     limits: Dict[str, float] = field(default_factory=dict)
     env: List[Dict[str, Any]] = field(default_factory=list)
+    # Unmodeled container fields (ports, volumeMounts, probes, …) pass through
+    # so template hashing sees every user-visible change.
     extra: Dict[str, Any] = field(default_factory=dict)
+
+    def env_value(self, name: str) -> Optional[str]:
+        for e in self.env:
+            if e.get("name") == name:
+                return e.get("value")
+        return None
+
+    def set_env(self, name: str, value: str) -> None:
+        for e in self.env:
+            if e.get("name") == name:
+                e["value"] = value
+                return
+        self.env.append({"name": name, "value": value})
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "Container":
@@ -70,6 +111,7 @@ class PodSpec:
     priority_class_name: str = ""
     scheduler_name: str = ""
     restart_policy: str = ""
+    # Fields set by the operator on build (not by users):
     hostname: str = ""
     subdomain: str = ""
     scheduling_gates: List[str] = field(default_factory=list)
@@ -77,7 +119,7 @@ class PodSpec:
     extra: Dict[str, Any] = field(default_factory=dict)
 
     def total_requests(self) -> Dict[str, float]:
-        """Resource requests summed over the containers."""
+        """Aggregate resource requests across containers (scheduler's view)."""
         out: Dict[str, float] = {}
         for c in self.containers:
             for k, v in c.requests.items():
@@ -109,7 +151,9 @@ class PodSpec:
         )
 
 
-# -- autoscaling and operator-side topology constraints -----------------------
+# ---------------------------------------------------------------------------
+# Autoscaling
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -129,6 +173,16 @@ class AutoScalingConfig:
             ),
             metrics=list(d.get("metrics") or []),
         )
+
+
+# ---------------------------------------------------------------------------
+# Topology constraints (operator-side, level *names*)
+# ---------------------------------------------------------------------------
+
+
+SPREAD_DO_NOT_SCHEDULE = "DoNotSchedule"
+SPREAD_SCHEDULE_ANYWAY = "ScheduleAnyway"
+SPREAD_UNSATISFIABLE_MODES = (SPREAD_DO_NOT_SCHEDULE, SPREAD_SCHEDULE_ANYWAY)
 
 
 @dataclass
@@ -164,7 +218,9 @@ class TopologyConstraint:
         )
 
 
-# -- PodClique ---------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# PodClique
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -218,6 +274,8 @@ class PodCliqueTemplateSpec:
 
 @dataclass
 class PodCliqueStatus:
+    """podclique.go:103-137."""
+
     observed_generation: Optional[int] = None
     replicas: int = 0
     ready_replicas: int = 0
@@ -237,7 +295,9 @@ class PodClique:
     kind: str = "PodClique"
 
 
-# -- PodCliqueSet (the objects the disruption broker reads) ------------------
+# ---------------------------------------------------------------------------
+# PodCliqueScalingGroup
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -268,6 +328,54 @@ class PodCliqueScalingGroupConfig:
         )
 
 
+@dataclass
+class PodCliqueScalingGroupSpec:
+    """scalinggroup.go:50-71 (materialized CR spec)."""
+
+    replicas: int = 1
+    min_available: int = 1
+    clique_names: List[str] = field(default_factory=list)
+
+
+@dataclass
+class PCSGRollingUpdateProgress:
+    """scalinggroup.go:105-129."""
+
+    update_started_at: float = 0.0
+    update_ended_at: Optional[float] = None
+    ready_replica_indices_selected_to_update: List[int] = field(default_factory=list)
+    updated_replica_indices: List[int] = field(default_factory=list)
+
+
+@dataclass
+class PodCliqueScalingGroupStatus:
+    """scalinggroup.go:73-103."""
+
+    observed_generation: Optional[int] = None
+    replicas: int = 0
+    scheduled_replicas: int = 0
+    available_replicas: int = 0
+    updated_replicas: int = 0
+    selector: Optional[str] = None
+    conditions: List[Condition] = field(default_factory=list)
+    rolling_update_progress: Optional[PCSGRollingUpdateProgress] = None
+    last_errors: List[Dict[str, Any]] = field(default_factory=list)
+
+
+@dataclass
+class PodCliqueScalingGroup:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodCliqueScalingGroupSpec = field(default_factory=PodCliqueScalingGroupSpec)
+    status: PodCliqueScalingGroupStatus = field(
+        default_factory=PodCliqueScalingGroupStatus
+    )
+    kind: str = "PodCliqueScalingGroup"
+
+
+# ---------------------------------------------------------------------------
+# PodCliqueSet
+# ---------------------------------------------------------------------------
+
 
 @dataclass
 class HeadlessServiceConfig:
@@ -278,7 +386,7 @@ class HeadlessServiceConfig:
 class DisruptionBudget:
     """grove-tpu extension (docs/robustness.md "voluntary disruption"): a
     PodDisruptionBudget at GANG granularity, enforced by the
-    DisruptionBroker (``disruption/broker.py``) against every VOLUNTARY
+    DisruptionBroker (grove_tpu/disruption) against every VOLUNTARY
     disruptor — node drain, priority preemption, quota reclaim, rolling
     update. Involuntary failures (node loss) bypass it but still count
     toward the unavailable tally a voluntary request is checked against.
@@ -453,12 +561,10 @@ class PodCliqueSet:
 # ---------------------------------------------------------------------------
 
 
-# -- PodGang (the scheduler contract) ----------------------------------------
-
-
 @dataclass
 class TopologyPackConstraint:
-    """required/preferred hold topology keys (node-label keys)."""
+    """scheduler podgang.go:101-114 — required/preferred hold *topology keys*
+    (node-label keys), already translated from level names by the operator."""
 
     required: Optional[str] = None
     preferred: Optional[str] = None
@@ -466,6 +572,12 @@ class TopologyPackConstraint:
 
 @dataclass
 class TopologySpreadConstraint:
+    """grove-tpu extension of the PodGang contract (no reference analogue —
+    'Topology Spread Constraints' is an unshipped roadmap item there):
+    balance the gang's pods across the domains of `topology_key`, spanning
+    at least `min_domains` distinct domains when `when_unsatisfiable` is
+    DoNotSchedule."""
+
     topology_key: str = ""
     min_domains: int = 2
     when_unsatisfiable: str = SPREAD_DO_NOT_SCHEDULE
@@ -473,12 +585,16 @@ class TopologySpreadConstraint:
 
 @dataclass
 class SchedTopologyConstraint:
+    """scheduler podgang.go:95-99 (+ the spread extension)."""
+
     pack_constraint: Optional[TopologyPackConstraint] = None
     spread_constraint: Optional[TopologySpreadConstraint] = None
 
 
 @dataclass
 class PodGroup:
+    """scheduler podgang.go:76-91."""
+
     name: str
     pod_references: List[NamespacedName] = field(default_factory=list)
     min_replicas: int = 0
@@ -487,7 +603,7 @@ class PodGroup:
 
 @dataclass
 class TopologyConstraintGroupConfig:
-    """PCSG-level pack groups."""
+    """scheduler podgang.go:117-126 — PCSG-level pack groups."""
 
     pod_group_names: List[str] = field(default_factory=list)
     topology_constraint: Optional[SchedTopologyConstraint] = None
@@ -495,6 +611,8 @@ class TopologyConstraintGroupConfig:
 
 @dataclass
 class PodGangSpec:
+    """scheduler podgang.go:50-74."""
+
     pod_groups: List[PodGroup] = field(default_factory=list)
     topology_constraint: Optional[SchedTopologyConstraint] = None
     topology_constraint_group_configs: List[TopologyConstraintGroupConfig] = field(
@@ -506,6 +624,8 @@ class PodGangSpec:
 
 @dataclass
 class PodGangStatus:
+    """scheduler podgang.go:168-176."""
+
     phase: str = PHASE_PENDING
     conditions: List[Condition] = field(default_factory=list)
     placement_score: Optional[float] = None
@@ -519,21 +639,49 @@ class PodGang:
     kind: str = "PodGang"
 
 
-# -- Queue (quota and fair share) --------------------------------------------
+# ---------------------------------------------------------------------------
+# Queue (multi-tenant quota & fair-share — scheduler contract extension)
+# ---------------------------------------------------------------------------
+
+# The implicit root of the two-level queue tree; every tenant Queue's
+# parent defaults to it. Not a CR — it exists only as the tree's anchor.
+QUEUE_ROOT = "root"
+# Queue gangs land in when their PodCliqueSet carries no queue label (and
+# the implicit catch-all when no Queue CR of this name exists).
+DEFAULT_QUEUE = "default"
 
 
 @dataclass
 class QueueSpec:
-    """``deserved``: the per-resource share the queue is entitled to;
-    ``ceiling``: a per-resource hard cap (gangs past it are held)."""
+    """grove-tpu extension of the scheduler contract (docs/quota.md): a
+    tenant capacity queue in a two-level tree (root → tenant queues),
+    borrowing the deserved-share/ceiling semantics of capacity schedulers
+    (Kueue ClusterQueue / KAI hierarchical queues — the feature set the
+    reference delegates to the external KAI scheduler).
 
-    parent: str = ""
+    ``deserved``: per-resource share the queue is entitled to; fair-share
+    ordering ranks queues by dominant share usage/deserved, and a queue
+    below its deserved share may RECLAIM capacity from queues above theirs.
+    ``ceiling``: per-resource hard cap — gangs that would push usage past
+    it are held pending (QueuePending) without consuming a solve slot."""
+
+    parent: str = ""  # defaulted to QUEUE_ROOT (two-level tree only)
     deserved: Dict[str, float] = field(default_factory=dict)
     ceiling: Dict[str, float] = field(default_factory=dict)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "QueueSpec":
+        return QueueSpec(
+            parent=d.get("parent", ""),
+            deserved=parse_resource_map(d.get("deserved")),
+            ceiling=parse_resource_map(d.get("ceiling")),
+        )
 
 
 @dataclass
 class QueueStatus:
+    """Written by the gang scheduler each round (write-on-change)."""
+
     usage: Dict[str, float] = field(default_factory=dict)
     dominant_share: float = 0.0
     admitted_gangs: int = 0
@@ -549,7 +697,9 @@ class Queue:
     kind: str = "Queue"
 
 
-# -- generic child kinds ------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Generic child resources (Service / HPA / RBAC / Secret)
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -563,8 +713,9 @@ class GenericObject:
     spec: Dict[str, Any] = field(default_factory=dict)
 
 
-
-# -- helpers ------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
 
 _DURATION_RE = re.compile(r"(\d+(?:\.\d+)?)(ms|h|m|s)")
 

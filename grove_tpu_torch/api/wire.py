@@ -1,12 +1,10 @@
-"""Wire codec: camelCase documents → typed API objects.
+"""Wire codec: camelCase JSON/YAML documents → typed API objects.
 
-Counterpart of the decode half of ``grove_tpu/api/wire.py`` for the kinds
-the scheduler round and the disruption layer read: Pod, PodGang, PodClique,
-Queue, PodCliqueSet, and the generic HorizontalPodAutoscaler and NodeDrain
-(``GenericObject``: the spec stays a dict). A document the
-JAX package writes (``grove_tpu/api/serialize.py::export_object``) decodes
-here into the port's own classes; keys a class does not model go into its
-``extra`` field when it has one and are dropped otherwise.
+Counterpart of ``grove_tpu/api/wire.py``: a reflective dataclass decoder
+keyed on type hints (the decode half of ``api/serialize.py``'s export) with
+the reference format's quirks (nested container ``resources``,
+``cliqueStartupType``, ``podCliqueScalingGroups``, quantity and duration
+strings), and the kind registry (group, version, plural) of the CRDs.
 """
 
 from __future__ import annotations
@@ -14,31 +12,118 @@ from __future__ import annotations
 import dataclasses
 import functools
 import typing
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from grove_tpu_torch.api.meta import ObjectMeta, parse_quantity
 from grove_tpu_torch.api.pod import Pod
+from grove_tpu_torch.api.topology import ClusterTopology
 from grove_tpu_torch.api.types import (
     Container,
     GenericObject,
     PodClique,
+    PodCliqueScalingGroup,
     PodCliqueSet,
+    PodCliqueSetTemplateSpec,
     PodGang,
     Queue,
     parse_duration,
 )
 
-# kind -> (class, namespaced)
-KINDS: Dict[str, tuple] = {
-    "Pod": (Pod, True),
-    "PodGang": (PodGang, True),
-    "PodClique": (PodClique, True),
-    "Queue": (Queue, False),
-    "PodCliqueSet": (PodCliqueSet, True),
-    "HorizontalPodAutoscaler": (GenericObject, True),
-    # the persisted node-drain intent (disruption/drain.py)
-    "NodeDrain": (GenericObject, False),
-}
+# ---------------------------------------------------------------------------
+# Kind registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KindInfo:
+    kind: str
+    cls: type
+    group: str  # "" = core
+    version: str
+    plural: str
+    namespaced: bool = True
+
+    @property
+    def api_version(self) -> str:
+        return f"{self.group}/{self.version}" if self.group else self.version
+
+
+_KINDS = [
+    KindInfo("PodCliqueSet", PodCliqueSet, "grove.io", "v1alpha1", "podcliquesets"),
+    KindInfo("PodClique", PodClique, "grove.io", "v1alpha1", "podcliques"),
+    KindInfo(
+        "PodCliqueScalingGroup",
+        PodCliqueScalingGroup,
+        "grove.io",
+        "v1alpha1",
+        "podcliquescalinggroups",
+    ),
+    KindInfo(
+        "ClusterTopology",
+        ClusterTopology,
+        "grove.io",
+        "v1alpha1",
+        "clustertopologies",
+        namespaced=False,
+    ),
+    KindInfo(
+        "PodGang", PodGang, "scheduler.grove.io", "v1alpha1", "podgangs"
+    ),
+    # multi-tenant quota queue (docs/quota.md) — cluster-scoped like
+    # ClusterTopology; lives in the scheduler group (fair-share ordering
+    # and reclaim are scheduler-side semantics)
+    KindInfo(
+        "Queue",
+        Queue,
+        "scheduler.grove.io",
+        "v1alpha1",
+        "queues",
+        namespaced=False,
+    ),
+    KindInfo("Pod", Pod, "", "v1", "pods"),
+    # generic child kinds the operator materializes (sim-shaped spec dicts)
+    KindInfo("Service", GenericObject, "", "v1", "services"),
+    KindInfo("ServiceAccount", GenericObject, "", "v1", "serviceaccounts"),
+    KindInfo("Secret", GenericObject, "", "v1", "secrets"),
+    KindInfo("Event", GenericObject, "", "v1", "events"),
+    KindInfo(
+        "Role", GenericObject, "rbac.authorization.k8s.io", "v1", "roles"
+    ),
+    KindInfo(
+        "RoleBinding",
+        GenericObject,
+        "rbac.authorization.k8s.io",
+        "v1",
+        "rolebindings",
+    ),
+    KindInfo(
+        "HorizontalPodAutoscaler",
+        GenericObject,
+        "autoscaling",
+        "v2",
+        "horizontalpodautoscalers",
+    ),
+    # leader-election lease (coordination.k8s.io/v1, manager.go:84-98)
+    KindInfo("Lease", GenericObject, "coordination.k8s.io", "v1", "leases"),
+    # persisted node-drain intent (grove_tpu/disruption/drain.py): stored —
+    # not controller memory — so a leader failover resumes in-flight drains
+    KindInfo(
+        "NodeDrain",
+        GenericObject,
+        "scheduler.grove.io",
+        "v1alpha1",
+        "nodedrains",
+        namespaced=False,
+    ),
+]
+
+KIND_REGISTRY: Dict[str, KindInfo] = {k.kind: k for k in _KINDS}
+PLURAL_REGISTRY: Dict[str, KindInfo] = {k.plural: k for k in _KINDS}
+
+
+# ---------------------------------------------------------------------------
+# Reflective decoder
+# ---------------------------------------------------------------------------
 
 
 def _snake(name: str) -> str:
@@ -52,11 +137,30 @@ def _snake(name: str) -> str:
     return "".join(out)
 
 
+def _camel(name: str) -> str:
+    head, *rest = name.split("_")
+    return head + "".join(w.capitalize() for w in rest)
+
+
+# wire key → field name aliases where the reference format diverges from
+# plain camelization (reference podcliqueset.go:123-156)
+_FIELD_ALIASES: Dict[type, Dict[str, str]] = {
+    PodCliqueSetTemplateSpec: {
+        "cliqueStartupType": "startup_type",
+        "podCliqueScalingGroups": "pod_clique_scaling_group_configs",
+        # our own export camelizes the field name — accept it back
+        "startupType": "startup_type",
+        "podCliqueScalingGroupConfigs": "pod_clique_scaling_group_configs",
+    },
+}
+
+
 def _coerce_scalar(hint: type, value: Any, quantity: bool = False) -> Any:
     if hint is float:
         if isinstance(value, str):
-            # resource maps hold quantities ("200m" = 0.2 cpu), scalar
-            # float fields durations ("4h"): the m/h suffixes collide
+            # resource maps carry quantity strings ("200m" = 0.2 cpu);
+            # scalar float fields carry durations ("4h") — the two notations
+            # collide on the m/h suffixes, so context decides
             if quantity:
                 return parse_quantity(value)
             try:
@@ -73,6 +177,21 @@ def _coerce_scalar(hint: type, value: Any, quantity: bool = False) -> Any:
     return value
 
 
+# -- per-class decode plans (the process-boundary codec shave) --------------
+#
+# `typing.get_type_hints` re-evaluates every stringified annotation (PEP 563)
+# through `_eval_type` on EVERY call — profiled at >75% of decode wall on the
+# worker-process boundary, where the coordinator decodes each worker commit
+# envelope and every worker decodes the sync stream (docs/control-plane.md
+# §5). Hints, field tables and Optional-unwrapped per-field hints are all
+# pure functions of the class object, so they memoize exactly once.
+
+
+@functools.lru_cache(maxsize=None)
+def _class_hints(cls: type) -> Dict[str, Any]:
+    return typing.get_type_hints(cls)
+
+
 @functools.lru_cache(maxsize=None)
 def _class_fields(cls: type) -> Dict[str, Any]:
     return {f.name: f for f in dataclasses.fields(cls)}
@@ -80,8 +199,9 @@ def _class_fields(cls: type) -> Dict[str, Any]:
 
 @functools.lru_cache(maxsize=None)
 def _field_hint(cls: type, fname: str) -> Any:
-    """The field's type hint with Optional[X] unwrapped to X."""
-    hint = typing.get_type_hints(cls)[fname]
+    """The field's hint with Optional[X] pre-unwrapped to X — the per-value
+    decoder then skips the Union branch entirely on the hot path."""
+    hint = _class_hints(cls)[fname]
     if typing.get_origin(hint) is typing.Union:
         args = [a for a in typing.get_args(hint) if a is not type(None)]
         return args[0] if args else Any
@@ -92,7 +212,7 @@ def _decode_value(hint: Any, value: Any) -> Any:
     if value is None:
         return None
     origin = typing.get_origin(hint)
-    if origin is typing.Union:
+    if origin is typing.Union:  # Optional[X]
         args = [a for a in typing.get_args(hint) if a is not type(None)]
         return _decode_value(args[0], value) if args else value
     if origin in (list, typing.List):
@@ -102,7 +222,10 @@ def _decode_value(hint: Any, value: Any) -> Any:
         args = typing.get_args(hint)
         val_hint = args[1] if len(args) == 2 else Any
         if val_hint in (float, int):
-            return {k: _coerce_scalar(val_hint, v, quantity=True) for k, v in value.items()}
+            return {
+                k: _coerce_scalar(val_hint, v, quantity=True)
+                for k, v in value.items()
+            }
         return dict(value)
     if dataclasses.is_dataclass(hint):
         return decode_dataclass(hint, value)
@@ -112,24 +235,29 @@ def _decode_value(hint: Any, value: Any) -> Any:
 
 
 def decode_dataclass(cls: type, doc: Dict[str, Any]):
-    """A wire dict as an instance of the dataclass ``cls``."""
+    """Wire dict → dataclass instance (inverse of serialize.to_dict)."""
     if not isinstance(doc, dict):
         raise ValueError(f"expected object for {cls.__name__}, got {doc!r}")
     doc = dict(doc)
     if cls is Container and "resources" in doc:
-        # the reference container format nests requests/limits
+        # reference container format nests requests/limits under `resources`
         res = doc.pop("resources") or {}
         doc.setdefault("requests", res.get("requests") or {})
         doc.setdefault("limits", res.get("limits") or {})
     fields = _class_fields(cls)
+    aliases = _FIELD_ALIASES.get(cls, {})
     kwargs: Dict[str, Any] = {}
     leftovers: Dict[str, Any] = {}
     for key, value in doc.items():
-        fname = key if key in fields else _snake(key)
+        fname = aliases.get(key) or (
+            key if key in fields else _snake(key)
+        )
         if fname in fields:
             kwargs[fname] = _decode_value(_field_hint(cls, fname), value)
         else:
             leftovers[key] = value
+    # unmodeled keys pass through into `extra` when the type carries one
+    # (Container/PodSpec — keeps template hashing change-sensitive)
     if leftovers and "extra" in fields:
         extra = dict(kwargs.get("extra") or {})
         for k, v in leftovers.items():
@@ -138,21 +266,39 @@ def decode_dataclass(cls: type, doc: Dict[str, Any]):
     return cls(**kwargs)
 
 
-def decode_object(doc: Dict[str, Any]):
-    """A whole document (apiVersion/kind/metadata/spec/status) as an object."""
-    kind = doc.get("kind")
-    if kind not in KINDS:
-        raise ValueError(f"unsupported kind {kind!r}")
-    cls, namespaced = KINDS[kind]
-    meta = decode_dataclass(ObjectMeta, doc.get("metadata") or {})
+def _decode_metadata(doc: Dict[str, Any]) -> ObjectMeta:
+    meta = decode_dataclass(ObjectMeta, doc or {})
     if not meta.namespace:
         meta.namespace = "default"
-    if not namespaced:
+    return meta
+
+
+def decode_object(doc: Dict[str, Any]):
+    """Full CR document (apiVersion/kind/metadata/spec/status) → object."""
+    kind = doc.get("kind")
+    info = KIND_REGISTRY.get(kind or "")
+    if info is None:
+        raise ValueError(f"unsupported kind {kind!r}")
+    cls = info.cls
+    meta = _decode_metadata(doc.get("metadata") or {})
+    if not info.namespaced:
         meta.namespace = ""
     if cls is GenericObject:
         return GenericObject(kind=kind, metadata=meta, spec=dict(doc.get("spec") or {}))
+    hints = _class_hints(cls)
     kwargs: Dict[str, Any] = {"metadata": meta}
-    for part in ("spec", "status"):
-        if doc.get(part) is not None:
-            kwargs[part] = _decode_value(_field_hint(cls, part), doc[part])
-    return cls(**kwargs)
+    if "spec" in hints and doc.get("spec") is not None:
+        kwargs["spec"] = _decode_value(_field_hint(cls, "spec"), doc["spec"])
+    if "status" in hints and doc.get("status") is not None:
+        kwargs["status"] = _decode_value(_field_hint(cls, "status"), doc["status"])
+    obj = cls(**kwargs)
+    return obj
+
+
+def resolve_path_kind(group: str, version: str, plural: str) -> Optional[KindInfo]:
+    info = PLURAL_REGISTRY.get(plural)
+    if info is None:
+        return None
+    if info.group != group or info.version != version:
+        return None
+    return info

@@ -15,13 +15,23 @@ scheduler worlds (s), (q) and (r), the churn world ``delta`` whose ticks
 ``observe_summary`` reads a traced round's spans, metrics and journeys and
 ``explain_burst`` drives an explain engine over a world, again the same way
 on either side. This part is plain Python.
+
+``load_sample`` reads the port's own copy of the sample manifests
+(``SAMPLES_DIR``). ``run_operator_world`` drives the operator world (ι),
+BASELINE's integrated population, through either package's ``SimHarness``
+from the same YAML text, and ``run_samples_world`` converges each sample;
+``store_digest`` reads a store the same way on either side.
 """
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
+import pathlib
 import random
+import re
+import time
 from collections import Counter
 from typing import Callable, Dict, List, Optional
 
@@ -33,6 +43,27 @@ from grove_tpu_torch.api.topology import ClusterTopology
 from grove_tpu_torch.sim.cluster import make_nodes
 from grove_tpu_torch.solver.encode import build_problem
 from grove_tpu_torch.solver.types import PackingProblem
+
+# the port's own copy of the sample manifests (byte for byte the JAX
+# package's and the repository's samples/)
+SAMPLES_DIR = pathlib.Path(__file__).resolve().parent / "samples"
+
+# BASELINE.json acceptance configs (minus the stress sim, which is synthetic)
+BASELINE_SAMPLES = {
+    "simple": "simple1.yaml",
+    "disaggregated": "single-node-disaggregated.yaml",
+    "multinode_disaggregated": "multinode-disaggregated.yaml",
+    "agentic": "agentic-pipeline.yaml",
+}
+
+
+def load_sample(name: str):
+    """Scenario name (or bare filename) → PodCliqueSet object."""
+    from grove_tpu_torch.api.load import load_podcliqueset_file
+
+    filename = BASELINE_SAMPLES.get(name, name)
+    return load_podcliqueset_file(str(SAMPLES_DIR / filename))
+
 
 # Per-node capacity of the stress cluster (8 accelerator chips per host).
 STRESS_CAPACITY = {"cpu": 128.0, "tpu": 8.0}
@@ -1220,3 +1251,332 @@ def disruption_missing(result: dict) -> List[str]:
             for e in last.get("ledger", [])),
     }
     return [what for what, shown in checks.items() if not shown]
+
+
+# ---------------------------------------------------------------------------
+# The operator world (iota): BASELINE's integrated population through the
+# whole operator (bench.py integrated_stress_bench / _run_population_bench)
+# ---------------------------------------------------------------------------
+
+OPERATOR_SETS = 10_240
+OPERATOR_NODES = 5_120
+# the rolling update changes the image of every set i with i % 16 == 0 (the
+# simple1 sets); 64 would update one set in four of those
+OPERATOR_UPDATE_EVERY = 16
+OPERATOR_IMAGE = "busybox:1.36"
+
+# bench.py's _STANDALONE_YAML: two cliques of two 10m-cpu pods (57 sets in 64)
+OPERATOR_STANDALONE_YAML = """
+apiVersion: grove.io/v1alpha1
+kind: PodCliqueSet
+metadata:
+  name: standalone
+spec:
+  replicas: 1
+  template:
+    cliques:
+      - name: server
+        spec:
+          roleName: role-server
+          replicas: 2
+          podSpec:
+            containers:
+              - name: server
+                image: busybox:stable
+                resources:
+                  requests:
+                    cpu: 10m
+      - name: worker
+        spec:
+          roleName: role-worker
+          replicas: 2
+          podSpec:
+            containers:
+              - name: worker
+                image: busybox:stable
+                resources:
+                  requests:
+                    cpu: 10m
+"""
+
+SAMPLE_FILES = (
+    "agentic-pipeline.yaml",
+    "cluster-topology-tpu.yaml",
+    "drain-budget.yaml",
+    "multinode-disaggregated.yaml",
+    "multitenant-queues.yaml",
+    "simple1.yaml",
+    "simple2-explicit-startup-order.yaml",
+    "simple3-explicit-startup-order.yaml",
+    "single-node-disaggregated.yaml",
+    "spread-serving.yaml",
+)
+
+_UID_RE = re.compile(r"uid-[0-9a-f]{8}-([0-9]+)")
+# a gang's placement score (its status and the Scheduled condition's message,
+# mirrored into the PodCliqueSet's status): the card and the CPU agree on it
+# to rtol 1e-6, not bit for bit, so the digest leaves it out and
+# ``operator_summary`` sums it apart
+_SCORE_RE = re.compile(r'("placementScore": |placement score )(-?[0-9][0-9.]*(?:e[-+]?[0-9]+)?)')
+
+
+def operator_template(i: int) -> str:
+    """The template of set ``i``, by ``r = i % 64`` (bench.py's mix):
+    simple1 where ``r % 16 == 0``, multinode-disaggregated at 8, the agentic
+    pipeline at 24 and 56, else the standalone two-clique set."""
+    r = i % 64
+    if r % 16 == 0:
+        return "simple"
+    if r == 8:
+        return "multinode_disaggregated"
+    if r in (24, 56):
+        return "agentic"
+    return "standalone"
+
+
+def operator_world(n_sets: Optional[int] = None, n_nodes: Optional[int] = None,
+                   update_every: Optional[int] = None) -> dict:
+    """(iota) as YAML text and sizes: ``n_sets`` PodCliqueSets ``svc-%05d``
+    on ``n_nodes`` nodes of the harness's ``make_nodes``; the rolling update
+    changes the container image of every set ``i`` with
+    ``i % update_every == 0`` (all simple1 sets)."""
+    update_every = OPERATOR_UPDATE_EVERY if update_every is None else update_every
+    if update_every % 16:
+        raise ValueError("update_every must be a multiple of 16 (simple1 sets only)")
+    texts = {name: (SAMPLES_DIR / BASELINE_SAMPLES[name]).read_text()
+             for name in ("simple", "multinode_disaggregated", "agentic")}
+    texts["standalone"] = OPERATOR_STANDALONE_YAML
+    return {
+        "n_sets": OPERATOR_SETS if n_sets is None else n_sets,
+        "n_nodes": OPERATOR_NODES if n_nodes is None else n_nodes,
+        "update_every": update_every,
+        "texts": texts,
+    }
+
+
+def store_census(store) -> dict:
+    """Objects and the highest resourceVersion of each kind."""
+    out = {}
+    for kind in store.kinds():
+        objs = list(store.scan(kind))
+        out[kind] = [len(objs), max(o.metadata.resource_version for o in objs)]
+    return out
+
+
+def store_digest(store, export: Callable) -> dict:
+    """sha256 per kind of the store's wire documents (``export``: either
+    package's ``api/serialize.export_object``), Events left out, objects in
+    (namespace, name) order. Each uid becomes ``uid#<rank>``, its rank in
+    creation order among the uids the documents hold, so the incarnation
+    token drops out; the objects keep their order. Placement scores become
+    ``<score>`` (``operator_summary`` sums them)."""
+    docs = {}
+    for kind in store.kinds():
+        if kind == "Event":
+            continue
+        objs = sorted(store.scan(kind), key=lambda o: (o.metadata.namespace, o.metadata.name))
+        docs[kind] = [json.dumps(export(o), sort_keys=True) for o in objs]
+    seqs = sorted({int(m) for lines in docs.values() for line in lines
+                   for m in _UID_RE.findall(line)})
+    rank = {n: i for i, n in enumerate(seqs)}
+
+    def canon(line: str) -> str:
+        line = _SCORE_RE.sub(lambda m: f"{m.group(1)}<score>", line)
+        return _UID_RE.sub(lambda m: f"uid#{rank[int(m.group(1))]}", line)
+
+    return {kind: _digest([canon(line) for line in lines]) for kind, lines in docs.items()}
+
+
+def _bindings_sha256(cluster) -> str:
+    return _digest(sorted(f"{ns}/{pod}={node}" for (ns, pod), node in cluster.bindings.items()))
+
+
+def _converge_recorded(pkg, harness, max_ticks: int, step: str, after_tick=None) -> dict:
+    """``harness.converge`` with every tick recorded: ``tick_once()``'s
+    (work, bound, started) and ``round_summary`` of the tick's schedule,
+    and every event recorded in the converge as (reason, kind) counts."""
+    ticks: List[dict] = []
+    tick_once, schedule = harness.tick_once, harness.schedule
+    sched_events: List[tuple] = []
+    with EventCapture(pkg.EVENTS) as cap:
+
+        def scheduled():
+            start = len(cap.events)
+            bound = schedule()
+            sched_events[:] = cap.events[start:]
+            return bound
+
+        def tick():
+            t0 = time.perf_counter()
+            sched_events.clear()
+            work, bound, started = tick_once()
+            ticks.append({"work": work, "bound": bound, "started": started,
+                          "round": round_summary(harness.store, harness.cluster, sched_events)})
+            if after_tick is not None:
+                after_tick(step, len(ticks), time.perf_counter() - t0, ticks[-1])
+            return work, bound, started
+
+        harness.schedule, harness.tick_once = scheduled, tick
+        try:
+            n = harness.converge(max_ticks=max_ticks)
+        finally:
+            del harness.schedule, harness.tick_once
+    assert n == len(ticks)
+    events = Counter(f"{e[4]}/{e[0]}" for e in cap.events)
+    return {"ticks": ticks, "events": dict(sorted(events.items()))}
+
+
+def operator_summary(pkg, harness) -> dict:
+    """The store after a converge, read the same way from either package."""
+    pods = list(harness.store.scan("Pod"))
+    gangs = sorted(harness.store.scan("PodGang"),
+                   key=lambda g: (g.metadata.namespace, g.metadata.name))
+    scores = [float(g.status.placement_score) for g in gangs
+              if g.status.placement_score is not None]
+    reconciles = {k.split("/", 1)[1]: v for k, v in pkg.METRICS.counters.items()
+                  if k.startswith("reconcile_total/")}
+    return {
+        "all_ready": bool(pods) and all(pkg.is_ready(p) for p in pods),
+        "resource_version": harness.store.resource_version,
+        "census": store_census(harness.store),
+        "reconcile_total": dict(sorted(reconciles.items())),
+        "digest": store_digest(harness.store, pkg.export_object),
+        "scored_gangs": len(scores),
+        "score_sum": sum(scores),
+        "bindings_sha256": _bindings_sha256(harness.cluster),
+    }
+
+
+def _reset_singletons(pkg) -> None:
+    for layer in (pkg.TRACER, pkg.EVENTS, pkg.JOURNEYS, pkg.FLIGHTREC, pkg.TIMESERIES):
+        layer.clock = None
+
+
+def run_operator_world(pkg, n_sets: Optional[int] = None, n_nodes: Optional[int] = None,
+                       update_every: Optional[int] = None, device=None,
+                       after_tick=None) -> dict:
+    """Run (iota) through ``pkg``'s own harness (either package; ``pkg``
+    names ``SimHarness``, ``load_podcliquesets``, ``deep_copy``,
+    ``export_object``, ``is_ready``, ``reset_uid_namespace`` and the
+    ``METRICS``, ``EVENTS``, ``TRACER``, ``JOURNEYS``, ``FLIGHTREC`` and
+    ``TIMESERIES`` singletons). Apply every set, converge with cyclic GC
+    frozen and off (as ``_run_population_bench``), then the rolling update
+    and a second converge; ``after_tick(step, index, wall_s, tick)`` sees
+    every tick. Returns the record both packages must agree on,
+    and under ``"walls"`` the host times (left out of any comparison).
+    ``device`` goes to the port's harness (None for the JAX one)."""
+    world = operator_world(n_sets, n_nodes, update_every)
+    n = world["n_sets"]
+    pkg.reset_uid_namespace()
+    pkg.METRICS.reset()
+    pkg.EVENTS.reset()
+    kwargs = {} if device is None else {"device": device}
+    harness = pkg.SimHarness(num_nodes=world["n_nodes"], **kwargs)
+    bases = {name: pkg.load_podcliquesets(text)[0] for name, text in world["texts"].items()}
+    walls: Dict[str, object] = {}
+    record: Dict[str, object] = {"world": {k: world[k] for k in ("n_sets", "n_nodes",
+                                                               "update_every")}}
+    try:
+        t0 = time.perf_counter()
+        for i in range(n):
+            pcs = pkg.deep_copy(bases[operator_template(i)])
+            pcs.metadata.name = f"svc-{i:05d}"
+            harness.apply(pcs)
+        walls["apply_s"] = time.perf_counter() - t0
+        record["apply"] = {"resource_version": harness.store.resource_version,
+                           "census": store_census(harness.store)}
+        converges = []
+        for step in ("converge", "rolling_update"):
+            if step == "rolling_update":
+                t0 = time.perf_counter()
+                for i in range(0, n, world["update_every"]):
+                    pcs = harness.store.get("PodCliqueSet", "default", f"svc-{i:05d}")
+                    for clique in pcs.spec.template.cliques:
+                        for container in clique.spec.pod_spec.containers:
+                            container.image = OPERATOR_IMAGE
+                    harness.apply(pcs)
+                walls["update_apply_s"] = time.perf_counter() - t0
+            solve0 = pkg.METRICS.hist_sum.get("gang_solve_seconds", 0.0)
+            recon0 = sum(v for k, v in pkg.METRICS.counters.items()
+                         if k.startswith("reconcile_total/"))
+            gc.collect()
+            gc.freeze()
+            gc.disable()
+            t0 = time.perf_counter()
+            try:
+                out = _converge_recorded(pkg, harness, 60 + 8 * n, step, after_tick)
+            finally:
+                wall = time.perf_counter() - t0
+                gc.enable()
+                gc.unfreeze()
+                gc.collect()
+            out["summary"] = operator_summary(pkg, harness)
+            converges.append(out)
+            reconciles = sum(v for k, v in pkg.METRICS.counters.items()
+                             if k.startswith("reconcile_total/")) - recon0
+            walls[step] = {
+                "wall_s": wall,
+                "ticks": len(out["ticks"]),
+                "solver_s": pkg.METRICS.hist_sum.get("gang_solve_seconds", 0.0) - solve0,
+                "reconciles": reconciles,
+            }
+        record["converges"] = converges
+    finally:
+        _reset_singletons(pkg)
+    record["walls"] = walls
+    return record
+
+
+def operator_missing(record: dict) -> List[str]:
+    """What (iota) must show and did not: every pod Ready after each
+    converge, and at least one rolling-update step."""
+    missing = []
+    for i, c in enumerate(record["converges"]):
+        if not c["summary"]["all_ready"]:
+            missing.append(f"converge {i}: not all pods Ready")
+    if not any(k.startswith("RollingUpdateReplicaStarted/")
+               for k in record["converges"][1]["events"]):
+        missing.append("no rolling-update step")
+    return missing
+
+
+def run_samples_world(pkg, device=None) -> dict:
+    """Each of the ten sample files in a fresh harness of the default size:
+    the ClusterTopology sample as the harness's topology with
+    ``cluster_topology.enabled``, the Queue sample's Queues through
+    ``apply_queue`` (``SimHarness.apply``), every PodCliqueSet through
+    ``apply``; then a converge. Per file: ticks, ``tree()``'s sha256, the
+    store census, digest and placement-score sum. ``pkg`` as for ``run_operator_world`` plus
+    ``load_manifest_objects`` and ``OperatorConfiguration``."""
+    kwargs = {} if device is None else {"device": device}
+    out = {}
+    try:
+        for name in SAMPLE_FILES:
+            pkg.reset_uid_namespace()
+            pkg.METRICS.reset()
+            pkg.EVENTS.reset()
+            objs = pkg.load_manifest_objects((SAMPLES_DIR / name).read_text())
+            topo = [o for o in objs if o.kind == "ClusterTopology"]
+            if topo:
+                config = pkg.OperatorConfiguration()
+                config.cluster_topology.enabled = True
+                config.cluster_topology.name = topo[0].metadata.name
+                harness = pkg.SimHarness(topology=topo[0], config=config, **kwargs)
+            else:
+                harness = pkg.SimHarness(**kwargs)
+            for obj in objs:
+                if obj.kind != "ClusterTopology":
+                    harness.apply(obj)
+            ticks = harness.converge()
+            tree = harness.tree()
+            summary = operator_summary(pkg, harness)
+            out[name] = {
+                "ticks": ticks,
+                "tree_sha256": hashlib.sha256(tree.encode()).hexdigest(),
+                "tree_lines": len(tree.splitlines()),
+                **{k: summary[k] for k in ("resource_version", "census", "digest",
+                                           "scored_gangs", "score_sum", "bindings_sha256")},
+            }
+    finally:
+        _reset_singletons(pkg)
+    return out

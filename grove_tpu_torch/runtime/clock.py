@@ -1,7 +1,8 @@
 """Injectable clock.
 
 Counterpart of ``grove_tpu/runtime/clock.py``: condition timestamps come from
-``store.clock.now()``, so a simulated world runs on virtual time.
+``store.clock.now()``, so a simulated world runs on virtual time, and a
+waiter's ``sleep`` advances it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ class Clock:
     def now(self) -> float:
         return time.time()
 
+    def sleep(self, seconds: float) -> None:
+        time.sleep(seconds)
+
 
 class VirtualClock(Clock):
     def __init__(self, start: float = 0.0) -> None:
@@ -20,6 +24,9 @@ class VirtualClock(Clock):
 
     def now(self) -> float:
         return self._now
+
+    def sleep(self, seconds: float) -> None:
+        self.advance(seconds)
 
     def advance(self, seconds: float) -> None:
         if seconds < 0:

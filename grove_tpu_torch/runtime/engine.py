@@ -1,0 +1,313 @@
+"""Controller engine: watch → map → keyed work queue → reconcile.
+
+Counterpart of ``grove_tpu/runtime/engine.py``: the single-threaded,
+virtual-time stand-in for the controller-runtime manager. Determinism is a
+feature: every world replays identically. The races the reference absorbs
+with its expectations store come from the store's cache lag, not threads.
+
+A Controller owns:
+- a primary kind (reconciled on its own events);
+- watch mappings: (watched kind, map_fn(event) -> [primary keys]) with an
+  optional predicate, controller-runtime's EnqueueRequestsFromMapFunc plus
+  WithPredicates.
+
+Reconcile functions return a ReconcileStepResult: "requeue" gets
+exponential backoff, "requeue_after" a fixed delay.
+
+The port's store is unsharded, so the engine is the serial drain: one event
+backlog, and ``enable_workers`` is the JAX package's no-op on an unsharded
+store. ``overlap_hook`` is kept as an attribute; only a process drain calls
+it.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Tuple
+
+from grove_tpu_torch.observability.flightrec import FLIGHTREC
+from grove_tpu_torch.observability.metrics import METRICS
+from grove_tpu_torch.observability.profile import (
+    NO_SHARD,
+    PHASE_DEQUEUE,
+    PHASE_DRAIN,
+    PROFILER,
+)
+from grove_tpu_torch.observability.tracing import TRACER
+from grove_tpu_torch.runtime.clock import Clock
+from grove_tpu_torch.runtime.errors import GroveError
+from grove_tpu_torch.runtime.flow import ReconcileStepResult
+from grove_tpu_torch.runtime.store import Store, WatchEvent
+from grove_tpu_torch.runtime.workqueue import Key, WorkQueue
+
+MapFn = Callable[[WatchEvent], List[Tuple[str, str]]]  # -> [(namespace, name)]
+PredicateFn = Callable[[WatchEvent], bool]
+ReconcileFn = Callable[[Key], ReconcileStepResult]
+
+
+@dataclass
+class Controller:
+    name: str
+    kind: str
+    reconcile: ReconcileFn
+    # watch entries: (kind, map_fn) or (kind, map_fn, predicate); an event
+    # the predicate rejects never reaches the map fn
+    watches: List[tuple] = field(default_factory=list)
+    # predicate on the primary kind's own events (e.g. generation changed,
+    # so self-inflicted status writes do not re-enqueue the owner)
+    primary_predicate: Optional[PredicateFn] = None
+    queue: WorkQueue = field(default_factory=WorkQueue)
+    # keys processed per round in the reference's threaded drain; the
+    # serial drain batches every ready key of a round
+    concurrent_syncs: int = 1
+    # called once per drain round with the controller's coalesced ready
+    # keys before any of them reconciles (per-batch memo builds)
+    batch_hook: Optional[Callable[[List[Key]], None]] = None
+
+
+class Engine:
+    def __init__(self, store: Store, clock: Optional[Clock] = None) -> None:
+        self.store = store
+        self.clock = clock or store.clock
+        self.controllers: List[Controller] = []
+        self.num_shards = 1
+        self._event_backlog = deque()
+        self.held_kinds: set = set()
+        self.workers = None
+        # set by the harness; only a process drain calls it (between a
+        # round's dispatch and its replies), so the serial drain never does
+        self.overlap_hook = None
+        # per-kind routing table, built lazily after registration
+        self._dispatch = None
+        self._shard_index = getattr(store, "shard_index", None)
+        store.subscribe(self._event_backlog.append)
+
+    def enable_workers(self, workers: int, backend: str = None) -> bool:
+        """Arm parallel reconcile workers. On an unsharded store this is the
+        JAX package's no-op: it returns False and the drain stays serial
+        (the port's store has one shard)."""
+        if workers <= 1 or self.workers is not None:
+            return self.workers is not None
+        return False
+
+    def register(self, controller: Controller) -> None:
+        self.controllers.append(controller)
+        self._dispatch = None  # rebuilt on next routing
+
+    def _build_dispatch(self):
+        """kind -> [(ctrl, map_fn, predicate, metric_name)] in registration
+        order (primary entry first per controller, map_fn=None)."""
+        dispatch: dict = {}
+        for ctrl in self.controllers:
+            dispatch.setdefault(ctrl.kind, []).append(
+                (ctrl, None, None, f"events_enqueued/{ctrl.name}/self")
+            )
+            for watch in ctrl.watches:
+                watched_kind, map_fn = watch[0], watch[1]
+                pred = watch[2] if len(watch) > 2 else None
+                dispatch.setdefault(watched_kind, []).append(
+                    (ctrl, map_fn, pred, f"events_enqueued/{ctrl.name}/{watched_kind}")
+                )
+        self._dispatch = dispatch
+        return dispatch
+
+    # -- event delivery --------------------------------------------------
+
+    def hold_events(self, kind: str) -> None:
+        """Delay delivery of a kind's watch events (that kind's informer
+        falls behind): tests use it to surface staleness races."""
+        self.held_kinds.add(kind)
+
+    def release_events(self, kind: str) -> None:
+        self.held_kinds.discard(kind)
+
+    def discard_pending_events(self) -> int:
+        """Drop undelivered watch events (a standby that never drains)."""
+        n = len(self._event_backlog)
+        self._event_backlog.clear()
+        return n
+
+    def requeue_all(self) -> None:
+        """Enqueue every live object of every controller's kind (the resync
+        a fresh leader runs)."""
+        for ctrl in self.controllers:
+            for obj in self.store.scan(ctrl.kind):
+                ctrl.queue.add((ctrl.kind, obj.metadata.namespace, obj.metadata.name))
+
+    def _route_events(self) -> None:
+        prof = PROFILER.phase(PHASE_DEQUEUE, controller="engine") if PROFILER.enabled else None
+        try:
+            self._route_events_inner()
+        finally:
+            if prof is not None:
+                prof.end()
+
+    def _route_events_inner(self) -> None:
+        # pop one at a time: reconciles emit new events while we iterate
+        remaining: List[WatchEvent] = []
+        backlog = self._event_backlog
+        while backlog:
+            ev = backlog.popleft()
+            if ev.kind in self.held_kinds:
+                remaining.append(ev)
+                continue
+            # a kind's cache advances exactly when its events are delivered;
+            # held kinds stay stale
+            if self.store.cache_lag:
+                self.store.apply_event_to_cache(ev)
+            dispatch = self._dispatch
+            if dispatch is None:
+                dispatch = self._build_dispatch()
+            for ctrl, map_fn, pred, metric in dispatch.get(ev.kind, ()):
+                if map_fn is None:
+                    if ctrl.primary_predicate is None or ctrl.primary_predicate(ev):
+                        METRICS.inc(metric)
+                        ctrl.queue.add((ctrl.kind, ev.obj.metadata.namespace, ev.obj.metadata.name))
+                    continue
+                if pred is not None and not pred(ev):
+                    continue
+                hits = map_fn(ev)
+                if hits:
+                    METRICS.inc(metric, len(hits))
+                for ns, name in hits:
+                    ctrl.queue.add((ctrl.kind, ns, name))
+        backlog.extend(remaining)
+
+    # -- run loop --------------------------------------------------------
+
+    def _complete(self, ctrl: Controller, key, result, error, now) -> None:
+        """Work-queue bookkeeping for a finished reconcile."""
+        if error is not None:
+            METRICS.inc(f"reconcile_panics_total/{ctrl.name}")
+            if FLIGHTREC.enabled:
+                FLIGHTREC.note_error(ctrl.name, key, error)
+                if isinstance(error, GroveError):
+                    FLIGHTREC.trigger(
+                        "reconcile-grove-error",
+                        f"{ctrl.name} {key[1]}/{key[2]}: {error}",
+                    )
+            ctrl.queue.add_rate_limited(key, now)
+            return
+        if result.result == "requeue":
+            METRICS.inc(f"reconcile_errors_total/{ctrl.name}")
+            ctrl.queue.add_rate_limited(key, now)
+        elif result.result == "requeue_after":
+            ctrl.queue.forget(key)
+            ctrl.queue.add_after(key, result.requeue_after or 0.0, now)
+        else:
+            ctrl.queue.forget(key)
+
+    def drain(self, max_rounds: int = 10_000) -> int:
+        """Process until no controller has a ready item at the current time.
+        Returns the number of reconciles executed."""
+        if not PROFILER.enabled:
+            return self._drain_rounds(max_rounds)
+        with PROFILER.phase(PHASE_DRAIN, controller="engine"):
+            return self._drain_rounds(max_rounds)
+
+    def _execute_batch(self, ctrl: Controller, batch: List[Key], now) -> None:
+        """Reconcile each popped key in pop order."""
+        for key in batch:
+            result = error = None
+            try:
+                result = self._timed(ctrl, key)
+            except Exception as e:
+                error = e
+            self._complete(ctrl, key, result, error, now)
+
+    def _drain_rounds(self, max_rounds: int) -> int:
+        """Route, pop each controller's whole ready set in deterministic
+        order, execute, publish gauges, quiesce."""
+        executed = 0
+        now = self.clock.now()
+        for _ in range(max_rounds):
+            self._route_events()
+            progressed = False
+            for ctrl in self.controllers:
+                # batched: the whole ready set up front (events these
+                # reconciles emit route at the next round), so sibling
+                # updates coalesce into one owner requeue
+                batch: List[Key] = []
+                while True:
+                    key = ctrl.queue.pop(now)
+                    if key is None:
+                        break
+                    batch.append(key)
+                if not batch:
+                    continue
+                progressed = True
+                executed += len(batch)
+                METRICS.inc(f"reconcile_total/{ctrl.name}", len(batch))
+                span = None
+                if TRACER.enabled:
+                    span = TRACER.span("reconcile.batch", controller=ctrl.name, keys=len(batch))
+                if ctrl.batch_hook is not None:
+                    ctrl.batch_hook(batch)
+                try:
+                    self._execute_batch(ctrl, batch, now)
+                finally:
+                    if span is not None:
+                        span.end()
+            for ctrl in self.controllers:
+                METRICS.set(f"workqueue_depth/{ctrl.name}", len(ctrl.queue))
+            if not progressed:
+                # new events may have landed during the last round
+                self._route_events()
+                if all(c.queue.empty(now) for c in self.controllers):
+                    return executed
+        raise RuntimeError(
+            f"engine did not quiesce within {max_rounds} rounds (reconcile livelock?)"
+        )
+
+    def _timed(self, ctrl: Controller, key):
+        t0 = time.perf_counter()
+        span = None
+        if TRACER.enabled:
+            span = TRACER.span("engine.reconcile", controller=ctrl.name, key=f"{key[1]}/{key[2]}")
+        prof = PROFILER.reconcile(ctrl.name, self._shard_of_key(key)) if PROFILER.enabled else None
+        outcome = "error"
+        try:
+            result = ctrl.reconcile(key)
+            outcome = result.result if result is not None else "done"
+            return result
+        finally:
+            if prof is not None:
+                prof.end()
+            if span is not None:
+                span.set("outcome", outcome)
+                span.end()
+            METRICS.observe(f"reconcile_seconds/{ctrl.name}", time.perf_counter() - t0)
+
+    def _shard_of_key(self, key) -> int:
+        if self._shard_index is None:
+            return NO_SHARD
+        return self._shard_index(key[1])
+
+    def advance(self, seconds: float) -> None:
+        self.clock.advance(seconds)  # type: ignore[attr-defined]
+
+    def advance_and_drain(self, seconds: float) -> int:
+        """Advance virtual time, then drain (fires due requeue_after
+        items)."""
+        self.advance(seconds)
+        return self.drain()
+
+    def next_wakeup(self) -> Optional[float]:
+        """Earliest scheduled requeue across controllers (None if idle)."""
+        times = [t for c in self.controllers if (t := c.queue.next_delayed_at()) is not None]
+        return min(times) if times else None
+
+    def run_until_idle(self, max_virtual_seconds: float = 3600.0) -> int:
+        """Drain, then keep advancing virtual time to the next scheduled
+        requeue until nothing is pending or the budget is spent."""
+        total = self.drain()
+        budget_end = self.clock.now() + max_virtual_seconds
+        while True:
+            wake = self.next_wakeup()
+            if wake is None or wake > budget_end:
+                return total
+            if wake > self.clock.now():
+                self.advance(wake - self.clock.now())
+            total += self.drain()

@@ -1,10 +1,11 @@
-"""Simulated cluster: nodes and the binder the scheduler places pods with.
+"""Simulated cluster: nodes, a first-fit binder and the kubelets.
 
 Counterpart of ``grove_tpu/sim/cluster.py``'s ``Node``, ``SimCluster`` and
-``make_nodes``, with the node lifecycle the node-health monitor drives
+``make_nodes``: the node lifecycle the node-health monitor drives
 (heartbeats, kubelet crash and restart, the seeded fail-slow fault, node
-and pod failure) and without the kubelet's container starts: the scheduler
-round binds pods, reads free capacity and the not-Ready working set.
+and pod failure), the binding the scheduler round commits, the naive
+first-fit ``schedule_pending`` and the kubelet's ``kubelet_tick`` (the
+grove-initc waiter, then containers started and Ready).
 """
 
 from __future__ import annotations
@@ -13,17 +14,25 @@ import zlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from grove_tpu_torch.api.meta import Condition, clone_status, deep_copy, set_condition
+from grove_tpu_torch.api.meta import (
+    Condition,
+    clone_status,
+    deep_copy,
+    get_condition,
+    set_condition,
+)
 from grove_tpu_torch.api.pod import (
     COND_POD_READY,
     COND_POD_SCHEDULED,
     POD_PENDING,
+    POD_RUNNING,
     ContainerStatus,
     Pod,
     is_ready,
     is_scheduled,
     is_terminating,
 )
+from grove_tpu_torch.initc.waiter import is_ready_to_start
 from grove_tpu_torch.runtime.store import commit_status
 
 
@@ -62,23 +71,99 @@ class Node:
         return not self.cordoned and self.state == NODE_READY
 
 
+class Bindings(dict):
+    """``(namespace, pod) -> node`` in insertion order, with each node's keys
+    indexed: ``keys_on(node)`` lists the pods bound to one node in the order
+    a scan of the whole dict meets them (a key keeps its slot when rebound,
+    and moves to the end when deleted and inserted again), so a per-node
+    fold takes the same float subtractions in the same order as a filtered
+    scan, without the scan."""
+
+    def __init__(self, items=()) -> None:
+        super().__init__()
+        self._seq = 0
+        self._slot: Dict[tuple, int] = {}
+        self._by_node: Dict[str, Dict[tuple, int]] = {}
+        for key, node in dict(items).items():
+            self[key] = node
+
+    def __setitem__(self, key, node) -> None:
+        old = dict.get(self, key)
+        if key in self._slot:
+            if old != node:
+                slot = self._by_node[old].pop(key)
+                self._by_node.setdefault(node, {})[key] = slot
+        else:
+            self._seq += 1
+            self._slot[key] = self._seq
+            self._by_node.setdefault(node, {})[key] = self._seq
+        dict.__setitem__(self, key, node)
+
+    def __delitem__(self, key) -> None:
+        node = dict.__getitem__(self, key)
+        del self._by_node[node][key]
+        del self._slot[key]
+        dict.__delitem__(self, key)
+
+    def pop(self, key, *default):
+        if key in self:
+            node = self[key]
+            del self[key]
+            return node
+        if default:
+            return default[0]
+        raise KeyError(key)
+
+    def setdefault(self, key, node=None):
+        if key not in self:
+            self[key] = node
+        return self[key]
+
+    def update(self, *args, **kwargs) -> None:
+        for key, node in dict(*args, **kwargs).items():
+            self[key] = node
+
+    def popitem(self):
+        key = next(reversed(self))
+        return key, self.pop(key)
+
+    def clear(self) -> None:
+        dict.clear(self)
+        self._slot.clear()
+        self._by_node.clear()
+
+    def keys_on(self, node: str) -> List[tuple]:
+        slots = self._by_node.get(node)
+        if not slots:
+            return []
+        return sorted(slots, key=slots.__getitem__)
+
+
 @dataclass
 class SimCluster:
     store: object
     nodes: List[Node] = field(default_factory=list)
-    # (namespace, pod name) -> node name
+    # (namespace, pod name) -> node name (a Bindings, whatever map is assigned)
     bindings: Dict[tuple, str] = field(default_factory=dict)
     # sticky history that survives a pod's deletion (reservation reuse)
     last_node: Dict[tuple, str] = field(default_factory=dict)
     start_delay: float = 0.0  # container start latency (virtual seconds)
 
+    def __setattr__(self, name, value) -> None:
+        # every map assigned to `bindings` (here, by the constructor or by a
+        # caller) becomes a Bindings, whose per-node index node_free reads
+        if name == "bindings" and not isinstance(value, Bindings):
+            value = Bindings(value)
+        object.__setattr__(self, name, value)
+
     def __post_init__(self) -> None:
         # epoch of rewrites of `bindings` outside the watch stream
         self.bindings_epoch = 0
         # (ns, name) of pods that exist and are not Ready, folded from the
-        # store's watch events (a dict as an ordered set); None until the
+        # store's watch events (a set, as the JAX package keeps it: its
+        # iteration order is the kubelet's and the pending scan's); None until the
         # first read builds it with one scan
-        self._not_ready: Optional[Dict[tuple, None]] = None
+        self._not_ready: Optional[set] = None
         self._deleted_since_gc = True  # the first gc pass always runs
         # requests are immutable for a pod's lifetime: memo per uid
         self._requests_by_uid: Dict[str, Dict[str, float]] = {}
@@ -97,15 +182,15 @@ class SimCluster:
             return
         key = (ev.obj.metadata.namespace, ev.obj.metadata.name)
         if ev.type == "Deleted" or is_ready(ev.obj):
-            self._not_ready.pop(key, None)
+            self._not_ready.discard(key)
         else:
-            self._not_ready[key] = None
+            self._not_ready.add(key)
 
     def _not_ready_pods(self, namespace: Optional[str]):
         """Readonly views of the not-Ready working set."""
         if self._not_ready is None:
             self._not_ready = {
-                (p.metadata.namespace, p.metadata.name): None
+                (p.metadata.namespace, p.metadata.name)
                 for p in self.store.scan("Pod")
                 if not is_ready(p)
             }
@@ -186,11 +271,10 @@ class SimCluster:
 
     def node_free(self, node: Node) -> Dict[str, float]:
         """Free capacity of one node: each bound pod's requests taken off
-        its capacity in binding order."""
+        its capacity in binding order (``Bindings.keys_on``: the order of
+        the JAX package's scan of every binding, without the scan)."""
         free = dict(node.capacity)
-        for (ns, pod_name), node_name in self.bindings.items():
-            if node_name != node.name:
-                continue
+        for ns, pod_name in self.bindings.keys_on(node.name):
             pod = self.store.get("Pod", ns, pod_name, readonly=True)
             if pod is None or is_terminating(pod):
                 continue
@@ -199,21 +283,8 @@ class SimCluster:
         return free
 
     def node_free_each(self, nodes: List[Node]) -> Dict[str, Dict[str, float]]:
-        """``{node.name: node_free(node)}`` for every given node in one
-        pass over the bindings, with the same subtractions in the same
-        order (so the same floats): node_free per node costs
-        O(nodes × bindings)."""
-        out = {node.name: dict(node.capacity) for node in nodes}
-        for (ns, pod_name), node_name in self.bindings.items():
-            free = out.get(node_name)
-            if free is None:
-                continue
-            pod = self.store.get("Pod", ns, pod_name, readonly=True)
-            if pod is None or is_terminating(pod):
-                continue
-            for k, v in self._pod_requests(pod).items():
-                free[k] = free.get(k, 0.0) - v
-        return out
+        """``{node.name: node_free(node)}`` for every given node."""
+        return {node.name: self.node_free(node) for node in nodes}
 
     def fits(self, node: Node, pod: Pod) -> bool:
         free = self.node_free(node)
@@ -236,6 +307,74 @@ class SimCluster:
         key = (view.metadata.namespace, view.metadata.name)
         self.bindings[key] = node_name
         self.last_node[key] = node_name
+
+    def schedule_pending(self, namespace: Optional[str] = None) -> int:
+        """Bind every ungated, unscheduled pod (all namespaces by default)
+        to the first node that fits (the naive binder; the gang scheduler
+        replaces it for topology-aware placement)."""
+        bound = 0
+        self._gc_bindings()
+        for pod in self.store.list("Pod", namespace):
+            if pod.spec.scheduling_gates or is_scheduled(pod) or is_terminating(pod):
+                continue
+            for node in self.nodes:
+                if not node.schedulable or not self.fits(node, pod):
+                    continue
+                self.bind(pod, node.name)
+                bound += 1
+                break
+        return bound
+
+    def kubelet_tick(self, namespace: Optional[str] = None) -> int:
+        """Advance scheduled pods (all namespaces by default) toward Ready:
+        run the init waiter, then start containers and flip Ready. Returns
+        the pods that transitioned."""
+        self.heartbeat_tick()
+        # a dead kubelet starts nothing: pods bound to crashed or Lost
+        # nodes freeze until the monitor fails them or the node restarts
+        dead_nodes = {n.name for n in self.nodes if n.crashed or n.state == NODE_LOST}
+        progressed = 0
+        # two phases: decide against the tick-start state, then apply, so a
+        # dependent pod never starts in the tick its parent became Ready
+        to_start = []
+        for view in self._not_ready_pods(namespace):
+            if not is_scheduled(view) or is_ready(view) or is_terminating(view):
+                continue
+            if dead_nodes and view.status.node_name in dead_nodes:
+                continue
+            if self._failslow:
+                fs = self._failslow.get(view.status.node_name)
+                if fs is not None:
+                    # a fail-slow kubelet starts a pod only after
+                    # `start_penalty` virtual seconds of scheduling age
+                    cond = get_condition(view.status.conditions, COND_POD_SCHEDULED)
+                    now = self.store.clock.now()
+                    if cond is not None and now - cond.last_transition_time < fs[3]:
+                        continue
+            waiter_cfg = view.spec.extra.get("groveInitWaiter")
+            waiter_clears = bool(waiter_cfg) and not view.status.init_waiter_done
+            if waiter_clears and not is_ready_to_start(
+                self.store, view.metadata.namespace, waiter_cfg
+            ):
+                continue
+            to_start.append((view, waiter_clears))
+        for view, waiter_clears in to_start:
+            st = clone_status(view.status)
+            if waiter_clears:
+                st.init_waiter_done = True
+            st.phase = POD_RUNNING
+            st.container_statuses = [
+                ContainerStatus(name=c.name, ready=True, started=True)
+                for c in view.spec.containers
+            ]
+            set_condition(
+                st.conditions,
+                Condition(type=COND_POD_READY, status="True", reason="Started"),
+                self.store.clock.now(),
+            )
+            if commit_status(self.store, view, st) is not None:
+                progressed += 1
+        return progressed
 
     # -- kubelet heartbeats and the node lifecycle -------------------------
 

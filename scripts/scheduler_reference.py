@@ -62,6 +62,23 @@ scripted event (``disruption_missing``) before it prints every round's
 record and the nodes the script chose; ``chip_smoke.py`` holds the port's
 ``[disruption]`` phase to them (``JAX_DISRUPTION_REFERENCE``).
 
+``operator`` is the operator world (``run_operator_world``, (iota)):
+BASELINE's integrated population, 10,240 PodCliqueSets on 5,120 nodes,
+applied to a JAX ``SimHarness`` and converged, then the rolling update of
+every simple1 set and a second converge; then each of the ten samples
+converged in a fresh harness (``run_samples_world``). It asserts that every
+pod is Ready and a rolling-update step happened (``operator_missing``)
+before it prints, per tick ``tick_once()``'s (work, bound, started) and
+``round_summary`` of the tick's schedule, and per converge the store's
+census, resourceVersion, reconcile counts, canonical digest, event counts
+and bindings hash; ``chip_smoke.py`` holds the port's ``[operator]`` phase
+to them (``JAX_OPERATOR_REFERENCE``). The controllers iterate Python sets
+(the store's label index, the kubelet's not-Ready set), so the order of
+commits follows the string hash: the script re-runs itself under
+``PYTHONHASHSEED=0`` unless that is set, as ``chip_smoke.py`` does.
+``--sets N --nodes M`` cuts the world, ``--update-every K`` (a multiple of
+16) thins the rolling update.
+
 A world can be cut for a quick look: ``--nodes N --gangs G`` (and
 ``--ticks T --seed S`` for ``delta``).
 """
@@ -101,6 +118,12 @@ from grove_tpu.autoscale.hpa import HorizontalAutoscaler, StaticMetricsProvider 
 from grove_tpu.controller.nodehealth import NodeHealthMonitor  # noqa: E402
 from grove_tpu.controller.remediate import RemediationController  # noqa: E402
 from grove_tpu.disruption import DisruptionBroker, NodeDrainController  # noqa: E402
+from grove_tpu.api import meta as jax_meta  # noqa: E402
+from grove_tpu.api.load import load_manifest_objects, load_podcliquesets  # noqa: E402
+from grove_tpu.api.pod import is_ready  # noqa: E402
+from grove_tpu.api.serialize import export_object  # noqa: E402
+from grove_tpu.config.operator import OperatorConfiguration  # noqa: E402
+from grove_tpu.sim.harness import SimHarness  # noqa: E402
 from grove_tpu_torch.models.scenarios import (  # noqa: E402
     EventCapture,
     apply_tick,
@@ -110,8 +133,11 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     explain_burst,
     frontier_counters,
     observe_summary,
+    operator_missing,
     round_summary,
     run_disruption_world,
+    run_operator_world,
+    run_samples_world,
     run_slo_world,
     scheduler_world,
 )
@@ -245,17 +271,52 @@ def run_disruption(n_nodes=None, n_gangs=None, seed=0) -> dict:
     return out
 
 
+def name_needs_seed() -> bool:
+    """True when ``operator`` is asked for and the string hash is not
+    pinned to seed 0 (see the module docstring)."""
+    return "operator" in sys.argv[1:] and os.environ.get("PYTHONHASHSEED") != "0"
+
+
+def run_operator(n_sets=None, n_nodes=None, update_every=None) -> dict:
+    pkg = types.SimpleNamespace(
+        SimHarness=SimHarness, load_podcliquesets=load_podcliquesets,
+        load_manifest_objects=load_manifest_objects,
+        OperatorConfiguration=OperatorConfiguration, deep_copy=jax_meta.deep_copy,
+        reset_uid_namespace=jax_meta.reset_uid_namespace, export_object=export_object,
+        is_ready=is_ready, METRICS=METRICS, EVENTS=EVENTS, TRACER=TRACER, JOURNEYS=JOURNEYS,
+        FLIGHTREC=FLIGHTREC, TIMESERIES=timeseries.TIMESERIES)
+
+    def after(step, index, wall_s, tick):
+        print(f"[operator] {step} tick {index} ({wall_s:.3f} s): work {tick['work']} bound"
+              f" {tick['bound']} started {tick['started']}"
+              f" {json.dumps(tick['round']['events_by_reason'])}", file=sys.stderr, flush=True)
+
+    out = run_operator_world(pkg, n_sets, n_nodes, update_every, after_tick=after)
+    missing = operator_missing(out)
+    assert not missing, f"the operator world did not show: {missing}"
+    print(f"[operator] walls {json.dumps(out.pop('walls'))}", file=sys.stderr, flush=True)
+    out["samples"] = run_samples_world(pkg)
+    return out
+
+
 def main() -> int:
+    if name_needs_seed():
+        os.execve(sys.executable, [sys.executable] + sys.argv,
+                  dict(os.environ, PYTHONHASHSEED="0"))
     parser = argparse.ArgumentParser()
     parser.add_argument("worlds", nargs="*", default=["s", "q", "r"])
     parser.add_argument("--nodes", type=int, default=None)
     parser.add_argument("--gangs", type=int, default=None)
     parser.add_argument("--ticks", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sets", type=int, default=None)
+    parser.add_argument("--update-every", type=int, default=None)
     args = parser.parse_args()
     out = {"jax": jax.__version__, "backend": jax.default_backend()}
     for name in args.worlds:
-        if name == "observe":
+        if name == "operator":
+            out[name] = run_operator(args.sets, args.nodes, args.update_every)
+        elif name == "observe":
             out[name] = run_observe(args.nodes, args.gangs)
         elif name == "slo":
             out[name] = run_slo(args.nodes, args.gangs, args.ticks, args.seed)

@@ -985,3 +985,57 @@ def test_cuda_drain_trial_and_whatif_launch_the_fill_kernel(cuda):
     assert drainer.tick() > 0
     assert fill_batch.launches > 0
     assert drainer.drained_gangs and all(d["pre_placed"] for d in drainer.drained_gangs)
+
+
+@pytest.mark.gpu
+def test_cuda_operator_world_equals_the_cpu_run(cuda):
+    """The operator world (iota) cut to 128 sets on 256 nodes through the
+    port's SimHarness on the card equals the same cut on the CPU (which the
+    CPU tests hold against the JAX package) tick by tick, the placement
+    score sum at rtol 1e-6; the converge launches the fill kernel."""
+    from chip_smoke import operator_pkg
+    from grove_tpu_torch.models.scenarios import operator_missing, run_operator_world
+
+    runs = []
+    for device in ("cpu", "cuda"):
+        fill_batch.launches = 0
+        runs.append(run_operator_world(operator_pkg(), 128, 256, device=device))
+        runs[-1].pop("walls")
+    assert fill_batch.launches > 0
+    assert not operator_missing(runs[1])
+    for got, want in zip(runs[1]["converges"], runs[0]["converges"]):
+        assert len(got["ticks"]) == len(want["ticks"])
+        for g, w in zip(got["ticks"], want["ticks"]):
+            g, w = dict(g), dict(w)
+            g_round, w_round = dict(g.pop("round")), dict(w.pop("round"))
+            assert np.isclose(g_round.pop("score_sum"), w_round.pop("score_sum"), rtol=1e-6)
+            assert (g, g_round) == (w, w_round)
+        g_sum, w_sum = dict(got["summary"]), dict(want["summary"])
+        assert np.isclose(g_sum.pop("score_sum"), w_sum.pop("score_sum"), rtol=1e-6)
+        assert g_sum == w_sum
+        assert got["events"] == want["events"]
+
+
+@pytest.mark.gpu
+def test_cuda_queue_sample_launches_both_drf_kernels(cuda):
+    """The Queue sample through the port's harness on the card: its two
+    Queues bring the DRF order onto the converge, both kernels launch, and
+    the store equals the CPU run's."""
+    from chip_smoke import operator_pkg
+    from grove_tpu_torch.models.scenarios import SAMPLES_DIR, store_digest
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+
+    pkg = operator_pkg()
+    text = (SAMPLES_DIR / "multitenant-queues.yaml").read_text()
+    digests = []
+    for device in ("cpu", "cuda"):
+        pkg.reset_uid_namespace()
+        share_table_cuda.launches = merge_cuda.launches = 0
+        h = pkg.SimHarness(device=device)
+        for obj in pkg.load_manifest_objects(text):
+            h.apply(obj)
+        h.converge()
+        assert all(pkg.is_ready(p) for p in h.store.list("Pod"))
+        digests.append((h.tree(), store_digest(h.store, pkg.export_object)))
+    assert share_table_cuda.launches > 0 and merge_cuda.launches > 0
+    assert digests[1] == digests[0]

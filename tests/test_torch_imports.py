@@ -39,7 +39,20 @@ def test_port_modules_import_with_jax_and_grove_tpu_blocked():
                  "utils.platform", "disruption", "disruption.broker", "disruption.drain",
                  "controller", "controller.nodehealth", "controller.remediate",
                  "runtime.backoff", "runtime.shards", "runtime.workqueue", "autoscale",
-                 "autoscale.hpa"):
+                 "autoscale.hpa", "api.load", "api.serialize", "api.hashing", "api.inspect",
+                 "runtime.engine", "runtime.expectations", "runtime.indexer", "runtime.flow",
+                 "config.operator", "admission.defaulting", "admission.validation",
+                 "admission.authorization", "controller.common", "controller.register",
+                 "controller.podclique.pods", "controller.podclique.status",
+                 "controller.podclique.reconciler", "controller.podcliqueset.reconciler",
+                 "controller.podcliqueset.components.infra",
+                 "controller.podcliqueset.components.podclique",
+                 "controller.podcliqueset.components.podgang",
+                 "controller.podcliqueset.components.replica",
+                 "controller.podcliqueset.components.scalinggroup",
+                 "controller.podcliqueset.components.rollingupdate",
+                 "controller.podcliquescalinggroup.reconciler", "utils.concurrent",
+                 "initc.waiter", "sim.harness"):
         assert f"grove_tpu_torch.{name}" in mods
     script = textwrap.dedent(
         f"""

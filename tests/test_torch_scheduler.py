@@ -32,6 +32,7 @@ from grove_tpu.runtime.store import Store as JaxStore
 from grove_tpu.sim.cluster import SimCluster as JaxCluster, make_nodes as jax_make_nodes
 from grove_tpu.sim.harness import SimHarness
 from grove_tpu.solver.scheduler import GangScheduler as JaxScheduler
+from grove_tpu_torch.api.meta import ObjectMeta
 from grove_tpu_torch.api.topology import ClusterTopology, ClusterTopologySpec, TopologyLevel
 from grove_tpu_torch.api.wire import decode_object
 from grove_tpu_torch.models.scenarios import EventCapture, round_summary, scheduler_world
@@ -112,7 +113,7 @@ def port_world_from(jax_sched):
     ]
     cluster = SimCluster(store, nodes)
     topology = ClusterTopology(
-        name=jax_sched.topology.metadata.name,
+        metadata=ObjectMeta(name=jax_sched.topology.metadata.name, namespace=""),
         spec=ClusterTopologySpec(
             levels=[TopologyLevel(lv.domain, lv.key) for lv in jax_sched.topology.spec.levels]
         ),

@@ -77,8 +77,8 @@ Phases (any failure raises and the script exits non-zero):
      wider shapes and at Q=65,536.
   9. [delta] the delta round (solver/deltastate.py through
      GangScheduler.enable_delta) on the churn world of
-     models/scenarios.scheduler_world("delta"): (q)'s round, then 24
-     seeded churn ticks (arrivals, departures, pod failures with recovery
+     models/scenarios.scheduler_world("delta"): (q)'s round, then 17
+     (DELTA_TICKS, cut from 24) seeded churn ticks (arrivals, departures, pod failures with recovery
      pins, a node cordoned and uncordoned, a standing backlog, idle
      ticks), one scheduler and one store throughout, the A/B self-check
      (a from-scratch encode and solve of the same round) on every round.
@@ -94,7 +94,8 @@ Phases (any failure raises and the script exits non-zero):
  10. [frontier] the partitioned frontier (solver/frontier.py through
      GangScheduler.enable_frontier) on (phi),
      models/scenarios.scheduler_world("frontier"): the churn world's (q)
-     round and 16 of its ticks (80 slices of 64 nodes, so 80 subproblems in
+     round and 6 of its ticks (FRONTIER_TICKS, cut from 16; 80 slices of
+     64 nodes, so 80 subproblems in
      round 1), delta and frontier self-checks on every round. Every round
      is held against JAX_FRONTIER_REFERENCE: what [delta] holds and the
      deterministic fields of the frontier's stats(); and checked valid.
@@ -121,7 +122,9 @@ Phases (any failure raises and the script exits non-zero):
      kernel (its own count, zeroed just before its solve). Prints each
      world's solve time beside the single-device one, collectives per
      wave and fill launches per rank; the ranks share one card, so no
-     multi-GPU speed is implied.
+     multi-GPU speed is implied. Runs after [disruption]: the rank
+     worlds run in their own processes while [operator] and [churn] (16
+     and 17), which time no kernel, run in this one.
  12. [observe] the glass-box layer (observability/{tracing,metrics,journey,
      profile,explain}.py) on (q) at full width: the tracer, the gang
      journeys and the wall profiler on before the world loads, then round
@@ -151,7 +154,7 @@ Phases (any failure raises and the script exits non-zero):
      a malformed request (INVALID_ARGUMENT). Prints the request and
      response sizes, the RPC wall beside [main]'s and the launches.
  14. [slo] the SLO observatory (observability/{timeseries,slo,forecast,
-     flightrec}.py) on (delta)'s world at full width: round 1 and 12 churn
+     flightrec}.py) on (delta)'s world at full width: round 1 and 6 churn
      ticks with the clock 10 s a round, the tracer, journeys, time series,
      SLO engine (two objectives: one breached, one met), forecaster and
      flight recorder on, the serving collector installed
@@ -198,13 +201,43 @@ Phases (any failure raises and the script exits non-zero):
      on the same card tensors, bit for bit. Prints the apply and converge walls and ticks, the
      solver's share, microseconds per reconcile, the rolling update's
      wall and ticks, and the launches.
- 17. prints the kernels line, the card line, and last the ok line.
+ 17. [churn] (kappa) the sim package's delta churn (sim/deltachurn.
+     delta_artifact, models/scenarios.run_churn_world) on (iota)'s harness
+     after [operator]'s rolling update, run from [operator]: the warm-up,
+     33 churn ticks with the A/B self-check every 16th tick and a cordon
+     flap at tick 32, then 8 ticks with the delta state detached (cut from
+     the bench's 96 and 32); every schedule call's round_summary, delta
+     counters and self-check flag and the report's counters equal to
+     JAX_CHURN_REFERENCE; the first 8 fill calls and the first of each
+     other shape held against the plain fill bit for bit. Prints schedule
+     p50/p99/mean, the full path's, speedup_mean, p99_lt_1s and launches.
+ 18. [scale] (lambda) the keyspace-sharded store (runtime/store.py,
+     num_shards=8) under sim/scale: frontier_ab at the bench's full-size
+     shape (4,096 one-clique eight-pod sets over 64 tenant namespaces on
+     6,400 nodes; warm-ups, then the global and the partitioned-frontier
+     arm) and inert_ab (192 sets on 64 nodes, S=1 against S=8), every
+     retired harness's canonical dump digest (rv-normalised, Events left
+     out, placement scores summed apart at rtol 1e-6), census, scalar
+     resourceVersion, reconciles and frontier counters equal to
+     JAX_SCALE_REFERENCE, the inert A/B identical and the sharded arms
+     spread over two or more shards; the first two fill launches of each
+     solve kind (global, stacked) and the first of each other shape held
+     against the plain fill. Prints both walls, both solver times and the
+     speedups (reported, not gated).
+ 19. [sims] (nu) sim/multitenant (the contended three-tenant run with
+     reclaim, quota.warm, quota_snapshot; the single-queue A/B; the explain
+     scenario's actors), sim/voluntary.drain_artifact, the run-level churn
+     A/B (deltachurn.smoke_ab_run with and without the delta state) and
+     the demo on simple1.yaml (sim/demo.run_demo), each equal to
+     JAX_SIMS_REFERENCE; the fill and both DRF kernels must launch.
+ 20. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1621,10 +1654,20 @@ JAX_DELTA_REFERENCE = [
 
 
 def _percentile(samples, q):
-    """Nearest-rank percentile, as grove_tpu/sim/deltachurn.py reports it."""
-    s = sorted(samples)
-    k = min(len(s) - 1, max(0, int(round(q * (len(s) - 1) + 0.5)) - 1))
-    return s[max(k, int(q * (len(s) - 1)))]
+    """Nearest-rank percentile, as sim/deltachurn.py reports it."""
+    from grove_tpu_torch.sim.deltachurn import _percentile
+
+    return _percentile(samples, q)
+
+
+# [delta]'s churn ticks, cut from the world's 24 when [churn] came to run the
+# delta round at full width (PERF.md section 4): tick 8 cordons a node and
+# tick 16 uncordons it, so 17 is the fewest that still show a full fallback,
+# a solve reuse and a flap back onto the retired encoding. The churn ticks
+# are drawn one by one from a seeded stream, so the cut world's rounds are
+# the first of the full world's and JAX_DELTA_REFERENCE (taken at 24) holds
+# them.
+DELTA_TICKS = 17
 
 
 def phase_delta() -> dict:
@@ -1651,8 +1694,9 @@ def phase_delta() -> dict:
     from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
     from grove_tpu_torch.solver.scheduler import GangScheduler
 
-    world = scheduler_world("delta")
-    if len(JAX_DELTA_REFERENCE) != len(world["ticks"]) + 1:
+    world = scheduler_world("delta", ticks=DELTA_TICKS)
+    reference = JAX_DELTA_REFERENCE[: DELTA_TICKS + 1]
+    if len(reference) != len(world["ticks"]) + 1:
         _fail("JAX_DELTA_REFERENCE does not hold one entry per round of the churn world")
     t0 = time.perf_counter()
     store = Store(VirtualClock(0.0))
@@ -1694,7 +1738,7 @@ def phase_delta() -> dict:
         fp = sched.delta.state_fingerprint()
         got.update(counters=delta_counters(sched.delta), free_crc=fp[2],
                    state_sha256=hashlib.sha256(repr(fp).encode()).hexdigest())
-        want = dict(JAX_DELTA_REFERENCE[index])
+        want = dict(reference[index])
         if not np.isclose(got["score_sum"], want.pop("score_sum"), rtol=1e-6, atol=0):
             _fail(f"{tag}: score sum {got['score_sum']} != the JAX package's")
         for key, value in want.items():
@@ -2057,6 +2101,13 @@ def stacked_fill_call(stack, chunk_size):
     _fail("frontier: the stacked dispatch made no fill call")
 
 
+# [frontier]'s churn ticks, cut from (phi)'s 16 (PERF.md section 4): a
+# residual gang, a multi-lane stacked dispatch and the stacked fill all show
+# in round 1; the first rounds of (phi) are JAX_FRONTIER_REFERENCE's first
+# entries, as for [delta]
+FRONTIER_TICKS = 6
+
+
 def phase_frontier(delta_round1) -> dict:
     """(phi) through the port's GangScheduler with the delta state, the
     partitioned frontier and both self-checks on every round, on the card;
@@ -2084,8 +2135,9 @@ def phase_frontier(delta_round1) -> dict:
     from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
     from grove_tpu_torch.solver.scheduler import GangScheduler
 
-    world = scheduler_world("frontier")
-    if len(JAX_FRONTIER_REFERENCE) != len(world["ticks"]) + 1:
+    world = scheduler_world("frontier", ticks=FRONTIER_TICKS)
+    reference = JAX_FRONTIER_REFERENCE[: FRONTIER_TICKS + 1]
+    if len(reference) != len(world["ticks"]) + 1:
         _fail("JAX_FRONTIER_REFERENCE does not hold one entry per round of (phi)")
     t0 = time.perf_counter()
     store = Store(VirtualClock(0.0))
@@ -2129,7 +2181,7 @@ def phase_frontier(delta_round1) -> dict:
             got.update(counters=delta_counters(sched.delta), free_crc=fp[2],
                        state_sha256=hashlib.sha256(repr(fp).encode()).hexdigest(),
                        frontier=frontier_counters(front))
-            want = dict(JAX_FRONTIER_REFERENCE[index])
+            want = dict(reference[index])
             if not np.isclose(got["score_sum"], want.pop("score_sum"), rtol=1e-6, atol=0):
                 _fail(f"{tag}: score sum {got['score_sum']} != the JAX package's")
             for key, value in want.items():
@@ -2286,7 +2338,26 @@ def _check_sharded_vs_jax(tag, res, ref):
         _fail(f"{tag}: score sum {score_sum} != the JAX package's {ref['score_sum']}")
 
 
-def phase_sharded() -> dict:
+def _spawn_sharded_worlds(cfg, ref) -> list:
+    """[sharded]'s rank worlds, one after another: (world size, the ranks'
+    results, seconds from spawn to results)."""
+    from grove_tpu_torch.parallel.multihost import run_ranks
+
+    worlds = []
+    for world in SHARDED_WORLDS:
+        jobs = [("stress", dict(cfg, warmup=True)), ("cluster", {})]
+        if world > 1:
+            jobs.append(("ring", {"n_nodes": ref["nodes"], "n_gangs": ref["gangs"], "gang": 0}))
+        if world == 2:
+            jobs.append(("fill", {}))
+        t0 = time.perf_counter()
+        ranks = run_ranks(jobs, world, device="cuda:0", timeout=SHARDED_TIMEOUT_S,
+                          pg_timeout=120)
+        worlds.append((world, ranks, time.perf_counter() - t0))
+    return worlds
+
+
+def phase_sharded(alongside=None) -> dict:
     """(a) with its node axis sharded over local ranks on the one card
     (solve_stress_sharded through parallel.multihost.run_ranks): NCCL at
     world size 1, gloo ranks sharing cuda:0 at 2 and 4. Every rank's result
@@ -2297,10 +2368,16 @@ def phase_sharded() -> dict:
     and the launcher's own check (``spawn_local_cluster``'s job: a gather
     from the rank's device, a small sharded solve equal to the rank's
     one-device solve) must pass at each size. Every rank must launch the
-    fill kernel and load the parent's build."""
+    fill kernel and load the parent's build.
+
+    The ranks are processes of their own, with their own launch counts:
+    ``alongside()``, when given, runs here while they run (the smoke gives
+    it [operator], whose phases time no kernel), and its result lands
+    under ``"alongside"``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from grove_tpu_torch.models.scenarios import build_stress_problem
     from grove_tpu_torch.ops.fill import fill_batch
-    from grove_tpu_torch.parallel.multihost import run_ranks
     from grove_tpu_torch.ops.nodeaxis import WHOLE
     from grove_tpu_torch.parallel.ring import domain_aggregates
     from grove_tpu_torch.parallel.sharded import fill_cases, run_fill_case, solve_stress_single
@@ -2328,16 +2405,12 @@ def phase_sharded() -> dict:
     out = {"single_s": single_s, "single_fill_launches": single_launches, "waves": single["waves"],
            "worlds": {}, "fill_launches": 0, "max_abs_err": 0.0}
     keys = ("admitted", "placed", "score", "chosen_level", "free_after", "pending")
-    for world in SHARDED_WORLDS:
-        jobs = [("stress", dict(cfg, warmup=True)), ("cluster", {})]
-        if world > 1:
-            jobs.append(("ring", {"n_nodes": ref["nodes"], "n_gangs": ref["gangs"], "gang": 0}))
-        if world == 2:
-            jobs.append(("fill", {}))
-        t0 = time.perf_counter()
-        ranks = run_ranks(jobs, world, device="cuda:0", timeout=SHARDED_TIMEOUT_S,
-                          pg_timeout=120)
-        wall = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(_spawn_sharded_worlds, cfg, ref)
+        if alongside is not None:
+            out["alongside"] = alongside()
+        worlds = spawned.result()
+    for world, ranks, wall in worlds:
         tag = f"sharded world {world}"
         want_backend = "nccl" if world == 1 else "gloo"
         for rank, res in enumerate(ranks):
@@ -2678,488 +2751,24 @@ def phase_observe(q_wall_s, card, device="cuda", n_nodes=None, n_gangs=None,
 
 
 # JAX_SLO_REFERENCE: the SLO world (models/scenarios.run_slo_world: the churn
-# world's (q) round and its first 12 ticks, the clock 10 s a round, the
+# world's (q) round and its first 6 ticks, the clock 10 s a round, the
 # tracer, journeys, time series, SLO engine, forecaster and flight recorder
-# on), from `JAX_PLATFORMS=cpu python scripts/scheduler_reference.py slo`
+# on), from `JAX_PLATFORMS=cpu python scripts/scheduler_reference.py slo
+# --ticks 6`
 # (JAX 0.9.0 on the CPU): per round round_summary and the sha256 of the
 # series windows; then the windows, the SLO status, the forecast and the
 # flight bundle's summary.
-JAX_SLO_REFERENCE = {'rounds': [{'admitted': 10231,
-             'bound': 34833,
-             'score_sum': 10084.246239542961,
-             'bindings': 34833,
-             'bindings_sha256': '7ff9f94016b74cc5ea0e31eb3c29f4ea4fe0ae8f674ab4586e1f50bd4f7c744a',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {'tenant-0': 1271,
-                                    'tenant-1': 1280,
-                                    'tenant-2': 1280,
-                                    'tenant-3': 1280,
-                                    'tenant-4': 1280,
-                                    'tenant-5': 1280,
-                                    'tenant-6': 1280,
-                                    'tenant-7': 1280},
-             'events_by_reason': {'GangAdmitted': 10231, 'GangDeferred': 9, 'PodBound': 34833},
-             'windows_sha256': '8b9416db0baa3340875fde022650ae382ab3d7ad451eaffbb551bb0ab63ecb2f'},
-            {'admitted': 6,
-             'bound': 47,
-             'score_sum': 3.846746325492859,
-             'bindings': 34880,
-             'bindings_sha256': 'cebb696007c67301b1c42dd66443189972f1a61a61b86a3bb314a7ed44df32a1',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {'tenant-0': 6},
-             'events_by_reason': {'GangAdmitted': 6, 'GangDeferred': 5, 'PodBound': 47},
-             'windows_sha256': 'd299f883dcad01719a840d3d755835bd45a4d0d5d95d62d5dc953aef09f76170'},
-            {'admitted': 4,
-             'bound': 21,
-             'score_sum': 2.885926067829132,
-             'bindings': 34900,
-             'bindings_sha256': '37fbfb16f5bfe96f5041383a85523a7d7811865a33ef0d3bf1484a7b3ae665cc',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {'tenant-0': 4},
-             'events_by_reason': {'GangAdmitted': 4, 'GangDeferred': 2, 'PodBound': 21},
-             'windows_sha256': '0383aeaef4811316db598877118391dd690c2a58b1ed8c20642cd51258ab9ced'},
-            {'admitted': 2,
-             'bound': 12,
-             'score_sum': 1.7916667461395264,
-             'bindings': 34912,
-             'bindings_sha256': '01ad51b0c30b3a40f9c6b2bf99358126a4fec14cf729c8d05c9e8f16d3888e52',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {'tenant-0': 1, 'tenant-1': 1},
-             'events_by_reason': {'GangAdmitted': 2, 'GangDeferred': 2, 'PodBound': 12},
-             'windows_sha256': 'd0e38cf2de33be9f9f75e88b6c557d265b1edb5d7ac3d22e4da391b022f91ed8'},
-            {'admitted': 2,
-             'bound': 4,
-             'score_sum': 2.0,
-             'bindings': 34916,
-             'bindings_sha256': '6d6f734446588fd3e66c8df26850b5a876cb3979dbbfa97bdcea944254c35192',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {'tenant-2': 1, 'tenant-3': 1},
-             'events_by_reason': {'GangAdmitted': 2, 'GangDeferred': 2, 'PodBound': 4},
-             'windows_sha256': 'af264f9abc452d61ccfa436c69537cbce5083592be6893dd4be58589b042d665'},
-            {'admitted': 0,
-             'bound': 0,
-             'score_sum': 0.0,
-             'bindings': 34916,
-             'bindings_sha256': '6d6f734446588fd3e66c8df26850b5a876cb3979dbbfa97bdcea944254c35192',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {},
-             'events_by_reason': {'FlightRecorderDumped': 1, 'GangDeferred': 2, 'SloBreach': 1},
-             'windows_sha256': '4e021a2db5e4ee1dacbd64992dcef23952e2a9bfd116a5e54cde1b89d18e5c61'},
-            {'admitted': 1,
-             'bound': 4,
-             'score_sum': 1.0,
-             'bindings': 34920,
-             'bindings_sha256': '16c9dab416c52572af7ccb6bd7484fb0a0660b24967ea982c5c43e4a012881cf',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {'tenant-4': 1},
-             'events_by_reason': {'GangAdmitted': 1, 'GangDeferred': 2, 'PodBound': 4, 'SloBurnRateHigh': 1},
-             'windows_sha256': '5b8523cf4d4a4fe0ee372b41cc0a7ab4b116fb7960800e7f58b9a430c6dc7a94'},
-            {'admitted': 0,
-             'bound': 0,
-             'score_sum': 0.0,
-             'bindings': 34912,
-             'bindings_sha256': '9462513fc7d335b94364b03debe2d38532d0c9fa1a407f976a7f844a7e09674e',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {},
-             'events_by_reason': {'GangDeferred': 2},
-             'windows_sha256': '89df55d02e0ce5c85830f1203273976e1187a2c0a7b9ac033416dcda219a98c2'},
-            {'admitted': 1,
-             'bound': 3,
-             'score_sum': 1.0,
-             'bindings': 34915,
-             'bindings_sha256': 'b35562f58361a2d01d50fecc1b2cc5808a3cfcb04fda923fca91e8aafb1103d0',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {'tenant-5': 1},
-             'events_by_reason': {'GangAdmitted': 1, 'GangDeferred': 2, 'PodBound': 3},
-             'windows_sha256': 'adb8ff511fc138a0195fd5fd317553e2e20e6f54b39366b867c6ed18a4f8cf49'},
-            {'admitted': 0,
-             'bound': 0,
-             'score_sum': 0.0,
-             'bindings': 34911,
-             'bindings_sha256': 'e5abbbe71d6a627dbab8215a178533c803426118a687e6e55cd9b4dbed73453e',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {},
-             'events_by_reason': {'GangDeferred': 2},
-             'windows_sha256': '0f6d6653b5da3d1f3b70a7cd62ce385b0a7f4f8a72a290e2175d23996ca24cb8'},
-            {'admitted': 0,
-             'bound': 0,
-             'score_sum': 0.0,
-             'bindings': 34911,
-             'bindings_sha256': 'e5abbbe71d6a627dbab8215a178533c803426118a687e6e55cd9b4dbed73453e',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {},
-             'events_by_reason': {'GangDeferred': 2},
-             'windows_sha256': '2c41b393b8505a3006352f40e90f97af15d51bdcba320b80ad0066feffa17ce3'},
-            {'admitted': 0,
-             'bound': 0,
-             'score_sum': 0.0,
-             'bindings': 34909,
-             'bindings_sha256': '98360279b024e059939a400763dd77fdacba82357501ec3ead41ab416656ac32',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {},
-             'events_by_reason': {'GangDeferred': 2},
-             'windows_sha256': '68c16c691e2ec5a2f25c468b6a60817be392433348d856fd128a46a82f7414b6'},
-            {'admitted': 1,
-             'bound': 1,
-             'score_sum': 1.0,
-             'bindings': 34909,
-             'bindings_sha256': 'bff193bc45cc5f57d9a630a644deac88d8807dcd0985dce10784890933296dfa',
-             'evicted': 0,
-             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-             'admitted_per_queue': {'tenant-0': 1},
-             'events_by_reason': {'GangAdmitted': 1, 'GangDeferred': 2, 'PodBound': 1},
-             'windows_sha256': '5745aa6322e5122ae641dfad0a83ac81b7e8572bda17bf37d2644fc4364605a9'}],
- 'windows': {'admission_latency': {'count': 10248},
-             'admission_latency_vt': {'kind': 'dist',
-                                      'count': 10248,
-                                      'rate': 34.16,
-                                      'mean': 10.00975800156128,
-                                      'max': 30.0,
-                                      'p50': 12.582912,
-                                      'p99': 12.582912},
-             'queue_usage/tenant-0': {'kind': 'gauge',
-                                      'n': 13,
-                                      'mean': 35669.38461538462,
-                                      'max': 35726.0,
-                                      'min': 35376.0,
-                                      'last': 35690.0,
-                                      'p50': 35690.0,
-                                      'p99': 35726.0},
-             'queue_usage/tenant-1': {'kind': 'gauge',
-                                      'n': 13,
-                                      'mean': 7671.692307692308,
-                                      'max': 7676.0,
-                                      'min': 7668.0,
-                                      'last': 7668.0,
-                                      'p50': 7668.0,
-                                      'p99': 7676.0},
-             'queue_usage/tenant-2': {'kind': 'gauge',
-                                      'n': 13,
-                                      'mean': 7698.153846153846,
-                                      'max': 7700.0,
-                                      'min': 7696.0,
-                                      'last': 7696.0,
-                                      'p50': 7700.0,
-                                      'p99': 7700.0},
-             'queue_usage/tenant-3': {'kind': 'gauge',
-                                      'n': 13,
-                                      'mean': 7782.7692307692305,
-                                      'max': 7784.0,
-                                      'min': 7780.0,
-                                      'last': 7784.0,
-                                      'p50': 7784.0,
-                                      'p99': 7784.0},
-             'queue_usage/tenant-4': {'kind': 'gauge',
-                                      'n': 13,
-                                      'mean': 7658.307692307692,
-                                      'max': 7662.0,
-                                      'min': 7654.0,
-                                      'last': 7662.0,
-                                      'p50': 7662.0,
-                                      'p99': 7662.0},
-             'queue_usage/tenant-5': {'kind': 'gauge',
-                                      'n': 13,
-                                      'mean': 7680.307692307692,
-                                      'max': 7684.0,
-                                      'min': 7678.0,
-                                      'last': 7684.0,
-                                      'p50': 7678.0,
-                                      'p99': 7684.0},
-             'queue_usage/tenant-6': {'kind': 'gauge',
-                                      'n': 13,
-                                      'mean': 7630.0,
-                                      'max': 7630.0,
-                                      'min': 7630.0,
-                                      'last': 7630.0,
-                                      'p50': 7630.0,
-                                      'p99': 7630.0},
-             'queue_usage/tenant-7': {'kind': 'gauge',
-                                      'n': 13,
-                                      'mean': 7714.0,
-                                      'max': 7714.0,
-                                      'min': 7714.0,
-                                      'last': 7714.0,
-                                      'p50': 7714.0,
-                                      'p99': 7714.0},
-             'queue_wait_vt/tenant-0': {'kind': 'gauge',
-                                        'n': 13,
-                                        'mean': 61.53846153846154,
-                                        'max': 120.0,
-                                        'min': 10.0,
-                                        'last': 120.0,
-                                        'p50': 60.0,
-                                        'p99': 120.0},
-             'queue_wait_vt/tenant-1': {'kind': 'gauge',
-                                        'n': 12,
-                                        'mean': 65.0,
-                                        'max': 120.0,
-                                        'min': 10.0,
-                                        'last': 120.0,
-                                        'p50': 60.0,
-                                        'p99': 120.0},
-             'rate:journeys_completed_total': {'kind': 'gauge',
-                                               'n': 13,
-                                               'mean': 788.3076923076923,
-                                               'max': 10231.0,
-                                               'min': 0.0,
-                                               'last': 1.0,
-                                               'p50': 1.0,
-                                               'p99': 10231.0},
-             'ready_fraction': {'kind': 'gauge',
-                                'n': 13,
-                                'mean': 0.0,
-                                'max': 0.0,
-                                'min': 0.0,
-                                'last': 0.0,
-                                'p50': 0.0,
-                                'p99': 0.0},
-             'slo:admission:good': {'kind': 'gauge',
-                                    'n': 12,
-                                    'mean': 1.0,
-                                    'max': 1.0,
-                                    'min': 1.0,
-                                    'last': 1.0,
-                                    'p50': 1.0,
-                                    'p99': 1.0},
-             'slo:backlog-wait:good': {'kind': 'gauge',
-                                       'n': 13,
-                                       'mean': 0.38461538461538464,
-                                       'max': 1.0,
-                                       'min': 0.0,
-                                       'last': 0.0,
-                                       'p50': 0.0,
-                                       'p99': 1.0}},
- 'status': {'enabled': True,
-            'objectives': [{'name': 'backlog-wait',
-                            'spec': 'queue_wait_vt/tenant-0:last < 45 over 10s target 90% budget 60s burn 2x '
-                                    '10s/60s',
-                            'series': 'queue_wait_vt/tenant-0',
-                            'state': 'breached',
-                            'value': 120.0,
-                            'attainment': 0.0,
-                            'budget_remaining': 0.0,
-                            'burn_rate_fast': 10.0,
-                            'burn_rate_slow': 10.0,
-                            'evaluations': 13,
-                            'good': 5,
-                            'bad': 8,
-                            'breaches': 1,
-                            'recoveries': 0},
-                           {'name': 'admission',
-                            'spec': 'admission_latency_vt:max < 60 over 30s target 90% budget 180s burn 6x '
-                                    '30s/180s',
-                            'series': 'admission_latency_vt',
-                            'state': 'ok',
-                            'value': 0.0,
-                            'attainment': 1.0,
-                            'budget_remaining': 1.0,
-                            'burn_rate_fast': 0.0,
-                            'burn_rate_slow': 0.0,
-                            'evaluations': 12,
-                            'good': 12,
-                            'bad': 0,
-                            'breaches': 0,
-                            'recoveries': 0}],
-            'series': {'admission_latency_vt': {'kind': 'dist',
-                                                'count': 10248,
-                                                'rate': 34.16,
-                                                'mean': 10.00975800156128,
-                                                'max': 30.0,
-                                                'p50': 12.582912,
-                                                'p99': 12.582912},
-                       'queue_usage/tenant-0': {'kind': 'gauge',
-                                                'n': 13,
-                                                'mean': 35669.38461538462,
-                                                'max': 35726.0,
-                                                'min': 35376.0,
-                                                'last': 35690.0,
-                                                'p50': 35690.0,
-                                                'p99': 35726.0},
-                       'queue_usage/tenant-1': {'kind': 'gauge',
-                                                'n': 13,
-                                                'mean': 7671.692307692308,
-                                                'max': 7676.0,
-                                                'min': 7668.0,
-                                                'last': 7668.0,
-                                                'p50': 7668.0,
-                                                'p99': 7676.0},
-                       'queue_usage/tenant-2': {'kind': 'gauge',
-                                                'n': 13,
-                                                'mean': 7698.153846153846,
-                                                'max': 7700.0,
-                                                'min': 7696.0,
-                                                'last': 7696.0,
-                                                'p50': 7700.0,
-                                                'p99': 7700.0},
-                       'queue_usage/tenant-3': {'kind': 'gauge',
-                                                'n': 13,
-                                                'mean': 7782.7692307692305,
-                                                'max': 7784.0,
-                                                'min': 7780.0,
-                                                'last': 7784.0,
-                                                'p50': 7784.0,
-                                                'p99': 7784.0},
-                       'queue_usage/tenant-4': {'kind': 'gauge',
-                                                'n': 13,
-                                                'mean': 7658.307692307692,
-                                                'max': 7662.0,
-                                                'min': 7654.0,
-                                                'last': 7662.0,
-                                                'p50': 7662.0,
-                                                'p99': 7662.0},
-                       'queue_usage/tenant-5': {'kind': 'gauge',
-                                                'n': 13,
-                                                'mean': 7680.307692307692,
-                                                'max': 7684.0,
-                                                'min': 7678.0,
-                                                'last': 7684.0,
-                                                'p50': 7678.0,
-                                                'p99': 7684.0},
-                       'queue_usage/tenant-6': {'kind': 'gauge',
-                                                'n': 13,
-                                                'mean': 7630.0,
-                                                'max': 7630.0,
-                                                'min': 7630.0,
-                                                'last': 7630.0,
-                                                'p50': 7630.0,
-                                                'p99': 7630.0},
-                       'queue_usage/tenant-7': {'kind': 'gauge',
-                                                'n': 13,
-                                                'mean': 7714.0,
-                                                'max': 7714.0,
-                                                'min': 7714.0,
-                                                'last': 7714.0,
-                                                'p50': 7714.0,
-                                                'p99': 7714.0},
-                       'queue_wait_vt/tenant-0': {'kind': 'gauge',
-                                                  'n': 13,
-                                                  'mean': 61.53846153846154,
-                                                  'max': 120.0,
-                                                  'min': 10.0,
-                                                  'last': 120.0,
-                                                  'p50': 60.0,
-                                                  'p99': 120.0},
-                       'queue_wait_vt/tenant-1': {'kind': 'gauge',
-                                                  'n': 12,
-                                                  'mean': 65.0,
-                                                  'max': 120.0,
-                                                  'min': 10.0,
-                                                  'last': 120.0,
-                                                  'p50': 60.0,
-                                                  'p99': 120.0},
-                       'rate:journeys_completed_total': {'kind': 'gauge',
-                                                         'n': 13,
-                                                         'mean': 788.3076923076923,
-                                                         'max': 10231.0,
-                                                         'min': 0.0,
-                                                         'last': 1.0,
-                                                         'p50': 1.0,
-                                                         'p99': 10231.0},
-                       'ready_fraction': {'kind': 'gauge',
-                                          'n': 13,
-                                          'mean': 0.0,
-                                          'max': 0.0,
-                                          'min': 0.0,
-                                          'last': 0.0,
-                                          'p50': 0.0,
-                                          'p99': 0.0},
-                       'slo:admission:good': {'kind': 'gauge',
-                                              'n': 12,
-                                              'mean': 1.0,
-                                              'max': 1.0,
-                                              'min': 1.0,
-                                              'last': 1.0,
-                                              'p50': 1.0,
-                                              'p99': 1.0},
-                       'slo:backlog-wait:good': {'kind': 'gauge',
-                                                 'n': 13,
-                                                 'mean': 0.38461538461538464,
-                                                 'max': 1.0,
-                                                 'min': 0.0,
-                                                 'last': 0.0,
-                                                 'p50': 0.0,
-                                                 'p99': 1.0}}},
- 'forecast': {'series': 'queue_usage/tenant-0',
-              'n': 13,
-              'now': 130.0,
-              'horizon_s': 300.0,
-              'period_s': 600.0,
-              'model': 'diurnal-trend',
-              'last': 35690.0,
-              'slope_per_s': 1.1857142857142857,
-              'sigma': 3.288579734763426,
-              'points': [{'at_s': 155.0,
-                          'mean': 35770.170329670334,
-                          'lo': 35763.59317020081,
-                          'hi': 35776.74748913986},
-                         {'at_s': 180.0,
-                          'mean': 35799.81318681319,
-                          'lo': 35793.236027343664,
-                          'hi': 35806.390346282715},
-                         {'at_s': 205.0,
-                          'mean': 35829.456043956045,
-                          'lo': 35822.87888448652,
-                          'hi': 35836.03320342557},
-                         {'at_s': 230.0,
-                          'mean': 35859.0989010989,
-                          'lo': 35852.521741629374,
-                          'hi': 35865.676060568425},
-                         {'at_s': 255.0,
-                          'mean': 35888.74175824176,
-                          'lo': 35882.16459877224,
-                          'hi': 35895.31891771129},
-                         {'at_s': 280.0,
-                          'mean': 35918.38461538462,
-                          'lo': 35911.80745591509,
-                          'hi': 35924.96177485414},
-                         {'at_s': 305.0,
-                          'mean': 35948.02747252747,
-                          'lo': 35941.45031305795,
-                          'hi': 35954.604631997},
-                         {'at_s': 330.0,
-                          'mean': 35977.670329670334,
-                          'lo': 35971.09317020081,
-                          'hi': 35984.24748913986},
-                         {'at_s': 355.0,
-                          'mean': 36007.31318681319,
-                          'lo': 36000.736027343664,
-                          'hi': 36013.890346282715},
-                         {'at_s': 380.0,
-                          'mean': 36036.956043956045,
-                          'lo': 36030.37888448652,
-                          'hi': 36043.53320342557},
-                         {'at_s': 405.0,
-                          'mean': 36066.5989010989,
-                          'lo': 36060.021741629374,
-                          'hi': 36073.176060568425},
-                         {'at_s': 430.0,
-                          'mean': 36096.24175824176,
-                          'lo': 36089.66459877224,
-                          'hi': 36102.81891771129}],
-              'peak': {'at_s': 430.0, 'mean': 36096.24175824176}},
- 'dumps': 1,
- 'flight': {'reason': 'SloBreach',
-            'detail': 'objective=backlog-wait window=60s attainment=0.8333 target=0.9 '
-                      'indicator=queue_wait_vt/tenant-0:last < 45 over 10s target 90% budget 60s burn 2x '
-                      '10s/60s',
-            'vt': 60.0,
-            'records': 1024,
-            'commits': 945,
+JAX_SLO_REFERENCE = {'dumps': 1,
+ 'flight': {'commits': 945,
             'commits_sha256': 'fad040ca20b6d337eb20d83c7875b1e9233d175d40e6377225f7f132cdce57ef',
+            'detail': 'objective=backlog-wait window=60s attainment=0.8333 target=0.9 '
+                      'indicator=queue_wait_vt/tenant-0:last < 45 over 10s target 90% budget 60s '
+                      'burn 2x 10s/60s',
+            'errors': 0,
             'events': 1024,
             'events_sha256': 'ff23646e9092bbfba7fddceab2ea758a5f41863e608dbb9b9b927907bfafd79c',
+            'reason': 'SloBreach',
+            'records': 1024,
             'spans': {'quota.order': 5,
                       'quota.reclaim': 5,
                       'scheduler.commit': 5,
@@ -3170,7 +2779,415 @@ JAX_SLO_REFERENCE = {'rounds': [{'admitted': 10231,
                       'scheduler.status-write': 6,
                       'solve.delta_encode': 5,
                       'solver.wave': 17},
-            'errors': 0}}
+            'vt': 60.0},
+ 'forecast': {'horizon_s': 300.0,
+              'last': 35726.0,
+              'model': 'persistence',
+              'n': 7,
+              'now': 70.0,
+              'peak': {'at_s': 95.0, 'mean': 35726.0},
+              'period_s': 600.0,
+              'points': [{'at_s': 95.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 120.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 145.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 170.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 195.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 220.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 245.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 270.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 295.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 320.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 345.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0},
+                         {'at_s': 370.0,
+                          'hi': 35968.750228567114,
+                          'lo': 35483.249771432886,
+                          'mean': 35726.0}],
+              'series': 'queue_usage/tenant-0',
+              'sigma': 121.37511428355872,
+              'slope_per_s': 0.0},
+ 'rounds': [{'admitted': 10231,
+             'admitted_per_queue': {'tenant-0': 1271,
+                                    'tenant-1': 1280,
+                                    'tenant-2': 1280,
+                                    'tenant-3': 1280,
+                                    'tenant-4': 1280,
+                                    'tenant-5': 1280,
+                                    'tenant-6': 1280,
+                                    'tenant-7': 1280},
+             'bindings': 34833,
+             'bindings_sha256': '7ff9f94016b74cc5ea0e31eb3c29f4ea4fe0ae8f674ab4586e1f50bd4f7c744a',
+             'bound': 34833,
+             'events_by_reason': {'GangAdmitted': 10231, 'GangDeferred': 9, 'PodBound': 34833},
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'score_sum': 10084.246239542961,
+             'windows_sha256': '8b9416db0baa3340875fde022650ae382ab3d7ad451eaffbb551bb0ab63ecb2f'},
+            {'admitted': 6,
+             'admitted_per_queue': {'tenant-0': 6},
+             'bindings': 34880,
+             'bindings_sha256': 'cebb696007c67301b1c42dd66443189972f1a61a61b86a3bb314a7ed44df32a1',
+             'bound': 47,
+             'events_by_reason': {'GangAdmitted': 6, 'GangDeferred': 5, 'PodBound': 47},
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'score_sum': 3.846746325492859,
+             'windows_sha256': 'd299f883dcad01719a840d3d755835bd45a4d0d5d95d62d5dc953aef09f76170'},
+            {'admitted': 4,
+             'admitted_per_queue': {'tenant-0': 4},
+             'bindings': 34900,
+             'bindings_sha256': '37fbfb16f5bfe96f5041383a85523a7d7811865a33ef0d3bf1484a7b3ae665cc',
+             'bound': 21,
+             'events_by_reason': {'GangAdmitted': 4, 'GangDeferred': 2, 'PodBound': 21},
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'score_sum': 2.885926067829132,
+             'windows_sha256': '0383aeaef4811316db598877118391dd690c2a58b1ed8c20642cd51258ab9ced'},
+            {'admitted': 2,
+             'admitted_per_queue': {'tenant-0': 1, 'tenant-1': 1},
+             'bindings': 34912,
+             'bindings_sha256': '01ad51b0c30b3a40f9c6b2bf99358126a4fec14cf729c8d05c9e8f16d3888e52',
+             'bound': 12,
+             'events_by_reason': {'GangAdmitted': 2, 'GangDeferred': 2, 'PodBound': 12},
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'score_sum': 1.7916667461395264,
+             'windows_sha256': 'd0e38cf2de33be9f9f75e88b6c557d265b1edb5d7ac3d22e4da391b022f91ed8'},
+            {'admitted': 2,
+             'admitted_per_queue': {'tenant-2': 1, 'tenant-3': 1},
+             'bindings': 34916,
+             'bindings_sha256': '6d6f734446588fd3e66c8df26850b5a876cb3979dbbfa97bdcea944254c35192',
+             'bound': 4,
+             'events_by_reason': {'GangAdmitted': 2, 'GangDeferred': 2, 'PodBound': 4},
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'score_sum': 2.0,
+             'windows_sha256': 'af264f9abc452d61ccfa436c69537cbce5083592be6893dd4be58589b042d665'},
+            {'admitted': 0,
+             'admitted_per_queue': {},
+             'bindings': 34916,
+             'bindings_sha256': '6d6f734446588fd3e66c8df26850b5a876cb3979dbbfa97bdcea944254c35192',
+             'bound': 0,
+             'events_by_reason': {'FlightRecorderDumped': 1, 'GangDeferred': 2, 'SloBreach': 1},
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'score_sum': 0.0,
+             'windows_sha256': '4e021a2db5e4ee1dacbd64992dcef23952e2a9bfd116a5e54cde1b89d18e5c61'},
+            {'admitted': 1,
+             'admitted_per_queue': {'tenant-4': 1},
+             'bindings': 34920,
+             'bindings_sha256': '16c9dab416c52572af7ccb6bd7484fb0a0660b24967ea982c5c43e4a012881cf',
+             'bound': 4,
+             'events_by_reason': {'GangAdmitted': 1,
+                                  'GangDeferred': 2,
+                                  'PodBound': 4,
+                                  'SloBurnRateHigh': 1},
+             'evicted': 0,
+             'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+             'score_sum': 1.0,
+             'windows_sha256': '5b8523cf4d4a4fe0ee372b41cc0a7ab4b116fb7960800e7f58b9a430c6dc7a94'}],
+ 'status': {'enabled': True,
+            'objectives': [{'attainment': 0.6666666666666666,
+                            'bad': 2,
+                            'breaches': 1,
+                            'budget_remaining': 0.0,
+                            'burn_rate_fast': 10.0,
+                            'burn_rate_slow': 3.3333,
+                            'evaluations': 7,
+                            'good': 5,
+                            'name': 'backlog-wait',
+                            'recoveries': 0,
+                            'series': 'queue_wait_vt/tenant-0',
+                            'spec': 'queue_wait_vt/tenant-0:last < 45 over 10s target 90% budget '
+                                    '60s burn 2x 10s/60s',
+                            'state': 'breached',
+                            'value': 60.0},
+                           {'attainment': 1.0,
+                            'bad': 0,
+                            'breaches': 0,
+                            'budget_remaining': 1.0,
+                            'burn_rate_fast': 0.0,
+                            'burn_rate_slow': 0.0,
+                            'evaluations': 7,
+                            'good': 7,
+                            'name': 'admission',
+                            'recoveries': 0,
+                            'series': 'admission_latency_vt',
+                            'spec': 'admission_latency_vt:max < 60 over 30s target 90% budget 180s '
+                                    'burn 6x 30s/180s',
+                            'state': 'ok',
+                            'value': 10.0}],
+            'series': {'admission_latency_vt': {'count': 10246,
+                                                'kind': 'dist',
+                                                'max': 30.0,
+                                                'mean': 10.01073589693539,
+                                                'p50': 12.582912,
+                                                'p99': 12.582912,
+                                                'rate': 34.153333333333336},
+                       'queue_usage/tenant-0': {'kind': 'gauge',
+                                                'last': 35726.0,
+                                                'max': 35726.0,
+                                                'mean': 35651.71428571428,
+                                                'min': 35376.0,
+                                                'n': 7,
+                                                'p50': 35726.0,
+                                                'p99': 35726.0},
+                       'queue_usage/tenant-1': {'kind': 'gauge',
+                                                'last': 7676.0,
+                                                'max': 7676.0,
+                                                'mean': 7672.571428571428,
+                                                'min': 7668.0,
+                                                'n': 7,
+                                                'p50': 7676.0,
+                                                'p99': 7676.0},
+                       'queue_usage/tenant-2': {'kind': 'gauge',
+                                                'last': 7700.0,
+                                                'max': 7700.0,
+                                                'mean': 7697.714285714285,
+                                                'min': 7696.0,
+                                                'n': 7,
+                                                'p50': 7696.0,
+                                                'p99': 7700.0},
+                       'queue_usage/tenant-3': {'kind': 'gauge',
+                                                'last': 7784.0,
+                                                'max': 7784.0,
+                                                'mean': 7781.714285714285,
+                                                'min': 7780.0,
+                                                'n': 7,
+                                                'p50': 7780.0,
+                                                'p99': 7784.0},
+                       'queue_usage/tenant-4': {'kind': 'gauge',
+                                                'last': 7662.0,
+                                                'max': 7662.0,
+                                                'mean': 7655.142857142857,
+                                                'min': 7654.0,
+                                                'n': 7,
+                                                'p50': 7654.0,
+                                                'p99': 7662.0},
+                       'queue_usage/tenant-5': {'kind': 'gauge',
+                                                'last': 7678.0,
+                                                'max': 7678.0,
+                                                'mean': 7678.0,
+                                                'min': 7678.0,
+                                                'n': 7,
+                                                'p50': 7678.0,
+                                                'p99': 7678.0},
+                       'queue_usage/tenant-6': {'kind': 'gauge',
+                                                'last': 7630.0,
+                                                'max': 7630.0,
+                                                'mean': 7630.0,
+                                                'min': 7630.0,
+                                                'n': 7,
+                                                'p50': 7630.0,
+                                                'p99': 7630.0},
+                       'queue_usage/tenant-7': {'kind': 'gauge',
+                                                'last': 7714.0,
+                                                'max': 7714.0,
+                                                'mean': 7714.0,
+                                                'min': 7714.0,
+                                                'n': 7,
+                                                'p50': 7714.0,
+                                                'p99': 7714.0},
+                       'queue_wait_vt/tenant-0': {'kind': 'gauge',
+                                                  'last': 60.0,
+                                                  'max': 60.0,
+                                                  'mean': 32.857142857142854,
+                                                  'min': 10.0,
+                                                  'n': 7,
+                                                  'p50': 30.0,
+                                                  'p99': 60.0},
+                       'queue_wait_vt/tenant-1': {'kind': 'gauge',
+                                                  'last': 60.0,
+                                                  'max': 60.0,
+                                                  'mean': 35.0,
+                                                  'min': 10.0,
+                                                  'n': 6,
+                                                  'p50': 30.0,
+                                                  'p99': 60.0},
+                       'rate:journeys_completed_total': {'kind': 'gauge',
+                                                         'last': 1.0,
+                                                         'max': 10231.0,
+                                                         'mean': 1463.7142857142858,
+                                                         'min': 0.0,
+                                                         'n': 7,
+                                                         'p50': 2.0,
+                                                         'p99': 10231.0},
+                       'ready_fraction': {'kind': 'gauge',
+                                          'last': 0.0,
+                                          'max': 0.0,
+                                          'mean': 0.0,
+                                          'min': 0.0,
+                                          'n': 7,
+                                          'p50': 0.0,
+                                          'p99': 0.0},
+                       'slo:admission:good': {'kind': 'gauge',
+                                              'last': 1.0,
+                                              'max': 1.0,
+                                              'mean': 1.0,
+                                              'min': 1.0,
+                                              'n': 7,
+                                              'p50': 1.0,
+                                              'p99': 1.0},
+                       'slo:backlog-wait:good': {'kind': 'gauge',
+                                                 'last': 0.0,
+                                                 'max': 1.0,
+                                                 'mean': 0.7142857142857143,
+                                                 'min': 0.0,
+                                                 'n': 7,
+                                                 'p50': 1.0,
+                                                 'p99': 1.0}}},
+ 'windows': {'admission_latency': {'count': 10246},
+             'admission_latency_vt': {'count': 10246,
+                                      'kind': 'dist',
+                                      'max': 30.0,
+                                      'mean': 10.01073589693539,
+                                      'p50': 12.582912,
+                                      'p99': 12.582912,
+                                      'rate': 34.153333333333336},
+             'queue_usage/tenant-0': {'kind': 'gauge',
+                                      'last': 35726.0,
+                                      'max': 35726.0,
+                                      'mean': 35651.71428571428,
+                                      'min': 35376.0,
+                                      'n': 7,
+                                      'p50': 35726.0,
+                                      'p99': 35726.0},
+             'queue_usage/tenant-1': {'kind': 'gauge',
+                                      'last': 7676.0,
+                                      'max': 7676.0,
+                                      'mean': 7672.571428571428,
+                                      'min': 7668.0,
+                                      'n': 7,
+                                      'p50': 7676.0,
+                                      'p99': 7676.0},
+             'queue_usage/tenant-2': {'kind': 'gauge',
+                                      'last': 7700.0,
+                                      'max': 7700.0,
+                                      'mean': 7697.714285714285,
+                                      'min': 7696.0,
+                                      'n': 7,
+                                      'p50': 7696.0,
+                                      'p99': 7700.0},
+             'queue_usage/tenant-3': {'kind': 'gauge',
+                                      'last': 7784.0,
+                                      'max': 7784.0,
+                                      'mean': 7781.714285714285,
+                                      'min': 7780.0,
+                                      'n': 7,
+                                      'p50': 7780.0,
+                                      'p99': 7784.0},
+             'queue_usage/tenant-4': {'kind': 'gauge',
+                                      'last': 7662.0,
+                                      'max': 7662.0,
+                                      'mean': 7655.142857142857,
+                                      'min': 7654.0,
+                                      'n': 7,
+                                      'p50': 7654.0,
+                                      'p99': 7662.0},
+             'queue_usage/tenant-5': {'kind': 'gauge',
+                                      'last': 7678.0,
+                                      'max': 7678.0,
+                                      'mean': 7678.0,
+                                      'min': 7678.0,
+                                      'n': 7,
+                                      'p50': 7678.0,
+                                      'p99': 7678.0},
+             'queue_usage/tenant-6': {'kind': 'gauge',
+                                      'last': 7630.0,
+                                      'max': 7630.0,
+                                      'mean': 7630.0,
+                                      'min': 7630.0,
+                                      'n': 7,
+                                      'p50': 7630.0,
+                                      'p99': 7630.0},
+             'queue_usage/tenant-7': {'kind': 'gauge',
+                                      'last': 7714.0,
+                                      'max': 7714.0,
+                                      'mean': 7714.0,
+                                      'min': 7714.0,
+                                      'n': 7,
+                                      'p50': 7714.0,
+                                      'p99': 7714.0},
+             'queue_wait_vt/tenant-0': {'kind': 'gauge',
+                                        'last': 60.0,
+                                        'max': 60.0,
+                                        'mean': 32.857142857142854,
+                                        'min': 10.0,
+                                        'n': 7,
+                                        'p50': 30.0,
+                                        'p99': 60.0},
+             'queue_wait_vt/tenant-1': {'kind': 'gauge',
+                                        'last': 60.0,
+                                        'max': 60.0,
+                                        'mean': 35.0,
+                                        'min': 10.0,
+                                        'n': 6,
+                                        'p50': 30.0,
+                                        'p99': 60.0},
+             'rate:journeys_completed_total': {'kind': 'gauge',
+                                               'last': 1.0,
+                                               'max': 10231.0,
+                                               'mean': 1463.7142857142858,
+                                               'min': 0.0,
+                                               'n': 7,
+                                               'p50': 2.0,
+                                               'p99': 10231.0},
+             'ready_fraction': {'kind': 'gauge',
+                                'last': 0.0,
+                                'max': 0.0,
+                                'mean': 0.0,
+                                'min': 0.0,
+                                'n': 7,
+                                'p50': 0.0,
+                                'p99': 0.0},
+             'slo:admission:good': {'kind': 'gauge',
+                                    'last': 1.0,
+                                    'max': 1.0,
+                                    'mean': 1.0,
+                                    'min': 1.0,
+                                    'n': 7,
+                                    'p50': 1.0,
+                                    'p99': 1.0},
+             'slo:backlog-wait:good': {'kind': 'gauge',
+                                       'last': 0.0,
+                                       'max': 1.0,
+                                       'mean': 0.7142857142857143,
+                                       'min': 0.0,
+                                       'n': 7,
+                                       'p50': 1.0,
+                                       'p99': 1.0}}}
 
 # [sidecar]: the port's gRPC sidecar in the smoke process. grpcio and
 # protobuf are optional dependencies of the port: without them the phase
@@ -3337,7 +3354,13 @@ def phase_sidecar(main_path, card, device="cuda", n_nodes=None, n_gangs=None) ->
     return out
 
 
-def phase_slo(delta, card, device="cuda", n_nodes=None, n_gangs=None, ticks=None,
+# [slo]'s ticks, cut from run_slo_world's 12 (PERF.md section 4); the
+# backlog's wait objective still breaches at round 6 and freezes the bundle.
+# JAX_SLO_REFERENCE is `scripts/scheduler_reference.py slo --ticks 6`.
+SLO_SMOKE_TICKS = 6
+
+
+def phase_slo(delta, card, device="cuda", n_nodes=None, n_gangs=None, ticks=SLO_SMOKE_TICKS,
               reference=JAX_SLO_REFERENCE) -> dict:
     """[slo]: the SLO world (models/scenarios.run_slo_world) at full width on
     the card with the observatory on, every part held to
@@ -5159,33 +5182,6 @@ def _pin_string_hash() -> None:
                   dict(os.environ, PYTHONHASHSEED="0"))
 
 
-def operator_pkg():
-    """The port's names that models/scenarios.run_operator_world and
-    run_samples_world drive."""
-    import types
-
-    from grove_tpu_torch.api import meta
-    from grove_tpu_torch.api.load import load_manifest_objects, load_podcliquesets
-    from grove_tpu_torch.api.pod import is_ready
-    from grove_tpu_torch.api.serialize import export_object
-    from grove_tpu_torch.config.operator import OperatorConfiguration
-    from grove_tpu_torch.observability.events import EVENTS
-    from grove_tpu_torch.observability.flightrec import FLIGHTREC
-    from grove_tpu_torch.observability.journey import JOURNEYS
-    from grove_tpu_torch.observability.metrics import METRICS
-    from grove_tpu_torch.observability.timeseries import TIMESERIES
-    from grove_tpu_torch.observability.tracing import TRACER
-    from grove_tpu_torch.sim.harness import SimHarness
-
-    return types.SimpleNamespace(
-        SimHarness=SimHarness, load_podcliquesets=load_podcliquesets,
-        load_manifest_objects=load_manifest_objects,
-        OperatorConfiguration=OperatorConfiguration, deep_copy=meta.deep_copy,
-        reset_uid_namespace=meta.reset_uid_namespace, export_object=export_object,
-        is_ready=is_ready, METRICS=METRICS, EVENTS=EVENTS, TRACER=TRACER, JOURNEYS=JOURNEYS,
-        FLIGHTREC=FLIGHTREC, TIMESERIES=TIMESERIES)
-
-
 def _check_same(tag, got, want) -> None:
     if got != want:
         keys = sorted(set(got) | set(want)) if isinstance(got, dict) and isinstance(
@@ -5195,57 +5191,95 @@ def _check_same(tag, got, want) -> None:
               + (f" ({got.get(diff[0])} != {want.get(diff[0])})" if diff else ""))
 
 
-# the first fill calls of (iota) that [operator] holds against the plain
-# fill, beside the first call of every other shape the run gives the kernel
+def _check_round(tag, got, want) -> None:
+    """A recorded tick or round: its round_summary's score sum at rtol
+    1e-6, everything else equal."""
+    got, want = dict(got), dict(want)
+    got_round, want_round = dict(got.pop("round")), dict(want.pop("round"))
+    if not np.isclose(got_round.pop("score_sum"), want_round.pop("score_sum"), rtol=1e-6, atol=0):
+        _fail(f"{tag}: score sum differs from the JAX package's")
+    _check_same(tag, got, want)
+    _check_same(f"{tag} round", got_round, want_round)
+
+
+# the first fill launches of each solve kind in (iota) that [operator] holds
+# against the plain fill, beside the first of every other shape
 OPERATOR_FILL_CALLS = 8
 
 
-class _RecordedFills:
-    """While active, the scheduler's solves (solver.scheduler.solve_waves)
-    take a `fill=` that runs the kernel as usual and keeps a copy of the
-    arguments of the first `first` calls and of the first call of each
-    other shape (free, mask, demand and count shapes, with_free_after)."""
+class _RecordedKernelFills:
+    """While active, every fill kernel launch (ops.fill._fill_batch_cuda)
+    is tagged by the solve it came from (the scheduler's global
+    solve_waves, the frontier's stacked dispatch or its residual
+    solve_waves) and a copy of its arguments kept for the first `first`
+    calls of each tag and the first call of each other shape."""
 
     def __init__(self, first):
-        self.first = first
-        self.calls = []  # (tag, (free, mask, demand, count), with_free_after)
-        self._shapes = set()
-
-    def fill(self, free, mask, demand, count, with_free_after=True):
-        from grove_tpu_torch.ops.fill import fill_batch
-
-        shape = (tuple(free.shape), tuple(mask.shape), tuple(demand.shape),
-                 tuple(count.shape), with_free_after)
-        if len(self.calls) < self.first or shape not in self._shapes:
-            tag = (f"call {len(self.calls)}" if len(self.calls) < self.first
-                   else "first of its shape")
-            self._shapes.add(shape)
-            self.calls.append((tag, tuple(t.clone() for t in (free, mask, demand, count)),
-                               with_free_after))
-        return fill_batch(free, mask, demand, count, with_free_after=with_free_after)
+        self.first, self.calls, self._tag = first, [], ["other"]
+        self._per_tag, self._shapes = {}, set()
 
     def __enter__(self):
-        import functools
+        from grove_tpu_torch.ops import fill as fill_mod
+        from grove_tpu_torch.solver import frontier, scheduler
 
-        import grove_tpu_torch.solver.scheduler as scheduler
+        self._saved = [(fill_mod, "_fill_batch_cuda"), (frontier, "solve_waves_stacked"),
+                       (frontier, "solve_waves"), (scheduler, "solve_waves")]
+        self._saved = [(m, name, getattr(m, name)) for m, name in self._saved]
+        launch = fill_mod._fill_batch_cuda
 
-        self._solve_waves = scheduler.solve_waves
-        scheduler.solve_waves = functools.partial(self._solve_waves, fill=self.fill)
+        def record(free, mask, demand, count, with_free_after):
+            tag = self._tag[-1]
+            shape = (tag, tuple(free.shape), tuple(mask.shape), tuple(demand.shape),
+                     with_free_after)
+            n = self._per_tag.get(tag, 0)
+            if n < self.first or shape not in self._shapes:
+                self._per_tag[tag] = n + 1
+                self._shapes.add(shape)
+                self.calls.append((f"{tag} {'call ' + str(n) if n < self.first else 'shape'}",
+                                   tuple(t.clone() for t in (free, mask, demand, count)),
+                                   with_free_after))
+            return launch(free, mask, demand, count, with_free_after)
+
+        def tagged(tag, fn):
+            def run(*args, **kw):
+                self._tag.append(tag)
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self._tag.pop()
+            return run
+
+        fill_mod._fill_batch_cuda = record
+        frontier.solve_waves_stacked = tagged("stacked", frontier.solve_waves_stacked)
+        frontier.solve_waves = tagged("residual", frontier.solve_waves)
+        scheduler.solve_waves = tagged("global", scheduler.solve_waves)
         return self
 
     def __exit__(self, *exc):
-        import grove_tpu_torch.solver.scheduler as scheduler
-
-        scheduler.solve_waves = self._solve_waves
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
         return False
 
+    @contextlib.contextmanager
+    def paused(self):
+        """Record nothing inside (a later phase run from this one records
+        its own launches)."""
+        self.__exit__()
+        try:
+            yield
+        finally:
+            self.__enter__()
 
-def check_recorded_fills(recorded, phase):
+
+def check_recorded_fills(recorded, phase, device="cuda"):
     """Each recorded fill call through the kernel and the plain fill on the
     same tensors: alloc, placed and free_after bit for bit. The launches
-    made here are not counted (the counter is restored)."""
+    made here are not counted (the counter is restored). A CPU rehearsal's
+    plain fill never reaches the kernel's launcher, so it records nothing."""
     from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
 
+    if device == "cpu":
+        return 0.0
     if not recorded.calls:
         _fail(f"{phase}: the run made no fill call")
     launches, max_err = fill_batch.launches, 0.0
@@ -5269,7 +5303,7 @@ def check_recorded_fills(recorded, phase):
 
 
 def phase_operator(card, device="cuda", n_sets=None, n_nodes=None, update_every=None,
-                   reference=None) -> dict:
+                   reference=None, then=None) -> dict:
     """[operator]: (iota) at full width through the port's SimHarness on the
     card, every converge tick (tick_once's work, bound and started, and
     round_summary of its schedule) and after each converge the store's
@@ -5278,41 +5312,46 @@ def phase_operator(card, device="cuda", n_sets=None, n_nodes=None, update_every=
     Ready; then the ten samples, each tree() and digest equal. The fill
     kernel must launch in (iota) and both DRF kernels in the samples (the
     Queue sample). The first fill calls of (iota) and the first of each
-    other shape are held against the plain fill (_RecordedFills).
+    other shape are held against the plain fill (_RecordedKernelFills).
     ``device``, a cut and its ``reference`` (the "operator"
     object of `scripts/scheduler_reference.py operator --sets N --nodes M`)
-    rehearse the phase on the CPU."""
+    rehearse the phase on the CPU. ``then(harness)`` runs on (iota)'s
+    converged harness after the rolling update ([churn]); its launches
+    are its own (the counts are saved around it, the recorder paused) and
+    its result lands under ``"then"``."""
     from grove_tpu_torch.models.scenarios import (
-        operator_missing, run_operator_world, run_samples_world)
+        operator_missing, port_names, run_operator_world, run_samples_world)
     from grove_tpu_torch.ops.fill import fill_batch
     from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
 
     ref = JAX_OPERATOR_REFERENCE if reference is None else reference
-    pkg = operator_pkg()
+    pkg = port_names(device)
     def after_tick(step, index, wall_s, tick):
         ticks = ref["converges"][("converge", "rolling_update").index(step)]["ticks"]
         tag = f"operator {step} tick {index}"
         if index > len(ticks):
             _fail(f"{tag}: the JAX run converged in {len(ticks)} ticks")
-        want = dict(ticks[index - 1])
-        got = dict(tick)
-        want_round, got_round = dict(want.pop("round")), dict(got.pop("round"))
-        if not np.isclose(got_round.pop("score_sum"), want_round.pop("score_sum"), rtol=1e-6,
-                          atol=0):
-            _fail(f"{tag}: score sum {tick['round']['score_sum']} != the JAX package's")
-        _check_same(tag, got, want)
-        _check_same(f"{tag} round", got_round, want_round)
+        _check_round(tag, tick, ticks[index - 1])
         print(f"[operator] {step} tick {index}: {wall_s:.3f} s; work {tick['work']}, bound"
               f" {tick['bound']}, started {tick['started']}, events"
               f" {tick['round']['events_by_reason']}; equal to the JAX package's", flush=True)
 
+    def then_apart(harness):
+        counts = (fill_batch.launches, share_table_cuda.launches, merge_cuda.launches)
+        try:
+            with recorded.paused():
+                return then(harness)
+        finally:
+            fill_batch.launches, share_table_cuda.launches, merge_cuda.launches = counts
+
     fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
-    with _RecordedFills(OPERATOR_FILL_CALLS) as recorded:
+    with _RecordedKernelFills(OPERATOR_FILL_CALLS) as recorded:
         got = run_operator_world(pkg, n_sets, n_nodes, update_every, device=device,
-                                 after_tick=after_tick)
+                                 after_tick=after_tick,
+                                 then=then_apart if then is not None else None)
     launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
                 "drf_merge": merge_cuda.launches}
-    fill_err = check_recorded_fills(recorded, "operator")
+    fill_err = check_recorded_fills(recorded, "operator", device)
     walls = got.pop("walls")
     _check_same("operator world", got["world"], ref["world"])
     _check_same("operator apply", got["apply"], ref["apply"])
@@ -5364,6 +5403,7 @@ def phase_operator(card, device="cuda", n_sets=None, n_nodes=None, update_every=
         **{f"{k}_launches": v for k, v in launches.items()},
         **{f"samples_{k}_launches": v for k, v in sample_launches.items()},
         "fill_calls_checked": len(recorded.calls), "fill_max_abs_err": fill_err,
+        "then": got.get("then"),
     }
     print(f"[operator] (iota) {out['sets']} sets on {out['nodes']} nodes, {out['pods']} pods"
           f" all Ready, every tick and digest equal to the JAX package's: apply"
@@ -5377,6 +5417,1249 @@ def phase_operator(card, device="cuda", n_sets=None, n_nodes=None, update_every=
           f" {sample_launches['fill']}, DRF {sample_launches['drf_shares']} +"
           f" {sample_launches['drf_merge']}; {len(recorded.calls)} of (iota)'s fill calls"
           f" equal to the plain fill bit for bit | {card}", flush=True)
+    return out
+
+
+# [churn]: delta_artifact's churn ticks and comparison segment, cut from the
+# bench's 96 and 32 (PERF.md section 4); selfcheck_every=16 and flap_every=32
+# kept, and 33 ticks still reach the flap at tick 32 (a full fallback)
+CHURN_SMOKE_TICKS = 33
+CHURN_SMOKE_FULLPATH_TICKS = 8
+CHURN_FILL_CALLS = 8  # the first fill calls of [churn] held against the plain fill
+
+# scripts/scheduler_reference.py churn --churn-ticks 33 --fullpath-ticks 8 (PYTHONHASHSEED=0)
+JAX_CHURN_REFERENCE = {'ticks': [{'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47203,
+                      'bindings_sha256': '319e67ae1e87a522700c964042062c869c64cbdf21572cc15e555e304a0bd4f0',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 0,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 6,
+            'selfcheck': False,
+            'round': {'admitted': 2,
+                      'bound': 6,
+                      'score_sum': 2.0,
+                      'bindings': 47209,
+                      'bindings_sha256': 'c0a4651a39cdfea550ebed5572139b61739f4ce17e23a45a7d8d9cb6429a4826',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 2},
+                      'events_by_reason': {'GangAdmitted': 2, 'PodBound': 6}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 0,
+                      'drift_detected': 0,
+                      'last_reencoded': 2,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47212,
+                      'bindings_sha256': 'cfbac7d1d2fad70ba665ed67b10638ae26c2d928de519563e5f8456bf1cacc75',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 1,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 6,
+            'selfcheck': False,
+            'round': {'admitted': 2,
+                      'bound': 6,
+                      'score_sum': 2.0,
+                      'bindings': 47218,
+                      'bindings_sha256': '2a4ceeee8842540d7eea1da1e6a3e79f801f2c125942fc049f65c4fd86ab2c55',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 2},
+                      'events_by_reason': {'GangAdmitted': 2, 'PodBound': 6}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 1,
+                      'drift_detected': 0,
+                      'last_reencoded': 2,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47218,
+                      'bindings_sha256': '2a4ceeee8842540d7eea1da1e6a3e79f801f2c125942fc049f65c4fd86ab2c55',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47200,
+                      'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47200,
+                      'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47200,
+                      'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47200,
+                      'bindings_sha256': 'cc50ecab4ee2245d7d6eed8d5635473a5a6ef759ff45258842356ce0287ab205',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 6,
+            'selfcheck': True,
+            'round': {'admitted': 2,
+                      'bound': 6,
+                      'score_sum': 2.0,
+                      'bindings': 47206,
+                      'bindings_sha256': 'a1c4e29fe0e5544037a5926db27ae14108b31927096246c8e18adafded1a8cf5',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 2},
+                      'events_by_reason': {'GangAdmitted': 2, 'PodBound': 6}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 2,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47209,
+                      'bindings_sha256': '0ca10815eed6aa318349a6a1728cec513dd01363a34a3bc32aea86288b228c1d',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47212,
+                      'bindings_sha256': '29dc9be3ad9544ea5f07f23faab1e9fbdabb959f9242b3a6d6c3e57b65b65cda',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47212,
+                      'bindings_sha256': '29dc9be3ad9544ea5f07f23faab1e9fbdabb959f9242b3a6d6c3e57b65b65cda',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47209,
+                      'bindings_sha256': '182db34a23f66501a834e1a4c5e098b8d03636bd9aadd75deb7f140004438d86',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47212,
+                      'bindings_sha256': '0621c9759ceb514cd957739f7913f6f17507d02e82cae6ebeb9d523ebaeae89e',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47209,
+                      'bindings_sha256': '0927671a2ececa7e97f5d0f9076bc92e3436bd7228e54dcc89d5302ef7c81df0',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47206,
+                      'bindings_sha256': 'f005596ede1bed2ff52c55107f2bfd8dfbcca4aafcefffe4e9c2f69951acb97d',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47203,
+                      'bindings_sha256': 'ba02e21bf015c99494d9ecd78e47c8ed0f8f08c2d8cff9667d62473f9ad7f037',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 6,
+            'selfcheck': False,
+            'round': {'admitted': 2,
+                      'bound': 6,
+                      'score_sum': 2.0,
+                      'bindings': 47209,
+                      'bindings_sha256': '4bcf73bb57d870ac01d29f3c8e76ca18f0057140fe0bd6f674042cd90914a56c',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 2},
+                      'events_by_reason': {'GangAdmitted': 2, 'PodBound': 6}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 2,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47212,
+                      'bindings_sha256': '345c4be6076ce1c57564e0bbdfd2bbbc635ad3cc2912d9036374ba5f016897cd',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47212,
+                      'bindings_sha256': '345c4be6076ce1c57564e0bbdfd2bbbc635ad3cc2912d9036374ba5f016897cd',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 6,
+            'selfcheck': False,
+            'round': {'admitted': 2,
+                      'bound': 6,
+                      'score_sum': 2.0,
+                      'bindings': 47218,
+                      'bindings_sha256': '791a7112fd6430fd14be890be0e2b6fdf2344b40548f2f20ba7552646f01f11f',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 2},
+                      'events_by_reason': {'GangAdmitted': 2, 'PodBound': 6}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 2,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47215,
+                      'bindings_sha256': '1698da63432d731c1ccc43680b5ed06c028e66cd240de904b31a95749e6eb7bb',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47215,
+                      'bindings_sha256': '1698da63432d731c1ccc43680b5ed06c028e66cd240de904b31a95749e6eb7bb',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47215,
+                      'bindings_sha256': '1698da63432d731c1ccc43680b5ed06c028e66cd240de904b31a95749e6eb7bb',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': True,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47218,
+                      'bindings_sha256': 'd75964c5377fdc3aef42954c5583e1149799eb878741204fd0602309700fe1cf',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 6,
+            'selfcheck': False,
+            'round': {'admitted': 2,
+                      'bound': 6,
+                      'score_sum': 2.0,
+                      'bindings': 47224,
+                      'bindings_sha256': '3bd26d8934ba461d91666eab1b025e27cd93f62cfe28165c174c8a1c49a77aa0',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 2},
+                      'events_by_reason': {'GangAdmitted': 2, 'PodBound': 6}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 2,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47227,
+                      'bindings_sha256': '39ebb57144c94df3379e1b5ae0d8906bf9c1c6b34ceb0877e95e300431c85351',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47230,
+                      'bindings_sha256': 'd6e45ac9ce6e673959d95f56731051782ed885c175baec639ebb094bcc5b9d7b',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47227,
+                      'bindings_sha256': '5449f246d8edc0a1eae516d0d7ebdfb463b59c06c65eff82f135826c2aa5d3a4',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47224,
+                      'bindings_sha256': '248cc3abe14f33ff686c5bb22c640171af8528de93ce5bca58720709bf8d1313',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47224,
+                      'bindings_sha256': '248cc3abe14f33ff686c5bb22c640171af8528de93ce5bca58720709bf8d1313',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47221,
+                      'bindings_sha256': 'c2403696037f05dcefa3d4c52718e3e885f665c677084435aed22a2f64e16f4e',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47224,
+                      'bindings_sha256': '5e48eecf7daecf363d944476c97ee87f643fdb8ca08aff60f916ac4b821e768f',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47221,
+                      'bindings_sha256': '49000df971781fa64ad18619c7aaa051ce6c6bc843c0ecd2953893aa8c334996',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47224,
+                      'bindings_sha256': 'd9160d602c63ab30a5c41f6d5666093b2264a219ad2bddd186bbe6e587cdd784',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 6,
+            'selfcheck': False,
+            'round': {'admitted': 2,
+                      'bound': 6,
+                      'score_sum': 2.0,
+                      'bindings': 47230,
+                      'bindings_sha256': 'b93203bcdc5679581e83af4af9db76b1f7dae772e5f49f9f267a3a3ea0489441',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 2},
+                      'events_by_reason': {'GangAdmitted': 2, 'PodBound': 6}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 2,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47230,
+                      'bindings_sha256': 'b93203bcdc5679581e83af4af9db76b1f7dae772e5f49f9f267a3a3ea0489441',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 6,
+            'selfcheck': False,
+            'round': {'admitted': 2,
+                      'bound': 6,
+                      'score_sum': 2.0,
+                      'bindings': 47236,
+                      'bindings_sha256': '72cd74cae089cd45bad5709fe4cca701a45eb4fb6731bb6119f6a3d446dcb46c',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 2},
+                      'events_by_reason': {'GangAdmitted': 2, 'PodBound': 6}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 2,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47236,
+                      'bindings_sha256': '72cd74cae089cd45bad5709fe4cca701a45eb4fb6731bb6119f6a3d446dcb46c',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47239,
+                      'bindings_sha256': 'cc38556bba368f9ef28dbbb2039282eeab8ac64e9ab6a0bc469ec18e89b10489',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 2,
+                      'drift_detected': 0,
+                      'last_reencoded': 1,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': True,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47239,
+                      'bindings_sha256': 'cc38556bba368f9ef28dbbb2039282eeab8ac64e9ab6a0bc469ec18e89b10489',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': {'warm_start_hits': 0,
+                      'solve_reuses': 0,
+                      'full_fallbacks': 3,
+                      'drift_detected': 0,
+                      'last_reencoded': 0,
+                      'last_reused': 0}},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47239,
+                      'bindings_sha256': 'cc38556bba368f9ef28dbbb2039282eeab8ac64e9ab6a0bc469ec18e89b10489',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': None},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47242,
+                      'bindings_sha256': 'fdf53c6adc036b4817c90fd1b4d55cd5c0af68b170e6ac40d72386a11204089e',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': None},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47242,
+                      'bindings_sha256': 'fdf53c6adc036b4817c90fd1b4d55cd5c0af68b170e6ac40d72386a11204089e',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': None},
+           {'bound': 6,
+            'selfcheck': False,
+            'round': {'admitted': 2,
+                      'bound': 6,
+                      'score_sum': 2.0,
+                      'bindings': 47248,
+                      'bindings_sha256': 'e86b9aa61a4976e55cb91c02d9fc881574c6348cea2bd3253c9e5b8c5d121cb0',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 2},
+                      'events_by_reason': {'GangAdmitted': 2, 'PodBound': 6}},
+            'delta': None},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47248,
+                      'bindings_sha256': 'e86b9aa61a4976e55cb91c02d9fc881574c6348cea2bd3253c9e5b8c5d121cb0',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': None},
+           {'bound': 3,
+            'selfcheck': False,
+            'round': {'admitted': 1,
+                      'bound': 3,
+                      'score_sum': 1.0,
+                      'bindings': 47251,
+                      'bindings_sha256': 'fa4c8808cd0562c6621f4b7f56875baeb1f459240fca8c4d96a0e1ccd4624408',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {'default': 1},
+                      'events_by_reason': {'GangAdmitted': 1, 'PodBound': 3}},
+            'delta': None},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47251,
+                      'bindings_sha256': 'fa4c8808cd0562c6621f4b7f56875baeb1f459240fca8c4d96a0e1ccd4624408',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': None},
+           {'bound': 0,
+            'selfcheck': False,
+            'round': {'admitted': 0,
+                      'bound': 0,
+                      'score_sum': 0.0,
+                      'bindings': 47251,
+                      'bindings_sha256': 'fa4c8808cd0562c6621f4b7f56875baeb1f459240fca8c4d96a0e1ccd4624408',
+                      'evicted': 0,
+                      'evicted_sha256': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+                      'admitted_per_queue': {},
+                      'events_by_reason': {}},
+            'delta': None}],
+ 'report': {'ticks': 33,
+            'seed': 8,
+            'ops': {'arrivals': 22, 'departures': 9, 'pod_fails': 4, 'flaps': 1},
+            'spec_encodes': 22,
+            'reencode_fraction': 1.0,
+            'warm_start_hit_rate': 0.0,
+            'warm_start_hits': 0,
+            'solve_reuses': 0,
+            'full_fallbacks': 1,
+            'drift_detected': 0,
+            'ab_ticks': 3,
+            'ab_ok': True},
+ 'world': {'n_sets': 10240, 'n_nodes': 5120, 'update_every': 16, 'ticks': 33, 'fullpath_ticks': 8}}
+
+
+def phase_churn(harness, card, device="cuda", ticks=CHURN_SMOKE_TICKS,
+                fullpath_ticks=CHURN_SMOKE_FULLPATH_TICKS, reference=None) -> dict:
+    """[churn] (kappa): the port's sim/deltachurn.delta_artifact on (iota)'s
+    harness after [operator]'s converge and rolling update
+    (models/scenarios.run_churn_world): warm-up, `ticks` churn ticks with
+    the A/B self-check every 16th, `fullpath_ticks` ticks with the delta
+    state detached. Every schedule call (round_summary, the delta counters,
+    the self-check flag) and the report's counters equal to
+    JAX_CHURN_REFERENCE; the fill must launch; the first fill calls and the
+    first of each other shape held against the plain fill bit for bit.
+    Run from [operator]'s `then`, so it sees the converged harness."""
+    from grove_tpu_torch.models.scenarios import port_names, run_churn_world
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+
+    ref = JAX_CHURN_REFERENCE if reference is None else reference
+    want_world = ref["world"]
+    if (want_world["ticks"], want_world["fullpath_ticks"]) != (ticks, fullpath_ticks):
+        _fail(f"churn: the reference was taken at {want_world['ticks']} and"
+              f" {want_world['fullpath_ticks']} ticks, the phase runs {ticks} and {fullpath_ticks}")
+    walls = []
+
+    def after_tick(index, wall_s, tick):
+        tag = f"churn tick {index}"
+        if index > len(ref["ticks"]):
+            _fail(f"{tag}: the JAX run made {len(ref['ticks'])} schedule calls")
+        _check_round(tag, tick, ref["ticks"][index - 1])
+        walls.append(wall_s)
+        if index % 8 == 0 or tick["selfcheck"] or index == len(ref["ticks"]):
+            print(f"[churn] tick {index}: schedule {wall_s:.3f} s, bound {tick['bound']},"
+                  f" self-check {tick['selfcheck']}, events {tick['round']['events_by_reason']};"
+                  f" equal to the JAX package's", flush=True)
+
+    pkg = port_names(device)
+    fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+    t0 = time.perf_counter()
+    with _RecordedKernelFills(CHURN_FILL_CALLS) as recorded:
+        got = run_churn_world(pkg, harness, ticks=ticks, fullpath_ticks=fullpath_ticks,
+                              after_tick=after_tick)
+    phase_s = time.perf_counter() - t0
+    launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                "drf_merge": merge_cuda.launches}
+    if len(got["ticks"]) != len(ref["ticks"]):
+        _fail(f"churn: {len(got['ticks'])} schedule calls, the JAX run {len(ref['ticks'])}")
+    _check_same("churn report", got["report"], ref["report"])
+    if got["report"]["drift_detected"] or not got["report"]["ab_ok"]:
+        _fail(f"churn: drift or a failed A/B: {got['report']}")
+    if device != "cpu" and not launches["fill"]:
+        _fail(f"churn: the fill kernel did not launch: {launches}")
+    fill_err = check_recorded_fills(recorded, "churn", device)
+    times = got["times"]
+    out = {
+        "ticks": ticks, "fullpath_ticks": fullpath_ticks, "schedule_calls": len(got["ticks"]),
+        "phase_s": phase_s,
+        "schedule_p50_ms": times["schedule_p50_ms"], "schedule_p99_ms": times["schedule_p99_ms"],
+        "schedule_mean_ms": times["schedule_mean_ms"], "schedule_max_ms": times["schedule_max_ms"],
+        "full_path": times["full_path"], "speedup_mean": times["speedup_mean"],
+        "p99_lt_1s": times["p99_lt_1s"], "ab_overhead_ms": times["ab_overhead_ms"],
+        "warmup_ms": times["warmup"]["wall_ms"], "report": got["report"],
+        **{f"{k}_launches": v for k, v in launches.items()},
+        "fill_calls_checked": len(recorded.calls), "fill_max_abs_err": fill_err,
+    }
+    fp = times["full_path"]
+    print(f"[churn] (kappa) delta_artifact on (iota): {ticks} churn ticks and {fullpath_ticks}"
+          f" full-path ticks, {len(got['ticks'])} schedule calls, every one and the counters"
+          f" {got['report']} equal to the JAX package's; schedule p50"
+          f" {times['schedule_p50_ms']} ms, p99 {times['schedule_p99_ms']} ms, mean"
+          f" {times['schedule_mean_ms']} ms (p99_lt_1s {times['p99_lt_1s']}); full path p50"
+          f" {fp['schedule_p50_ms']} ms, p99 {fp['schedule_p99_ms']} ms, mean"
+          f" {fp['schedule_mean_ms']} ms; speedup_mean {times['speedup_mean']}; A/B self-check"
+          f" {times['ab_overhead_ms']} ms; launches fill {launches['fill']}, DRF"
+          f" {launches['drf_shares']} + {launches['drf_merge']}; {len(recorded.calls)} fill"
+          f" calls equal to the plain fill bit for bit | {card}", flush=True)
+    print(f"[smoke] phase_churn: {phase_s:.1f} s (inside phase_operator)", flush=True)
+    return out
+
+
+SCALE_FILL_CALLS = 2  # per solve kind ([scale] holds them against the plain fill)
+# scripts/scheduler_reference.py scale (PYTHONHASHSEED=0)
+JAX_SCALE_REFERENCE = {'world': {'frontier_shape': [4096, 6400], 'inert_shape': [192, 64], 'shards': 8},
+ 'frontier_arms': [{'shards': 1,
+                    'pods': 128,
+                    'all_ready': True,
+                    'resource_version': 1057,
+                    'shard_census': [{'shard': 0, 'objects': 417, 'rv': 1057}],
+                    'reconciles': 240,
+                    'dump': {'objects': 257,
+                             'sha256': '36cc549383af1081fc743b8789351f41bf4b7ee7da2b53038306cc8c85094a47',
+                             'score_sum': 48.0},
+                    'frontier': None},
+                   {'shards': 1,
+                    'pods': 128,
+                    'all_ready': True,
+                    'resource_version': 1057,
+                    'shard_census': [{'shard': 0, 'objects': 417, 'rv': 1057}],
+                    'reconciles': 240,
+                    'dump': {'objects': 257,
+                             'sha256': 'ee8939197e01b4e0dd5aad5b6e3b72a9da12e45c4d59874c4b3e71cb7cd0aab8',
+                             'score_sum': 48.0},
+                    'frontier': {'solves': 1,
+                                 'degenerate_ticks': 0,
+                                 'subproblems_total': 16,
+                                 'assigned_gangs_total': 16,
+                                 'residual_gangs_total': 0,
+                                 'batched_dispatches_total': 1,
+                                 'residual_overlap_hits': 0,
+                                 'residual_overlap_misses': 0}},
+                   {'shards': 8,
+                    'pods': 32768,
+                    'all_ready': True,
+                    'resource_version': 270337,
+                    'shard_census': [{'shard': 0, 'objects': 9217, 'rv': 32257},
+                                     {'shard': 1, 'objects': 8192, 'rv': 28672},
+                                     {'shard': 2, 'objects': 8192, 'rv': 28672},
+                                     {'shard': 3, 'objects': 7168, 'rv': 25088},
+                                     {'shard': 4, 'objects': 8192, 'rv': 28672},
+                                     {'shard': 5, 'objects': 7168, 'rv': 25088},
+                                     {'shard': 6, 'objects': 9216, 'rv': 32256},
+                                     {'shard': 7, 'objects': 9192, 'rv': 69632}],
+                    'reconciles': 61440,
+                    'dump': {'objects': 65537,
+                             'sha256': '076f3446010b6a31841bff6e25a7b53184f1beba2064ed95810c5c075c433a67',
+                             'score_sum': 12288.0},
+                    'frontier': None},
+                   {'shards': 8,
+                    'pods': 32768,
+                    'all_ready': True,
+                    'resource_version': 270337,
+                    'shard_census': [{'shard': 0, 'objects': 9217, 'rv': 32257},
+                                     {'shard': 1, 'objects': 8192, 'rv': 28672},
+                                     {'shard': 2, 'objects': 8192, 'rv': 28672},
+                                     {'shard': 3, 'objects': 7168, 'rv': 25088},
+                                     {'shard': 4, 'objects': 8192, 'rv': 28672},
+                                     {'shard': 5, 'objects': 7168, 'rv': 25088},
+                                     {'shard': 6, 'objects': 9216, 'rv': 32256},
+                                     {'shard': 7, 'objects': 9192, 'rv': 69632}],
+                    'reconciles': 61440,
+                    'dump': {'objects': 65537,
+                             'sha256': '66c5b52afea15fb8c677a6f010b18fd8d6a78c08d26f4e538381851d2cccf15a',
+                             'score_sum': 12288.0},
+                    'frontier': {'solves': 1,
+                                 'degenerate_ticks': 0,
+                                 'subproblems_total': 400,
+                                 'assigned_gangs_total': 4096,
+                                 'residual_gangs_total': 0,
+                                 'batched_dispatches_total': 1,
+                                 'residual_overlap_hits': 0,
+                                 'residual_overlap_misses': 0}}],
+ 'frontier_ab': {'sets': 4096, 'nodes': 6400, 'all_ready_both': True},
+ 'spread_problems': [],
+ 'inert_arms': [{'shards': 1,
+                 'pods': 128,
+                 'all_ready': True,
+                 'resource_version': 1057,
+                 'shard_census': [{'shard': 0, 'objects': 417, 'rv': 1057}],
+                 'reconciles': 240,
+                 'dump': {'objects': 257,
+                          'sha256': '92601567e078fbfa5522d9263719c10df0cc26ecf62b8f06192e452a8e44dd75',
+                          'score_sum': 48.0},
+                 'frontier': None},
+                {'shards': 1,
+                 'pods': 1536,
+                 'all_ready': True,
+                 'resource_version': 12673,
+                 'shard_census': [{'shard': 0, 'objects': 4073, 'rv': 12673}],
+                 'reconciles': 5760,
+                 'dump': {'objects': 3073,
+                          'sha256': '7ba3f83d3bb4b4782b2d095b086d95d50aa0924443a489589065468cc4ee477a',
+                          'score_sum': 576.0},
+                 'frontier': None},
+                {'shards': 8,
+                 'pods': 1536,
+                 'all_ready': True,
+                 'resource_version': 12673,
+                 'shard_census': [{'shard': 0, 'objects': 433, 'rv': 1513},
+                                  {'shard': 1, 'objects': 384, 'rv': 1344},
+                                  {'shard': 2, 'objects': 384, 'rv': 1344},
+                                  {'shard': 3, 'objects': 336, 'rv': 1176},
+                                  {'shard': 4, 'objects': 384, 'rv': 1344},
+                                  {'shard': 5, 'objects': 336, 'rv': 1176},
+                                  {'shard': 6, 'objects': 432, 'rv': 1512},
+                                  {'shard': 7, 'objects': 1384, 'rv': 3264}],
+                 'reconciles': 0,
+                 'dump': {'objects': 3073,
+                          'sha256': '7ba3f83d3bb4b4782b2d095b086d95d50aa0924443a489589065468cc4ee477a',
+                          'score_sum': 576.0},
+                 'frontier': None}],
+ 'inert_ab': {'sets': 192,
+              'shards_b': 8,
+              'identical_content': True,
+              'objects': 3073,
+              'reconciles_s1': 2880,
+              'reconciles_sharded': 2880,
+              'identical_reconciles': True,
+              'all_ready_both': True,
+              'rv_scalar_s1': 12673,
+              'rv_scalar_sharded': 12673,
+              'identical_rv_scalar': True}}
+
+
+def phase_scale(card, device="cuda", frontier_shape=None, inert_shape=None, num_shards=None,
+                reference=None) -> dict:
+    """[scale] (lambda): the port's sim/scale.frontier_ab at the bench's
+    full-size shape (4,096 sets on 6,400 nodes, 8 shards) and inert_ab (192
+    sets on 64 nodes, S=1 against 8) through models/scenarios.run_scale_world:
+    each retired harness (warm-ups and arms) all Ready with the canonical
+    dump's digest (rv-normalised, Events left out, placement scores summed
+    apart), census, scalar resourceVersion, reconciles and frontier
+    counters equal to JAX_SCALE_REFERENCE; the inert A/B identical; the
+    sharded arms spread over two or more shards. The fill must launch in
+    both arms of the frontier A/B; the first fill calls of each kind
+    (global, stacked, residual) and the first of each other shape are held
+    against the plain fill. Prints both walls, both solver times and the
+    speedups (reported, not gated)."""
+    from grove_tpu_torch.models.scenarios import (
+        SCALE_FRONTIER_SHAPE, SCALE_INERT_SHAPE, SCALE_SHARDS, port_names, run_scale_world)
+    from grove_tpu_torch.ops.fill import fill_batch
+
+    ref = JAX_SCALE_REFERENCE if reference is None else reference
+    frontier_shape = frontier_shape or SCALE_FRONTIER_SHAPE
+    inert_shape = inert_shape or SCALE_INERT_SHAPE
+    num_shards = num_shards or SCALE_SHARDS
+    pkg = port_names(device)
+    fill_batch.launches = 0
+    with _RecordedKernelFills(SCALE_FILL_CALLS) as recorded:
+        got = run_scale_world(pkg, frontier_shape, inert_shape, num_shards, device=device)
+    launches = fill_batch.launches
+    times = got.pop("times")
+    _check_same("scale world", got["world"], ref["world"])
+    for part in ("frontier_arms", "inert_arms"):
+        if len(got[part]) != len(ref[part]):
+            _fail(f"scale {part}: {len(got[part])} harnesses, the JAX run {len(ref[part])}")
+        for i, (g, w) in enumerate(zip(got[part], ref[part])):
+            g, w = dict(g), dict(w)
+            gd, wd = dict(g.pop("dump")), dict(w.pop("dump"))
+            if not np.isclose(gd.pop("score_sum"), wd.pop("score_sum"), rtol=1e-6, atol=0):
+                _fail(f"scale {part} {i}: placement score sum differs from the JAX package's")
+            _check_same(f"scale {part} {i} dump", gd, wd)
+            _check_same(f"scale {part} {i}", g, w)
+            if not g["all_ready"]:
+                _fail(f"scale {part} {i}: not every pod Ready")
+    _check_same("scale frontier_ab", got["frontier_ab"], ref["frontier_ab"])
+    _check_same("scale inert_ab", got["inert_ab"], ref["inert_ab"])
+    inert = got["inert_ab"]
+    if not (inert["identical_content"] and inert["identical_reconciles"]
+            and inert["identical_rv_scalar"]):
+        _fail(f"scale: the inert A/B differs between S=1 and S={num_shards}: {inert}")
+    if got["spread_problems"]:
+        _fail(f"scale: {got['spread_problems']}")
+    kinds = {}
+    for tag, *_ in recorded.calls:
+        kinds[tag.split()[0]] = kinds.get(tag.split()[0], 0) + 1
+    if device != "cpu":
+        for kind in ("global", "stacked"):
+            if not kinds.get(kind):
+                _fail(f"scale: no {kind} fill launch in the frontier A/B ({kinds})")
+    fill_err = check_recorded_fills(recorded, "scale", device)
+    on, off = got["frontier_arms"][3], got["frontier_arms"][2]
+    ab = times["frontier_ab"]
+    out = {
+        "frontier_shape": list(frontier_shape), "inert_shape": list(inert_shape),
+        "shards": num_shards, **ab, "frontier_ab_s": times["frontier_ab_s"],
+        "inert_ab_s": times["inert_ab_s"], "inert_walls": times["inert_ab"],
+        "pods": off["pods"], "reconciles_off": off["reconciles"], "reconciles_on": on["reconciles"],
+        "frontier": on["frontier"], "census_on": on["shard_census"],
+        "fill_launches": launches, "fill_calls_by_kind": kinds,
+        "fill_calls_checked": len(recorded.calls), "fill_max_abs_err": fill_err,
+    }
+    print(f"[scale] (lambda) frontier_ab {frontier_shape[0]} sets on {frontier_shape[1]} nodes,"
+          f" {num_shards} shards, {off['pods']} pods each arm, all Ready, every arm's digest,"
+          f" census, rv and reconciles equal to the JAX package's: global wall"
+          f" {ab['wall_off']} s (solver {ab['solver_off']} s), frontier wall {ab['wall_on']} s"
+          f" (solver {ab['solver_on']} s), speedup wall {ab['speedup_wall']}, solver"
+          f" {ab['speedup_solver']}; reconciles {off['reconciles']} / {on['reconciles']};"
+          f" frontier {on['frontier']}; inert_ab {inert_shape[0]} sets S=1 vs"
+          f" S={num_shards} identical (content, reconciles {inert['reconciles_s1']}, rv"
+          f" {inert['rv_scalar_s1']}), walls {times['inert_ab']}; fill launches {launches}"
+          f" (recorded by kind {kinds}, each equal to the plain fill bit for bit) | {card}",
+          flush=True)
+    return out
+
+
+# scripts/scheduler_reference.py sims (PYTHONHASHSEED=0)
+JAX_SIMS_REFERENCE = {'contended': {'tenants': {'team-a': {'deserved_gangs': 6.0,
+                                      'achieved_gangs': 6,
+                                      'dominant_share': 1.0,
+                                      'within_one_gang': True},
+                           'team-b': {'deserved_gangs': 4.0,
+                                      'achieved_gangs': 4,
+                                      'dominant_share': 1.0,
+                                      'within_one_gang': True},
+                           'team-c': {'deserved_gangs': 2.0,
+                                      'achieved_gangs': 2,
+                                      'dominant_share': 1.0,
+                                      'within_one_gang': True}},
+               'within_one_gang': True,
+               'reclaims': 6},
+ 'single_queue_ab': {'identical_admissions': True, 'admitted_pods': 24},
+ 'explain': {'refs': {'frag': 'frag-0',
+                      'fits': 'capped-1-0',
+                      'capped': 'capped-2-0',
+                      'bridge': 'bridge-0',
+                      'bridge_node': 'node-0',
+                      'filler_queue': 'tenant-z'},
+             'docs': {'explain frag': {'sha256': '1aa084fbf39aa230c744b99359e0b4a204246f13b78ae3ec5fe7181876966803',
+                                       'state': 'pending',
+                                       'fits_now': False,
+                                       'binding_constraint': 'topology',
+                                       'detail': 'topology-fragmentation'},
+                      'explain fits': {'sha256': '4e99bdfdb0920fe605bf66dd46cd6c14782b34b7b81e158115d26ff30db019b1',
+                                       'state': 'pending',
+                                       'fits_now': True,
+                                       'binding_constraint': None,
+                                       'detail': None},
+                      'explain capped': {'sha256': '842b9fd53b4b65767d591da5cf6613a286fb705f9d2feb9e4ae58cb71528a049',
+                                         'state': 'pending',
+                                         'fits_now': False,
+                                         'binding_constraint': 'quota',
+                                         'detail': 'quota-ceiling'},
+                      'explain bridge': {'sha256': 'd929a3d79d5ecfe97432b43936014eb01d678fa01c2a9af81bb24e1792477c2f',
+                                         'state': 'scheduled',
+                                         'fits_now': True,
+                                         'binding_constraint': None},
+                      'capacity': {'sha256': 'aa57232d997b02803415294ddc800249a55104cf1356b624804097c37a7e2dcd'},
+                      'whatif drain-node': {'sha256': '6cf5cdffbbc3e976c104a6f6df06a229f747968cfc68e4a04cd97d3a0cd63c13',
+                                            'state': 'pending',
+                                            'fits_now': True,
+                                            'binding_constraint': None,
+                                            'detail': None,
+                                            'flipped': True}}},
+ 'drain': {'sets': 3,
+           'nodes': 12,
+           'drained_node': 'node-1',
+           'gangs_on_node': 2,
+           'drain_evictions': 2,
+           'pre_placed': 2,
+           'budget_cap': 1,
+           'budget_max_observed': 1,
+           'budget_exceeded': False,
+           'gang_whole_violations': 0,
+           'ticks_to_drained': 4,
+           'node_drained': True,
+           'node_empty': True,
+           'readmitted': True,
+           'breaker': {'burst': 3,
+                       'granted': 3,
+                       'denied': 3,
+                       'opened': True,
+                       'denied_while_open': True,
+                       'closed_after_quiet': True,
+                       'breaker_open_event': True,
+                       'breaker_closed_event': True},
+           'ab': {'identical_admissions': True, 'admitted_pods': 24},
+           'ok': True},
+ 'smoke_ab': {'delta': {'bindings': 78,
+                        'bindings_sha256': '01616b1be2aafbd357c639f4e34c2f4ce1fba8c4dd1186295dbcf209b2df7a5f',
+                        'phases_sha256': 'a341c34ff37ac6ca8e7cbe6d88918fada645b6fc3dbface715248428f293a6ae'},
+              'full': {'bindings': 78,
+                       'bindings_sha256': '01616b1be2aafbd357c639f4e34c2f4ce1fba8c4dd1186295dbcf209b2df7a5f',
+                       'phases_sha256': 'a341c34ff37ac6ca8e7cbe6d88918fada645b6fc3dbface715248428f293a6ae'}},
+ 'demo': {'sha256': 'b927a842489cba47dde429917412672f085c425281333e1a45019905ee87e15d',
+          'lines': 18}}
+
+
+def phase_sims(card, device="cuda", reference=None) -> dict:
+    """[sims] (nu): the port's sim/multitenant, sim/voluntary,
+    sim/deltachurn and sim/demo scenarios at the JAX package's own shapes
+    (models/scenarios.run_sims_world): the contended three-tenant run, the
+    single-queue A/B, the explain scenario's documents, the drain artifact,
+    the run-level churn A/B and the demo on simple1.yaml, each equal to
+    JAX_SIMS_REFERENCE, nothing missing (sims_missing); the fill and both
+    DRF kernels must launch."""
+    from grove_tpu_torch.models.scenarios import port_names, run_sims_world, sims_missing
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+
+    ref = JAX_SIMS_REFERENCE if reference is None else reference
+    steps, seen = {}, [0, 0, 0]
+
+    def after(name, wall_s, result):
+        _check_same(f"sims {name}", result, ref[name])
+        counts = [fill_batch.launches, share_table_cuda.launches, merge_cuda.launches]
+        fill, shares, merge = (c - s for c, s in zip(counts, seen))
+        seen[:] = counts
+        steps[name] = {"wall_s": wall_s, "fill_launches": fill, "drf_shares_launches": shares,
+                       "drf_merge_launches": merge}
+        print(f"[sims] {name}: {wall_s:.3f} s, equal to the JAX package's; launches fill {fill},"
+              f" DRF {shares} + {merge}", flush=True)
+
+    fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+    got = run_sims_world(port_names(device), device=device, after=after)
+    launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                "drf_merge": merge_cuda.launches}
+    got.pop("times")
+    _check_same("sims", got, ref)
+    missing = sims_missing(got)
+    if missing:
+        _fail(f"sims: the scenarios did not show {missing}")
+    if device != "cpu" and not (launches["fill"] and launches["drf_shares"]
+                                and launches["drf_merge"]):
+        _fail(f"sims: the fill and both DRF kernels must launch: {launches}")
+    out = {"steps": steps, **{f"{k}_launches": v for k, v in launches.items()},
+           "contended": got["contended"], "drain_ok": got["drain"]["ok"]}
+    print(f"[sims] (nu) contended quota (reclaims {got['contended']['reclaims']}), single-queue"
+          f" A/B, explain, drain (ok {got['drain']['ok']}), run-level churn A/B and demo equal to"
+          f" the JAX package's; launches fill {launches['fill']}, DRF {launches['drf_shares']} +"
+          f" {launches['drf_merge']} | {card}", flush=True)
     return out
 
 
@@ -5410,12 +6693,19 @@ def main() -> int:
     drf = _timed(phase_drf, sched["q_order_inputs"])
     delta = _timed(phase_delta)
     front = _timed(phase_frontier, delta["rounds"][0])
-    sharded = _timed(phase_sharded)
     observe = _timed(phase_observe, sched["rounds"]["q1"]["wall_s"], card)
     sidecar = _timed(phase_sidecar, main_path, card)
     slo = _timed(phase_slo, delta, card)
     disruption = _timed(phase_disruption, card)
-    operator = _timed(phase_operator, card)
+    # [sharded]'s ranks run beside [operator] and [churn], which time no
+    # kernel (the smoke's time limit holds both only so)
+    sharded = _timed(phase_sharded, lambda: _timed(
+        phase_operator, card, "cuda", None, None, None, None,
+        lambda harness: phase_churn(harness, card)))
+    operator = sharded.pop("alongside")
+    churn = operator.pop("then")
+    scale = _timed(phase_scale, card)
+    sims = _timed(phase_sims, card)
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
@@ -5427,17 +6717,22 @@ def main() -> int:
         + observe["fill_launches"] + observe["explain_fill_launches"]
         + sidecar.get("a", {}).get("fill_launches", 0) + sidecar.get("q", {}).get("fill_launches", 0)
         + slo["fill_launches"] + disruption["fill_launches"]
-        + operator["fill_launches"] + operator["samples_fill_launches"],
+        + operator["fill_launches"] + operator["samples_fill_launches"]
+        + churn["fill_launches"] + scale["fill_launches"] + sims["fill_launches"],
         "sidecar_launches": sidecar.get("a", {}).get("fill_launches", 0)
         + sidecar.get("q", {}).get("fill_launches", 0),
         "slo_launches": slo["fill_launches"],
         "disruption_launches": disruption["fill_launches"],
         "operator_launches": operator["fill_launches"] + operator["samples_fill_launches"],
+        "churn_launches": churn["fill_launches"],
+        "scale_launches": scale["fill_launches"],
+        "sims_launches": sims["fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
         "explain_launches": observe["explain_fill_launches"],
         "sharded_rank_launches": sharded["fill_launches"],
         "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"],
-                            operator["fill_max_abs_err"]]
+                            operator["fill_max_abs_err"], churn["fill_max_abs_err"],
+                            scale["fill_max_abs_err"]]
                            + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -5458,13 +6753,17 @@ def main() -> int:
             + observe[f"explain_drf_{phase}_launches"]
             + sidecar.get("q", {}).get(f"drf_{phase}_launches", 0) + slo[f"drf_{phase}_launches"]
             + disruption[f"drf_{phase}_launches"] + operator[f"drf_{phase}_launches"]
-            + operator[f"samples_drf_{phase}_launches"],
+            + operator[f"samples_drf_{phase}_launches"] + churn[f"drf_{phase}_launches"]
+            + sims[f"drf_{phase}_launches"],
             "sidecar_launches": sidecar.get("q", {}).get(f"drf_{phase}_launches", 0),
             "slo_launches": slo[f"drf_{phase}_launches"],
             "disruption_launches": disruption[f"drf_{phase}_launches"],
             "operator_launches": operator[f"drf_{phase}_launches"]
             + operator[f"samples_drf_{phase}_launches"],
             "explain_launches": observe[f"explain_drf_{phase}_launches"],
+            "churn_launches": churn[f"drf_{phase}_launches"],
+            "scale_launches": 0,  # (lambda) has no Queue CR
+            "sims_launches": sims[f"drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
             "plain_ms": drf[f"plain_{phase}_ms"],
@@ -5486,7 +6785,8 @@ def main() -> int:
                       "frontier": {k: v for k, v in front.items() if k != "rounds"},
                       "frontier_rounds": front["rounds"], "sharded": sharded,
                       "observe": observe, "sidecar": sidecar, "slo": slo,
-                      "disruption": disruption, "operator": operator}))
+                      "disruption": disruption, "operator": operator, "churn": churn,
+                      "scale": scale, "sims": sims}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -21,17 +21,28 @@ on either side. This part is plain Python.
 BASELINE's integrated population, through either package's ``SimHarness``
 from the same YAML text, and ``run_samples_world`` converges each sample;
 ``store_digest`` reads a store the same way on either side.
+
+The sim scenarios' worlds run either package's ``sim`` modules the same way:
+``run_churn_world`` (κ), the delta churn on (ι)'s converged harness, every
+tick's schedule recorded; ``run_scale_world`` (λ), the sharded frontier and
+inert A/Bs, each retired harness read (``dump_digest``, census, scalar
+resourceVersion, reconciles) before it is released; ``run_sims_world`` (ν),
+the contended-quota, single-queue, explain, drain, run-level churn A/B and
+demo scenarios at the JAX package's own shapes.
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 import hashlib
+import importlib
 import json
 import pathlib
 import random
 import re
 import time
+import types
 from collections import Counter
 from typing import Callable, Dict, List, Optional
 
@@ -1447,6 +1458,49 @@ def operator_summary(pkg, harness) -> dict:
     }
 
 
+def package_names(module: Callable[[str], object], demo_text: Callable[[str], str],
+                  root: str) -> types.SimpleNamespace:
+    """The names ``run_operator_world``, ``run_samples_world``,
+    ``run_churn_world``, ``run_scale_world`` and ``run_sims_world`` read
+    from one package: ``module(path)`` imports ``<package>.<path>``,
+    ``demo_text(manifest_text)`` is what the package's demo prints for a
+    manifest, ``root`` the package's name."""
+    return types.SimpleNamespace(
+        root=root,
+        SimHarness=module("sim.harness").SimHarness,
+        load_podcliquesets=module("api.load").load_podcliquesets,
+        load_manifest_objects=module("api.load").load_manifest_objects,
+        OperatorConfiguration=module("config.operator").OperatorConfiguration,
+        deep_copy=module("api.meta").deep_copy,
+        reset_uid_namespace=module("api.meta").reset_uid_namespace,
+        export_object=module("api.serialize").export_object,
+        is_ready=module("api.pod").is_ready,
+        METRICS=module("observability.metrics").METRICS,
+        EVENTS=module("observability.events").EVENTS,
+        TRACER=module("observability.tracing").TRACER,
+        JOURNEYS=module("observability.journey").JOURNEYS,
+        FLIGHTREC=module("observability.flightrec").FLIGHTREC,
+        TIMESERIES=module("observability.timeseries").TIMESERIES,
+        deltachurn=module("sim.deltachurn"),
+        scale=module("sim.scale"),
+        store_dump=module("sim.recovery").store_dump,
+        multitenant=module("sim.multitenant"),
+        voluntary=module("sim.voluntary"),
+        demo_text=demo_text,
+    )
+
+
+def port_names(device=None) -> types.SimpleNamespace:
+    """``package_names`` of this package; the harnesses' and the demo's
+    solves run on ``device`` (the card unless the caller passes "cpu")."""
+    def module(path: str):
+        return importlib.import_module(f"grove_tpu_torch.{path}")
+
+    demo = module("sim.demo")
+    return package_names(module, functools.partial(demo.run_demo, device=device),
+                         "grove_tpu_torch")
+
+
 def _reset_singletons(pkg) -> None:
     for layer in (pkg.TRACER, pkg.EVENTS, pkg.JOURNEYS, pkg.FLIGHTREC, pkg.TIMESERIES):
         layer.clock = None
@@ -1454,7 +1508,7 @@ def _reset_singletons(pkg) -> None:
 
 def run_operator_world(pkg, n_sets: Optional[int] = None, n_nodes: Optional[int] = None,
                        update_every: Optional[int] = None, device=None,
-                       after_tick=None) -> dict:
+                       after_tick=None, then=None) -> dict:
     """Run (iota) through ``pkg``'s own harness (either package; ``pkg``
     names ``SimHarness``, ``load_podcliquesets``, ``deep_copy``,
     ``export_object``, ``is_ready``, ``reset_uid_namespace`` and the
@@ -1464,7 +1518,10 @@ def run_operator_world(pkg, n_sets: Optional[int] = None, n_nodes: Optional[int]
     and a second converge; ``after_tick(step, index, wall_s, tick)`` sees
     every tick. Returns the record both packages must agree on,
     and under ``"walls"`` the host times (left out of any comparison).
-    ``device`` goes to the port's harness (None for the JAX one)."""
+    ``device`` goes to the port's harness (None for the JAX one).
+    ``then(harness)``, when given, runs on the converged harness before the
+    singletons' clocks are released; its return value lands under
+    ``"then"`` (the churn world (kappa) continues on (iota) so)."""
     world = operator_world(n_sets, n_nodes, update_every)
     n = world["n_sets"]
     pkg.reset_uid_namespace()
@@ -1521,6 +1578,8 @@ def run_operator_world(pkg, n_sets: Optional[int] = None, n_nodes: Optional[int]
                 "reconciles": reconciles,
             }
         record["converges"] = converges
+        if then is not None:
+            record["then"] = then(harness)
     finally:
         _reset_singletons(pkg)
     record["walls"] = walls
@@ -1580,3 +1639,284 @@ def run_samples_world(pkg, device=None) -> dict:
     finally:
         _reset_singletons(pkg)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The sim scenarios' worlds: (kappa) the churn on (iota), (lambda) the sharded
+# A/Bs, (nu) the small scenarios (bench.py's delta, scale, quota, explain
+# and drain blocks)
+# ---------------------------------------------------------------------------
+
+CHURN_TICKS = 96  # delta_artifact's churn ticks (bench.py)
+CHURN_FULLPATH_TICKS = 32  # and its from-scratch comparison segment
+CHURN_SEED = 8
+# report fields of delta_artifact that time nothing
+CHURN_REPORT_FIELDS = (
+    "ticks", "seed", "ops", "spec_encodes", "reencode_fraction", "warm_start_hit_rate",
+    "warm_start_hits", "solve_reuses", "full_fallbacks", "drift_detected", "ab_ticks", "ab_ok",
+)
+
+
+def _reconcile_total(metrics) -> int:
+    return int(sum(v for k, v in metrics.counters.items() if k.startswith("reconcile_total")))
+
+
+def run_churn_world(pkg, harness, ticks: int = CHURN_TICKS,
+                    fullpath_ticks: int = CHURN_FULLPATH_TICKS, seed: int = CHURN_SEED,
+                    after_tick=None) -> dict:
+    """(kappa): ``pkg.deltachurn.delta_artifact`` (either package's) on a
+    converged harness, its comparison segment cut to ``fullpath_ticks``
+    (the module's ``fullpath_comparison`` is wrapped), every schedule call
+    recorded: ``round_summary`` of its events, the delta counters (None
+    while the comparison segment detaches the delta state) and whether the
+    round ran the A/B self-check. ``after_tick(index, wall_s, tick)`` sees
+    each. Returns ``{"ticks": [...], "report": ..., "times": ...}``, the
+    report less its times, which land under ``"times"``."""
+    sched = harness.scheduler
+    schedule = harness.schedule
+    ticks_out: List[dict] = []
+    with EventCapture(pkg.EVENTS) as cap:
+
+        def scheduled():
+            start = len(cap.events)
+            selfcheck = bool(sched.delta is not None and sched.delta_selfcheck)
+            t0 = time.perf_counter()
+            bound = schedule()
+            wall = time.perf_counter() - t0
+            tick = {
+                "bound": bound,
+                "selfcheck": selfcheck,
+                "round": round_summary(harness.store, harness.cluster, cap.events[start:]),
+                "delta": delta_counters(sched.delta) if sched.delta is not None else None,
+            }
+            ticks_out.append(tick)
+            if after_tick is not None:
+                after_tick(len(ticks_out), wall, tick)
+            return bound
+
+        harness.schedule = scheduled
+        dc = pkg.deltachurn
+        fullpath = dc.fullpath_comparison
+        # delta_artifact runs 32 comparison ticks: a cut goes through the
+        # module's fullpath_comparison, the same way in either package
+        dc.fullpath_comparison = lambda h, ticks, seed: fullpath(
+            h, ticks=fullpath_ticks, seed=seed)
+        try:
+            report = dc.delta_artifact(harness, ticks=ticks, seed=seed)
+        finally:
+            dc.fullpath_comparison = fullpath
+            del harness.schedule
+    return {
+        "ticks": ticks_out,
+        "report": {k: report[k] for k in CHURN_REPORT_FIELDS},
+        "times": {k: v for k, v in report.items() if k not in CHURN_REPORT_FIELDS},
+    }
+
+
+SCALE_FRONTIER_SHAPE = (4096, 6400)  # scale_artifact's full-size frontier_ab
+SCALE_INERT_SHAPE = (192, 64)  # and inert_ab
+SCALE_SHARDS = 8
+
+
+def dump_digest(dump: dict) -> dict:
+    """A canonical store dump (``store_dump``, either package's) as the
+    sha256 of its documents in key order, each as sorted JSON with its
+    placement scores replaced by ``<score>``, and the sum of those scores
+    apart (the card and the CPU agree on them to rtol 1e-6)."""
+    lines, scores = [], 0.0
+    for key in sorted(dump):
+        line = json.dumps(dump[key], sort_keys=True)
+        for m in _SCORE_RE.finditer(line):
+            scores += float(m.group(2))
+        lines.append(key + " " + _SCORE_RE.sub(lambda m: f"{m.group(1)}<score>", line))
+    return {"objects": len(lines), "sha256": _digest(lines), "score_sum": scores}
+
+
+class RetiredHarnesses:
+    """While active, every harness ``pkg.scale._close_harness`` (either
+    package's ``sim/scale``; ``pkg`` also names ``store_dump``, ``METRICS``
+    and ``is_ready``) releases is read first: the canonical dump's
+    digest (rv-normalised, Events left out), every pod Ready, the scalar
+    resourceVersion, the shard census, the frontier's deterministic
+    counters, and the reconciles since the previous release (or since
+    entry)."""
+
+    def __init__(self, pkg) -> None:
+        self.scale, self.store_dump, self.metrics = pkg.scale, pkg.store_dump, pkg.METRICS
+        self.is_ready = pkg.is_ready
+        self.records: List[dict] = []
+
+    def _read(self, h) -> None:
+        from_ = self._reconciles
+        self._reconciles = _reconcile_total(self.metrics)
+        dump = self.scale._rv_normalized(
+            self.store_dump(h.store, canonical_uids=True, include_events=False))
+        pods = list(h.store.scan("Pod"))
+        frontier = h.scheduler.frontier if h.scheduler is not None else None
+        self.records.append({
+            "shards": h.store.num_shards,
+            "pods": len(pods),
+            "all_ready": bool(pods) and all(self.is_ready(p) for p in pods),
+            "resource_version": h.store.resource_version,
+            "shard_census": h.store.shard_census(),
+            "reconciles": self._reconciles - from_,
+            "dump": dump_digest(dump),
+            "frontier": frontier_counters(frontier) if frontier is not None else None,
+        })
+        self._close(h)
+
+    def __enter__(self) -> "RetiredHarnesses":
+        self._reconciles = _reconcile_total(self.metrics)
+        self._close = self.scale._close_harness
+        self.scale._close_harness = self._read
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.scale._close_harness = self._close
+
+
+def run_scale_world(pkg, frontier_shape=SCALE_FRONTIER_SHAPE, inert_shape=SCALE_INERT_SHAPE,
+                    num_shards: int = SCALE_SHARDS, device=None) -> dict:
+    """(lambda): ``pkg.scale.frontier_ab(*frontier_shape, num_shards)`` and
+    ``pkg.scale.inert_ab(*inert_shape, num_shards)`` (either package's
+    ``sim/scale``), each retired harness read (``RetiredHarnesses``: the
+    two warm-ups and the global and frontier arms; the warm-up, S=1 and
+    S=``num_shards`` arms). Returns the records, each A/B's result less its
+    times (under ``"times"``), and ``census_spread_problems`` of the
+    frontier arms."""
+    kwargs = {} if device is None else {"device": device}
+    out: Dict[str, object] = {"world": {"frontier_shape": list(frontier_shape),
+                                        "inert_shape": list(inert_shape),
+                                        "shards": num_shards}}
+    times: Dict[str, object] = {}
+    pkg.METRICS.reset()
+    with RetiredHarnesses(pkg) as retired:
+        t0 = time.perf_counter()
+        ab = pkg.scale.frontier_ab(*frontier_shape, num_shards=num_shards, **kwargs)
+        times["frontier_ab_s"] = time.perf_counter() - t0
+    out["frontier_arms"] = retired.records
+    times["frontier_ab"] = {k: ab[k] for k in ("wall_off", "wall_on", "solver_off", "solver_on",
+                                              "speedup_wall", "speedup_solver")}
+    out["frontier_ab"] = {"sets": ab["sets"], "nodes": ab["nodes"],
+                          "all_ready_both": ab["all_ready_both"]}
+    out["spread_problems"] = sorted(
+        {p for r in retired.records[2:] for p in pkg.scale.census_spread_problems(
+            r["shard_census"], num_shards)})
+    with RetiredHarnesses(pkg) as retired:
+        t0 = time.perf_counter()
+        inert = pkg.scale.inert_ab(*inert_shape, num_shards=num_shards, **kwargs)
+        times["inert_ab_s"] = time.perf_counter() - t0
+    out["inert_arms"] = retired.records
+    times["inert_ab"] = {k: inert[k] for k in ("wall_s1", "wall_sharded")}
+    out["inert_ab"] = {k: v for k, v in inert.items() if k not in times["inert_ab"]}
+    out["times"] = times
+    return out
+
+
+SIMS_SMOKE_SEED = 0  # smoke_ab_run's storm (scripts/delta_smoke.py's legs)
+SIMS_SMOKE_TICKS = 36
+# contended_report fields that time the ordering pass and the solver
+_CONTENDED_TIMES = ("order_seconds", "solver_seconds", "order_overhead_ratio")
+
+
+def _sha(obj) -> str:
+    return _digest([json.dumps(obj, sort_keys=True, default=str)])
+
+
+def explain_scenario_docs(engine, refs: dict) -> dict:
+    """The explain scenario's documents (less timing): ``explain`` of each
+    actor, ``capacity()``, and the what-if draining the bridge gang's
+    block-0 node for ``frag``."""
+    out = {}
+    for actor in ("frag", "fits", "capped", "bridge"):
+        out[f"explain {actor}"] = strip_timing(engine.explain("default", refs[actor]))
+    out["capacity"] = strip_timing(engine.capacity())
+    out["whatif drain-node"] = strip_timing(engine.whatif({
+        "gang": {"namespace": "default", "name": refs["frag"]},
+        "actions": [{"action": "drain-node", "node": refs["bridge_node"]}],
+    }))
+    return out
+
+
+def run_sims_world(pkg, device=None, after=None) -> dict:
+    """(nu): either package's small scenarios at its own shapes, each in a
+    fresh harness with the metrics and events reset and the uid counter
+    rewound: ``multitenant.run_contended`` (its report less times),
+    ``single_queue_ab(24, 16)``, ``build_explain_scenario`` (the actors'
+    documents as ``doc_digests``), ``voluntary.drain_artifact``,
+    ``deltachurn.smoke_ab_run`` with and without the delta state (the sha256
+    of each leg's bindings and phases), and ``pkg.demo_text`` of
+    simple1.yaml (what the demo prints). ``after(name, wall_s, result)``
+    sees each. Times land under ``"times"``."""
+    kwargs = {} if device is None else {"device": device}
+    out: Dict[str, object] = {}
+    times: Dict[str, float] = {}
+
+    def step(name, fn):
+        pkg.reset_uid_namespace()
+        pkg.METRICS.reset()
+        pkg.EVENTS.reset()
+        t0 = time.perf_counter()
+        result = fn()
+        times[name] = time.perf_counter() - t0
+        out[name] = result
+        if after is not None:
+            after(name, times[name], result)
+
+    def contended():
+        harness, report = pkg.multitenant.run_contended(**kwargs)
+        return {k: v for k, v in report.items() if k not in _CONTENDED_TIMES}
+
+    def single_queue():
+        ab = pkg.multitenant.single_queue_ab(24, 16, **kwargs)
+        return {k: ab[k] for k in ("identical_admissions", "admitted_pods")}
+
+    def explain():
+        harness, refs = pkg.multitenant.build_explain_scenario(**kwargs)
+        docs = explain_scenario_docs(harness.explain, refs)
+        return {"refs": refs, "docs": doc_digests(docs)}
+
+    def smoke_ab():
+        legs = {}
+        for delta in (True, False):
+            bindings, phases = pkg.deltachurn.smoke_ab_run(SIMS_SMOKE_SEED, delta,
+                                                           SIMS_SMOKE_TICKS, **kwargs)
+            legs["delta" if delta else "full"] = {
+                "bindings": len(bindings),
+                "bindings_sha256": _sha(sorted(f"{ns}/{p}={n}" for (ns, p), n in bindings.items())),
+                "phases_sha256": _sha(sorted(phases.items())),
+            }
+        return legs
+
+    def demo():
+        text = pkg.demo_text((SAMPLES_DIR / "simple1.yaml").read_text())
+        return {"sha256": _digest([text]), "lines": len(text.splitlines())}
+
+    try:
+        step("contended", contended)
+        step("single_queue_ab", single_queue)
+        step("explain", explain)
+        step("drain", lambda: pkg.voluntary.drain_artifact(**kwargs))
+        step("smoke_ab", smoke_ab)
+        step("demo", demo)
+    finally:
+        _reset_singletons(pkg)
+    out["times"] = times
+    return out
+
+
+def sims_missing(result: dict) -> List[str]:
+    """What (nu) must show and did not."""
+    missing = []
+    if not result["contended"]["within_one_gang"]:
+        missing.append("contended: a queue ended more than one gang from its share")
+    if not result["contended"]["reclaims"]:
+        missing.append("contended: no reclaim")
+    if not result["single_queue_ab"]["identical_admissions"]:
+        missing.append("single_queue_ab: admissions differ")
+    if not result["drain"]["ok"]:
+        missing.append("drain: the voluntary-disruption contract failed")
+    legs = result["smoke_ab"]
+    if legs["delta"] != legs["full"]:
+        missing.append("smoke_ab: the delta and full legs differ")
+    return missing

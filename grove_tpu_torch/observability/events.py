@@ -84,7 +84,7 @@ class EventRecord:
     count: int
     first_timestamp: float
     last_timestamp: float
-    # keyspace shard of the object's namespace: 0 on the one-shard store
+    # keyspace shard of the object's namespace: 0 on an unsharded store
     shard: int = 0
 
 
@@ -92,6 +92,9 @@ class EventRecorder:
     def __init__(self, max_events: int = 8192, clock=None) -> None:
         self.max_events = max_events
         self.clock = clock
+        # namespace -> keyspace shard, wired by a sharded Store at
+        # construction (Store.shard_index); None stamps shard 0
+        self.shard_fn = None
         self._lock = threading.Lock()
         self._events: "OrderedDict[tuple, EventRecord]" = OrderedDict()
         # flight-recorder sink: receives each updated record; installed by
@@ -116,7 +119,9 @@ class EventRecorder:
                 rec.message = message
                 self._events.move_to_end(key)
             else:
-                rec = EventRecord(kind, namespace, name, type, reason, message, 1, now, now)
+                shard = self.shard_fn(namespace) if self.shard_fn is not None else 0
+                rec = EventRecord(kind, namespace, name, type, reason, message, 1, now, now,
+                                  shard)
                 self._events[key] = rec
                 while len(self._events) > self.max_events:
                     self._events.popitem(last=False)

@@ -20,11 +20,13 @@ read that waits for the device (``.cpu()``), never after a
 run's path.
 
 Finished spans also go to ``FLIGHT_SINK`` when the flight recorder
-(``observability/flightrec.py``) installs itself there. Waiting for modules
-the port does not have yet: ``set_shard`` / ``set_worker`` (the
-keyspace-sharded engine's shard and worker stamps) and the sanitizer's span
-hook (``SPAN_HOOK``). Until then a span's Chrome ``shard`` column is -1
-unless its caller passes an integer ``shard`` attribute.
+(``observability/flightrec.py``) installs itself there. ``set_shard`` is the
+per-thread shard context the engine sets around each reconcile of a
+keyspace-sharded store: every span opened inside carries it as its
+``shard`` attribute (the Chrome export's ``shard`` column; -1 when unset).
+Waiting for modules the port does not have yet: ``set_worker`` (the
+parallel drain's worker stamp) and the sanitizer's span hook
+(``SPAN_HOOK``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from grove_tpu_torch.observability.metrics import _quantile
 
@@ -77,6 +79,11 @@ class Span:
         stack.append(self)
         if tracer.clock is not None:
             attrs["vt"] = round(tracer.clock.now(), 3)
+        # the engine's shard context; an explicit attribute wins
+        if "shard" not in attrs:
+            shard = getattr(tracer._tls, "shard", None)
+            if shard is not None:
+                attrs["shard"] = shard
         self._done = False
         self._t0 = time.perf_counter()
         self.ts_us = int((self._t0 - tracer._origin) * 1e6)
@@ -152,6 +159,13 @@ class Tracer:
     def current_span(self):
         stack = self._stack()
         return stack[-1] if stack else None
+
+    def set_shard(self, shard: Optional[int]) -> None:
+        """Per-thread shard context: spans opened after this carry
+        ``shard`` as an attribute until it is cleared with None. The engine
+        sets it around each reconcile of a sharded store, behind its
+        enabled check."""
+        self._tls.shard = shard
 
     # -- export ----------------------------------------------------------
 

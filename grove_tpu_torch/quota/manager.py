@@ -4,7 +4,10 @@ Counterpart of ``grove_tpu/quota/manager.py``: owns the usage accountant,
 reads the queue tree, holds gangs past their queue's ceiling, and runs the
 DRF ordering pass (``ordering.fair_order``, on the scheduler's device) that
 replaces the flat ``(-priority, name)`` sort when Queue CRs exist. With no
-Queue CRs the order is exactly the flat sort.
+Queue CRs the order is exactly the flat sort. ``warm`` grows the padded
+shape ahead of a workload and runs the pass once at it (the JAX package
+compiles its scan there; here the DRF kernels build and load, and each
+launches once). ``quota_snapshot`` is the full-scan per-queue summary.
 """
 
 from __future__ import annotations
@@ -13,9 +16,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from grove_tpu_torch.api.types import DEFAULT_QUEUE
+from grove_tpu_torch.api import names as namegen
+from grove_tpu_torch.api.meta import get_condition
+from grove_tpu_torch.api.types import COND_PODGANG_SCHEDULED, DEFAULT_QUEUE
 from grove_tpu_torch.quota.accountant import QuotaAccountant
-from grove_tpu_torch.quota.oracle import dominant_share
+from grove_tpu_torch.quota.oracle import dominant_share, dominant_share_of, usage_oracle
 from grove_tpu_torch.quota.ordering import fair_order
 
 _EPS = 1e-9
@@ -49,7 +54,12 @@ class QuotaManager:
         self.default_queue = default_queue
         self.device = device  # where the ordering scan runs
         self.accountant = QuotaAccountant(default_queue)
-        store.subscribe_system(self.accountant.on_event)
+        # a sharded store delivers per shard: a pod's events never
+        # straddle shards, so the per-queue fold stays exact
+        if getattr(store, "num_shards", 1) > 1:
+            store.subscribe_system_per_shard(self.accountant.on_event)
+        else:
+            store.subscribe_system(self.accountant.on_event)
         # last ordering pass's per-queue rows (status writes)
         self.last_rows: List[dict] = []
         # sticky padding, as in the JAX package: the scan's shape grows to
@@ -70,6 +80,21 @@ class QuotaManager:
     def _usage_snapshot(self) -> Dict[str, Dict[str, float]]:
         self.accountant.ensure_built(self.store)
         return self.accountant.snapshot()
+
+    def warm(self, n_queues: int, n_gangs: int, n_resources: int = 1) -> None:
+        """Grow the padded shape to what this workload will reach and run
+        the ordering pass once at it, so the kernels' build and load land
+        outside the measured rounds."""
+        self._pad_q = max(self._pad_q, _pow2(max(n_queues, 1)))
+        self._pad_g = max(self._pad_g, _pow2(max(n_gangs, 1)))
+        self._pad_r = max(self._pad_r, _pow2(max(n_resources, 1)))
+        fair_order(
+            np.zeros((self._pad_q, self._pad_r), np.float32),
+            np.zeros((self._pad_q, self._pad_r), np.float32),
+            np.zeros((self._pad_q, self._pad_g, self._pad_r), np.float32),
+            np.ones((self._pad_q,), np.int32),
+            device=self.device,
+        )
 
     def order_specs(
         self,
@@ -181,3 +206,39 @@ class QuotaManager:
         if record_rows:
             self.last_rows = rows
         return ordered, held
+
+
+def quota_snapshot(store, default_queue: str = DEFAULT_QUEUE) -> List[dict]:
+    """Full-scan per-queue summary: deserved and ceiling from the Queue
+    CRs, usage from the pod population, admitted and pending gangs from
+    the PodGangs' Scheduled condition. Includes implicit queues (usage or
+    gangs without a Queue CR)."""
+    crs = {q.metadata.name: q for q in store.scan("Queue")}
+    usage = usage_oracle(store.scan("Pod"), default_queue)
+    admitted: Dict[str, int] = {}
+    pending: Dict[str, int] = {}
+    for gang in store.scan("PodGang"):
+        queue = gang.metadata.labels.get(namegen.LABEL_QUEUE) or default_queue
+        cond = get_condition(gang.status.conditions, COND_PODGANG_SCHEDULED)
+        if cond is not None and cond.is_true():
+            admitted[queue] = admitted.get(queue, 0) + 1
+        else:
+            pending[queue] = pending.get(queue, 0) + 1
+    out = []
+    for name in sorted(set(crs) | set(usage) | set(admitted) | set(pending)):
+        cr = crs.get(name)
+        deserved = dict(cr.spec.deserved) if cr is not None else {}
+        out.append(
+            {
+                "name": name,
+                "parent": cr.spec.parent if cr is not None else "",
+                "defined": cr is not None,
+                "deserved": deserved,
+                "ceiling": dict(cr.spec.ceiling) if cr is not None else {},
+                "usage": dict(usage.get(name, {})),
+                "dominantShare": dominant_share_of(usage.get(name, {}), deserved),
+                "admittedGangs": admitted.get(name, 0),
+                "pendingGangs": pending.get(name, 0),
+            }
+        )
+    return out

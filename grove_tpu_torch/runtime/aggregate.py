@@ -99,7 +99,7 @@ class PodAggregate:
     def __init__(self) -> None:
         self._rows: Dict[Tuple[str, str], PodCounters] = {}
         # this view's (total, ready) pod partial — the LEAF of the
-        # store's summary (Store.pod_summary; one shard, so the root):
+        # store's summary tree (Store.pod_summary folds the shards' leaves):
         # maintained here because _fold already computed the features, so
         # the level-1 cost is two int adds per event
         self.grand_total = 0

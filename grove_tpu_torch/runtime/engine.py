@@ -14,14 +14,22 @@ A Controller owns:
 Reconcile functions return a ReconcileStepResult: "requeue" gets
 exponential backoff, "requeue_after" a fixed delay.
 
-The port's store is unsharded, so the engine is the serial drain: one event
-backlog, and ``enable_workers`` is the JAX package's no-op on an unsharded
-store. ``overlap_hook`` is kept as an attribute; only a process drain calls
+Over a keyspace-sharded store (``Store(num_shards=S)``) the engine keeps one
+event backlog per shard, routed on ``WatchEvent.shard`` and drained in a
+deterministic round-robin, gives every controller a shard-bucketed work
+queue, publishes each backlog's depth as ``engine_shard_backlog@K`` and
+stamps the tracer's shard context around each reconcile. The drain stays
+serial: the JAX package's thread and process workers (``enable_workers``,
+``GROVE_TPU_CP_WORKERS``) are not ported, so arming them on a sharded store
+raises ``NotImplementedError`` rather than drain serially where the JAX
+package runs workers; on an unsharded store both are the JAX package's
+no-op. ``overlap_hook`` is kept as an attribute; only a process drain calls
 it.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -72,8 +80,12 @@ class Engine:
         self.store = store
         self.clock = clock or store.clock
         self.controllers: List[Controller] = []
-        self.num_shards = 1
-        self._event_backlog = deque()
+        # one event backlog per store shard, drained round-robin so one busy
+        # shard cannot hold back the others; one backlog when unsharded
+        self.num_shards = max(1, getattr(store, "num_shards", 1))
+        self._backlogs = [deque() for _ in range(self.num_shards)]
+        self._event_backlog = self._backlogs[0]
+        self._backlog_rotation = 0
         self.held_kinds: set = set()
         self.workers = None
         # set by the harness; only a process drain calls it (between a
@@ -82,17 +94,43 @@ class Engine:
         # per-kind routing table, built lazily after registration
         self._dispatch = None
         self._shard_index = getattr(store, "shard_index", None)
-        store.subscribe(self._event_backlog.append)
+        if self.num_shards == 1:
+            store.subscribe(self._event_backlog.append)
+        else:
+            store.subscribe(self._enqueue_sharded)
+        try:
+            env_workers = int(os.environ.get("GROVE_TPU_CP_WORKERS", "1") or 1)
+        except ValueError:
+            env_workers = 1
+        if env_workers > 1:
+            self.enable_workers(env_workers)
 
     def enable_workers(self, workers: int, backend: str = None) -> bool:
         """Arm parallel reconcile workers. On an unsharded store this is the
-        JAX package's no-op: it returns False and the drain stays serial
-        (the port's store has one shard)."""
+        JAX package's no-op (False: the drain stays serial). On a sharded
+        store the JAX package arms its thread or process drain, which the
+        port does not have yet, so this raises."""
         if workers <= 1 or self.workers is not None:
             return self.workers is not None
-        return False
+        if self.num_shards <= 1:
+            return False
+        raise NotImplementedError(
+            f"enable_workers({workers}) on a {self.num_shards}-shard store: the parallel"
+            " drain (thread and process workers) is not ported yet (ROADMAP A.19)"
+        )
+
+    def _enqueue_sharded(self, ev: WatchEvent) -> None:
+        self._backlogs[ev.shard].append(ev)
 
     def register(self, controller: Controller) -> None:
+        if self.num_shards > 1 and controller.queue.num_shards == 1:
+            # a shard-bucketed ready set with the same backoff curve;
+            # registration precedes any traffic, so nothing carries over
+            controller.queue = WorkQueue(
+                base_backoff=controller.queue.base_backoff,
+                max_backoff=controller.queue.max_backoff,
+                num_shards=self.num_shards,
+            )
         self.controllers.append(controller)
         self._dispatch = None  # rebuilt on next routing
 
@@ -125,8 +163,10 @@ class Engine:
 
     def discard_pending_events(self) -> int:
         """Drop undelivered watch events (a standby that never drains)."""
-        n = len(self._event_backlog)
-        self._event_backlog.clear()
+        n = 0
+        for backlog in self._backlogs:
+            n += len(backlog)
+            backlog.clear()
         return n
 
     def requeue_all(self) -> None:
@@ -144,12 +184,28 @@ class Engine:
             if prof is not None:
                 prof.end()
 
+    def _next_event(self) -> Optional[WatchEvent]:
+        """The next backlog event: a plain popleft when unsharded, else a
+        deterministic round-robin over the shards' backlogs (the rotation
+        moves past each shard served)."""
+        if self.num_shards == 1:
+            backlog = self._event_backlog
+            return backlog.popleft() if backlog else None
+        for off in range(self.num_shards):
+            idx = (self._backlog_rotation + off) % self.num_shards
+            backlog = self._backlogs[idx]
+            if backlog:
+                self._backlog_rotation = (idx + 1) % self.num_shards
+                return backlog.popleft()
+        return None
+
     def _route_events_inner(self) -> None:
         # pop one at a time: reconciles emit new events while we iterate
         remaining: List[WatchEvent] = []
-        backlog = self._event_backlog
-        while backlog:
-            ev = backlog.popleft()
+        while True:
+            ev = self._next_event()
+            if ev is None:
+                break
             if ev.kind in self.held_kinds:
                 remaining.append(ev)
                 continue
@@ -173,7 +229,9 @@ class Engine:
                     METRICS.inc(metric, len(hits))
                 for ns, name in hits:
                     ctrl.queue.add((ctrl.kind, ns, name))
-        backlog.extend(remaining)
+        for ev in remaining:
+            # held events return to their shard's backlog
+            self._backlogs[ev.shard if self.num_shards > 1 else 0].append(ev)
 
     # -- run loop --------------------------------------------------------
 
@@ -252,6 +310,7 @@ class Engine:
                         span.end()
             for ctrl in self.controllers:
                 METRICS.set(f"workqueue_depth/{ctrl.name}", len(ctrl.queue))
+            self._set_backlog_gauges()
             if not progressed:
                 # new events may have landed during the last round
                 self._route_events()
@@ -261,10 +320,18 @@ class Engine:
             f"engine did not quiesce within {max_rounds} rounds (reconcile livelock?)"
         )
 
+    def _set_backlog_gauges(self) -> None:
+        """Each shard's backlog depth, once per drain round (sharded only)."""
+        if self.num_shards > 1:
+            for idx, backlog in enumerate(self._backlogs):
+                METRICS.set(f"engine_shard_backlog@{idx}", len(backlog))
+
     def _timed(self, ctrl: Controller, key):
         t0 = time.perf_counter()
         span = None
         if TRACER.enabled:
+            # every span opened inside the reconcile carries its shard
+            TRACER.set_shard(self._shard_of_key(key))
             span = TRACER.span("engine.reconcile", controller=ctrl.name, key=f"{key[1]}/{key[2]}")
         prof = PROFILER.reconcile(ctrl.name, self._shard_of_key(key)) if PROFILER.enabled else None
         outcome = "error"
@@ -278,12 +345,18 @@ class Engine:
             if span is not None:
                 span.set("outcome", outcome)
                 span.end()
+                TRACER.set_shard(None)
             METRICS.observe(f"reconcile_seconds/{ctrl.name}", time.perf_counter() - t0)
 
     def _shard_of_key(self, key) -> int:
         if self._shard_index is None:
             return NO_SHARD
         return self._shard_index(key[1])
+
+    def close(self) -> None:
+        """Release the engine's executors. The serial drain holds none, so
+        this only disarms ``workers``."""
+        self.workers = None
 
     def advance(self, seconds: float) -> None:
         self.clock.advance(seconds)  # type: ignore[attr-defined]

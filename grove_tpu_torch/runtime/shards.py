@@ -7,8 +7,7 @@ S=1 is the unsharded store). The work queue buckets its ready keys by it.
 ``StoreShard`` is one shard's private state (objects, indices, its own
 resourceVersion sequence and lock, its pod aggregate) and
 ``ShardSummaryTree`` the fixed-fan-in fold of per-shard (total, ready) pod
-partials. The port's store runs one shard: the store's keyspace sharding
-is not ported, these types are.
+partials; ``runtime/store.Store(num_shards=S)`` routes over them.
 """
 
 from __future__ import annotations

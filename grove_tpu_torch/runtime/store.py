@@ -1,7 +1,6 @@
 """In-memory object store: the port's stand-in for the apiserver.
 
-Counterpart of ``grove_tpu/runtime/store.py`` over one keyspace shard (the
-store's sharding is not ported; ``num_shards`` is 1). The semantics the
+Counterpart of ``grove_tpu/runtime/store.py``. The semantics the
 controllers rely on:
 
 - resourceVersion bump per write, generation bump on spec writes only,
@@ -28,12 +27,25 @@ controllers rely on:
 - an optional authorization guard (``as_user``) and fault injectors;
 - the glass-box hooks, one boolean check each while off: the flight
   recorder's commit digests, the journeys' PodGang marks, and the wall
-  profiler's ``snapshot``, ``store-commit`` and ``status-write`` phases.
+  profiler's ``snapshot``, ``store-commit`` and ``status-write`` phases;
+- keyspace shards (``num_shards``, else ``GROVE_TPU_STORE_SHARDS``, default
+  1): namespaces hash onto S shards (``runtime/shards.shard_of``; the
+  cluster-scoped namespace "" is shard 0), each with its own object maps,
+  indices, lock, resourceVersion sequence, per-shard watch fan-out and pod
+  aggregate. A namespace-scoped read touches its owning shard only; a
+  cross-shard ``list`` merges by one (namespace, name) sort and ``scan``
+  chains the shards in index order. The scalar ``resource_version`` is the
+  sum of the shards' sequences (every commit bumps one shard by one), and
+  ``pod_summary`` folds the shards' (total, ready) partials up the
+  fan-in-8 ``ShardSummaryTree``. S=1 is the unsharded store. The
+  parallel drain's deferred fan-out and the remote-event apply are not
+  ported.
 """
 
 from __future__ import annotations
 
 import copy as _copy
+import os
 import pickle
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -56,7 +68,7 @@ from grove_tpu_torch.runtime.errors import (
     ERR_NOT_FOUND,
     GroveError,
 )
-from grove_tpu_torch.runtime.shards import ShardSummaryTree, StoreShard
+from grove_tpu_torch.runtime.shards import ShardSummaryTree, StoreShard, shard_of
 from grove_tpu_torch.utils.sanitize import store_guard_enabled
 
 ADDED = "Added"
@@ -95,7 +107,8 @@ class WatchEvent:
     blob: Optional[bytes] = field(default=None, repr=False, compare=False)
     # previous committed object on MODIFIED events (same read-only contract)
     old: Optional[object] = field(default=None, repr=False, compare=False)
-    shard: int = field(default=0, repr=False, compare=False)  # one shard here
+    # owning keyspace shard: the engine's per-shard backlogs route on it
+    shard: int = field(default=0, repr=False, compare=False)
 
     def materialize(self):
         """Private deep copy of the event payload."""
@@ -155,15 +168,32 @@ def matches_labels(obj, selector: Optional[Dict[str, str]]) -> bool:
 
 
 class Store:
-    num_shards = 1
-
-    def __init__(self, clock: Optional[Clock] = None, cache_lag: bool = False) -> None:
+    def __init__(
+        self,
+        clock: Optional[Clock] = None,
+        cache_lag: bool = False,
+        num_shards: Optional[int] = None,
+    ) -> None:
         self.clock = clock or Clock()
         self.cache_lag = cache_lag
-        self._shard = StoreShard(0, cache_lag)
-        # the cluster's (total, ready) fold: a tree of one leaf per view
-        self._summary_tree = ShardSummaryTree(1)
-        self._summary_tree_cached = ShardSummaryTree(1) if cache_lag else self._summary_tree
+        if num_shards is None:
+            num_shards = int(os.environ.get("GROVE_TPU_STORE_SHARDS", "1") or 1)
+        self.num_shards = max(1, int(num_shards))
+        self._shards: List[StoreShard] = [
+            StoreShard(i, cache_lag) for i in range(self.num_shards)
+        ]
+        self._single = self.num_shards == 1
+        # namespace -> owning shard (crc32 once per namespace)
+        self._shard_memo: Dict[str, StoreShard] = {}
+        # the level-2 fold of the shards' (total, ready) pod partials, one
+        # tree per read view; the dirty sets name the shards whose partial
+        # moved since the last read, so a read refolds only their paths
+        self._summary_tree = ShardSummaryTree(self.num_shards)
+        self._summary_tree_cached = (
+            ShardSummaryTree(self.num_shards) if cache_lag else self._summary_tree
+        )
+        self._summary_dirty = set(range(self.num_shards))
+        self._summary_dirty_cached = set(range(self.num_shards))
         self._watchers: List[Callable[[WatchEvent], None]] = []
         self._system_watchers: List[Callable[[WatchEvent], None]] = []
         # copy-on-write commits skip the canonical blob unless the store
@@ -178,6 +208,11 @@ class Store:
         # -> Optional[Exception]; a returned exception is raised before the
         # write commits
         self.error_injectors: Dict[str, Callable] = {}
+        # events carry their object's shard ("newest store wins", as the
+        # tracer's and the recorder's clocks)
+        from grove_tpu_torch.observability.events import EVENTS
+
+        EVENTS.shard_fn = self.shard_index if self.num_shards > 1 else None
 
     def _inject(self, operation: str, obj) -> None:
         injector = self.error_injectors.get(operation)
@@ -206,37 +241,89 @@ class Store:
         if not decision.allowed:
             raise GroveError(ERR_FORBIDDEN, decision.reason, operation)
 
-    # -- one shard -------------------------------------------------------
+    # -- shard routing ---------------------------------------------------
+
+    def _shard_for(self, namespace: str) -> StoreShard:
+        """Owning shard of a namespace (memoized: the router runs on every
+        read and write)."""
+        if self._single:
+            return self._shards[0]
+        shard = self._shard_memo.get(namespace)
+        if shard is None:
+            shard = self._shards[shard_of(namespace, self.num_shards)]
+            self._shard_memo[namespace] = shard
+        return shard
+
+    def _shard_of_obj(self, obj) -> StoreShard:
+        if self._single:
+            return self._shards[0]
+        return self._shard_for(obj.metadata.namespace)
 
     def shard_index(self, namespace: str) -> int:
-        return 0
+        """The keyspace map: which shard owns ``namespace``."""
+        return 0 if self._single else shard_of(namespace, self.num_shards)
+
+    def shard_resource_version(self, index: int) -> int:
+        """One shard's resourceVersion sequence."""
+        return self._shards[index].rv
 
     def shard_emitted(self, index: int) -> int:
-        """Events emitted so far (moves on every commit and delete)."""
-        return self._shard.emitted
+        """Events one shard emitted so far (moves on every commit and on
+        hard deletes, which the rv sequence skips)."""
+        return self._shards[index].emitted
+
+    def resource_version_vector(self) -> Tuple[int, ...]:
+        """Per-shard resourceVersions (the exact form of the scalar)."""
+        return tuple(s.rv for s in self._shards)
+
+    def shard_census(self) -> List[dict]:
+        """Objects and rv per shard; also sets the ``store_shard_objects``
+        and ``store_shard_rv`` gauges per shard."""
+        out = []
+        for s in self._shards:
+            n = s.object_count()
+            METRICS.set(f"store_shard_objects@{s.index}", n)
+            METRICS.set(f"store_shard_rv@{s.index}", s.rv)
+            out.append({"shard": s.index, "objects": n, "rv": s.rv})
+        return out
 
     @property
     def resource_version(self) -> int:
-        """The store's resourceVersion watermark: the count of commits."""
-        return self._shard.rv
+        """The store's resourceVersion watermark: the sum of the shards'
+        sequences, which is the count of commits."""
+        if self._single:
+            return self._shards[0].rv
+        return sum(s.rv for s in self._shards)
 
     @property
     def rv(self) -> int:
-        """The shard's resourceVersion sequence (settable: a store built
-        from another store's documents carries its watermark over)."""
-        return self._shard.rv
+        """The unsharded store's resourceVersion sequence (settable: a store
+        built from another store's documents carries its watermark over)."""
+        if not self._single:
+            raise AttributeError("a sharded store has one rv per shard")
+        return self._shards[0].rv
 
     @rv.setter
     def rv(self, value: int) -> None:
-        self._shard.rv = value
-
-    def resource_version_vector(self) -> Tuple[int, ...]:
-        """Per-shard resourceVersions (one shard here)."""
-        return (self._shard.rv,)
+        if not self._single:
+            raise AttributeError("a sharded store has one rv per shard")
+        self._shards[0].rv = value
 
     def kinds(self) -> List[str]:
         """Kinds with at least one committed object."""
-        return sorted(k for k, v in self._shard.committed.items() if v)
+        kinds = set()
+        for shard in self._shards:
+            kinds.update(k for k, v in shard.committed.items() if v)
+        return sorted(kinds)
+
+    def shard_kinds(self, index: int) -> List[str]:
+        """One shard's kinds with at least one committed object."""
+        return sorted(k for k, v in self._shards[index].committed.items() if v)
+
+    def shard_scan(self, index: int, kind: str) -> Iterator[object]:
+        """Read-only iteration over one shard's committed objects of a
+        kind (the contract of ``scan``)."""
+        yield from self._shards[index].committed.get(kind, {}).values()
 
     # -- watch -----------------------------------------------------------
 
@@ -244,18 +331,41 @@ class Store:
         """Operator-side watch (the engine)."""
         self._watchers.append(fn)
 
-    def subscribe_system(self, fn: Callable[[WatchEvent], None]) -> None:
+    def subscribe_system(
+        self, fn: Callable[[WatchEvent], None], shard: Optional[int] = None
+    ) -> None:
         """Cluster-side watch (sim kubelet, scheduler folds): delivered
-        before the operator's watchers."""
-        self._system_watchers.append(fn)
+        before the operator's watchers. With ``shard=k`` only shard k's
+        events reach ``fn``, delivered before the store-wide watchers."""
+        if shard is None:
+            self._system_watchers.append(fn)
+        else:
+            self._shards[shard].system_watchers.append(fn)
 
-    def _emit(self, type_: str, obj, blob: Optional[bytes], old=None) -> None:
-        shard = self._shard
-        ev = WatchEvent(type=type_, kind=obj.kind, obj=obj, blob=blob, old=old)
+    def subscribe_system_per_shard(self, fn: Callable[[WatchEvent], None]) -> None:
+        """Register ``fn`` on every shard's own fan-out (folds whose
+        per-object streams never straddle shards: the quota accountant, the
+        delta state). At S=1 it is delivered as ``subscribe_system``'s
+        watchers are, ahead of them."""
+        for s in self._shards:
+            s.system_watchers.append(fn)
+
+    def _emit(
+        self, type_: str, obj, blob: Optional[bytes], old=None,
+        shard: Optional[StoreShard] = None,
+    ) -> None:
+        if shard is None:
+            shard = self._shard_of_obj(obj)
+        ev = WatchEvent(
+            type=type_, kind=obj.kind, obj=obj, blob=blob, old=old, shard=shard.index
+        )
         shard.emitted += 1
-        # fold the delta into the committed view's pod aggregate (kind-gated
-        # inside; `old` is the previous committed object)
+        # fold the delta into the owning shard's pod aggregate (kind-gated
+        # inside; `old` is the previous committed object); the summary tree
+        # refolds that shard's path at the next read
         shard.agg_committed.apply(type_, obj, old)
+        if obj.kind == "Pod":
+            self._summary_dirty.add(shard.index)
         if FLIGHTREC.enabled:
             FLIGHTREC.note_commit(ev)
         if JOURNEYS.enabled and obj.kind == "PodGang":
@@ -263,6 +373,10 @@ class Store:
                 JOURNEYS.note_created(obj.metadata.namespace, obj.metadata.name)
             elif type_ == DELETED:
                 JOURNEYS.note_deleted(obj.metadata.namespace, obj.metadata.name)
+        # the owning shard's subscribers, then the store-wide system
+        # watchers, then the operator's
+        for w in shard.system_watchers:
+            w(ev)
         for w in self._system_watchers:
             w(ev)
         for w in self._watchers:
@@ -272,29 +386,33 @@ class Store:
 
     def sync_cache(self) -> None:
         """Advance the whole read cache to the committed state."""
-        for kind in list(self._shard.committed):
+        kinds = set()
+        for shard in self._shards:
+            kinds.update(shard.committed)
+        for kind in sorted(kinds):
             self.sync_cache_kind(kind)
 
     def sync_cache_kind(self, kind: str) -> None:
         """Advance one kind's cache (that kind's informer resyncing).
         Committed objects are immutable, so the cache shares them."""
-        shard = self._shard
-        shard.cache[kind] = dict(shard.committed.get(kind, {}))
-        shard.cache_blob[kind] = dict(shard.blob.get(kind, {}))
-        index: Dict[tuple, set] = {}
-        ns_index: Dict[str, Dict[str, None]] = {}
-        for key, obj in shard.cache[kind].items():
-            _index_insert(index, obj)
-            ns_index.setdefault(obj.metadata.namespace, {})[key] = None
-        shard.cache_label_index[kind] = index
-        shard.cache_ns_index[kind] = ns_index
-        if kind == "Pod" and self.cache_lag:
-            shard.agg_cached.rebuild(shard.cache[kind].values())
+        for shard in self._shards:
+            shard.cache[kind] = dict(shard.committed.get(kind, {}))
+            shard.cache_blob[kind] = dict(shard.blob.get(kind, {}))
+            index: Dict[tuple, set] = {}
+            ns_index: Dict[str, Dict[str, None]] = {}
+            for key, obj in shard.cache[kind].items():
+                _index_insert(index, obj)
+                ns_index.setdefault(obj.metadata.namespace, {})[key] = None
+            shard.cache_label_index[kind] = index
+            shard.cache_ns_index[kind] = ns_index
+            if kind == "Pod" and self.cache_lag:
+                shard.agg_cached.rebuild(shard.cache[kind].values())
+                self._summary_dirty_cached.add(shard.index)
 
     def apply_event_to_cache(self, ev: WatchEvent) -> None:
         """Apply one delivered watch event to the read cache (the informer's
-        incremental update)."""
-        shard = self._shard
+        incremental update), in the shard the event carries."""
+        shard = self._shards[ev.shard]
         kind_cache = shard.cache.setdefault(ev.kind, {})
         kind_blob = shard.cache_blob.setdefault(ev.kind, {})
         kind_index = shard.cache_label_index.setdefault(ev.kind, {})
@@ -305,6 +423,7 @@ class Store:
             # the cached view advances exactly here: fold the same delta
             # into its aggregate (without lag the two views are one)
             shard.agg_cached.apply(ev.type, ev.obj, old)
+            self._summary_dirty_cached.add(shard.index)
         if old is not None:
             _index_delete(kind_index, old)
         if ev.type == DELETED:
@@ -329,28 +448,46 @@ class Store:
     def pod_counters(self, namespace: str, name: str, cached: bool = False):
         """Aggregated pod-status counters of one PodClique, equal to a full
         rescan of the view the caller would have scanned (committed, or the
-        lagged cache with ``cached=True``). The row is read-only."""
-        shard = self._shard
+        lagged cache with ``cached=True``), read from the namespace's owning
+        shard. The row is read-only."""
+        shard = self._shard_for(namespace)
         agg = shard.agg_cached if (cached and self.cache_lag) else shard.agg_committed
         return agg.counters(namespace, name)
 
     def pod_summary(self, cached: bool = False) -> Tuple[int, int]:
-        """Cluster-wide (total, ready) over live (non-terminating) pods.
-        The JAX store folds its shards' partials up a fan-in-8 tree; one
-        shard is a tree of depth 1 whose root is that shard's partial."""
+        """Cluster-wide (total, ready) over live (non-terminating) pods: the
+        shards' partials folded up the level-2 summary tree. Shards whose
+        partial moved since the last read are refolded: the whole tree when
+        more than half moved, else each one's ancestor path."""
         use_cache = cached and self.cache_lag
         tree = self._summary_tree_cached if use_cache else self._summary_tree
-        agg = self._shard.agg_cached if use_cache else self._shard.agg_committed
-        tree.update_leaf(0, (agg.grand_total, agg.grand_ready))
+        dirty = self._summary_dirty_cached if use_cache else self._summary_dirty
+        drained = sorted(dirty)
+        dirty.clear()
+        if drained:
+
+            def partial(s: StoreShard) -> Tuple[int, int]:
+                agg = s.agg_cached if use_cache else s.agg_committed
+                return (agg.grand_total, agg.grand_ready)
+
+            if 2 * len(drained) > self.num_shards:
+                tree.refold([partial(s) for s in self._shards])
+            else:
+                for i in drained:
+                    tree.update_leaf(i, partial(self._shards[i]))
         METRICS.set("aggregate_fold_depth", tree.depth)
         return tree.root()
 
+    def fold_depth_histogram(self) -> List[int]:
+        """Nodes per level of the level-2 fold tree, leaves first."""
+        return self._summary_tree.fold_depth_histogram()
+
     # -- indices ---------------------------------------------------------
 
-    def _candidates(self, kind, namespace, selector, use_cache, view) -> List[object]:
-        """Smallest indexed candidate set: an indexed label of the selector,
-        else the namespace's keys, else every object of the kind."""
-        shard = self._shard
+    def _shard_candidates(self, shard, kind, namespace, selector, use_cache, view) -> List[object]:
+        """Smallest indexed candidate set within one shard: an indexed label
+        of the selector, else the namespace's keys, else every object of
+        the kind."""
         if selector:
             index = (shard.cache_label_index if use_cache else shard.label_index).get(kind)
             if index is not None:
@@ -374,11 +511,13 @@ class Store:
 
     # -- commits ---------------------------------------------------------
 
-    def _commit(self, stored, blob: Optional[bytes] = None, serialize: bool = True):
-        """Commit ``stored`` as the new immutable committed state (never
-        mutated afterwards). With ``serialize=False`` (copy-on-write
-        commits) no blob is computed: mutable reads deep-copy instead."""
-        shard = self._shard
+    def _commit(
+        self, shard: StoreShard, stored, blob: Optional[bytes] = None, serialize: bool = True
+    ):
+        """Commit ``stored`` as the owning shard's new immutable committed
+        state (never mutated afterwards). With ``serialize=False``
+        (copy-on-write commits) no blob is computed: mutable reads
+        deep-copy instead."""
         if blob is None and serialize:
             blob = _dumps(stored)
         key = obj_key(stored)
@@ -393,8 +532,7 @@ class Store:
         ] = None
         return blob
 
-    def _uncommit(self, obj) -> Optional[bytes]:
-        shard = self._shard
+    def _uncommit(self, shard: StoreShard, obj) -> Optional[bytes]:
         key = obj_key(obj)
         shard.committed.get(obj.kind, {}).pop(key, None)
         blob = shard.blob.get(obj.kind, {}).pop(key, None)
@@ -414,7 +552,12 @@ class Store:
         number of objects verified."""
         checked = 0
         self.unverified_readonly = 0
-        shard = self._shard
+        for shard in self._shards:
+            checked += self._verify_shard_readonly(shard)
+        return checked
+
+    def _verify_shard_readonly(self, shard: StoreShard) -> int:
+        checked = 0
         for kind, view in shard.committed.items():
             blobs = shard.blob.get(kind, {})
             for key, obj in view.items():
@@ -436,6 +579,9 @@ class Store:
 
     # -- reads -----------------------------------------------------------
 
+    def _shard_blobs(self, shard: StoreShard, use_cache: bool, kind: str) -> Dict[str, bytes]:
+        return (shard.cache_blob if use_cache else shard.blob).get(kind, {})
+
     def get(
         self,
         kind: str,
@@ -449,17 +595,44 @@ class Store:
         prof = PROFILER.phase(PHASE_SNAPSHOT) if PROFILER.enabled else None
         try:
             use_cache = cached and self.cache_lag
-            shard = self._shard
+            shard = self._shard_for(namespace)
             key = f"{namespace}/{name}"
             obj = (shard.cache if use_cache else shard.committed).get(kind, {}).get(key)
             if obj is None:
                 return None
             if readonly:
                 return obj
-            return _materialize(obj, (shard.cache_blob if use_cache else shard.blob).get(kind, {}).get(key))
+            return _materialize(obj, self._shard_blobs(shard, use_cache, kind).get(key))
         finally:
             if prof is not None:
                 prof.end()
+
+    def _shards_for_read(self, namespace: Optional[str]):
+        """The owner for a namespace-scoped read, every shard (in index
+        order) otherwise."""
+        if namespace is None:
+            return self._shards
+        return (self._shard_for(namespace),)
+
+    def _scan_shard(
+        self,
+        shard: StoreShard,
+        kind: str,
+        namespace: Optional[str],
+        label_selector: Optional[Dict[str, str]],
+        use_cache: bool,
+    ) -> Iterator[object]:
+        """One shard's slice of a scan (shared by scan and list)."""
+        view = (shard.cache if use_cache else shard.committed).get(kind, {})
+        if not view:
+            return
+        for obj in self._shard_candidates(
+            shard, kind, namespace, label_selector, use_cache, view
+        ):
+            if namespace is not None and obj.metadata.namespace != namespace:
+                continue
+            if matches_labels(obj, label_selector):
+                yield obj
 
     def scan(
         self,
@@ -469,16 +642,11 @@ class Store:
         cached: bool = False,
     ) -> Iterator[object]:
         """Read-only iteration over the matching objects (unsorted; callers
-        must not mutate them)."""
+        must not mutate them). A namespace-scoped scan touches only the
+        owning shard; otherwise the shards chain in index order."""
         use_cache = cached and self.cache_lag
-        view = (self._shard.cache if use_cache else self._shard.committed).get(kind, {})
-        if not view:
-            return
-        for obj in self._candidates(kind, namespace, label_selector, use_cache, view):
-            if namespace is not None and obj.metadata.namespace != namespace:
-                continue
-            if matches_labels(obj, label_selector):
-                yield obj
+        for shard in self._shards_for_read(namespace):
+            yield from self._scan_shard(shard, kind, namespace, label_selector, use_cache)
 
     def list(
         self,
@@ -488,15 +656,15 @@ class Store:
         cached: bool = False,
     ) -> List[object]:
         """Private copies of the matching objects, sorted by (namespace,
-        name)."""
+        name) across shards."""
         prof = PROFILER.phase(PHASE_SNAPSHOT) if PROFILER.enabled else None
         try:
             use_cache = cached and self.cache_lag
-            blobs = (self._shard.cache_blob if use_cache else self._shard.blob).get(kind, {})
-            out = [
-                _materialize(obj, blobs.get(obj_key(obj)))
-                for obj in self.scan(kind, namespace, label_selector, cached)
-            ]
+            out = []
+            for shard in self._shards_for_read(namespace):
+                blobs = self._shard_blobs(shard, use_cache, kind)
+                for obj in self._scan_shard(shard, kind, namespace, label_selector, use_cache):
+                    out.append(_materialize(obj, blobs.get(obj_key(obj))))
             out.sort(key=lambda o: (o.metadata.namespace, o.metadata.name))
             return out
         finally:
@@ -516,13 +684,14 @@ class Store:
         try:
             self._authorize("create", obj)
             self._inject("create", obj)
-            return self._create(obj, consume, share)
+            shard = self._shard_of_obj(obj)
+            with shard.lock:
+                return self._create_locked(shard, obj, consume, share)
         finally:
             if prof is not None:
                 prof.end()
 
-    def _create(self, obj, consume: bool, share: bool) -> object:
-        shard = self._shard
+    def _create_locked(self, shard: StoreShard, obj, consume: bool, share: bool) -> object:
         key = obj_key(obj)
         if key in shard.committed.setdefault(obj.kind, {}):
             raise GroveError(ERR_CONFLICT, f"{obj.kind} {key} already exists", "create")
@@ -534,8 +703,8 @@ class Store:
             meta.generation = 1
             meta.creation_timestamp = self.clock.now()
             blob = _dumps(obj) if self._guard_blobs else None
-            self._commit(obj, blob, serialize=False)
-            self._emit(ADDED, obj, blob)
+            self._commit(shard, obj, blob, serialize=False)
+            self._emit(ADDED, obj, blob, shard=shard)
             return obj
         if share:
             stored = _copy.copy(obj)
@@ -546,8 +715,8 @@ class Store:
             meta.generation = 1
             meta.creation_timestamp = self.clock.now()
             blob = _dumps(stored) if self._guard_blobs else None
-            self._commit(stored, blob, serialize=False)
-            self._emit(ADDED, stored, blob)
+            self._commit(shard, stored, blob, serialize=False)
+            self._emit(ADDED, stored, blob, shard=shard)
             return stored
         # serialize once with the final identity stamped: the same bytes are
         # the private committed copy and the canonical blob
@@ -563,8 +732,8 @@ class Store:
             stored = pickle.loads(blob) if blob is not None else deep_copy(obj)
         finally:
             meta.uid, meta.resource_version, meta.generation, meta.creation_timestamp = saved
-        self._commit(stored, blob)
-        self._emit(ADDED, stored, blob)
+        self._commit(shard, stored, blob)
+        self._emit(ADDED, stored, blob, shard=shard)
         sm = stored.metadata
         meta.uid = sm.uid
         meta.resource_version = sm.resource_version
@@ -578,13 +747,14 @@ class Store:
         committed object commits nothing."""
         prof = PROFILER.phase(PHASE_STORE_COMMIT) if PROFILER.enabled else None
         try:
-            return self._update(obj, bump_generation)
+            shard = self._shard_of_obj(obj)
+            with shard.lock:
+                return self._update_locked(shard, obj, bump_generation)
         finally:
             if prof is not None:
                 prof.end()
 
-    def _update(self, obj, bump_generation: bool) -> object:
-        shard = self._shard
+    def _update_locked(self, shard: StoreShard, obj, bump_generation: bool) -> object:
         key = obj_key(obj)
         current = shard.committed.get(obj.kind, {}).get(key)
         if current is None:
@@ -619,8 +789,8 @@ class Store:
         if stored is not None:
             shard.rv += 1
             _index_delete(shard.label_index.get(current.kind, {}), current)
-            self._commit(stored, blob)
-            self._emit(MODIFIED, stored, blob, old=current)
+            self._commit(shard, stored, blob)
+            self._emit(MODIFIED, stored, blob, old=current, shard=shard)
         # the caller's object carries the committed identity
         meta.resource_version = committed.metadata.resource_version
         meta.generation = committed.metadata.generation
@@ -651,13 +821,18 @@ class Store:
             only_status = status is not _UNSET and spec is _UNSET and metadata is _UNSET
             prof = PROFILER.phase(PHASE_STATUS_WRITE if only_status else PHASE_STORE_COMMIT)
         try:
-            return self._commit_cow(view, status, spec, metadata, bump_generation)
+            shard = self._shard_of_obj(view)
+            with shard.lock:
+                return self._commit_cow_locked(
+                    shard, view, status, spec, metadata, bump_generation
+                )
         finally:
             if prof is not None:
                 prof.end()
 
-    def _commit_cow(self, view, status, spec, metadata, bump_generation: bool) -> object:
-        shard = self._shard
+    def _commit_cow_locked(
+        self, shard: StoreShard, view, status, spec, metadata, bump_generation: bool
+    ) -> object:
         key = obj_key(view)
         current = shard.committed.get(view.kind, {}).get(key)
         if current is None:
@@ -695,8 +870,8 @@ class Store:
             meta.generation = current.metadata.generation + 1
         blob = _dumps(stored) if self._guard_blobs else None
         _index_delete(shard.label_index.get(current.kind, {}), current)
-        self._commit(stored, blob, serialize=False)
-        self._emit(MODIFIED, stored, blob, old=current)
+        self._commit(shard, stored, blob, serialize=False)
+        self._emit(MODIFIED, stored, blob, old=current, shard=shard)
         return stored
 
     def delete(self, kind: str, namespace: str, name: str) -> None:
@@ -704,61 +879,68 @@ class Store:
         timestamp instead and stays until they drain."""
         prof = PROFILER.phase(PHASE_STORE_COMMIT) if PROFILER.enabled else None
         try:
-            shard = self._shard
-            key = f"{namespace}/{name}"
-            obj = shard.committed.get(kind, {}).get(key)
-            if obj is None:
-                raise GroveError(ERR_NOT_FOUND, f"{kind} {key} not found", "delete")
-            self._authorize("delete", obj)
-            self._inject("delete", obj)
-            if obj.metadata.finalizers:
-                if obj.metadata.deletion_timestamp is None:
-                    stored = _materialize(obj, shard.blob.get(kind, {}).get(key))
-                    stored.metadata.deletion_timestamp = self.clock.now()
-                    shard.rv += 1
-                    stored.metadata.resource_version = shard.rv
-                    _index_delete(shard.label_index.get(kind, {}), obj)
-                    blob = self._commit(stored)
-                    self._emit(MODIFIED, stored, blob, old=obj)
-                return
-            blob = self._uncommit(obj)
-            self._emit(DELETED, obj, blob)
+            shard = self._shard_for(namespace)
+            with shard.lock:
+                self._delete_locked(shard, kind, namespace, name)
         finally:
             if prof is not None:
                 prof.end()
 
-    def remove_finalizer(self, kind: str, namespace: str, name: str, finalizer: str) -> None:
-        shard = self._shard
+    def _delete_locked(self, shard: StoreShard, kind: str, namespace: str, name: str) -> None:
         key = f"{namespace}/{name}"
         obj = shard.committed.get(kind, {}).get(key)
         if obj is None:
+            raise GroveError(ERR_NOT_FOUND, f"{kind} {key} not found", "delete")
+        self._authorize("delete", obj)
+        self._inject("delete", obj)
+        if obj.metadata.finalizers:
+            if obj.metadata.deletion_timestamp is None:
+                stored = _materialize(obj, shard.blob.get(kind, {}).get(key))
+                stored.metadata.deletion_timestamp = self.clock.now()
+                shard.rv += 1
+                stored.metadata.resource_version = shard.rv
+                _index_delete(shard.label_index.get(kind, {}), obj)
+                blob = self._commit(shard, stored)
+                self._emit(MODIFIED, stored, blob, old=obj, shard=shard)
             return
-        self._authorize("update", obj)
-        self._inject("update", obj)
-        if finalizer in obj.metadata.finalizers:
-            stored = _materialize(obj, shard.blob.get(kind, {}).get(key))
-            stored.metadata.finalizers.remove(finalizer)
-            shard.rv += 1
-            stored.metadata.resource_version = shard.rv
-            _index_delete(shard.label_index.get(kind, {}), obj)
-            blob = self._commit(stored)
-            self._emit(MODIFIED, stored, blob, old=obj)
-        self.complete_deletion_if_drained(kind, namespace, name)
+        blob = self._uncommit(shard, obj)
+        self._emit(DELETED, obj, blob, shard=shard)
+
+    def remove_finalizer(self, kind: str, namespace: str, name: str, finalizer: str) -> None:
+        shard = self._shard_for(namespace)
+        with shard.lock:
+            key = f"{namespace}/{name}"
+            obj = shard.committed.get(kind, {}).get(key)
+            if obj is None:
+                return
+            self._authorize("update", obj)
+            self._inject("update", obj)
+            if finalizer in obj.metadata.finalizers:
+                stored = _materialize(obj, shard.blob.get(kind, {}).get(key))
+                stored.metadata.finalizers.remove(finalizer)
+                shard.rv += 1
+                stored.metadata.resource_version = shard.rv
+                _index_delete(shard.label_index.get(kind, {}), obj)
+                blob = self._commit(shard, stored)
+                self._emit(MODIFIED, stored, blob, old=obj, shard=shard)
+            self.complete_deletion_if_drained(kind, namespace, name)
 
     def complete_deletion_if_drained(self, kind: str, namespace: str, name: str) -> bool:
         """Finish a finalizer-gated deletion once the finalizers have
         drained (the apiserver deletes an object whose deletionTimestamp is
         set and whose finalizer list became empty)."""
-        obj = self._shard.committed.get(kind, {}).get(f"{namespace}/{name}")
-        if (
-            obj is not None
-            and obj.metadata.deletion_timestamp is not None
-            and not obj.metadata.finalizers
-        ):
-            blob = self._uncommit(obj)
-            self._emit(DELETED, obj, blob)
-            return True
-        return False
+        shard = self._shard_for(namespace)
+        with shard.lock:  # reentrant from remove_finalizer
+            obj = shard.committed.get(kind, {}).get(f"{namespace}/{name}")
+            if (
+                obj is not None
+                and obj.metadata.deletion_timestamp is not None
+                and not obj.metadata.finalizers
+            ):
+                blob = self._uncommit(shard, obj)
+                self._emit(DELETED, obj, blob, shard=shard)
+                return True
+            return False
 
     def delete_collection(
         self,

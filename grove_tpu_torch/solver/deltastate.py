@@ -27,8 +27,10 @@ recount audit falls back to a full re-encode through the same assembly code,
 so the delta and full paths cannot diverge; ``GangScheduler.delta_selfcheck``
 holds every delta problem and solve to a from-scratch one.
 
-The port's store has one shard: its watch delivers every event in commit
-order through ``subscribe_system``.
+An unsharded store delivers every event in commit order through
+``subscribe_system``; a keyspace-sharded one through each shard's own
+fan-out (``subscribe_system_per_shard``): an object's events never
+straddle shards, so every order the fold depends on holds.
 """
 
 from __future__ import annotations

@@ -79,8 +79,34 @@ commits follows the string hash: the script re-runs itself under
 ``--sets N --nodes M`` cuts the world, ``--update-every K`` (a multiple of
 16) thins the rolling update.
 
-A world can be cut for a quick look: ``--nodes N --gangs G`` (and
-``--ticks T --seed S`` for ``delta``).
+``churn`` is the churn world (``run_churn_world``, (kappa)): the operator
+world (iota) converged and rolled as ``operator`` runs it, then the JAX
+``sim/deltachurn.delta_artifact`` on that harness with ``--churn-ticks``
+churn ticks (96 in the bench) and ``--fullpath-ticks`` comparison ticks (32),
+every schedule call recorded (``round_summary``, the delta counters, the
+self-check flag) beside the artifact's report less its times.
+``chip_smoke.py`` holds the port's ``[churn]`` phase to it
+(``JAX_CHURN_REFERENCE``). ``--sets N --nodes M`` cuts (iota) as for
+``operator``.
+
+``scale`` is the sharded A/Bs (``run_scale_world``, (lambda)): the JAX
+``sim/scale.frontier_ab`` at ``--frontier-shape SETS NODES`` (4,096 sets on
+6,400 nodes: the bench's full-size shape) and ``inert_ab`` at
+``--inert-shape SETS NODES`` (192 on 64), both at ``--shards`` (8); every
+retired harness is read before it is released (the canonical dump's
+digest, census, scalar resourceVersion, reconciles, frontier counters).
+``chip_smoke.py``'s ``[scale]`` holds the port to it
+(``JAX_SCALE_REFERENCE``).
+
+``sims`` is the small scenarios (``run_sims_world``, (nu)) at the JAX
+package's own shapes: the contended quota run, the single-queue A/B, the
+explain scenario's documents, the drain artifact, the run-level churn A/B
+and the demo on simple1.yaml. ``chip_smoke.py``'s ``[sims]`` holds the port
+to it (``JAX_SIMS_REFERENCE``).
+
+``operator``, ``churn``, ``scale`` and ``sims`` re-run the script under
+``PYTHONHASHSEED=0`` unless that is set. A world can be cut for a quick
+look: ``--nodes N --gangs G`` (and ``--ticks T --seed S`` for ``delta``).
 """
 
 from __future__ import annotations
@@ -124,7 +150,13 @@ from grove_tpu.api.pod import is_ready  # noqa: E402
 from grove_tpu.api.serialize import export_object  # noqa: E402
 from grove_tpu.config.operator import OperatorConfiguration  # noqa: E402
 from grove_tpu.sim.harness import SimHarness  # noqa: E402
+from tests.torch_sim_sides import sim_side  # noqa: E402
 from grove_tpu_torch.models.scenarios import (  # noqa: E402
+    CHURN_FULLPATH_TICKS,
+    CHURN_TICKS,
+    SCALE_FRONTIER_SHAPE,
+    SCALE_INERT_SHAPE,
+    SCALE_SHARDS,
     EventCapture,
     apply_tick,
     delta_counters,
@@ -138,8 +170,12 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     run_disruption_world,
     run_operator_world,
     run_samples_world,
+    run_churn_world,
+    run_scale_world,
+    run_sims_world,
     run_slo_world,
     scheduler_world,
+    sims_missing,
 )
 
 
@@ -271,10 +307,14 @@ def run_disruption(n_nodes=None, n_gangs=None, seed=0) -> dict:
     return out
 
 
+HASHED_WORLDS = ("operator", "churn", "scale", "sims")
+
+
 def name_needs_seed() -> bool:
-    """True when ``operator`` is asked for and the string hash is not
-    pinned to seed 0 (see the module docstring)."""
-    return "operator" in sys.argv[1:] and os.environ.get("PYTHONHASHSEED") != "0"
+    """True when a world that runs the controllers is asked for and the
+    string hash is not pinned to seed 0 (see the module docstring)."""
+    return (any(w in sys.argv[1:] for w in HASHED_WORLDS)
+            and os.environ.get("PYTHONHASHSEED") != "0")
 
 
 def run_operator(n_sets=None, n_nodes=None, update_every=None) -> dict:
@@ -299,6 +339,44 @@ def run_operator(n_sets=None, n_nodes=None, update_every=None) -> dict:
     return out
 
 
+def run_churn(n_sets=None, n_nodes=None, update_every=None, ticks=CHURN_TICKS,
+              fullpath_ticks=CHURN_FULLPATH_TICKS) -> dict:
+    side = sim_side("grove_tpu")
+
+    def after(index, wall_s, tick):
+        print(f"[churn] tick {index} ({wall_s:.3f} s): bound {tick['bound']} self-check"
+              f" {tick['selfcheck']} {json.dumps(tick['round']['events_by_reason'])}",
+              file=sys.stderr, flush=True)
+
+    out = run_operator_world(side, n_sets, n_nodes, update_every, then=lambda h: run_churn_world(
+        side, h, ticks=ticks, fullpath_ticks=fullpath_ticks, after_tick=after))
+    churn = out["then"]
+    print(f"[churn] times {json.dumps(churn.pop('times'))}", file=sys.stderr, flush=True)
+    churn["world"] = {**out["world"], "ticks": ticks, "fullpath_ticks": fullpath_ticks}
+    return churn
+
+
+def run_scale(frontier_shape=SCALE_FRONTIER_SHAPE, inert_shape=SCALE_INERT_SHAPE,
+              shards=SCALE_SHARDS) -> dict:
+    out = run_scale_world(sim_side("grove_tpu"), tuple(frontier_shape), tuple(inert_shape),
+                          shards)
+    assert not out["spread_problems"], out["spread_problems"]
+    print(f"[scale] times {json.dumps(out.pop('times'))}", file=sys.stderr, flush=True)
+    return out
+
+
+def run_sims() -> dict:
+    def after(name, wall_s, result):
+        print(f"[sims] {name} ({wall_s:.3f} s): {json.dumps(result)[:400]}", file=sys.stderr,
+              flush=True)
+
+    out = run_sims_world(sim_side("grove_tpu"), after=after)
+    missing = sims_missing(out)
+    assert not missing, f"the scenarios did not show: {missing}"
+    out.pop("times")
+    return out
+
+
 def main() -> int:
     if name_needs_seed():
         os.execve(sys.executable, [sys.executable] + sys.argv,
@@ -311,11 +389,23 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--sets", type=int, default=None)
     parser.add_argument("--update-every", type=int, default=None)
+    parser.add_argument("--churn-ticks", type=int, default=CHURN_TICKS)
+    parser.add_argument("--fullpath-ticks", type=int, default=CHURN_FULLPATH_TICKS)
+    parser.add_argument("--frontier-shape", type=int, nargs=2, default=SCALE_FRONTIER_SHAPE)
+    parser.add_argument("--inert-shape", type=int, nargs=2, default=SCALE_INERT_SHAPE)
+    parser.add_argument("--shards", type=int, default=SCALE_SHARDS)
     args = parser.parse_args()
     out = {"jax": jax.__version__, "backend": jax.default_backend()}
     for name in args.worlds:
         if name == "operator":
             out[name] = run_operator(args.sets, args.nodes, args.update_every)
+        elif name == "churn":
+            out[name] = run_churn(args.sets, args.nodes, args.update_every, args.churn_ticks,
+                                  args.fullpath_ticks)
+        elif name == "scale":
+            out[name] = run_scale(args.frontier_shape, args.inert_shape, args.shards)
+        elif name == "sims":
+            out[name] = run_sims()
         elif name == "observe":
             out[name] = run_observe(args.nodes, args.gangs)
         elif name == "slo":

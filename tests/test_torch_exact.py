@@ -2,7 +2,9 @@
 
 ``ops.packing.gang_select_and_fill`` / ``solve_packing`` and
 ``solver.kernel.solve`` against ``grove_tpu``'s functions of the same
-names, and against ``grove_tpu.solver.oracle.solve_oracle``. Problems are
+names, and against ``grove_tpu.solver.oracle.solve_oracle`` and the port's
+own ``grove_tpu_torch.solver.oracle.solve_oracle`` (equal to it bit for bit:
+``tests/test_torch_oracle.py``). Problems are
 encoded once by the JAX package and carried across with
 ``problem_from_arrays``. Integer, bool and capacity results are compared
 bit for bit (capacity by its bits, so -0.0 and +0.0 differ); the
@@ -25,6 +27,7 @@ from grove_tpu.solver.encode import build_problem as j_build_problem
 from grove_tpu.solver.kernel import solve as j_solve
 from grove_tpu.solver.oracle import solve_oracle
 from grove_tpu_torch.convert import problem_from_arrays
+from grove_tpu_torch.solver.oracle import solve_oracle as t_solve_oracle
 from grove_tpu_torch.ops import packing as tp
 from grove_tpu_torch.ops.fill import fill_batch
 from grove_tpu_torch.solver import kernel as tk
@@ -84,11 +87,12 @@ def test_solve_matches_jax_and_oracle(seed, with_alloc):
     assert_same_exact(got, want)
     assert got.solve_seconds > 0
     oracle = solve_oracle(problem)
-    assert list(got.admitted) == list(oracle.admitted)
-    np.testing.assert_array_equal(got.placed, oracle.placed)
-    np.testing.assert_allclose(got.score, oracle.score, rtol=1e-5, atol=1e-6)
-    if with_alloc:
-        np.testing.assert_array_equal(got.alloc, oracle.alloc.astype(got.alloc.dtype))
+    for ref in (oracle, t_solve_oracle(problem_from_arrays(problem))):
+        assert list(got.admitted) == list(ref.admitted)
+        np.testing.assert_array_equal(got.placed, ref.placed)
+        np.testing.assert_allclose(got.score, ref.score, rtol=1e-5, atol=1e-6)
+        if with_alloc:
+            np.testing.assert_array_equal(got.alloc, ref.alloc.astype(got.alloc.dtype))
 
 
 @pytest.fixture(scope="module")
@@ -108,6 +112,7 @@ def test_flagged_solve_matches_jax_and_oracle(flagged, with_alloc):
     got = tk.solve(port_problem, with_alloc=with_alloc, device="cpu")
     assert_same_exact(got, want)
     assert list(got.admitted) == list(oracle.admitted)
+    assert list(got.admitted) == list(t_solve_oracle(port_problem).admitted)
     assert 0 < got.admitted.sum() < len(got.admitted)
 
 

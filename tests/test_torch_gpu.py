@@ -993,13 +993,13 @@ def test_cuda_operator_world_equals_the_cpu_run(cuda):
     port's SimHarness on the card equals the same cut on the CPU (which the
     CPU tests hold against the JAX package) tick by tick, the placement
     score sum at rtol 1e-6; the converge launches the fill kernel."""
-    from chip_smoke import operator_pkg
-    from grove_tpu_torch.models.scenarios import operator_missing, run_operator_world
+    from grove_tpu_torch.models.scenarios import (
+        operator_missing, port_names, run_operator_world)
 
     runs = []
     for device in ("cpu", "cuda"):
         fill_batch.launches = 0
-        runs.append(run_operator_world(operator_pkg(), 128, 256, device=device))
+        runs.append(run_operator_world(port_names(), 128, 256, device=device))
         runs[-1].pop("walls")
     assert fill_batch.launches > 0
     assert not operator_missing(runs[1])
@@ -1021,11 +1021,10 @@ def test_cuda_queue_sample_launches_both_drf_kernels(cuda):
     """The Queue sample through the port's harness on the card: its two
     Queues bring the DRF order onto the converge, both kernels launch, and
     the store equals the CPU run's."""
-    from chip_smoke import operator_pkg
-    from grove_tpu_torch.models.scenarios import SAMPLES_DIR, store_digest
+    from grove_tpu_torch.models.scenarios import SAMPLES_DIR, port_names, store_digest
     from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
 
-    pkg = operator_pkg()
+    pkg = port_names()
     text = (SAMPLES_DIR / "multitenant-queues.yaml").read_text()
     digests = []
     for device in ("cpu", "cuda"):

@@ -52,7 +52,9 @@ def test_port_modules_import_with_jax_and_grove_tpu_blocked():
                  "controller.podcliqueset.components.scalinggroup",
                  "controller.podcliqueset.components.rollingupdate",
                  "controller.podcliquescalinggroup.reconciler", "utils.concurrent",
-                 "initc.waiter", "sim.harness"):
+                 "initc.waiter", "sim.harness", "sim.deltachurn", "sim.scale",
+                 "sim.multitenant", "sim.voluntary", "sim.demo", "sim.recovery",
+                 "solver.oracle"):
         assert f"grove_tpu_torch.{name}" in mods
     script = textwrap.dedent(
         f"""

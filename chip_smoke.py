@@ -45,19 +45,20 @@ Phases (any failure raises and the script exits non-zero):
      against the JAX package's. Launch counts are set to 0 just before
      each solve and read just after it.
   6. each solver with the kernel vs the same solver with the plain fill,
-     on reduced problems (1,024 nodes; stress and non-uniform at 1,024
-     gangs, grouped, pinned and spread at 512): the binding path, the
-     stats path and the exact solve (of the first 256 gangs), every result
+     on reduced problems (1,024 nodes; stress and non-uniform at 512
+     gangs, grouped, pinned and spread at 256): the binding path, the
+     stats path and the exact solve (of the first 128 gangs), every result
      field bit-equal.
   7. [sched] the scheduler round end to end (solver/scheduler.GangScheduler
      over the port's store and simulated cluster, built from wire documents
      by models/scenarios.scheduler_world) on the card: (s) 10,240 stress
      gangs in one namespace on 5,120 nodes, an admission round and an
      upkeep round; (q) the same gangs over eight tenant queues, one round
-     with the DRF order; (r) 512 nodes, 1,024 gangs of one tenant, then 528
-     more of three others (16 of priority 100): reclaim and preemption with
-     their trial solves. Every round is held against the JAX package's
-     (JAX_SCHEDULER_REFERENCE, from scripts/scheduler_reference.py): the
+     with the DRF order; (r) cut to 256 nodes, 512 gangs of one tenant,
+     then 264 more of three others (8 of priority 100): reclaim and
+     preemption with their trial solves. Every round is held against the
+     JAX package's (JAX_SCHEDULER_REFERENCE, from
+     scripts/scheduler_reference.py): the
      bindings' hash, admissions, evictions, per-queue counts and event
      counts equal, the score sum at rtol 1e-6; and checked valid (usage <=
      capacity, floors met, required packs in one domain). Prints each
@@ -223,14 +224,49 @@ Phases (any failure raises and the script exits non-zero):
      spread over two or more shards; the first two fill launches of each
      solve kind (global, stacked) and the first of each other shape held
      against the plain fill. Prints both walls, both solver times and the
-     speedups (reported, not gated).
+     speedups (reported, not gated). Then (pi), the JAX bench's full-size
+     configuration at that shape (models/scenarios.run_parallel_world):
+     sim/scale.converge_population(4096, 6400, 8, frontier=True,
+     glassbox=True, workers=4) through the process drain
+     (runtime/procworkers.py, GROVE_TPU_CP_BACKEND=process: forked worker
+     processes over the wire codec while this process holds the card), the
+     overlap pump armed and a per-shard WAL (durability/) attached before
+     the first commit; the report less times, the scalar rv, the dump
+     digest, admissions, frontier counters, overlap hits and stale specs and
+     every shard stream's records and durable-state digest equal to
+     JAX_PARALLEL_REFERENCE["durability"], and the dump, reconciles and rv
+     equal to the frontier arm's above (its serial twin); then the crash
+     (a 53-byte torn tail), recover_store, the acked-prefix audit (empty),
+     the recovered dump equal to the pre-crash one, and a cold restart with
+     the same drain reconverging to the pre-crash resource_signature, with
+     0 worker repatriations; then sim/parallel.process_codec_ab at its own
+     shape (256 sets, 256 nodes, 4 shards, 2 workers) with its host block.
+     The first fill calls of (pi)'s solves are held against the plain fill.
  19. [sims] (nu) sim/multitenant (the contended three-tenant run with
      reclaim, quota.warm, quota_snapshot; the single-queue A/B; the explain
      scenario's actors), sim/voluntary.drain_artifact, the run-level churn
      A/B (deltachurn.smoke_ab_run with and without the delta state) and
      the demo on simple1.yaml (sim/demo.run_demo), each equal to
      JAX_SIMS_REFERENCE; the fill and both DRF kernels must launch.
- 20. prints the kernels line, the card line, and last the ok line.
+ 20. [parallel] the parallel drain and durability at the JAX package's own
+     shapes (models/scenarios.run_parallel_suite): sim/parallel.parallel_ab
+     (48 sets, 32 nodes, 4 shards, 3 storm rounds) with per-shard WALs on
+     both twins for the thread and the process drain, 2 and 4 workers,
+     seeds 1234 and 7; a process drain whose worker is killed after its
+     first batch and one with seeded drop, duplicate and delay on its wire,
+     each against a serial twin; worker_sweep(192, 64, 8) for both
+     backends; sim/recovery.durability_artifact(192, 192). Every report
+     less its times equal to JAX_PARALLEL_REFERENCE["parallel"], every
+     problems list empty (parallel_missing). The first fill calls are held
+     against the plain fill. (pi) (phase_scale_parallel), and [parallel]
+     followed by [scale]'s codec A/B (phase_scale_codec), run in two python
+     processes of their own (_PhaseProcess: fork and exec, so neither holds
+     a thread of this process, each its own CUDA context on the card):
+     (pi)'s starts once [sharded]'s rank worlds have ended, beside the rest
+     of [operator] and [churn]; the other, niced, starts with [scale],
+     beside (lambda) and [sims]; [scale] reads their results after
+     (lambda).
+ 21. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -243,6 +279,7 @@ import os
 import re
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -740,8 +777,8 @@ STATS_RUNS = 10  # timed stats solves of (a), after one warm-up
 # 80GB HBM3 at 700 W (`scripts/torch_solve_profile.py --path exact` times it)
 EXACT_GANGS = 2048
 # gangs of each reduced problem whose exact solve is held against the plain
-# fill (the binding and stats paths take them all)
-EXACT_PATH_GANGS = 256
+# fill (the binding and stats paths take them all): 128, cut with PATH_GANGS
+EXACT_PATH_GANGS = 128
 
 
 class _RecordWaveSolve:
@@ -848,9 +885,10 @@ def phase_stats_path() -> dict:
 
 
 # stress and non-uniform gangs of [path_kernel_vs_plain] (grouped, pinned and
-# spread take half): 2,048 until [operator] came, halved to keep the smoke's
-# phases nearer 900 s (uncut, they took 1,039.5 s on an H100 80GB HBM3, 700 W)
-PATH_GANGS = 1024
+# spread take half): 2,048 until [operator] came, 1,024 with it; 512 (exact
+# 128) since [scale]'s (pi) and [parallel] came, to keep the smoke's phases
+# near 1,000 s on an H100 80GB HBM3, 700 W (PERF.md section 4)
+PATH_GANGS = 512
 
 
 def phase_path_kernel_vs_plain() -> None:
@@ -930,21 +968,27 @@ JAX_SCHEDULER_REFERENCE = {
                                 "tenant-6": 1280, "tenant-7": 1280},
          "events_by_reason": {"GangAdmitted": 10231, "GangDeferred": 9, "PodBound": 34833}},
     ],
+    # (r) cut to SCHED_CUTS["r"]: scheduler_reference.py r --nodes 256 --gangs 512
     "r": [
-        {"admitted": 1024, "bound": 3473, "score_sum": 1011.9702439308167, "bindings": 3473,
-         "bindings_sha256": "b67e6d78aeacaef3e858e08eb1d9a387e4c5b87c972375e0c2cba2f38a507fa0",
-         "evicted": 0, "evicted_sha256": _NONE, "admitted_per_queue": {"tenant-0": 1024},
-         "events_by_reason": {"GangAdmitted": 1024, "PodBound": 3473}},
-        {"admitted": 67, "bound": 207, "score_sum": 54.27487090229988, "bindings": 3680,
-         "bindings_sha256": "86a0d604696fcf92ad75d738b655e1315ce13f4537e5cf88222f41c065a45035",
-         "evicted": 335,
-         "evicted_sha256": "55cdbeb1c1ad1c3ce1623bc4699e974a1a5508799654f8bbefc4b9ae10b86ef6",
-         "admitted_per_queue": {"tenant-1": 22, "tenant-2": 25, "tenant-3": 20},
-         "events_by_reason": {"GangAdmitted": 67, "GangDeferred": 461, "PodBound": 207,
-                              "Preempted": 2, "QuotaReclaim": 333}},
+        {"admitted": 512, "bound": 1754, "score_sum": 505.18571746349335, "bindings": 1754,
+         "bindings_sha256": "4e3bf248231e68f5420e35e8b5c287cb9f9e1518752c2a74441e8a9dfc5f1a4f",
+         "evicted": 0, "evicted_sha256": _NONE,
+         "admitted_per_queue": {"tenant-0": 512},
+         "events_by_reason": {"GangAdmitted": 512, "PodBound": 1754}},
+        {"admitted": 25, "bound": 83, "score_sum": 19.85740837454796, "bindings": 1837,
+         "bindings_sha256": "eeabfe9936935b72c65e783083968ab6fb916bdc86c7f741fdae00e1a53b0be8",
+         "evicted": 185,
+         "evicted_sha256": "098e44af54e00d725106532e1b7db7a119e332117e5d533b9837336f3103a258",
+         "admitted_per_queue": {"tenant-1": 8, "tenant-2": 9, "tenant-3": 8},
+         "events_by_reason": {"GangAdmitted": 25, "GangDeferred": 239, "PodBound": 83,
+                              "Preempted": 3, "QuotaReclaim": 182}},
     ],
 }
 SCHED_WORLDS = (("s", "flat"), ("q", "fair-share"), ("r", "preemption + reclaim"))
+# (n_nodes, n_gangs) a world is cut to: (r) runs 256 nodes and 512 gangs (182
+# reclaims, 742 trial solves) since [scale]'s (pi) and [parallel] came
+# (PERF.md section 4)
+SCHED_CUTS = {"r": (256, 512)}
 
 
 def check_world_valid(tag, store, cluster) -> None:
@@ -1073,7 +1117,7 @@ def phase_scheduler() -> dict:
     out = {"fill_launches": 0, "drf_shares_launches": 0, "drf_merge_launches": 0, "rounds": {},
            "q_order_inputs": None}
     for name, label in SCHED_WORLDS:
-        world = scheduler_world(name)
+        world = scheduler_world(name, *SCHED_CUTS.get(name, (None, None)))
         store = Store(VirtualClock(0.0))
         cluster = SimCluster(store, make_nodes(*world["nodes"]))
         sched = GangScheduler(store, cluster, ClusterTopology(), world["priority_map"],
@@ -2357,7 +2401,7 @@ def _spawn_sharded_worlds(cfg, ref) -> list:
     return worlds
 
 
-def phase_sharded(alongside=None) -> dict:
+def phase_sharded(alongside=None, after_ranks=None) -> dict:
     """(a) with its node axis sharded over local ranks on the one card
     (solve_stress_sharded through parallel.multihost.run_ranks): NCCL at
     world size 1, gloo ranks sharing cuda:0 at 2 and 4. Every rank's result
@@ -2373,7 +2417,8 @@ def phase_sharded(alongside=None) -> dict:
     The ranks are processes of their own, with their own launch counts:
     ``alongside()``, when given, runs here while they run (the smoke gives
     it [operator], whose phases time no kernel), and its result lands
-    under ``"alongside"``."""
+    under ``"alongside"``. ``after_ranks()``, when given, is called once
+    the rank worlds have ended (from the thread that waited for them)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from grove_tpu_torch.models.scenarios import build_stress_problem
@@ -2407,6 +2452,8 @@ def phase_sharded(alongside=None) -> dict:
     keys = ("admitted", "placed", "score", "chosen_level", "free_after", "pending")
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(_spawn_sharded_worlds, cfg, ref)
+        if after_ranks is not None:
+            spawned.add_done_callback(lambda _done: after_ranks())
         if alongside is not None:
             out["alongside"] = alongside()
         worlds = spawned.result()
@@ -5191,6 +5238,27 @@ def _check_same(tag, got, want) -> None:
               + (f" ({got.get(diff[0])} != {want.get(diff[0])})" if diff else ""))
 
 
+def _check_scored(tag, got, want) -> None:
+    """Nested records equal, every "score_sum" at rtol 1e-6 (the card and
+    the CPU agree on placement scores to that)."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        if set(got) != set(want):
+            _fail(f"{tag}: keys {sorted(set(got) ^ set(want))} differ from the JAX package's")
+        for k in got:
+            if k == "score_sum":
+                if not np.isclose(got[k], want[k], rtol=1e-6, atol=0):
+                    _fail(f"{tag}: score sum {got[k]} != {want[k]} (the JAX package's)")
+            else:
+                _check_scored(f"{tag} {k}", got[k], want[k])
+    elif isinstance(got, (list, tuple)) and isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            _fail(f"{tag}: {len(got)} entries, the JAX package's {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _check_scored(f"{tag} {i}", g, w)
+    elif got != want:
+        _fail(f"{tag}: {got} differs from the JAX package's ({want})")
+
+
 def _check_round(tag, got, want) -> None:
     """A recorded tick or round: its round_summary's score sum at rtol
     1e-6, everything else equal."""
@@ -6454,7 +6522,7 @@ JAX_SCALE_REFERENCE = {'world': {'frontier_shape': [4096, 6400], 'inert_shape': 
 
 
 def phase_scale(card, device="cuda", frontier_shape=None, inert_shape=None, num_shards=None,
-                reference=None) -> dict:
+                reference=None, parallel_reference=None, parts=None) -> dict:
     """[scale] (lambda): the port's sim/scale.frontier_ab at the bench's
     full-size shape (4,096 sets on 6,400 nodes, 8 shards) and inert_ab (192
     sets on 64 nodes, S=1 against 8) through models/scenarios.run_scale_world:
@@ -6512,14 +6580,27 @@ def phase_scale(card, device="cuda", frontier_shape=None, inert_shape=None, num_
     fill_err = check_recorded_fills(recorded, "scale", device)
     on, off = got["frontier_arms"][3], got["frontier_arms"][2]
     ab = times["frontier_ab"]
+    if parts is None:  # alone: (pi) and the codec A/B run here, after (lambda)
+        pi = phase_scale_parallel(card, device, frontier_shape, num_shards, parallel_reference)
+        codec = phase_scale_codec(card, device, parallel_reference)
+    else:  # the smoke's main(): their processes ran beside (lambda)
+        pi = parts[0].result()["phase_scale_parallel"]
+        codec = parts[1].result()["phase_scale_codec"]
+    _check_serial_twin(pi["converge"], on)
+    print(f"[scale] (pi) against its serial twin, (lambda)'s frontier arm: dump, reconciles"
+          f" {on['reconciles']}, rv {on['resource_version']} and pods equal | {card}", flush=True)
     out = {
         "frontier_shape": list(frontier_shape), "inert_shape": list(inert_shape),
         "shards": num_shards, **ab, "frontier_ab_s": times["frontier_ab_s"],
         "inert_ab_s": times["inert_ab_s"], "inert_walls": times["inert_ab"],
         "pods": off["pods"], "reconciles_off": off["reconciles"], "reconciles_on": on["reconciles"],
         "frontier": on["frontier"], "census_on": on["shard_census"],
-        "fill_launches": launches, "fill_calls_by_kind": kinds,
-        "fill_calls_checked": len(recorded.calls), "fill_max_abs_err": fill_err,
+        "fill_launches": launches + pi["fill_launches"] + codec["fill_launches"],
+        "lambda_fill_launches": launches, "pi_fill_launches": pi["fill_launches"],
+        "codec_ab_fill_launches": codec["fill_launches"], "fill_calls_by_kind": kinds,
+        "fill_calls_checked": len(recorded.calls),
+        "fill_max_abs_err": max(fill_err, pi["fill_max_abs_err"]),
+        "pi": pi, "process_codec_ab": codec,
     }
     print(f"[scale] (lambda) frontier_ab {frontier_shape[0]} sets on {frontier_shape[1]} nodes,"
           f" {num_shards} shards, {off['pods']} pods each arm, all Ready, every arm's digest,"
@@ -6533,6 +6614,558 @@ def phase_scale(card, device="cuda", frontier_shape=None, inert_shape=None, num_
           f" (recorded by kind {kinds}, each equal to the plain fill bit for bit) | {card}",
           flush=True)
     return out
+
+
+# scripts/scheduler_reference.py durability parallel (PYTHONHASHSEED=0)
+JAX_PARALLEL_REFERENCE = {'durability': {'world': {'sets': 4096,
+                          'nodes': 6400,
+                          'shards': 8,
+                          'workers': 4,
+                          'backend': 'process',
+                          'torn_tail': 53},
+                'converge': {'sets': 4096,
+                             'nodes': 6400,
+                             'shards': 8,
+                             'tenants': 64,
+                             'pods': 32768,
+                             'all_ready': True,
+                             'reconciles': 61440,
+                             'pod_summary': {'total': 32768, 'ready': 32768},
+                             'fold_depth_histogram': [8, 1],
+                             'shard_census': [{'shard': 0, 'objects': 9217, 'rv': 32257},
+                                              {'shard': 1, 'objects': 8192, 'rv': 28672},
+                                              {'shard': 2, 'objects': 8192, 'rv': 28672},
+                                              {'shard': 3, 'objects': 7168, 'rv': 25088},
+                                              {'shard': 4, 'objects': 8192, 'rv': 28672},
+                                              {'shard': 5, 'objects': 7168, 'rv': 25088},
+                                              {'shard': 6, 'objects': 9216, 'rv': 32256},
+                                              {'shard': 7, 'objects': 12192, 'rv': 69632}],
+                             'workers': 4,
+                             'parallel': {'backend': 'process',
+                                          'workers': 4,
+                                          'reconciles_by_worker': [16320, 14400, 16320, 14400],
+                                          'worker_crashes': 0,
+                                          'boundary_faults': {'drop': 0,
+                                                              'dup': 0,
+                                                              'delay': 0,
+                                                              'retransmits': 0,
+                                                              'deduped': 0}},
+                             'resource_version': 270337,
+                             'dump': {'objects': 65537,
+                                      'sha256': '66c5b52afea15fb8c677a6f010b18fd8d6a78c08d26f4e538381851d2cccf15a',
+                                      'score_sum': 12288.0},
+                             'scheduled_gangs': 4096,
+                             'frontier': {'solves': 1,
+                                          'degenerate_ticks': 0,
+                                          'subproblems_total': 400,
+                                          'assigned_gangs_total': 4096,
+                                          'residual_gangs_total': 0,
+                                          'batched_dispatches_total': 1,
+                                          'residual_overlap_hits': 0,
+                                          'residual_overlap_misses': 0},
+                             'overlap': {'hits': 0, 'stale': 64},
+                             'wal': {'0': {'records': 10369,
+                                           'durable': {'objects': 9217,
+                                                       'sha256': '6f495f9b1f45a6fa0636a525b02239f203a1fbe098de02643d10e0a223a55e08',
+                                                       'score_sum': 1728.0},
+                                           'tombstones': 0},
+                                     '1': {'records': 15360,
+                                           'durable': {'objects': 8192,
+                                                       'sha256': 'e8f0c666d814dcfe080285d95a2dc1f21f0be3ddf78dab1f8043ee59c9c489dd',
+                                                       'score_sum': 1536.0},
+                                           'tombstones': 0},
+                                     '2': {'records': 15360,
+                                           'durable': {'objects': 8192,
+                                                       'sha256': 'c8ec91044ba39a3fb741d2f2ddcfd49093d27ee126b3219459cb40f84f86ebef',
+                                                       'score_sum': 1536.0},
+                                           'tombstones': 0},
+                                     '3': {'records': 13440,
+                                           'durable': {'objects': 7168,
+                                                       'sha256': '617222aea2d836090d69adb35dcb4da7e3426ab5ccacbf87b7f788eecb11552d',
+                                                       'score_sum': 1344.0},
+                                           'tombstones': 0},
+                                     '4': {'records': 9216,
+                                           'durable': {'objects': 8192,
+                                                       'sha256': '7c8c0305a2f63f2fe9aba03124456fef59b154b5e0c860b91f6baeeec7a03a86',
+                                                       'score_sum': 1536.0},
+                                           'tombstones': 0},
+                                     '5': {'records': 13440,
+                                           'durable': {'objects': 7168,
+                                                       'sha256': '5552b6c83b023eb71b1bcd37f723aed17386239b132818d04c257b4af4221705',
+                                                       'score_sum': 1344.0},
+                                           'tombstones': 0},
+                                     '6': {'records': 17280,
+                                           'durable': {'objects': 9216,
+                                                       'sha256': 'f2b86dea7d6b978cddd92953b225ba84933725085b1c1d4f7995008fe54d87dd',
+                                                       'score_sum': 1728.0},
+                                           'tombstones': 0},
+                                     '7': {'records': 15360,
+                                           'durable': {'objects': 8192,
+                                                       'sha256': '10c26e818120cfeb885c90eded457bbbb2bbebf1b20ff46948325a0439c28e10',
+                                                       'score_sum': 1536.0},
+                                           'tombstones': 0}}},
+                'crash': {'lost_unacked_records': 0,
+                          'recovery': {'snapshot_rv': 262145,
+                                       'replayed_records': 8192,
+                                       'restored_objects': 65537,
+                                       'resource_version': 270337,
+                                       'torn_tail': True},
+                          'reconverge_ticks': 2,
+                          'reconverge_reconciles': 8192,
+                          'reconverge_parallel': {'backend': 'process',
+                                                  'workers': 4,
+                                                  'reconciles_by_worker': [2176, 1920, 2176, 1920],
+                                                  'worker_crashes': 0,
+                                                  'boundary_faults': {'drop': 0,
+                                                                      'dup': 0,
+                                                                      'delay': 0,
+                                                                      'retransmits': 0,
+                                                                      'deduped': 0}},
+                          'problems': []},
+                'process_ab': {'shape': {'sets': 256,
+                                         'nodes': 256,
+                                         'shards': 4,
+                                         'workers': 2,
+                                         'backend': 'process'},
+                               'reconciles': 3840,
+                               'reconciles_identical': True}},
+ 'parallel': {'ab thread w2 s1234': {'sets': 48,
+                                     'shards': 4,
+                                     'workers': 2,
+                                     'backend': 'thread',
+                                     'seed': 1234,
+                                     'boundaries_compared': 4,
+                                     'reconciles': [[720, 720], [251, 251], [180, 180], [188, 188]],
+                                     'identical': True,
+                                     'problems': [],
+                                     'wal_acked_identical': True,
+                                     'worker_stats': {'backend': 'thread',
+                                                      'workers': 2,
+                                                      'reconciles_by_worker': [673, 666]}},
+              'ab thread w2 s7': {'sets': 48,
+                                  'shards': 4,
+                                  'workers': 2,
+                                  'backend': 'thread',
+                                  'seed': 7,
+                                  'boundaries_compared': 4,
+                                  'reconciles': [[720, 720], [216, 216], [152, 152], [184, 184]],
+                                  'identical': True,
+                                  'problems': [],
+                                  'wal_acked_identical': True,
+                                  'worker_stats': {'backend': 'thread',
+                                                   'workers': 2,
+                                                   'reconciles_by_worker': [636, 636]}},
+              'ab thread w4 s1234': {'sets': 48,
+                                     'shards': 4,
+                                     'workers': 4,
+                                     'backend': 'thread',
+                                     'seed': 1234,
+                                     'boundaries_compared': 4,
+                                     'reconciles': [[720, 720], [251, 251], [180, 180], [188, 188]],
+                                     'identical': True,
+                                     'problems': [],
+                                     'wal_acked_identical': True,
+                                     'worker_stats': {'backend': 'thread',
+                                                      'workers': 4,
+                                                      'reconciles_by_worker': [391,
+                                                                               335,
+                                                                               282,
+                                                                               331]}},
+              'ab thread w4 s7': {'sets': 48,
+                                  'shards': 4,
+                                  'workers': 4,
+                                  'backend': 'thread',
+                                  'seed': 7,
+                                  'boundaries_compared': 4,
+                                  'reconciles': [[720, 720], [216, 216], [152, 152], [184, 184]],
+                                  'identical': True,
+                                  'problems': [],
+                                  'wal_acked_identical': True,
+                                  'worker_stats': {'backend': 'thread',
+                                                   'workers': 4,
+                                                   'reconciles_by_worker': [310, 361, 326, 275]}},
+              'ab process w2 s1234': {'sets': 48,
+                                      'shards': 4,
+                                      'workers': 2,
+                                      'backend': 'process',
+                                      'seed': 1234,
+                                      'boundaries_compared': 4,
+                                      'reconciles': [[720, 720],
+                                                     [251, 251],
+                                                     [180, 180],
+                                                     [188, 188]],
+                                      'identical': True,
+                                      'problems': [],
+                                      'wal_acked_identical': True,
+                                      'worker_stats': {'backend': 'process',
+                                                       'workers': 2,
+                                                       'reconciles_by_worker': [673, 666],
+                                                       'worker_crashes': 0,
+                                                       'boundary_faults': {'drop': 0,
+                                                                           'dup': 0,
+                                                                           'delay': 0,
+                                                                           'retransmits': 0,
+                                                                           'deduped': 0}}},
+              'ab process w2 s7': {'sets': 48,
+                                   'shards': 4,
+                                   'workers': 2,
+                                   'backend': 'process',
+                                   'seed': 7,
+                                   'boundaries_compared': 4,
+                                   'reconciles': [[720, 720], [216, 216], [152, 152], [184, 184]],
+                                   'identical': True,
+                                   'problems': [],
+                                   'wal_acked_identical': True,
+                                   'worker_stats': {'backend': 'process',
+                                                    'workers': 2,
+                                                    'reconciles_by_worker': [636, 636],
+                                                    'worker_crashes': 0,
+                                                    'boundary_faults': {'drop': 0,
+                                                                        'dup': 0,
+                                                                        'delay': 0,
+                                                                        'retransmits': 0,
+                                                                        'deduped': 0}}},
+              'ab process w4 s1234': {'sets': 48,
+                                      'shards': 4,
+                                      'workers': 4,
+                                      'backend': 'process',
+                                      'seed': 1234,
+                                      'boundaries_compared': 4,
+                                      'reconciles': [[720, 720],
+                                                     [251, 251],
+                                                     [180, 180],
+                                                     [188, 188]],
+                                      'identical': True,
+                                      'problems': [],
+                                      'wal_acked_identical': True,
+                                      'worker_stats': {'backend': 'process',
+                                                       'workers': 4,
+                                                       'reconciles_by_worker': [391, 335, 282, 331],
+                                                       'worker_crashes': 0,
+                                                       'boundary_faults': {'drop': 0,
+                                                                           'dup': 0,
+                                                                           'delay': 0,
+                                                                           'retransmits': 0,
+                                                                           'deduped': 0}}},
+              'ab process w4 s7': {'sets': 48,
+                                   'shards': 4,
+                                   'workers': 4,
+                                   'backend': 'process',
+                                   'seed': 7,
+                                   'boundaries_compared': 4,
+                                   'reconciles': [[720, 720], [216, 216], [152, 152], [184, 184]],
+                                   'identical': True,
+                                   'problems': [],
+                                   'wal_acked_identical': True,
+                                   'worker_stats': {'backend': 'process',
+                                                    'workers': 4,
+                                                    'reconciles_by_worker': [310, 361, 326, 275],
+                                                    'worker_crashes': 0,
+                                                    'boundary_faults': {'drop': 0,
+                                                                        'dup': 0,
+                                                                        'delay': 0,
+                                                                        'retransmits': 0,
+                                                                        'deduped': 0}}},
+              'worker_crash': {'identical': True,
+                               'reconciles': [120, 120],
+                               'dump': {'objects': 129,
+                                        'sha256': '70afbe3d029715129db61da534fa5a3499b52d4c721010ad3a1026531f4f99a9',
+                                        'score_sum': 24.0},
+                               'worker_stats': {'backend': 'process',
+                                                'workers': 2,
+                                                'reconciles_by_worker': [108, 12],
+                                                'worker_crashes': 1,
+                                                'boundary_faults': {'drop': 0,
+                                                                    'dup': 0,
+                                                                    'delay': 0,
+                                                                    'retransmits': 0,
+                                                                    'deduped': 0}},
+                               'crashes_total': 1},
+              'boundary_faults': {'identical': True,
+                                  'reconciles': [720, 720],
+                                  'dump': {'objects': 769,
+                                           'sha256': 'cf1c8dc19eb9c51fab2a4fbd8435e7f3573519c1e08eac5a60932abcdca5a36b',
+                                           'score_sum': 144.0},
+                                  'worker_stats': {'backend': 'process',
+                                                   'workers': 2,
+                                                   'reconciles_by_worker': [360, 360],
+                                                   'worker_crashes': 0,
+                                                   'boundary_faults': {'drop': 3,
+                                                                       'dup': 4,
+                                                                       'delay': 0,
+                                                                       'retransmits': 4,
+                                                                       'deduped': 3}},
+                                  'crashes_total': 0},
+              'sweep thread': {'sets': 192,
+                               'nodes': 64,
+                               'shards': 8,
+                               'backend': 'thread',
+                               'sweep': [{'workers': 1,
+                                          'effective_workers': 1,
+                                          'reconciles': 2880,
+                                          'all_ready': True},
+                                         {'workers': 2,
+                                          'effective_workers': 2,
+                                          'reconciles': 2880,
+                                          'all_ready': True},
+                                         {'workers': 4,
+                                          'effective_workers': 4,
+                                          'reconciles': 2880,
+                                          'all_ready': True},
+                                         {'workers': 8,
+                                          'effective_workers': 8,
+                                          'reconciles': 2880,
+                                          'all_ready': True}]},
+              'sweep process': {'sets': 192,
+                                'nodes': 64,
+                                'shards': 8,
+                                'backend': 'process',
+                                'sweep': [{'workers': 1,
+                                           'effective_workers': 1,
+                                           'reconciles': 2880,
+                                           'all_ready': True},
+                                          {'workers': 2,
+                                           'effective_workers': 2,
+                                           'reconciles': 2880,
+                                           'all_ready': True},
+                                          {'workers': 4,
+                                           'effective_workers': 4,
+                                           'reconciles': 2880,
+                                           'all_ready': True},
+                                          {'workers': 8,
+                                           'effective_workers': 8,
+                                           'reconciles': 2880,
+                                           'all_ready': True}]},
+              'durability': {'inert_ab_identical': True,
+                             'wal_records': 2689,
+                             'wal_snapshots': 0,
+                             'replayed_records': 1344,
+                             'torn_tail_truncated': True,
+                             'recovery_ok': True}}}
+
+
+def _check_serial_twin(conv, twin) -> None:
+    """(pi)'s converge against its serial twin, (lambda)'s frontier arm (the
+    same population on a serial drain): reconciles, scalar rv, pods and the
+    canonical dump (admissions included)."""
+    for key in ("reconciles", "resource_version", "pods"):
+        if conv[key] != twin[key]:
+            _fail(f"scale (pi): {key} {conv[key]} differs from its serial twin's ({twin[key]})")
+    _check_scored("scale (pi) dump against its serial twin", conv["dump"], twin["dump"])
+
+
+def phase_scale_parallel(card, device="cuda", frontier_shape=None, num_shards=None,
+                         reference=None) -> dict:
+    """[scale]'s (pi) part: models/scenarios.run_parallel_world at (lambda)'s
+    frontier shape, held to JAX_PARALLEL_REFERENCE["durability"] (the crash's
+    problems empty, 0 repatriations); the first fill calls of (pi) against
+    the plain fill. phase_scale holds the converge to its serial twin.
+    Returns JSON-ready records."""
+    from grove_tpu_torch.models.scenarios import (
+        SCALE_FRONTIER_SHAPE, SCALE_SHARDS, port_names, run_parallel_world)
+    from grove_tpu_torch.ops.fill import fill_batch
+
+    ref = (JAX_PARALLEL_REFERENCE if reference is None else reference)["durability"]
+    frontier_shape = frontier_shape or SCALE_FRONTIER_SHAPE
+    num_shards = num_shards or SCALE_SHARDS
+    t_part = time.perf_counter()
+    fill_batch.launches = 0
+    with tempfile.TemporaryDirectory(prefix="grove-pi-") as wal_dir, \
+            _RecordedKernelFills(SCALE_FILL_CALLS) as recorded:
+        got = run_parallel_world(port_names(device), wal_dir, frontier_shape[0],
+                                 frontier_shape[1], num_shards, device=device)
+    launches = fill_batch.launches
+    times = got.pop("times")
+    crash = got["crash"]
+    if crash["problems"]:
+        _fail(f"scale (pi): {crash['problems']}")
+    conv = got["converge"]
+    for tag, stats in (("converge", conv["parallel"]), ("cold restart",
+                                                       crash["reconverge_parallel"])):
+        if stats.get("backend") != "process" or stats.get("worker_crashes") != 0:
+            _fail(f"scale (pi) {tag}: the process drain repatriated or did not run: {stats}")
+    if not conv["all_ready"]:
+        _fail("scale (pi): not every pod Ready")
+    _check_scored("scale (pi)", got, {k: v for k, v in ref.items() if k != "process_ab"})
+    fill_err = check_recorded_fills(recorded, "scale (pi)", device)
+    rep = times["report"]
+    wal = conv["wal"]
+    print(f"[scale] (pi) {frontier_shape[0]} sets on {frontier_shape[1]} nodes, {num_shards}"
+          f" shards, {conv['workers']} process workers, per-shard WAL: converge"
+          f" {times['converge_s']:.1f} s (wall {rep['wall_seconds']} s, solver"
+          f" {rep['solver_seconds']} s, {rep['us_per_reconcile']} us a reconcile), reconciles"
+          f" by worker {conv['parallel']['reconciles_by_worker']}, busy shares"
+          f" {times['parallel'].get('utilization')}, boundary bytes"
+          f" {times['parallel'].get('boundary_bytes')}, overlap hits {conv['overlap']['hits']}"
+          f" / stale {conv['overlap']['stale']}, WAL records"
+          f" {sum(w['records'] for w in wal.values())} over {len(wal)} streams; equal to the"
+          f" JAX run (dump, reconciles {conv['reconciles']}, rv {conv['resource_version']});"
+          f" crash lost {crash['lost_unacked_records']}, replayed"
+          f" {crash['recovery']['replayed_records']} records and restored"
+          f" {crash['recovery']['restored_objects']} objects in"
+          f" {times['recovery']['wall_seconds']} s ({times['recovery']['replay_records_per_sec']}"
+          f" records/s), audit clean, recovered dump equal, cold restart reconverged in"
+          f" {times['reconverge_s']:.2f} s ({crash['reconverge_ticks']} ticks, reconciles"
+          f" {crash['reconverge_reconciles']}), repatriations 0; fill launches {launches}"
+          f" | {card}", flush=True)
+    got["times"] = times
+    got["fill_launches"] = launches
+    got["fill_max_abs_err"] = fill_err
+    got["wall_s"] = time.perf_counter() - t_part
+    return got
+
+
+def phase_scale_codec(card, device="cuda", reference=None) -> dict:
+    """[scale]'s codec A/B: sim/parallel.process_codec_ab at its own shape
+    (256 sets, 256 nodes, 4 shards, 2 process workers), its reconciles held
+    to JAX_PARALLEL_REFERENCE["durability"]["process_ab"]; prints both arms'
+    us a reconcile and the host block."""
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.sim.parallel import process_codec_ab
+
+    ref = (JAX_PARALLEL_REFERENCE if reference is None else reference)["durability"]
+    fill_batch.launches = 0
+    t0 = time.perf_counter()
+    codec = process_codec_ab(device=device)
+    codec_s = time.perf_counter() - t0
+    codec_launches = fill_batch.launches
+    _check_same("scale process_codec_ab", {"shape": codec["shape"],
+                                           "reconciles": codec["on"]["reconciles"],
+                                           "reconciles_identical": codec["reconciles_identical"]},
+                ref["process_ab"])
+    print(f"[scale] process_codec_ab {codec['shape']}: reconciles {codec['on']['reconciles']}"
+          f" both arms (equal to the JAX package's); us a reconcile off"
+          f" {codec['off']['us_per_reconcile']} / on {codec['on']['us_per_reconcile']}"
+          f" ({codec['us_per_reconcile_reduction_pct']} %), boundary bytes"
+          f" {codec['off']['boundary_bytes']} / {codec['on']['boundary_bytes']}, host"
+          f" {json.dumps(codec['host'])}; {codec_s:.1f} s, fill launches {codec_launches}"
+          f" | {card}", flush=True)
+    return {**codec, "wall_s": codec_s, "fill_launches": codec_launches}
+
+
+# how long main() waits for a phase in its own process beyond its own work
+PHASE_PROCESS_TIMEOUT_S = 900.0
+# the scheduling priority the [parallel] process lowers itself by (os.nice)
+PARALLEL_NICE = 10
+
+
+class _PhaseProcess:
+    """One phase in a python process of its own, started now beside this
+    one's (its own CUDA context on the same card; its lines go to this
+    process's output): ``phases`` maps each phase function's name, called in
+    turn with ``card``, to its keyword arguments (JSON). The results come
+    back as one JSON object by function name, through a file. The process is
+    started with fork and exec, so it inherits no thread of this one; with
+    ``nice`` > 0 it lowers its own scheduling priority first (its workers
+    inherit it), so a process whose work has slack yields the cores to the
+    one that sets the phase's wall."""
+
+    def __init__(self, card: str, phases: dict, nice: int = 0) -> None:
+        import subprocess
+
+        fd, self.path = tempfile.mkstemp(prefix="grove-phases-", suffix=".json")
+        os.close(fd)
+        self.name = "+".join(phases)
+        self._result = None
+        code = ("import json, os, sys, chip_smoke as c; os.nice(int(sys.argv[4]));"
+                " phases = json.loads(sys.argv[2]);"
+                " r = {n: getattr(c, n)(sys.argv[1], **kw) for n, kw in phases.items()};"
+                " json.dump(r, open(sys.argv[3], 'w'), default=str)")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code, card, json.dumps(phases), self.path, str(nice)],
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def result(self, timeout: float = PHASE_PROCESS_TIMEOUT_S) -> dict:
+        """The phases' results (waits for the process the first time)."""
+        import subprocess
+
+        if self._result is not None:
+            return self._result
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            _fail(f"[{self.name}] did not end within {timeout:.0f} s")
+        try:
+            if rc != 0:
+                _fail(f"[{self.name}] failed in its process (exit {rc}; its error is above)")
+            with open(self.path) as f:
+                self._result = json.load(f)
+        finally:
+            os.unlink(self.path)
+        return self._result
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+PARALLEL_FILL_CALLS = 2  # per solve kind ([parallel] holds them against the plain fill)
+# worker_sweep's counts in [parallel]: (1, 4), cut from the JAX package's
+# (1, 2, 4, 8) to keep the smoke's phases near 1,000 s (PERF.md section 4)
+PARALLEL_SMOKE_SWEEP = (1, 4)
+
+
+def phase_parallel(card, device="cuda", reference=None, sweep_counts=None) -> dict:
+    """[parallel]: models/scenarios.run_parallel_suite at the JAX package's
+    own shapes, every step's report less its times equal to
+    JAX_PARALLEL_REFERENCE["parallel"] (the sweeps' rows of the counts run),
+    nothing missing (parallel_missing); the fill must launch and its first
+    calls equal the plain fill."""
+    from grove_tpu_torch.models.scenarios import (
+        parallel_missing, port_names, run_parallel_suite)
+    from grove_tpu_torch.ops.fill import fill_batch
+
+    ref = (JAX_PARALLEL_REFERENCE if reference is None else reference)["parallel"]
+    counts = tuple(sweep_counts or PARALLEL_SMOKE_SWEEP)
+    steps, seen = {}, [0]
+    t_phase = time.perf_counter()
+
+    def want(name):
+        w = ref[name]
+        if name.startswith("sweep "):
+            w = {**w, "sweep": [r for r in w["sweep"] if r["workers"] in counts]}
+        return w
+
+    def after(name, wall_s, result):
+        _check_scored(f"parallel {name}", result, want(name))
+        fill = fill_batch.launches - seen[0]
+        seen[0] = fill_batch.launches
+        steps[name] = {"wall_s": wall_s, "fill_launches": fill}
+        print(f"[parallel] {name}: {wall_s:.3f} s, equal to the JAX package's; fill launches"
+              f" {fill}", flush=True)
+
+    fill_batch.launches = 0
+    with tempfile.TemporaryDirectory(prefix="grove-par-") as tmp, \
+            _RecordedKernelFills(PARALLEL_FILL_CALLS) as recorded:
+        got = run_parallel_suite(port_names(device), tmp, device=device, sweep_counts=counts,
+                                 after=after)
+    launches = fill_batch.launches
+    times = got.pop("times")
+    missing = parallel_missing(got)
+    if missing:
+        _fail(f"parallel: {missing}")
+    if set(got) != set(ref):
+        _fail(f"parallel: steps {sorted(set(got) ^ set(ref))} differ from the JAX run's")
+    if device != "cpu" and not launches:
+        _fail("parallel: the fill kernel did not launch")
+    fill_err = check_recorded_fills(recorded, "parallel", device)
+    sweeps = {b: [{**row, **timed} for row, timed in zip(got[f"sweep {b}"]["sweep"],
+                                                       times[f"sweep {b}"]["rows"])]
+              for b in ("thread", "process")}
+    for b, rows in sweeps.items():
+        print(f"[parallel] worker_sweep {b}: " + "; ".join(
+            f"{r['workers']} workers {r['us_per_reconcile']} us a reconcile (speedup"
+            f" {r['speedup']}, busy {r['utilization']})" for r in rows), flush=True)
+    dur = {**got["durability"], **times["durability"]}
+    print(f"[parallel] durability_artifact {dur}", flush=True)
+    print(f"[parallel] {len(steps)} runs equal to the JAX package's, every serial twin"
+          f" identical, 0 repatriations but the killed worker's; fill launches {launches}"
+          f" | {card}", flush=True)
+    return {"steps": steps, "times": times, "sweeps": sweeps, "durability": dur,
+            "fill_launches": launches, "fill_calls_checked": len(recorded.calls),
+            "fill_max_abs_err": fill_err, "wall_s": time.perf_counter() - t_phase}
 
 
 # scripts/scheduler_reference.py sims (PYTHONHASHSEED=0)
@@ -6697,15 +7330,34 @@ def main() -> int:
     sidecar = _timed(phase_sidecar, main_path, card)
     slo = _timed(phase_slo, delta, card)
     disruption = _timed(phase_disruption, card)
-    # [sharded]'s ranks run beside [operator] and [churn], which time no
-    # kernel (the smoke's time limit holds both only so)
-    sharded = _timed(phase_sharded, lambda: _timed(
-        phase_operator, card, "cuda", None, None, None, None,
-        lambda harness: phase_churn(harness, card)))
-    operator = sharded.pop("alongside")
-    churn = operator.pop("then")
-    scale = _timed(phase_scale, card)
-    sims = _timed(phase_sims, card)
+    # (pi) and [parallel] with [scale]'s codec A/B, whose process drains
+    # fork, run in processes of their own (fork and exec: none inherits a
+    # thread of this one), the smoke's time limit holds them only so. (pi)
+    # sets [scale]'s wall, so its process starts as soon as [sharded]'s rank
+    # worlds have ended, beside the rest of [operator] and [churn]; the
+    # other starts with [scale] and yields the cores (PARALLEL_NICE)
+    parts = []
+    try:
+        # [sharded]'s ranks run beside [operator] and [churn], which time no
+        # kernel
+        sharded = _timed(phase_sharded, lambda: _timed(
+            phase_operator, card, "cuda", None, None, None, None,
+            lambda harness: phase_churn(harness, card)),
+            lambda: parts.append(_PhaseProcess(card, {"phase_scale_parallel": {}})))
+        operator = sharded.pop("alongside")
+        churn = operator.pop("then")
+        if len(parts) != 1:
+            _fail("[scale] (pi): its process did not start after [sharded]'s rank worlds")
+        parts.append(_PhaseProcess(card, {"phase_parallel": {}, "phase_scale_codec": {}},
+                                   nice=PARALLEL_NICE))
+        scale = _timed(phase_scale, card, "cuda", None, None, None, None, None, parts)
+        sims = _timed(phase_sims, card)
+        parallel = parts[1].result()["phase_parallel"]
+        print(f"[smoke] phase_parallel: {parallel['wall_s']:.1f} s in its own process, started"
+              f" with [scale]", flush=True)
+    finally:
+        for part in parts:
+            part.kill()
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
@@ -6718,7 +7370,8 @@ def main() -> int:
         + sidecar.get("a", {}).get("fill_launches", 0) + sidecar.get("q", {}).get("fill_launches", 0)
         + slo["fill_launches"] + disruption["fill_launches"]
         + operator["fill_launches"] + operator["samples_fill_launches"]
-        + churn["fill_launches"] + scale["fill_launches"] + sims["fill_launches"],
+        + churn["fill_launches"] + scale["fill_launches"] + sims["fill_launches"]
+        + parallel["fill_launches"],
         "sidecar_launches": sidecar.get("a", {}).get("fill_launches", 0)
         + sidecar.get("q", {}).get("fill_launches", 0),
         "slo_launches": slo["fill_launches"],
@@ -6727,12 +7380,13 @@ def main() -> int:
         "churn_launches": churn["fill_launches"],
         "scale_launches": scale["fill_launches"],
         "sims_launches": sims["fill_launches"],
+        "parallel_launches": parallel["fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
         "explain_launches": observe["explain_fill_launches"],
         "sharded_rank_launches": sharded["fill_launches"],
         "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"],
                             operator["fill_max_abs_err"], churn["fill_max_abs_err"],
-                            scale["fill_max_abs_err"]]
+                            scale["fill_max_abs_err"], parallel["fill_max_abs_err"]]
                            + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -6762,8 +7416,9 @@ def main() -> int:
             + operator[f"samples_drf_{phase}_launches"],
             "explain_launches": observe[f"explain_drf_{phase}_launches"],
             "churn_launches": churn[f"drf_{phase}_launches"],
-            "scale_launches": 0,  # (lambda) has no Queue CR
+            "scale_launches": 0,  # (lambda) and (pi) have no Queue CR
             "sims_launches": sims[f"drf_{phase}_launches"],
+            "parallel_launches": 0,  # nor the parallel-drain scenarios
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
             "plain_ms": drf[f"plain_{phase}_ms"],
@@ -6786,7 +7441,7 @@ def main() -> int:
                       "frontier_rounds": front["rounds"], "sharded": sharded,
                       "observe": observe, "sidecar": sidecar, "slo": slo,
                       "disruption": disruption, "operator": operator, "churn": churn,
-                      "scale": scale, "sims": sims}))
+                      "scale": scale, "sims": sims, "parallel": parallel}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -187,6 +187,13 @@ def _coerce_scalar(hint: type, value: Any, quantity: bool = False) -> Any:
 # pure functions of the class object, so they memoize exactly once.
 
 
+# NO_MEMO restores the reflective path (a fresh ``get_type_hints`` and
+# fields walk per decode). Only ``sim/parallel.process_codec_ab``'s "off" arm
+# sets it, to time the memoized decode against it in one process; the
+# decoded objects are the same either way.
+NO_MEMO = False
+
+
 @functools.lru_cache(maxsize=None)
 def _class_hints(cls: type) -> Dict[str, Any]:
     return typing.get_type_hints(cls)
@@ -244,7 +251,12 @@ def decode_dataclass(cls: type, doc: Dict[str, Any]):
         res = doc.pop("resources") or {}
         doc.setdefault("requests", res.get("requests") or {})
         doc.setdefault("limits", res.get("limits") or {})
-    fields = _class_fields(cls)
+    if NO_MEMO:  # the reflective path (process_codec_ab's "off" arm only)
+        hints = typing.get_type_hints(cls)
+        fields = {f.name: f for f in dataclasses.fields(cls)}
+    else:
+        hints = None
+        fields = _class_fields(cls)
     aliases = _FIELD_ALIASES.get(cls, {})
     kwargs: Dict[str, Any] = {}
     leftovers: Dict[str, Any] = {}
@@ -253,7 +265,8 @@ def decode_dataclass(cls: type, doc: Dict[str, Any]):
             key if key in fields else _snake(key)
         )
         if fname in fields:
-            kwargs[fname] = _decode_value(_field_hint(cls, fname), value)
+            hint = hints[fname] if hints is not None else _field_hint(cls, fname)
+            kwargs[fname] = _decode_value(hint, value)
         else:
             leftovers[key] = value
     # unmodeled keys pass through into `extra` when the type carries one
@@ -285,12 +298,14 @@ def decode_object(doc: Dict[str, Any]):
         meta.namespace = ""
     if cls is GenericObject:
         return GenericObject(kind=kind, metadata=meta, spec=dict(doc.get("spec") or {}))
-    hints = _class_hints(cls)
+    hints = typing.get_type_hints(cls) if NO_MEMO else _class_hints(cls)
     kwargs: Dict[str, Any] = {"metadata": meta}
     if "spec" in hints and doc.get("spec") is not None:
-        kwargs["spec"] = _decode_value(_field_hint(cls, "spec"), doc["spec"])
+        kwargs["spec"] = _decode_value(
+            hints["spec"] if NO_MEMO else _field_hint(cls, "spec"), doc["spec"])
     if "status" in hints and doc.get("status") is not None:
-        kwargs["status"] = _decode_value(_field_hint(cls, "status"), doc["status"])
+        kwargs["status"] = _decode_value(
+            hints["status"] if NO_MEMO else _field_hint(cls, "status"), doc["status"])
     obj = cls(**kwargs)
     return obj
 

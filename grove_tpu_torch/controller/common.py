@@ -11,6 +11,7 @@ template push).
 from __future__ import annotations
 
 import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Protocol
 
@@ -28,9 +29,44 @@ from grove_tpu_torch.runtime.store import Store
 
 FINALIZER = "grove.io/operator"
 
+# the live OperatorContexts: a forked worker process (runtime/procworkers.py)
+# inherits every context's ``_event_seq``, so each child moves its contexts
+# into an Event-name range of its own (``rebase_event_sequences``). Weak
+# values (a context dies with its harness), keyed by a registration count so
+# the order is the same in a forked child.
+_LIVE_CONTEXTS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+_CTX_SEQ = 0
+
+# spacing between the per-slot Event name ranges, far above any run's Event
+# count (the ring keeps 1,000 live Events)
+EVENT_SEQ_STRIDE = 10_000_000
+
+
+def live_contexts() -> List["OperatorContext"]:
+    return [ctx for _, ctx in sorted(_LIVE_CONTEXTS.items())]
+
+
+def contexts_of_store(store) -> List["OperatorContext"]:
+    """The live contexts operating ``store``, in registration order (how
+    the process drain finds the expectations of the engine it drains)."""
+    return [ctx for ctx in live_contexts() if ctx.store is store]
+
+
+def rebase_event_sequences(slot: int) -> None:
+    """Move every live context's Event sequence into the range ``slot``
+    owns (slot 0, the coordinator, keeps the natural one). A freshly forked
+    worker calls it once before it reconciles: ``slot`` is unique per
+    (fork generation, worker), since an earlier generation's Events live on
+    in the inherited store."""
+    if slot <= 0:
+        return
+    for ctx in live_contexts():
+        with ctx._event_lock:
+            ctx._event_seq += slot * EVENT_SEQ_STRIDE
+
 
 # eq=False: keep identity __eq__/__hash__ (a value-eq dataclass is
-# unhashable)
+# unhashable, and the weak registry holds instances)
 @dataclass(eq=False)
 class OperatorContext:
     """Everything a component needs (the reference passes client/scheme/
@@ -48,8 +84,8 @@ class OperatorContext:
     )
     events: List[str] = field(default_factory=list)
     _event_seq: int = 0
-    # sequence + memo guards: reconciles may run on parallel worker
-    # threads (the JAX package's threaded drain) — a bare
+    # sequence + memo guards: reconciles run on parallel worker threads
+    # under the thread drain (runtime/workers.py) — a bare
     # `_event_seq += 1` is a read-modify-write race there, and two workers
     # building the same desired-memo key must not interleave the eviction
     # scan. Uncontended lock acquires are the only serial-path cost.
@@ -65,6 +101,11 @@ class OperatorContext:
     # sized above the live population at stress scale (10,240 sets × 2
     # entries each) so steady state never evicts a live key
     _desired_memo_max: int = 65536
+
+    def __post_init__(self) -> None:
+        global _CTX_SEQ
+        _CTX_SEQ += 1
+        _LIVE_CONTEXTS[_CTX_SEQ] = self
 
     def desired_cache(self, key: tuple, build):
         """Memoized desired-children build for `key` (kind, uid, generation).

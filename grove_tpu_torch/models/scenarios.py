@@ -28,7 +28,11 @@ tick's schedule recorded; ``run_scale_world`` (λ), the sharded frontier and
 inert A/Bs, each retired harness read (``dump_digest``, census, scalar
 resourceVersion, reconciles) before it is released; ``run_sims_world`` (ν),
 the contended-quota, single-queue, explain, drain, run-level churn A/B and
-demo scenarios at the JAX package's own shapes.
+demo scenarios at the JAX package's own shapes; ``run_parallel_world`` (π),
+the sharded converge at (λ)'s frontier shape through the process drain with
+a per-shard WAL, then its crash, recovery and cold restart;
+``run_parallel_suite``, the parallel drain's serial-twin A/Bs, worker
+crash, boundary faults, worker sweeps and durability report.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import gc
 import hashlib
 import importlib
 import json
+import os
 import pathlib
 import random
 import re
@@ -1483,7 +1488,14 @@ def package_names(module: Callable[[str], object], demo_text: Callable[[str], st
         TIMESERIES=module("observability.timeseries").TIMESERIES,
         deltachurn=module("sim.deltachurn"),
         scale=module("sim.scale"),
+        parallel=module("sim.parallel"),
+        recovery=module("sim.recovery"),
         store_dump=module("sim.recovery").store_dump,
+        # the port keeps it in sim/recovery; the JAX package in sim/chaos
+        resource_signature=getattr(module("sim.recovery"), "resource_signature", None)
+        or module("sim.chaos").resource_signature,
+        recover_store=module("durability").recover_store,
+        verify_acked_prefix=module("durability").verify_acked_prefix,
         multitenant=module("sim.multitenant"),
         voluntary=module("sim.voluntary"),
         demo_text=demo_text,
@@ -1919,4 +1931,295 @@ def sims_missing(result: dict) -> List[str]:
     legs = result["smoke_ab"]
     if legs["delta"] != legs["full"]:
         missing.append("smoke_ab: the delta and full legs differ")
+    return missing
+
+
+# ---------------------------------------------------------------------------
+# The parallel drain and durability: (pi), the headline converge at
+# (lambda)'s frontier shape through the process drain with a per-shard WAL,
+# then its crash, recovery and cold restart; and the parallel-drain
+# scenarios at the JAX package's own shapes
+# ---------------------------------------------------------------------------
+
+PARALLEL_WORKERS = 4  # the JAX bench's full-size configuration: 8 shards, 4 workers
+PARALLEL_BACKEND = "process"
+PARALLEL_TORN_TAIL = 53  # bytes of the torn frame the crash leaves on shard 0's stream
+# parallel_ab runs of the [parallel] phase: (backend, workers, seed), each
+# with per-shard WALs on both twins, at parallel_ab's own shape
+PARALLEL_AB_RUNS = tuple((b, w, s) for b in ("thread", "process") for w in (2, 4)
+                         for s in (1234, 7))
+PARALLEL_SWEEP = (192, 64, 8)  # worker_sweep's sets, nodes, shards
+PARALLEL_SWEEP_COUNTS = (1, 2, 4, 8)
+DURABILITY_SHAPE = (192, 192)  # durability_artifact's sets and nodes
+# converge_population's report fields that time nothing
+CONVERGE_FIELDS = ("sets", "nodes", "shards", "tenants", "pods", "all_ready", "reconciles",
+                   "pod_summary", "fold_depth_histogram", "shard_census", "workers")
+_PARALLEL_STATS = ("backend", "workers", "reconciles_by_worker", "worker_crashes",
+                   "boundary_faults")
+
+
+def wal_summary(pkg, durability, wal_dir: str) -> dict:
+    """Per shard stream: records flushed, and the durable state
+    (``durable_state_normalized``: the acked prefix, rv-stripped, uids
+    canonical) as ``dump_digest`` reads a dump (placement scores summed
+    apart: the card and the CPU agree on them to rtol 1e-6)."""
+    states = pkg.parallel.durable_state_normalized(wal_dir)
+    out = {}
+    for i, wal in enumerate(durability.wals):
+        state = states.get(i, {})
+        out[str(i)] = {"records": wal.flushed_records,
+                       "durable": dump_digest({k: v for k, v in state.items() if v is not None}),
+                       "tombstones": sum(1 for v in state.values() if v is None)}
+    return out
+
+
+def _parallel_stats(stats: dict) -> dict:
+    return {k: stats[k] for k in _PARALLEL_STATS if k in stats}
+
+
+def _scheduled_gangs(store) -> int:
+    return sum(1 for g in store.scan("PodGang") if _scheduled(g))
+
+
+def run_parallel_world(pkg, wal_dir: str, n_sets: int = SCALE_FRONTIER_SHAPE[0],
+                       n_nodes: int = SCALE_FRONTIER_SHAPE[1], num_shards: int = SCALE_SHARDS,
+                       workers: int = PARALLEL_WORKERS, backend: str = PARALLEL_BACKEND,
+                       torn_tail: int = PARALLEL_TORN_TAIL, device=None) -> dict:
+    """(pi) through either package (``pkg`` as for ``run_scale_world``,
+    plus ``parallel``, ``recover_store``, ``verify_acked_prefix`` and
+    ``resource_signature``): ``scale.converge_population(n_sets, n_nodes,
+    num_shards, frontier=True, glassbox=True, workers=workers)`` with
+    ``GROVE_TPU_CP_BACKEND=backend`` and a per-shard WAL in ``wal_dir``
+    attached before the first commit (the module's ``SimHarness`` is
+    wrapped for the call; the harness arms the overlap pump). Recorded: the
+    report less its times, the scalar resourceVersion, the canonical dump's
+    digest (rv-normalised, Events left out), the scheduled gangs, the
+    frontier counters, the overlap hits and stale specs, each shard
+    stream's ``wal_summary``. Then the crash (``simulate_crash`` with a
+    ``torn_tail``-byte torn frame), ``recover_store``,
+    ``verify_acked_prefix``, the recovered dump against the pre-crash one,
+    and ``cold_restart`` with the same drain and the frontier, converged
+    to the pre-crash ``resource_signature``. Times land under
+    ``"times"``."""
+    kwargs = {} if device is None else {"device": device}
+    pkg.reset_uid_namespace()
+    pkg.METRICS.reset()
+    pkg.EVENTS.reset()
+    scale = pkg.scale
+    harness_cls = scale.SimHarness
+
+    class DurableHarness(harness_cls):
+        def __init__(self, *args, **kw):
+            kw.setdefault("durability_dir", wal_dir)
+            super().__init__(*args, **kw)
+
+    times: Dict[str, object] = {}
+    out: Dict[str, object] = {"world": {"sets": n_sets, "nodes": n_nodes, "shards": num_shards,
+                                       "workers": workers, "backend": backend,
+                                       "torn_tail": torn_tail}}
+    env_backend = os.environ.get("GROVE_TPU_CP_BACKEND")
+    os.environ["GROVE_TPU_CP_BACKEND"] = backend
+    scale.SimHarness = DurableHarness
+    try:
+        t0 = time.perf_counter()
+        h, report = scale.converge_population(n_sets, n_nodes, num_shards, frontier=True,
+                                              glassbox=True, workers=workers, **kwargs)
+        times["converge_s"] = time.perf_counter() - t0
+    finally:
+        scale.SimHarness = harness_cls
+        if env_backend is None:
+            os.environ.pop("GROVE_TPU_CP_BACKEND", None)
+        else:
+            os.environ["GROVE_TPU_CP_BACKEND"] = env_backend
+    try:
+        times["report"] = {k: report[k] for k in (
+            "wall_seconds", "apply_seconds", "solver_seconds", "control_plane_seconds",
+            "us_per_reconcile")}
+        times["parallel"] = {k: report["parallel"][k] for k in (
+            "busy_seconds_by_worker", "utilization", "boundary_bytes") if k in report["parallel"]}
+        times["attribution"] = {k: report["attribution"].get(k) for k in (
+            "coverage", "cp_coverage", "by_worker")}
+        dump = scale._rv_normalized(
+            pkg.store_dump(h.store, canonical_uids=True, include_events=False))
+        counters = pkg.METRICS.counters
+        out["converge"] = {
+            **{k: report[k] for k in CONVERGE_FIELDS},
+            "parallel": _parallel_stats(report["parallel"]),
+            "resource_version": h.store.resource_version,
+            "dump": dump_digest(dump),
+            "scheduled_gangs": _scheduled_gangs(h.store),
+            "frontier": frontier_counters(h.scheduler.frontier),
+            "overlap": {"hits": int(counters.get("cp_overlap_hits_total", 0)),
+                        "stale": int(counters.get("cp_overlap_stale_total", 0))},
+            "wal": wal_summary(pkg, h.durability, wal_dir),
+        }
+        signature = pkg.resource_signature(h.store)
+        lost = h.durability.simulate_crash(torn_tail_bytes=torn_tail)
+        t0 = time.perf_counter()
+        store, recovery = pkg.recover_store(wal_dir, clock=h.clock, cache_lag=True)
+        times["recover_s"] = time.perf_counter() - t0
+        problems = list(pkg.verify_acked_prefix(wal_dir, store))
+        recovered = scale._rv_normalized(
+            pkg.store_dump(store, canonical_uids=True, include_events=False))
+        if recovered != dump:
+            problems.append("the recovered store differs from the pre-crash committed state")
+        nodes, config = h.cluster.nodes, h.config
+    finally:
+        scale._close_harness(h)
+    rec = recovery.as_dict()
+    times["recovery"] = {k: rec.pop(k) for k in ("wall_seconds", "replay_records_per_sec")}
+    restarted = pkg.SimHarness.cold_restart(store, nodes, config=config, durability_dir=wal_dir,
+                                            **kwargs)
+    try:
+        restarted.engine.enable_workers(workers, backend=backend)
+        restarted.scheduler.enable_frontier()
+        r0 = _reconcile_total(pkg.METRICS)
+        t0 = time.perf_counter()
+        ticks = restarted.converge(max_ticks=60 + 8 * n_sets)
+        times["reconverge_s"] = time.perf_counter() - t0
+        pods = list(restarted.store.scan("Pod"))
+        if not pods or not all(pkg.is_ready(p) for p in pods):
+            problems.append("the cold restart did not converge to all-Ready")
+        if pkg.resource_signature(restarted.store) != signature:
+            problems.append("the cold restart's resource tree differs from the pre-crash one")
+        stats = restarted.engine.workers.stats()
+        out["crash"] = {
+            "lost_unacked_records": lost,
+            "recovery": rec,
+            "reconverge_ticks": ticks,
+            "reconverge_reconciles": _reconcile_total(pkg.METRICS) - r0,
+            "reconverge_parallel": _parallel_stats(stats),
+            "problems": problems,
+        }
+    finally:
+        restarted.durability.close()
+        scale._close_harness(restarted)
+        _reset_singletons(pkg)
+    out["times"] = times
+    return out
+
+
+def run_parallel_suite(pkg, tmp_root: str, device=None, sweep_counts=PARALLEL_SWEEP_COUNTS,
+                       after=None) -> dict:
+    """The parallel-drain scenarios at the JAX package's own shapes through
+    either package (``pkg`` as for ``run_parallel_world``), each from a
+    fresh uid namespace, metrics and events: ``parallel.parallel_ab`` at its
+    own shape for every ``PARALLEL_AB_RUNS`` entry, with per-shard WALs
+    under ``tmp_root``; the worker crash (a process drain whose worker 1 is
+    killed right after its first batch, against a serial twin); a run with
+    seeded boundary faults on the process drain's wire against a serial
+    twin; ``worker_sweep(*PARALLEL_SWEEP, sweep_counts)`` for both
+    backends; ``recovery.durability_artifact(*DURABILITY_SHAPE)``. Each
+    report less its times; ``after(name, wall_s, result)`` sees each.
+    Times land under ``"times"``."""
+    kwargs = {} if device is None else {"device": device}
+    par = pkg.parallel
+    out: Dict[str, object] = {}
+    times: Dict[str, object] = {}
+
+    def step(name, fn):
+        pkg.reset_uid_namespace()
+        pkg.METRICS.reset()
+        pkg.EVENTS.reset()
+        t0 = time.perf_counter()
+        result, timed = fn()
+        times[name] = {"wall_s": time.perf_counter() - t0, **timed}
+        out[name] = result
+        if after is not None:
+            after(name, times[name]["wall_s"], result)
+
+    def ab(backend, workers, seed):
+        dirs = tuple(os.path.join(tmp_root, f"ab-{backend}-{workers}-{seed}-{arm}")
+                     for arm in ("serial", "workers"))
+        rep = par.parallel_ab(workers=workers, seed=seed, wal_dirs=dirs, backend=backend,
+                              **kwargs)
+        stats = rep["worker_stats"]
+        timed = {k: stats[k] for k in ("busy_seconds_by_worker", "boundary_bytes") if k in stats}
+        rep["worker_stats"] = _parallel_stats(stats)
+        return rep, timed
+
+    def twin(n_sets, n_nodes, num_shards, workers, n_tenants, arm):
+        """A serial harness and a process-drain one over one population;
+        ``arm(drain)`` arms the drain's fault before the converge."""
+        tenants = pkg.scale.tenant_namespaces(n_tenants)
+        dumps, stats, reconciles = [], {}, []
+        for w in (1, workers):
+            h = par._make_harness(n_nodes, num_shards, w, backend="process", **kwargs)
+            if w > 1:
+                arm(h.engine.workers)
+            r0 = _reconcile_total(pkg.METRICS)
+            par._populate(h, n_sets, tenants)
+            h.converge(max_ticks=60 + 8 * n_sets)
+            reconciles.append(_reconcile_total(pkg.METRICS) - r0)
+            dumps.append(par._dump(h))
+            if w > 1:
+                stats = h.engine.workers.stats()
+            h.engine.close()
+        return {"identical": dumps[0] == dumps[1], "reconciles": reconciles,
+                "dump": dump_digest(dumps[1]), "worker_stats": _parallel_stats(stats),
+                "crashes_total": int(pkg.METRICS.counters.get("cp_worker_crashes_total", 0))}, {}
+
+    def kill(drain):
+        drain.chaos_kill_worker = 1
+
+    def faults(drain):
+        drain.inject_boundary_faults(7, drop_rate=0.08, dup_rate=0.08, delay_rate=0.08)
+
+    def sweep(backend):
+        rep = par.worker_sweep(*PARALLEL_SWEEP, worker_counts=tuple(sweep_counts),
+                               backend=backend, **kwargs)
+        timed = [{k: row.get(k) for k in ("wall_seconds", "control_plane_seconds",
+                                          "us_per_reconcile", "speedup", "utilization")}
+                 for row in rep["sweep"]]
+        rep["sweep"] = [{k: row[k] for k in ("workers", "effective_workers", "reconciles",
+                                             "all_ready")} for row in rep["sweep"]]
+        return rep, {"rows": timed}
+
+    def durability():
+        rep = pkg.recovery.durability_artifact(*DURABILITY_SHAPE, **kwargs)
+        # the bytes carry the placement scores' text, so they are measured
+        # and not compared
+        timed_keys = ("overhead_pct", "overhead_ab_pct", "wal_cpu_seconds", "recovery_wall_s",
+                      "replay_records_per_sec", "wal_bytes")
+        return ({k: v for k, v in rep.items() if k not in timed_keys},
+                {k: rep[k] for k in timed_keys})
+
+    try:
+        for backend, workers, seed in PARALLEL_AB_RUNS:
+            step(f"ab {backend} w{workers} s{seed}", lambda: ab(backend, workers, seed))
+        step("worker_crash", lambda: twin(8, 16, 3, 2, 4, kill))
+        step("boundary_faults", lambda: twin(48, 32, 4, 2, 8, faults))
+        for backend in ("thread", "process"):
+            step(f"sweep {backend}", lambda: sweep(backend))
+        step("durability", durability)
+    finally:
+        _reset_singletons(pkg)
+    out["times"] = times
+    return out
+
+
+def parallel_missing(suite: dict) -> List[str]:
+    """What the parallel-drain scenarios must show and did not."""
+    missing = []
+    for name, rep in suite.items():
+        if name.startswith("ab "):
+            if rep["problems"] or not rep["identical"] or rep["wal_acked_identical"] is not True:
+                missing.append(f"{name}: the serial twin differs: {rep['problems'][:2]}")
+            if rep["worker_stats"].get("worker_crashes"):
+                missing.append(f"{name}: a worker was repatriated")
+    crash = suite["worker_crash"]
+    if not crash["identical"] or crash["worker_stats"].get("worker_crashes") != 1:
+        missing.append(f"worker_crash: {crash}")
+    fault = suite["boundary_faults"]
+    counts = fault["worker_stats"].get("boundary_faults", {})
+    if not fault["identical"] or not counts.get("retransmits") or fault["worker_stats"].get(
+            "worker_crashes"):
+        missing.append(f"boundary_faults: {fault}")
+    for backend in ("thread", "process"):
+        rows = suite[f"sweep {backend}"]["sweep"]
+        if not all(r["all_ready"] for r in rows) or len({r["reconciles"] for r in rows}) != 1:
+            missing.append(f"sweep {backend}: {rows}")
+    dur = suite["durability"]
+    if not (dur["recovery_ok"] and dur["inert_ab_identical"]):
+        missing.append(f"durability: {dur}")
     return missing

@@ -2,7 +2,8 @@
 
 Counterpart of ``grove_tpu/observability/events.py``, cut to the reasons
 the scheduler round, the SLO observatory, the flight recorder, the decision
-ledger, the node-health monitor and the disruption layer record, and the deferral details the round and the explain
+ledger, the node-health monitor, the disruption layer and the durability
+layer record, and the deferral details the round and the explain
 engine cite. ``record`` dedups on (kind, namespace, name, type, reason),
 bumps ``count`` and keeps the latest message; the oldest groups drop past
 ``max_events``. Each updated record goes to ``sink`` when one is installed
@@ -60,6 +61,14 @@ REASON_GANG_DRAINED = "GangDrained"
 REASON_DISRUPTION_THROTTLED = "DisruptionThrottled"
 REASON_BREAKER_OPEN = "BreakerOpen"
 REASON_BREAKER_CLOSED = "BreakerClosed"
+# durability layer: a snapshot taken (and the log truncated), a recovery
+# finished, a torn WAL tail truncated at its first bad CRC, and the WAL's
+# degradation ladder stepping down (slow fsync, disk full) and back
+REASON_SNAPSHOT_TAKEN = "SnapshotTaken"
+REASON_RECOVERY_COMPLETED = "RecoveryCompleted"
+REASON_WAL_TORN_TAIL = "WalTornTail"
+REASON_WAL_DEGRADED = "WalDegraded"
+REASON_WAL_RECOVERED = "WalRecovered"
 
 # deferral-detail slugs: GangDeferred / QueuePending messages start with one
 DETAIL_NO_NODES = "no-schedulable-nodes"

@@ -23,10 +23,10 @@ Finished spans also go to ``FLIGHT_SINK`` when the flight recorder
 (``observability/flightrec.py``) installs itself there. ``set_shard`` is the
 per-thread shard context the engine sets around each reconcile of a
 keyspace-sharded store: every span opened inside carries it as its
-``shard`` attribute (the Chrome export's ``shard`` column; -1 when unset).
-Waiting for modules the port does not have yet: ``set_worker`` (the
-parallel drain's worker stamp) and the sanitizer's span hook
-(``SPAN_HOOK``).
+``shard`` attribute (the Chrome export's ``shard`` column; -1 when unset);
+``set_worker`` is the parallel drain's per-thread worker stamp, carried as
+the ``worker`` attribute. Waiting for a module the port does not have yet:
+the sanitizer's span hook (``SPAN_HOOK``).
 """
 
 from __future__ import annotations
@@ -84,6 +84,11 @@ class Span:
             shard = getattr(tracer._tls, "shard", None)
             if shard is not None:
                 attrs["shard"] = shard
+        # the parallel drain's worker stamp
+        if "worker" not in attrs:
+            worker = getattr(tracer._tls, "worker", None)
+            if worker is not None:
+                attrs["worker"] = worker
         self._done = False
         self._t0 = time.perf_counter()
         self.ts_us = int((self._t0 - tracer._origin) * 1e6)
@@ -166,6 +171,11 @@ class Tracer:
         sets it around each reconcile of a sharded store, behind its
         enabled check."""
         self._tls.shard = shard
+
+    def set_worker(self, worker: Optional[int]) -> None:
+        """Per-thread worker context (the parallel drain's lanes): spans
+        opened after this carry ``worker`` until it is cleared with None."""
+        self._tls.worker = worker
 
     # -- export ----------------------------------------------------------
 

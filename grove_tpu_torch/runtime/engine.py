@@ -18,18 +18,24 @@ Over a keyspace-sharded store (``Store(num_shards=S)``) the engine keeps one
 event backlog per shard, routed on ``WatchEvent.shard`` and drained in a
 deterministic round-robin, gives every controller a shard-bucketed work
 queue, publishes each backlog's depth as ``engine_shard_backlog@K`` and
-stamps the tracer's shard context around each reconcile. The drain stays
-serial: the JAX package's thread and process workers (``enable_workers``,
-``GROVE_TPU_CP_WORKERS``) are not ported, so arming them on a sharded store
-raises ``NotImplementedError`` rather than drain serially where the JAX
-package runs workers; on an unsharded store both are the JAX package's
-no-op. ``overlap_hook`` is kept as an attribute; only a process drain calls
-it.
+stamps the tracer's shard context around each reconcile.
+
+``enable_workers(n)`` (or ``GROVE_TPU_CP_WORKERS=n``) arms the parallel
+drain on a sharded store: per-shard reconcile groups on worker threads
+(``runtime/workers.ParallelDrain``) or, with ``backend="process"`` (or
+``GROVE_TPU_CP_BACKEND=process``), on forked worker processes over the
+wire codec (``runtime/procworkers.ProcessDrain``). Both run the one round
+loop below with their own batch executor, so a round pops and completes
+exactly as the serial drain's; routing asserts a single drainer. On an
+unsharded store arming is a no-op. ``overlap_hook`` (the scheduler's
+``speculate_encode``) is called only by the process drain, between a
+round's dispatch and its replies; ``round_hook`` marks each routing for
+the process drain's cache watermark.
 """
 
 from __future__ import annotations
 
-import os
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -87,10 +93,16 @@ class Engine:
         self._event_backlog = self._backlogs[0]
         self._backlog_rotation = 0
         self.held_kinds: set = set()
+        # single-drainer contract: the backlog and work-queue rotation
+        # pointers assume one routing thread (the serial drainer, or the
+        # parallel drain's coordinator); a second one fails loudly
+        self._router_lock = threading.Lock()
         self.workers = None
         # set by the harness; only a process drain calls it (between a
         # round's dispatch and its replies), so the serial drain never does
         self.overlap_hook = None
+        # the process drain's round-boundary callback (its cache watermark)
+        self.round_hook = None
         # per-kind routing table, built lazily after registration
         self._dispatch = None
         self._shard_index = getattr(store, "shard_index", None)
@@ -98,26 +110,36 @@ class Engine:
             store.subscribe(self._event_backlog.append)
         else:
             store.subscribe(self._enqueue_sharded)
-        try:
-            env_workers = int(os.environ.get("GROVE_TPU_CP_WORKERS", "1") or 1)
-        except ValueError:
-            env_workers = 1
+        from grove_tpu_torch.runtime.workers import workers_from_env
+
+        env_workers = workers_from_env()
         if env_workers > 1:
             self.enable_workers(env_workers)
 
     def enable_workers(self, workers: int, backend: str = None) -> bool:
-        """Arm parallel reconcile workers. On an unsharded store this is the
-        JAX package's no-op (False: the drain stays serial). On a sharded
-        store the JAX package arms its thread or process drain, which the
-        port does not have yet, so this raises."""
+        """Arm the parallel drain: ``drain()`` then splits each round's
+        batches over per-shard worker groups. ``backend`` is "thread" (the
+        default) or "process"; unset reads ``GROVE_TPU_CP_BACKEND``. A
+        no-op (False) on an unsharded store: the serial drain is the
+        one-worker case."""
         if workers <= 1 or self.workers is not None:
             return self.workers is not None
         if self.num_shards <= 1:
             return False
-        raise NotImplementedError(
-            f"enable_workers({workers}) on a {self.num_shards}-shard store: the parallel"
-            " drain (thread and process workers) is not ported yet (ROADMAP A.19)"
-        )
+        if backend is None:
+            from grove_tpu_torch.runtime.procworkers import backend_from_env
+
+            backend = backend_from_env()
+        self.store.arm_deferred_fanout()
+        if backend == "process":
+            from grove_tpu_torch.runtime.procworkers import ProcessDrain
+
+            self.workers = ProcessDrain(self, workers)
+        else:
+            from grove_tpu_torch.runtime.workers import ParallelDrain
+
+            self.workers = ParallelDrain(self, workers)
+        return True
 
     def _enqueue_sharded(self, ev: WatchEvent) -> None:
         self._backlogs[ev.shard].append(ev)
@@ -177,12 +199,18 @@ class Engine:
                 ctrl.queue.add((ctrl.kind, obj.metadata.namespace, obj.metadata.name))
 
     def _route_events(self) -> None:
+        if not self._router_lock.acquire(blocking=False):
+            raise RuntimeError(
+                "concurrent event routing: the engine's rotation pointers assume a"
+                " single drainer; route and drain only from the coordinator"
+            )
         prof = PROFILER.phase(PHASE_DEQUEUE, controller="engine") if PROFILER.enabled else None
         try:
             self._route_events_inner()
         finally:
             if prof is not None:
                 prof.end()
+            self._router_lock.release()
 
     def _next_event(self) -> Optional[WatchEvent]:
         """The next backlog event: a plain popleft when unsharded, else a
@@ -259,7 +287,13 @@ class Engine:
 
     def drain(self, max_rounds: int = 10_000) -> int:
         """Process until no controller has a ready item at the current time.
-        Returns the number of reconciles executed."""
+        Returns the number of reconciles executed. With workers armed the
+        rounds run through the parallel executor."""
+        if self.workers is not None:
+            if not PROFILER.enabled:
+                return self.workers.drain(max_rounds)
+            with PROFILER.phase(PHASE_DRAIN, controller="engine"):
+                return self.workers.drain(max_rounds)
         if not PROFILER.enabled:
             return self._drain_rounds(max_rounds)
         with PROFILER.phase(PHASE_DRAIN, controller="engine"):
@@ -275,13 +309,20 @@ class Engine:
                 error = e
             self._complete(ctrl, key, result, error, now)
 
-    def _drain_rounds(self, max_rounds: int) -> int:
-        """Route, pop each controller's whole ready set in deterministic
-        order, execute, publish gauges, quiesce."""
+    def _drain_rounds(self, max_rounds: int, execute_batch=None) -> int:
+        """The round loop of the serial and the parallel drains (which pass
+        their own ``execute_batch``): route, pop each controller's whole
+        ready set in deterministic order, execute, publish gauges,
+        quiesce."""
+        if execute_batch is None:
+            execute_batch = self._execute_batch
         executed = 0
         now = self.clock.now()
         for _ in range(max_rounds):
             self._route_events()
+            if self.round_hook is not None:
+                # routing is the round's cache-advance boundary
+                self.round_hook()
             progressed = False
             for ctrl in self.controllers:
                 # batched: the whole ready set up front (events these
@@ -300,11 +341,15 @@ class Engine:
                 METRICS.inc(f"reconcile_total/{ctrl.name}", len(batch))
                 span = None
                 if TRACER.enabled:
-                    span = TRACER.span("reconcile.batch", controller=ctrl.name, keys=len(batch))
+                    attrs = {"controller": ctrl.name, "keys": len(batch)}
+                    if self.workers is not None:
+                        attrs["workers"] = self.workers.workers
+                    span = TRACER.span("reconcile.batch", **attrs)
                 if ctrl.batch_hook is not None:
+                    # built on the coordinator before any worker reads it
                     ctrl.batch_hook(batch)
                 try:
-                    self._execute_batch(ctrl, batch, now)
+                    execute_batch(ctrl, batch, now)
                 finally:
                     if span is not None:
                         span.end()
@@ -354,9 +399,11 @@ class Engine:
         return self._shard_index(key[1])
 
     def close(self) -> None:
-        """Release the engine's executors. The serial drain holds none, so
-        this only disarms ``workers``."""
-        self.workers = None
+        """Release the parallel drain's executor (its threads, or its live
+        worker generation) and disarm it."""
+        if self.workers is not None:
+            self.workers.close()
+            self.workers = None
 
     def advance(self, seconds: float) -> None:
         self.clock.advance(seconds)  # type: ignore[attr-defined]

@@ -53,3 +53,26 @@ class ExpectationsStore:
     def delete_expectations(self, key: str) -> None:
         self._creates.pop(key, None)
         self._deletes.pop(key, None)
+
+    # -- shipping across the process boundary (runtime/procworkers.py) -----
+
+    def export_key(self, key: str) -> Tuple[list, list]:
+        """One key's pending UID sets in sorted wire form: a worker process
+        ships the entry back after each reconcile so the coordinator
+        carries the raise or lower into the next drain."""
+        return (
+            sorted(self._creates.get(key) or ()),
+            sorted(self._deletes.get(key) or ()),
+        )
+
+    def import_key(self, key: str, creates: Iterable[str], deletes: Iterable[str]) -> None:
+        """Adopt a peer process's entry for ``key`` verbatim (empty both
+        ways is no entry, as ``pending`` reads it)."""
+        creates = set(creates)
+        deletes = set(deletes)
+        if creates or deletes:
+            self._creates[key] = creates
+            self._deletes[key] = deletes
+        else:
+            self._creates.pop(key, None)
+            self._deletes.pop(key, None)

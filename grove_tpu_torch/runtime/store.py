@@ -37,9 +37,16 @@ controllers rely on:
   chains the shards in index order. The scalar ``resource_version`` is the
   sum of the shards' sequences (every commit bumps one shard by one), and
   ``pod_summary`` folds the shards' (total, ready) partials up the
-  fan-in-8 ``ShardSummaryTree``. S=1 is the unsharded store. The
-  parallel drain's deferred fan-out and the remote-event apply are not
-  ported.
+  fan-in-8 ``ShardSummaryTree``. S=1 is the unsharded store;
+- the parallel drain's hooks (``runtime/workers.py``,
+  ``runtime/procworkers.py``): the deferred fan-out
+  (``arm_deferred_fanout``: while a thread holds an open capture buffer,
+  the order-sensitive watchers' deliveries are buffered for the
+  coordinator to replay in the serial order) and ``apply_remote_event``
+  (a worker process's commit mirror-applied, its resourceVersion
+  restamped);
+- the durability layer's recovery load (``restore_objects``); the WAL
+  itself is a per-shard system watcher (``durability/``).
 """
 
 from __future__ import annotations
@@ -47,9 +54,10 @@ from __future__ import annotations
 import copy as _copy
 import os
 import pickle
+import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 from grove_tpu_torch.api.meta import deep_copy, next_uid
 from grove_tpu_torch.observability.flightrec import FLIGHTREC
@@ -196,6 +204,12 @@ class Store:
         self._summary_dirty_cached = set(range(self.num_shards))
         self._watchers: List[Callable[[WatchEvent], None]] = []
         self._system_watchers: List[Callable[[WatchEvent], None]] = []
+        # the per-shard-fanned consumers (``subscribe_system_per_shard``) and
+        # the deferred-capture plumbing the parallel drain arms: inert until
+        # ``arm_deferred_fanout`` runs
+        self._per_shard_fns: List[Callable[[WatchEvent], None]] = []
+        self._deferred_armed = False
+        self._capture_tls = threading.local()
         # copy-on-write commits skip the canonical blob unless the store
         # guard is on (then verify_readonly_integrity covers them too)
         self._guard_blobs = store_guard_enabled()
@@ -336,9 +350,13 @@ class Store:
     ) -> None:
         """Cluster-side watch (sim kubelet, scheduler folds): delivered
         before the operator's watchers. With ``shard=k`` only shard k's
-        events reach ``fn``, delivered before the store-wide watchers."""
+        events reach ``fn``, delivered before the store-wide watchers (a
+        shard's WAL stream). Store-wide watchers are deferrable once the
+        parallel drain armed the capture; per-shard ones stay live."""
         if shard is None:
-            self._system_watchers.append(fn)
+            self._system_watchers.append(
+                self._make_deferrable(fn) if self._deferred_armed else fn
+            )
         else:
             self._shards[shard].system_watchers.append(fn)
 
@@ -346,9 +364,57 @@ class Store:
         """Register ``fn`` on every shard's own fan-out (folds whose
         per-object streams never straddle shards: the quota accountant, the
         delta state). At S=1 it is delivered as ``subscribe_system``'s
-        watchers are, ahead of them."""
+        watchers are, ahead of them. These fold shared, order-sensitive
+        state, so the parallel drain defers them (``arm_deferred_fanout``);
+        a registration after arming is wrapped at once."""
+        self._per_shard_fns.append(fn)
+        target = self._make_deferrable(fn) if self._deferred_armed else fn
         for s in self._shards:
-            s.system_watchers.append(fn)
+            s.system_watchers.append(target)
+
+    # -- deferred fan-out (the parallel drain) -----------------------------
+
+    def arm_deferred_fanout(self) -> None:
+        """Make every order-sensitive watcher capturable: the
+        ``subscribe_system_per_shard`` folds (shared float accumulations)
+        and the store-wide ``subscribe_system`` watchers (the sim cluster's
+        not-ready set, whose iteration order is its insertion history).
+        While a thread holds an open capture buffer (a reconcile on a
+        worker), their deliveries are buffered; the coordinator replays
+        them in the serial batch order. Threads with no open buffer keep
+        live delivery. Armed once, only by the engine's ``enable_workers``."""
+        if self._deferred_armed:
+            return
+        self._deferred_armed = True
+        wrapped = {fn: self._make_deferrable(fn) for fn in self._per_shard_fns}
+        for s in self._shards:
+            s.system_watchers = [wrapped.get(w, w) for w in s.system_watchers]
+        self._system_watchers = [self._make_deferrable(w) for w in self._system_watchers]
+
+    def _make_deferrable(self, fn: Callable[[WatchEvent], None]):
+        tls = self._capture_tls
+
+        def deliver(ev: WatchEvent, _fn=fn, _tls=tls) -> None:
+            buf = getattr(_tls, "buf", None)
+            if buf is None:
+                _fn(ev)
+            else:
+                buf.append((_fn, ev))
+
+        return deliver
+
+    def begin_deferred_capture(self) -> list:
+        """Open a capture buffer on this thread (one reconcile's deferred
+        deliveries); pass it to ``end_deferred_capture``."""
+        buf: list = []
+        self._capture_tls.buf = buf
+        return buf
+
+    def end_deferred_capture(self, buf: list) -> list:
+        """Close this thread's capture buffer; returns its (fn, event)
+        deliveries for the coordinator's in-order replay."""
+        self._capture_tls.buf = None
+        return buf
 
     def _emit(
         self, type_: str, obj, blob: Optional[bytes], old=None,
@@ -508,6 +574,95 @@ class Store:
             # a snapshot of the keys: callers may write while iterating
             return [view[k] for k in list(ns_map) if k in view]
         return list(view.values())
+
+    # -- recovery and the remote apply ------------------------------------
+
+    def restore_objects(
+        self, objects, rv: int = 0, rv_vector: Optional[Sequence[int]] = None
+    ) -> int:
+        """The recovery path's bulk load: commit ``objects`` verbatim (uid,
+        resourceVersion, generation, timestamps kept), emit no watch event
+        (recovery precedes every subscriber; the boot resync covers
+        delivery), rebuild the aggregates and caches, and resume the
+        sequences: the scalar ``rv`` when unsharded, ``rv_vector`` (one
+        watermark a shard) when sharded. Only on a store with no commit."""
+        if any(s.rv for s in self._shards):
+            raise GroveError(
+                ERR_CONFLICT,
+                "restore_objects requires a fresh store (writes already"
+                f" committed up to rv {self.resource_version})",
+                "restore",
+            )
+        if rv_vector is not None and len(rv_vector) != self.num_shards:
+            raise GroveError(
+                ERR_CONFLICT,
+                f"rv_vector has {len(rv_vector)} entries for a"
+                f" {self.num_shards}-shard store",
+                "restore",
+            )
+        if rv_vector is None and not self._single:
+            raise GroveError(
+                ERR_CONFLICT,
+                "sharded restore requires the per-shard rv_vector (the"
+                " scalar watermark cannot be split back into sequences)",
+                "restore",
+            )
+        n = 0
+        for obj in objects:
+            shard = self._shard_of_obj(obj)
+            self._commit(shard, obj)
+            # a shard's sequence never trails its restored objects
+            shard.rv = max(shard.rv, obj.metadata.resource_version)
+            n += 1
+        if rv_vector is not None:
+            for shard, shard_rv in zip(self._shards, rv_vector):
+                shard.rv = max(shard.rv, int(shard_rv))
+        else:
+            self._shards[0].rv = max(self._shards[0].rv, int(rv))
+        for shard in self._shards:
+            shard.agg_committed.rebuild(shard.committed.get("Pod", {}).values())
+        self._summary_dirty = set(range(self.num_shards))
+        if self.cache_lag:
+            # the initial LIST a restarted process serves its informers
+            self.sync_cache()
+        return n
+
+    def apply_remote_event(self, etype: str, envelope: dict) -> WatchEvent:
+        """Mirror-apply one wire-encoded commit of a peer control-plane
+        process (the process drain): decode the WAL's envelope, restamp
+        the object with this mirror's next rv of its shard, commit and
+        emit through the normal fan-out. Per-object rv values are
+        mirror-local (best-effort Events interleave on their shard); the
+        counts agree: an ADDED or MODIFIED apply bumps its shard by one, a
+        hard delete by zero. The informer cache is not advanced here (that
+        is a round boundary); the caller holds the returned event."""
+        from grove_tpu_torch.durability.wal import decode_envelope
+
+        obj = decode_envelope(envelope)
+        shard = self._shard_of_obj(obj)
+        with shard.lock:
+            key = obj_key(obj)
+            old = shard.committed.get(obj.kind, {}).get(key)
+            if etype == DELETED:
+                if old is None:
+                    raise GroveError(
+                        ERR_CONFLICT,
+                        f"remote delete of unknown {obj.kind} {key}:"
+                        " mirror diverged from the committing process",
+                        "apply-remote",
+                    )
+                blob = self._uncommit(shard, old)
+                self._emit(DELETED, old, blob, shard=shard)
+                return WatchEvent(type=DELETED, kind=old.kind, obj=old, blob=blob,
+                                  old=None, shard=shard.index)
+            shard.rv += 1
+            obj.metadata.resource_version = shard.rv
+            if old is not None:
+                _index_delete(shard.label_index.get(old.kind, {}), old)
+            blob = self._commit(shard, obj)
+            self._emit(etype, obj, blob, old=old, shard=shard)
+            return WatchEvent(type=etype, kind=obj.kind, obj=obj, blob=blob,
+                              old=None, shard=shard.index)
 
     # -- commits ---------------------------------------------------------
 

@@ -20,7 +20,8 @@ the schedule slice of every tick timed apart, the delta counters reported.
   fresh harness with and without the delta state must end in the same
   bindings and gang phases).
 
-The port's harness has no durability layer, so a tick has no WAL pump.
+With a durability layer attached (``SimHarness(durability_dir=...)``) a
+tick group-commits the WAL at its end, as the harness's own tick does.
 """
 
 from __future__ import annotations
@@ -94,6 +95,8 @@ def _tick(h, timings: Optional[List[float]] = None) -> None:
         timings.append(time.perf_counter() - t0)
     h.cluster.kubelet_tick()
     h.engine.drain()
+    if h.durability is not None:
+        h.durability.pump()
     h.clock.advance(1.0)
 
 

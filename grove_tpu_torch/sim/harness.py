@@ -8,8 +8,12 @@ PodCliques, PodCliqueScalingGroups, PodGangs and Pods, which the
 ``device="cpu"``) and the kubelet starts. The harness wires the engine, the
 scheduler with the delta round, the explain engine, the node-health monitor,
 the disruption broker, node drain, the autoscaler and the remediator.
-The JAX harness's durability methods (``attach_durability``,
-``cold_restart``) and its overlap hook are not ported.
+``durability_dir`` (or ``attach_durability``) attaches a write-ahead log
+and snapshots (``durability/``) before the first commit, one stream a
+store shard, and ``tick_once`` group-commits it at the tick's end;
+``cold_restart`` boots a fresh control plane over a recovered store. The
+engine's ``overlap_hook`` is the scheduler's ``speculate_encode`` (only the
+process drain calls it).
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ class SimHarness:
         topology: Optional[ClusterTopology] = None,
         config=None,  # Optional[OperatorConfiguration]
         store: Optional[Store] = None,
-        nodes=None,  # Optional[List[Node]]
+        nodes=None,  # Optional[List[Node]]: carried over on cold restart
+        durability_dir: Optional[str] = None,
         device=None,
     ) -> None:
         from grove_tpu_torch.config.operator import OperatorConfiguration
@@ -52,6 +57,12 @@ class SimHarness:
         self.store = store if store is not None else Store(
             self.clock, cache_lag=cache_lag
         )
+        # the WAL attaches before any commit below, so the log covers the
+        # store from rv 1 (on a recovered store: from the first commit
+        # after recovery)
+        self.durability = None
+        if durability_dir is not None:
+            self.attach_durability(durability_dir)
         # ClusterTopology lives in the store like any CR; when the config
         # enables it, startup requires the named CR to exist (the reference
         # crashes at boot if enabled-but-missing — cmd/main.go:72-75)
@@ -159,6 +170,9 @@ class SimHarness:
 
         self.node_monitor = NodeHealthMonitor(self.store, self.cluster)
         self.scheduler.monitor = self.node_monitor
+        # the overlap pump: only the process drain calls it, between a
+        # round's dispatch and its replies
+        self.engine.overlap_hook = self.scheduler.speculate_encode
         # voluntary-disruption layer (grove_tpu/disruption): one broker
         # gates every voluntary evictor — preemption/reclaim (scheduler),
         # rolling update (ctx), node drain (the controller below). Inert
@@ -202,6 +216,53 @@ class SimHarness:
             self.autoscaler,
             self.explain,
         )
+
+    # -- durability ------------------------------------------------------
+
+    def attach_durability(
+        self,
+        directory: str,
+        segment_max_bytes: int = 4 * 2**20,
+        snapshot_every_bytes: int = 32 * 2**20,
+    ):
+        """Attach a WAL and snapshot writer to this harness's store (one
+        stream a shard). A snapshot scans the whole population, so the
+        default cadence amortizes it over tens of MB of log."""
+        from grove_tpu_torch.durability import StoreDurability
+
+        self.durability = StoreDurability(
+            self.store,
+            directory,
+            segment_max_bytes=segment_max_bytes,
+            snapshot_every_bytes=snapshot_every_bytes,
+        )
+        return self.durability
+
+    @classmethod
+    def cold_restart(
+        cls,
+        store: Store,
+        nodes,
+        config=None,
+        durability_dir: Optional[str] = None,
+        device=None,
+    ) -> "SimHarness":
+        """Boot a fresh control plane over a recovered store: every piece
+        of leader memory is rebuilt from persisted state, as in a
+        failover."""
+        h = cls(
+            num_nodes=len(nodes),
+            cache_lag=store.cache_lag,
+            config=config,
+            store=store,
+            nodes=nodes,
+            durability_dir=durability_dir,
+            device=device,
+        )
+        h.engine.requeue_all()
+        h.cluster.rebuild_bindings()
+        h.node_monitor.resync()
+        return h
 
     def schedule(self) -> int:
         if self.scheduler is not None:
@@ -281,6 +342,11 @@ class SimHarness:
         with PROFILER.phase("tick", controller="kubelet"):
             started = self.cluster.kubelet_tick()
         work += self.engine.drain()
+        if self.durability is not None:
+            # the group commit at the tick boundary (the WAL's own
+            # ``wal-flush`` phase opens inside)
+            with PROFILER.phase("tick", controller="wal"):
+                self.durability.pump()
         # SLO observatory (observability/timeseries.py, slo.py): the
         # sampling round + objective evaluation run at the tick
         # boundary — one boolean check while the observatory is off

@@ -1,28 +1,100 @@
-"""The store's canonical dump.
+"""The durability round trip: the store's canonical dump, the WAL-overhead
+A/B and the crash-recover-converge scenario.
 
-Counterpart of ``store_dump`` in ``grove_tpu/sim/recovery.py``: the wire
-documents of the whole committed population, the byte-comparable state the
-sharded store's inert A/B (``sim/scale.inert_ab``) is judged on. The rest of
-that module (the durability round trip and the cold restart) is not ported.
+Counterpart of ``grove_tpu/sim/recovery.py``:
+
+- ``store_dump``: the wire documents of the whole committed population, the
+  byte-comparable state the inert A/Bs and the recovery round trip are
+  judged on;
+- ``wal_overhead_ab``: one workload with durability off and on; the WAL must
+  observe, never steer (same tree, same resourceVersion), and its group
+  commits' share of the run's wall is the overhead;
+- ``recovery_scenario``: converge a durable population around a snapshot,
+  crash with a torn tail, recover, audit the acked prefix, cold-restart
+  and reconverge to the pre-crash resource tree;
+- ``durability_artifact``: both, as one report;
+- ``resource_signature``: the placement-free shape of a converged tree
+  (the JAX package keeps it in ``sim/chaos.py``, whose chaos runner the port
+  does not have).
+
+The harnesses solve on ``device`` (the card unless the caller passes
+``device="cpu"``).
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+import tempfile
+import time
+from typing import List, Optional
+
+from grove_tpu_torch.api.load import load_podcliquesets
+from grove_tpu_torch.api.meta import deep_copy
+from grove_tpu_torch.api.pod import is_ready
 from grove_tpu_torch.api.serialize import export_object
+from grove_tpu_torch.sim.harness import SimHarness
+
+_WORKLOAD_YAML = """
+apiVersion: grove.io/v1alpha1
+kind: PodCliqueSet
+metadata:
+  name: svc
+spec:
+  replicas: 1
+  template:
+    cliques:
+      - name: server
+        spec:
+          roleName: server
+          replicas: 1
+          podSpec:
+            containers:
+              - name: s
+                image: busybox:stable
+                resources:
+                  requests:
+                    cpu: 200m
+      - name: worker
+        spec:
+          roleName: worker
+          replicas: 2
+          podSpec:
+            containers:
+              - name: w
+                image: busybox:stable
+                resources:
+                  requests:
+                    cpu: 100m
+"""
+
+_BASE = load_podcliquesets(_WORKLOAD_YAML)[0]
 
 
-def store_dump(store, canonical_uids: bool = False, include_events: bool = True) -> dict:
-    """``kind/namespace/name`` -> wire document of every committed object.
-    ``canonical_uids`` renumbers uids by position (sorted key order), so
-    two runs in one process, whose uid counter is global, compare equal
-    when everything else is. ``include_events=False`` leaves out the
-    fire-and-forget Event objects."""
+def _populate(h: SimHarness, n_sets: int) -> None:
+    for i in range(n_sets):
+        pcs = deep_copy(_BASE)
+        pcs.metadata.name = f"svc-{i:04d}"
+        h.apply(pcs)
+
+
+def store_dump(
+    store, canonical_uids: bool = False, include_events: bool = True
+) -> dict:
+    """Canonical wire dump of the whole committed population — the
+    byte-comparable store state the inert A/B and the recovery round trip
+    are judged on. ``canonical_uids`` renumbers uids positionally (sorted
+    key order) so two runs in ONE process — whose uid counter is global —
+    still compare equal when everything else is identical.
+    ``include_events=False`` drops fire-and-forget Event objects, which
+    are outside the durability contract (real etcd TTLs them away)."""
     out = {}
     for kind in store.kinds():
         if kind == "Event" and not include_events:
             continue
         for obj in store.scan(kind):
-            out[f"{kind}/{obj.metadata.namespace}/{obj.metadata.name}"] = export_object(obj)
+            key = f"{kind}/{obj.metadata.namespace}/{obj.metadata.name}"
+            out[key] = export_object(obj)
     if canonical_uids:
         mapping = {}
         for key in sorted(out):
@@ -37,3 +109,194 @@ def store_dump(store, canonical_uids: bool = False, include_events: bool = True)
                 if ref.get("uid") in mapping:
                     ref["uid"] = mapping[ref["uid"]]
     return out
+
+
+def resource_signature(store) -> List[tuple]:
+    """Placement-free shape of the converged resource tree: gangs with
+    phase and per-group (size, floor), cliques with replica and ready
+    counts. Node assignments are left out: a run after a failure may
+    place elsewhere; the tree itself must match."""
+    sig: List[tuple] = []
+    for gang in sorted(store.scan("PodGang"),
+                       key=lambda g: (g.metadata.namespace, g.metadata.name)):
+        groups = tuple(sorted((g.name, len(g.pod_references), g.min_replicas)
+                              for g in gang.spec.pod_groups))
+        sig.append(("pg", gang.metadata.namespace, gang.metadata.name, gang.status.phase,
+                    groups))
+    for pclq in sorted(store.scan("PodClique"),
+                       key=lambda c: (c.metadata.namespace, c.metadata.name)):
+        sig.append(("pclq", pclq.metadata.namespace, pclq.metadata.name,
+                    pclq.status.replicas, pclq.status.ready_replicas))
+    return sig
+
+
+def _converged_run(
+    n_sets: int, num_nodes: int, durability_dir: Optional[str], device=None
+) -> tuple:
+    t0 = time.perf_counter()
+    h = SimHarness(num_nodes=num_nodes, durability_dir=durability_dir, device=device)
+    _populate(h, n_sets)
+    h.converge(max_ticks=60 + 8 * n_sets)
+    wall = time.perf_counter() - t0
+    return h, wall
+
+
+def wal_overhead_ab(n_sets: int = 64, num_nodes: int = 64, device=None) -> dict:
+    """Identical workload twice — durability off (A) vs on (B). Returns
+    the wall overhead and whether the A/B stayed inert (same converged
+    tree, same resourceVersion: the WAL must observe, never steer).
+
+    A small UNTIMED warmup run goes first (the first converge in a
+    process pays its import and first-solve costs), and each arm
+    takes the better of two runs: per-process allocator/cache state
+    drifts across multi-second converges, and a single sample per arm
+    misreads that drift as WAL cost."""
+    from grove_tpu_torch.observability.metrics import METRICS
+
+    warm, _ = _converged_run(min(n_sets, 8), min(num_nodes, 8), None, device)
+    del warm
+    h_a, wall_a = _converged_run(n_sets, num_nodes, None, device)
+    wal_dir = tempfile.mkdtemp(prefix="grove-wal-ab-")
+    try:
+        flush_before = METRICS.hist_sum.get("wal_flush_seconds", 0.0)
+        h_b, wall_b = _converged_run(n_sets, num_nodes, wal_dir, device)
+        wal_cpu = METRICS.hist_sum.get("wal_flush_seconds", 0.0) - flush_before
+        stats = h_b.durability.stats()
+        inert = (
+            store_dump(h_a.store, canonical_uids=True)
+            == store_dump(h_b.store, canonical_uids=True)
+            and h_a.store.resource_version == h_b.store.resource_version
+        )
+        h_b.durability.close()
+        del h_b
+        _h_a2, wall_a2 = _converged_run(n_sets, num_nodes, None, device)
+        del _h_a2
+        wal_dir2 = tempfile.mkdtemp(prefix="grove-wal-ab-")
+        try:
+            h_b2, wall_b2 = _converged_run(n_sets, num_nodes, wal_dir2, device)
+            h_b2.durability.close()
+            del h_b2
+        finally:
+            shutil.rmtree(wal_dir2, ignore_errors=True)
+        wall_a = min(wall_a, wall_a2)
+        wall_b = min(wall_b, wall_b2)
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    return {
+        "sets": n_sets,
+        "nodes": num_nodes,
+        "wall_off_s": round(wall_a, 3),
+        "wall_on_s": round(wall_b, 3),
+        # primary overhead figure: the WAL's measured group-commit cost as
+        # a share of the SAME run's wall (same-run ratio — stable under
+        # machine-load drift that makes cross-run A/B deltas noisy)
+        "overhead_pct": round(100.0 * wal_cpu / wall_b, 2),
+        "wal_cpu_seconds": round(wal_cpu, 3),
+        # cross-run A/B delta, best-of-two per arm (reference figure)
+        "overhead_ab_pct": round(100.0 * (wall_b - wall_a) / wall_a, 2),
+        "inert_ab_identical": inert,
+        "wal_records": stats["flushed_records"],
+        "wal_bytes": stats["flushed_bytes"],
+        "wal_snapshots": stats["snapshots_taken"],
+    }
+
+
+def recovery_scenario(
+    n_sets: int = 64, num_nodes: int = 64, torn_tail: bool = True, device=None
+) -> dict:
+    """Crash-recover-converge: converge a durable population, kill the
+    store process (torn tail on disk), recover from the WAL/snapshot,
+    audit the acked prefix, cold-boot a control plane over the recovered
+    store, and require it to converge back to the pre-crash tree."""
+    from grove_tpu_torch.durability import recover_store, verify_acked_prefix
+    wal_dir = tempfile.mkdtemp(prefix="grove-recovery-")
+    problems: List[str] = []
+    try:
+        # two phases around an explicit snapshot, so recovery exercises
+        # BOTH halves of the path: snapshot base + WAL-tail replay
+        h = SimHarness(num_nodes=num_nodes, durability_dir=wal_dir, device=device)
+        _populate(h, n_sets // 2)
+        h.converge(max_ticks=60 + 8 * n_sets)
+        h.durability.snapshot()
+        for i in range(n_sets // 2, n_sets):
+            pcs = deep_copy(_BASE)
+            pcs.metadata.name = f"svc-{i:04d}"
+            h.apply(pcs)
+        h.converge(max_ticks=60 + 8 * n_sets)
+        pre_sig = resource_signature(h.store)
+        pre_dump = store_dump(h.store, include_events=False)
+        acked_rv = h.durability.wal.durable_rv
+        lost = h.durability.simulate_crash(
+            torn_tail_bytes=53 if torn_tail else 0
+        )
+        store, report = recover_store(wal_dir, clock=h.clock, cache_lag=True)
+        problems.extend(verify_acked_prefix(wal_dir, store))
+        if store.resource_version < acked_rv:
+            problems.append(
+                f"recovered rv {store.resource_version} behind the acked"
+                f" watermark {acked_rv}"
+            )
+        # the crash hit a converged, fully-flushed store: recovery must be
+        # a perfect round trip, not merely prefix-consistent (modulo
+        # fire-and-forget Events, which are outside the contract)
+        if store_dump(store, include_events=False) != pre_dump:
+            problems.append(
+                "recovered store differs from the pre-crash committed"
+                " state (wire-dump mismatch)"
+            )
+        restarted = SimHarness.cold_restart(
+            store, h.cluster.nodes, config=h.config, durability_dir=wal_dir,
+            device=device,
+        )
+        t0 = time.perf_counter()
+        restarted.converge(max_ticks=60 + 8 * n_sets)
+        reconverge_wall = time.perf_counter() - t0
+        pods = restarted.store.list("Pod")
+        if not pods or not all(is_ready(p) for p in pods):
+            problems.append("recovered run did not converge to all-Ready")
+        if resource_signature(restarted.store) != pre_sig:
+            problems.append(
+                "recovered run's resource tree differs from pre-crash"
+            )
+        segments = len(
+            [f for f in os.listdir(wal_dir) if f.startswith("wal-")]
+        )
+        restarted.durability.close()
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    doc = report.as_dict()
+    doc.update(
+        {
+            "sets": n_sets,
+            "nodes": num_nodes,
+            "acked_rv_at_crash": acked_rv,
+            "lost_unacked_records": lost,
+            "reconverge_wall_s": round(reconverge_wall, 3),
+            "segments_after_recovery": segments,
+            "problems": problems,
+            "ok": not problems,
+        }
+    )
+    return doc
+
+
+def durability_artifact(n_sets: int = 192, num_nodes: int = 192, device=None) -> dict:
+    """The durability report: the WAL-overhead A/B and the recovery scenario. The
+    shape is large enough that the overhead ratio measures steady-state
+    per-record cost, not per-run fixed costs."""
+    ab = wal_overhead_ab(n_sets=n_sets, num_nodes=num_nodes, device=device)
+    rec = recovery_scenario(n_sets=n_sets, num_nodes=num_nodes, device=device)
+    return {
+        "overhead_pct": ab["overhead_pct"],
+        "overhead_ab_pct": ab["overhead_ab_pct"],
+        "wal_cpu_seconds": ab["wal_cpu_seconds"],
+        "inert_ab_identical": ab["inert_ab_identical"],
+        "wal_records": ab["wal_records"],
+        "wal_bytes": ab["wal_bytes"],
+        "wal_snapshots": ab["wal_snapshots"],
+        "recovery_wall_s": rec["wall_seconds"],
+        "replayed_records": rec["replayed_records"],
+        "replay_records_per_sec": rec["replay_records_per_sec"],
+        "torn_tail_truncated": rec["torn_tail"],
+        "recovery_ok": rec["ok"],
+    }

@@ -2,9 +2,7 @@
 population, and the two A/Bs that pin what sharding and the frontier may
 change.
 
-Counterpart of ``grove_tpu/sim/scale.py`` (every function but
-``scale_artifact``, which also runs the process-codec A/B of the parallel
-drain, not ported yet):
+Counterpart of ``grove_tpu/sim/scale.py``:
 
 - ``converge_population``: apply and converge one population of one-clique,
   eight-pod sets spread over ``n_tenants`` namespaces (set ``i`` lands in
@@ -20,11 +18,15 @@ drain, not ported yet):
   scalar resourceVersion.
 - ``frontier_ab``: the same population converged with the global solve and
   with the partitioned frontier, walls and solver times side by side.
+- ``scale_artifact``: the big sharded converge (frontier on, the parallel
+  drain per ``workers``, the glass-box blocks), then both A/Bs and the
+  process drain's codec A/B (``sim/parallel.process_codec_ab``).
 
 The harnesses run their solves on ``device`` (the card unless the caller
 passes ``device="cpu"``). ``workers`` pins the drain: 1 (what both A/Bs
-pass) is the serial drain; more than 1 on a sharded store raises, as the
-engine's ``enable_workers`` does until the parallel drain is ported.
+pass) is the serial drain; more than 1 arms the parallel drain on a sharded
+store (the backend from ``GROVE_TPU_CP_BACKEND``), whose per-worker busy
+shares the report adds under ``"parallel"``.
 """
 
 from __future__ import annotations
@@ -117,8 +119,9 @@ def converge_population(
     path is pinned even where ``GROVE_TPU_FRONTIER`` attached it.
     ``glassbox=True`` arms the wall profiler and the journeys for the
     converge window and adds the ``attribution``, ``admission_latency`` and
-    ``critical_path`` blocks. ``workers``: 0 leaves the engine as built, 1
-    pins the serial drain, more raises on a sharded store."""
+    ``critical_path`` blocks. ``workers``: 0 leaves the engine as built
+    (``GROVE_TPU_CP_WORKERS``), 1 pins the serial drain, more arms the
+    parallel drain; the report's ``workers`` is what ran."""
     tenants = tenant_namespaces(min(n_tenants, max(n_sets, 1)))
     store = Store(VirtualClock(), cache_lag=True, num_shards=num_shards)
     h = SimHarness(num_nodes=n_nodes, store=store, device=device)
@@ -150,6 +153,8 @@ def converge_population(
             JOURNEYS.enable()
             JOURNEYS.reset()
             JOURNEYS.clock = h.clock
+        # the busy shares cover the converge only, as the attribution does
+        busy0 = h.engine.workers.busy_snapshot() if h.engine.workers is not None else None
         t_conv0 = time.perf_counter()
         h.converge(max_ticks=max_ticks or (60 + 8 * n_sets))
         converge_wall = time.perf_counter() - t_conv0
@@ -159,7 +164,9 @@ def converge_population(
             # freeze the ledger now: the report's store reads below stay
             # out of the attribution window
             solver_glass = METRICS.hist_sum.get("gang_solve_seconds", 0.0) - solver_s0
-            glass = glassbox_blocks(converge_wall, solver_glass)
+            glass = glassbox_blocks(
+                converge_wall, solver_glass,
+                worker_of=h.engine.workers.worker_of if h.engine.workers is not None else None)
     finally:
         gc.enable()
         gc.unfreeze()
@@ -190,29 +197,50 @@ def converge_population(
         "fold_depth_histogram": h.store.fold_depth_histogram(),
         "shard_census": h.store.shard_census(),
         "peak_rss_kb": {"after_apply": rss_after_apply, "after_converge": rss_after_converge},
-        "workers": 1,  # the serial drain
-        "host": host_block(backend="serial"),
+        # the parallel drain's footprint (1: the serial drain)
+        "workers": h.engine.workers.workers if h.engine.workers is not None else 1,
+        "host": host_block(
+            backend=h.engine.workers.backend if h.engine.workers is not None else "serial"),
     }
+    if h.engine.workers is not None:
+        stats = h.engine.workers.stats()
+        stats["utilization"] = h.engine.workers.utilization(converge_wall, since=busy0)
+        report["parallel"] = stats
     if frontier and h.scheduler.frontier is not None:
         report["frontier"] = h.scheduler.frontier.stats()
     if glassbox and glass is not None:
         report.update(glass)
+        if h.engine.workers is not None and "by_worker" in report.get("attribution", {}):
+            report["parallel"]["attributed_utilization"] = report["attribution"]["by_worker"]
     return h, report
 
 
-def glassbox_blocks(converge_wall: float, solver_s: float) -> dict:
+def glassbox_blocks(converge_wall: float, solver_s: float, worker_of=None) -> dict:
     """Freeze the glass-box layer into report blocks and disarm it.
 
     ``attribution``: the profiler's roll-up with two coverage ratios,
     ``coverage`` (attributed over the converge wall, solver on both sides)
     and ``cp_coverage`` (the same with the solve rows taken off both
     sides). ``admission_latency`` and ``critical_path``: the journeys'
-    decomposition and its fold. (The JAX package's per-worker split comes
-    with the parallel drain.)"""
+    decomposition and its fold. With ``worker_of`` (a shard -> worker map,
+    when the parallel drain ran), ``by_worker``: each shard-scoped row's
+    self time summed onto its worker, as a share of the converge wall, over
+    every row before the table is cut to its top 24."""
     from grove_tpu_torch.observability.journey import JOURNEYS
     from grove_tpu_torch.observability.profile import PROFILER
 
     attribution = PROFILER.report(wall_seconds=converge_wall)
+    if worker_of is not None:
+        by_worker: dict = {}
+        for ph in attribution["phases"]:
+            shard = ph["shard"]
+            if shard is None or shard < 0:
+                continue
+            w = worker_of(shard)
+            by_worker[w] = by_worker.get(w, 0.0) + ph["total_s"]
+        attribution["by_worker"] = {
+            str(w): round(sec / max(converge_wall, 1e-9), 4) for w, sec in sorted(by_worker.items())
+        }
     solve_attr = sum(ph["total_s"] for ph in attribution["phases"] if ph["phase"] == "solve")
     cp_wall = converge_wall - solve_attr
     cp_attr = attribution["attributed_seconds"] - solve_attr
@@ -335,9 +363,56 @@ def frontier_ab(n_sets: int = 512, n_nodes: int = 512, num_shards: int = 2, devi
     }
 
 
+def scale_artifact(
+    n_sets: int = 62_500,
+    n_nodes: int = 100_000,
+    num_shards: int = 8,
+    ab_sets: int = 192,
+    frontier_ab_shape: Tuple[int, int] = (512, 512),
+    workers: int = 0,
+    shape_1m: Optional[Tuple[int, int, int]] = None,
+    device=None,
+) -> dict:
+    """The scale report: the big sharded converge (frontier on, the
+    glass-box blocks, the parallel drain per ``workers`` or
+    ``GROVE_TPU_CP_WORKERS``), then ``inert_ab`` at ``ab_sets``,
+    ``frontier_ab`` at ``frontier_ab_shape`` and the process drain's
+    ``process_codec_ab``. ``shape_1m`` (sets, nodes, shards): a second,
+    dark converge of that shape under ``"shape_1m"``."""
+    harness, report = converge_population(
+        n_sets, n_nodes, num_shards, frontier=True, glassbox=True, workers=workers,
+        device=device,
+    )
+    # release the big population (its drain and the frontier's pool)
+    # before the A/Bs build their harnesses
+    _close_harness(harness)
+    del harness
+    gc.collect()
+    report["inert_ab"] = inert_ab(n_sets=ab_sets, num_shards=num_shards, device=device)
+    report["frontier_ab"] = frontier_ab(
+        n_sets=frontier_ab_shape[0], n_nodes=frontier_ab_shape[1], num_shards=num_shards,
+        device=device,
+    )
+    from grove_tpu_torch.sim.parallel import process_codec_ab
+
+    gc.collect()
+    report["process_ab"] = process_codec_ab(device=device)
+    if shape_1m is not None:
+        m_sets, m_nodes, m_shards = shape_1m
+        gc.collect()
+        m_harness, m_report = converge_population(
+            m_sets, m_nodes, m_shards, frontier=True, workers=workers, device=device
+        )
+        _close_harness(m_harness)
+        del m_harness
+        gc.collect()
+        report["shape_1m"] = m_report
+    return report
+
+
 def _close_harness(h: SimHarness) -> None:
-    """Release a retired harness's executors: the engine's and the
-    frontier's device pool."""
+    """Release a retired harness's executors: the parallel drain's workers
+    and the frontier's device pool."""
     h.engine.close()
     if h.scheduler is not None and h.scheduler.frontier is not None:
         h.scheduler.frontier.close()

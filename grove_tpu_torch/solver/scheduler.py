@@ -48,8 +48,17 @@ keeps protected gangs out of the preemption and reclaim trials and its
 (``controller/nodehealth.NodeHealthMonitor``) holds requeued gangs out of
 the encode (``gang_held``) until it releases them. Both stay None on a bare
 scheduler, as in the JAX package (every eviction ungated, nothing held);
-an un-armed broker is inert. Not part of this port: the speculative-encode
-cache.
+an un-armed broker is inert.
+
+``speculate_encode`` is the overlap pump: the process drain calls it (as
+the engine's ``overlap_hook``) while its workers reconcile, and it builds
+the pending gangs' specs ahead of the next round into ``_overlap_cache``,
+each under a staleness token (the namespace shard's emitted count, the
+binding epoch, the monitor's hold epoch, the cordoned names).
+``_encode_pending`` takes a speculated spec only while its token still
+matches (``cp_overlap_hits_total``), else rebuilds it
+(``cp_overlap_stale_total``), so a round is the same with the pump on or
+off.
 """
 
 from __future__ import annotations
@@ -146,6 +155,11 @@ class GangScheduler:
         self.quota = QuotaManager(store, device=self.device)
         # pods bound by the most recent _commit_admitted pass
         self._last_commit_bound = 0
+        # the overlap pump's cache: (namespace, gang) -> (token, sorted pod
+        # names, spec, pods_by_pclq); at most ``overlap_budget`` specs are
+        # built per speculate_encode call
+        self._overlap_cache: Dict[tuple, tuple] = {}
+        self.overlap_budget = 32
         # incremental delta-solve state (solver/deltastate.py): None runs
         # the from-scratch round; enable_delta() attaches it
         self.delta = None
@@ -834,6 +848,68 @@ class GangScheduler:
             if not p.spec.scheduling_gates and not is_scheduled(p) and not is_terminating(p)
         ]
 
+    def _overlap_token(self, namespace: str, unsched: frozenset) -> tuple:
+        """Staleness token over every input ``_build_gang_spec`` reads: the
+        namespace shard's emitted-event count (any commit or hard delete on
+        the shard moves it), the binding table's rebuild epoch, the
+        monitor's hold epoch and the cordoned node names. Equal tokens mean
+        a spec built then equals one built now."""
+        held = self.monitor.holds_epoch if self.monitor is not None else -1
+        return (
+            self.store.shard_emitted(self.store.shard_index(namespace)),
+            self.cluster.bindings_epoch,
+            held,
+            unsched,
+        )
+
+    def speculate_encode(self) -> int:
+        """Build pending gangs' specs for the next round into the overlap
+        cache (reads only: nothing commits, emits or touches the delta
+        state). Skips held gangs and gangs the delta cache covers. Returns
+        the specs built (at most ``overlap_budget``)."""
+        if not isinstance(self.store, Store) or not isinstance(self.cluster, SimCluster):
+            return 0
+        built = 0
+        unsched = frozenset(self.cluster.unschedulable_names())
+        pending_by_ns: Dict[str, List] = defaultdict(list)
+        pending_gangs = set()
+        for p in self._pending_pods(None):
+            pending_by_ns[p.metadata.namespace].append(p)
+            gname = p.metadata.labels.get(namegen.LABEL_PODGANG)
+            if gname:
+                pending_gangs.add((p.metadata.namespace, gname))
+        if self._overlap_cache:
+            # a gang that left the pending set is never consulted again
+            for key in [k for k in self._overlap_cache if k not in pending_gangs]:
+                del self._overlap_cache[key]
+        for ns in sorted(pending_by_ns):
+            token = self._overlap_token(ns, unsched)
+            by_gang: Dict[str, List] = defaultdict(list)
+            for pod in pending_by_ns[ns]:
+                gang_name = pod.metadata.labels.get(namegen.LABEL_PODGANG)
+                if gang_name:
+                    by_gang[gang_name].append(pod)
+            for gang_name, pods in sorted(by_gang.items()):
+                if self.monitor is not None and self.monitor.gang_held(ns, gang_name):
+                    continue
+                if self.delta is not None and self.delta.has_clean_spec(ns, gang_name):
+                    continue  # the warm-start cache wins at consumption
+                key = (ns, gang_name)
+                names = tuple(sorted(p.metadata.name for p in pods))
+                entry = self._overlap_cache.get(key)
+                if entry is not None and entry[0] == token and entry[1] == names:
+                    continue  # already speculated against this state
+                result = self._build_gang_spec(ns, gang_name, pods)
+                if result is None:
+                    self._overlap_cache.pop(key, None)
+                    continue
+                spec, by_pclq = result
+                self._overlap_cache[key] = (token, names, spec, dict(by_pclq))
+                built += 1
+                if built >= self.overlap_budget:
+                    return built
+        return built
+
     def _encode_pending(self, namespace: str, pending: List):
         by_gang: Dict[str, List] = defaultdict(list)
         loose = []
@@ -843,6 +919,8 @@ class GangScheduler:
                 by_gang[gang_name].append(pod)
             else:
                 loose.append(pod)
+        # the cordon signature, read at most once (only with speculated specs)
+        unsched = None
         gang_specs: List[dict] = []
         gang_pods: Dict[str, Dict[str, List]] = {}
         for gang_name, pods in sorted(by_gang.items()):
@@ -863,6 +941,24 @@ class GangScheduler:
                     gang_specs.append(spec)
                     gang_pods[spec["name"]] = dict(pods_by_pclq)
                     continue
+            if self._overlap_cache:
+                # a speculated spec stands while its token matches (a hit
+                # keeps the entry); a mismatch evicts it and rebuilds below
+                entry = self._overlap_cache.get((namespace, gang_name))
+                if entry is not None:
+                    if unsched is None:
+                        unsched = frozenset(self.cluster.unschedulable_names())
+                    names = tuple(sorted(p.metadata.name for p in pods))
+                    if entry[0] == self._overlap_token(namespace, unsched) and entry[1] == names:
+                        METRICS.inc("cp_overlap_hits_total")
+                        spec, by_pclq = entry[2], entry[3]
+                        gang_specs.append(spec)
+                        gang_pods[spec["name"]] = dict(by_pclq)
+                        if self.delta is not None:
+                            self.delta.store_spec(namespace, gang_name, pods, spec, dict(by_pclq))
+                        continue
+                    METRICS.inc("cp_overlap_stale_total")
+                    self._overlap_cache.pop((namespace, gang_name), None)
             built = self._build_gang_spec(namespace, gang_name, pods)
             if built is None:
                 loose.extend(pods)

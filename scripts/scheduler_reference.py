@@ -13,7 +13,7 @@ admitted gangs per queue and event counts by reason. ``chip_smoke.py``
 holds the port's rounds on the card against these numbers (its
 ``JAX_SCHEDULER_REFERENCE``). Run on the CPU, one world at a time or all:
 
-    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo] [disruption]
+    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo] [disruption] [operator] [churn] [scale] [sims] [durability] [parallel]
 
 ``delta`` is the churn world: (q)'s round, then its churn ticks
 (``scheduler_world("delta")``, ``apply_tick`` with the JAX decoder), through
@@ -104,8 +104,27 @@ explain scenario's documents, the drain artifact, the run-level churn A/B
 and the demo on simple1.yaml. ``chip_smoke.py``'s ``[sims]`` holds the port
 to it (``JAX_SIMS_REFERENCE``).
 
-``operator``, ``churn``, ``scale`` and ``sims`` re-run the script under
-``PYTHONHASHSEED=0`` unless that is set. A world can be cut for a quick
+``durability`` is (pi) (``run_parallel_world``): the JAX
+``sim/scale.converge_population`` at (lambda)'s frontier shape (4,096 sets on
+6,400 nodes, 8 shards; ``--frontier-shape`` and ``--shards`` cut it) with the
+frontier, the glass-box layer, 4 workers of the process drain
+(``GROVE_TPU_CP_BACKEND=process``) and a per-shard WAL attached before the
+first commit; then the crash with a torn tail, ``recover_store``, the
+acked-prefix audit and a cold restart with the same drain; and the JAX
+``sim/parallel.process_codec_ab`` at its own shape (reconciles only). It
+asserts that nothing went wrong before it prints the converge's report less
+its times, the canonical dump's digest, the per-shard WAL summaries, the
+overlap counters and the crash's record. ``parallel`` is the parallel-drain
+scenarios (``run_parallel_suite``) at the JAX package's own shapes: the
+serial-twin ``parallel_ab`` with per-shard WALs for both backends, workers 2
+and 4, seeds 1234 and 7; the worker crash; a boundary-fault run; the worker
+sweeps (``--sweep-counts``) and ``durability_artifact``, each less its
+times. ``chip_smoke.py`` holds the port's ``[scale]`` and ``[parallel]`` to
+them (``JAX_PARALLEL_REFERENCE``).
+
+``operator``, ``churn``, ``scale``, ``sims``, ``durability`` and
+``parallel`` re-run the script under ``PYTHONHASHSEED=0`` unless that is
+set. A world can be cut for a quick
 look: ``--nodes N --gangs G`` (and ``--ticks T --seed S`` for ``delta``).
 """
 
@@ -157,6 +176,7 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     SCALE_FRONTIER_SHAPE,
     SCALE_INERT_SHAPE,
     SCALE_SHARDS,
+    PARALLEL_SWEEP_COUNTS,
     EventCapture,
     apply_tick,
     delta_counters,
@@ -166,9 +186,12 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     frontier_counters,
     observe_summary,
     operator_missing,
+    parallel_missing,
     round_summary,
     run_disruption_world,
     run_operator_world,
+    run_parallel_suite,
+    run_parallel_world,
     run_samples_world,
     run_churn_world,
     run_scale_world,
@@ -307,7 +330,7 @@ def run_disruption(n_nodes=None, n_gangs=None, seed=0) -> dict:
     return out
 
 
-HASHED_WORLDS = ("operator", "churn", "scale", "sims")
+HASHED_WORLDS = ("operator", "churn", "scale", "sims", "durability", "parallel")
 
 
 def name_needs_seed() -> bool:
@@ -377,6 +400,39 @@ def run_sims() -> dict:
     return out
 
 
+def run_durability(frontier_shape=SCALE_FRONTIER_SHAPE, shards=SCALE_SHARDS) -> dict:
+    side = sim_side("grove_tpu")
+    with tempfile.TemporaryDirectory(prefix="grove-pi-") as wal_dir:
+        out = run_parallel_world(side, wal_dir, frontier_shape[0], frontier_shape[1], shards)
+    assert not out["crash"]["problems"], out["crash"]["problems"]
+    assert out["converge"]["all_ready"], "(pi) did not converge to all-Ready"
+    print(f"[durability] times {json.dumps(out.pop('times'))}", file=sys.stderr, flush=True)
+    side.reset_uid_namespace()
+    side.METRICS.reset()
+    t0 = time.perf_counter()
+    ab = side.parallel.process_codec_ab()
+    print(f"[durability] process_codec_ab ({time.perf_counter() - t0:.1f} s):"
+          f" {json.dumps(ab)}", file=sys.stderr, flush=True)
+    assert ab["reconciles_identical"], ab
+    out["process_ab"] = {"shape": ab["shape"], "reconciles": ab["on"]["reconciles"],
+                         "reconciles_identical": ab["reconciles_identical"]}
+    return out
+
+
+def run_parallel(sweep_counts=PARALLEL_SWEEP_COUNTS) -> dict:
+    def after(name, wall_s, result):
+        print(f"[parallel] {name} ({wall_s:.3f} s): {json.dumps(result)[:300]}",
+              file=sys.stderr, flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="grove-par-") as tmp:
+        out = run_parallel_suite(sim_side("grove_tpu"), tmp, sweep_counts=sweep_counts,
+                                 after=after)
+    print(f"[parallel] times {json.dumps(out.pop('times'))}", file=sys.stderr, flush=True)
+    missing = parallel_missing(out)
+    assert not missing, f"the parallel scenarios did not show: {missing}"
+    return out
+
+
 def main() -> int:
     if name_needs_seed():
         os.execve(sys.executable, [sys.executable] + sys.argv,
@@ -394,6 +450,7 @@ def main() -> int:
     parser.add_argument("--frontier-shape", type=int, nargs=2, default=SCALE_FRONTIER_SHAPE)
     parser.add_argument("--inert-shape", type=int, nargs=2, default=SCALE_INERT_SHAPE)
     parser.add_argument("--shards", type=int, default=SCALE_SHARDS)
+    parser.add_argument("--sweep-counts", type=int, nargs="+", default=PARALLEL_SWEEP_COUNTS)
     args = parser.parse_args()
     out = {"jax": jax.__version__, "backend": jax.default_backend()}
     for name in args.worlds:
@@ -406,6 +463,10 @@ def main() -> int:
             out[name] = run_scale(args.frontier_shape, args.inert_shape, args.shards)
         elif name == "sims":
             out[name] = run_sims()
+        elif name == "durability":
+            out[name] = run_durability(args.frontier_shape, args.shards)
+        elif name == "parallel":
+            out[name] = run_parallel(args.sweep_counts)
         elif name == "observe":
             out[name] = run_observe(args.nodes, args.gangs)
         elif name == "slo":

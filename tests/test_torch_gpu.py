@@ -1038,3 +1038,67 @@ def test_cuda_queue_sample_launches_both_drf_kernels(cuda):
         digests.append((h.tree(), store_digest(h.store, pkg.export_object)))
     assert share_table_cuda.launches > 0 and merge_cuda.launches > 0
     assert digests[1] == digests[0]
+
+
+@pytest.mark.gpu
+def test_cuda_process_drain_forks_after_the_fill(cuda, monkeypatch):
+    """The process drain's workers fork while this process holds the card:
+    a drain generation forks after the scheduler launched the fill on
+    cuda:0, with a garbage cycle holding a card tensor alive at the fork
+    and every child collecting right after its setup (the child's
+    ``gc.freeze`` must keep inherited objects out of its collector). The
+    drain completes with no repatriation, the store equals a serial twin's
+    on the card, and the coordinator's next fill launches and equals the
+    plain fill."""
+    import gc
+
+    from grove_tpu_torch.api.pod import is_ready
+    from grove_tpu_torch.runtime import procworkers
+    from grove_tpu_torch.sim import parallel
+
+    setup = procworkers.ProcessDrain._child_setup
+
+    def setup_and_collect(self, me):
+        setup(self, me)
+        gc.collect()
+
+    monkeypatch.setattr(procworkers.ProcessDrain, "_child_setup", setup_and_collect)
+    tenants = parallel.tenant_namespaces(6)
+    dumps = []
+    for workers in (1, 2):
+        h = parallel._make_harness(16, 3, workers, backend="process", device="cuda")
+        fill_batch.launches = 0
+        parallel._populate(h, 6, tenants)
+        h.converge(max_ticks=60)
+        first = fill_batch.launches
+        assert first > 0
+        gc.disable()
+        try:
+            cycle = [torch.ones(1024, device="cuda")]
+            cycle.append(cycle)
+            del cycle
+            # more sets: this converge's drains fork after the fills above
+            for i in range(6, 12):
+                pcs = parallel.deep_copy(parallel._BASE)
+                pcs.metadata.name = f"svc-{i:06d}"
+                pcs.metadata.namespace = tenants[i % len(tenants)]
+                h.apply(pcs)
+            h.converge(max_ticks=60)
+        finally:
+            gc.enable()
+            gc.collect()
+        assert fill_batch.launches > first
+        if workers > 1:
+            stats = h.engine.workers.stats()
+            assert stats["worker_crashes"] == 0 and sum(stats["reconciles_by_worker"][1:]) > 0
+        assert all(is_ready(p) for p in h.store.list("Pod"))
+        dumps.append(parallel._dump(h))
+        h.engine.close()
+    assert dumps[1] == dumps[0]
+    free, mask, demand, count = (torch.from_numpy(a).to(cuda) for a in _fill_inputs(3, True, 0.5))
+    launches = fill_batch.launches
+    out = fill_batch(free, mask, demand, count)
+    assert fill_batch.launches == launches + 1
+    ref = fill_batch_ref(free, mask, demand, count)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)

@@ -102,9 +102,17 @@ def test_glassbox_blocks():
 
 def test_workers_pin():
     """workers=1 keeps the serial drain (what both A/Bs pass); more than one
-    on a sharded store raises until the parallel drain is ported."""
-    with pytest.raises(NotImplementedError):
-        ts.converge_population(8, 8, 3, workers=2, device="cpu")
+    arms the parallel drain on a sharded store, and the report carries its
+    per-worker block as the JAX package's does."""
+    jh, jr = js.converge_population(8, 8, 3, workers=2)
+    h, report = ts.converge_population(8, 8, 3, workers=2, device="cpu")
+    assert report["workers"] == jr["workers"] == 2 and report["host"]["backend"] == "thread"
+    assert report["parallel"]["reconciles_by_worker"] == jr["parallel"]["reconciles_by_worker"]
+    assert set(report["parallel"]) == set(jr["parallel"])
+    assert {k: report[k] for k in DETERMINISTIC} == {k: jr[k] for k in DETERMINISTIC}
+    ts._close_harness(h)
+    js._close_harness(jh)
+    assert h.engine.workers is None
     h, report = ts.converge_population(8, 8, 1, workers=2, device="cpu")
     assert report["workers"] == 1 and report["host"]["backend"] == "serial"
     ts._close_harness(h)

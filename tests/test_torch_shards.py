@@ -6,8 +6,8 @@ agree on the keyspace map, the cross-shard ``list`` order, the canonical
 dump, the per-shard resourceVersion vector and census, every pod summary
 (and the flat fold), each shard's own fan-out in order, the
 namespace-only candidate sets, the engine's round-robin drain and the census
-gate. The parallel drain is not ported: arming it on a sharded port store
-raises.
+gate. Arming the parallel drain on a sharded port store gives the thread
+drain (``tests/test_torch_workers.py`` holds it to the JAX package's).
 """
 
 import random
@@ -422,17 +422,20 @@ def test_tracer_spans_carry_the_reconcile_shard():
 
 
 def test_workers_guard(monkeypatch):
-    """The parallel drain is not ported: arming it on a sharded store
-    raises, at engine construction too; unsharded it stays the no-op."""
+    """Arming the parallel drain on a sharded store gives the thread drain
+    (or the process drain), at engine construction too; unsharded it stays
+    the no-op."""
     store, engine, _ = _engine(3)
-    with pytest.raises(NotImplementedError, match="A.19"):
-        engine.enable_workers(2)
-    assert engine.enable_workers(1) is False
+    assert engine.enable_workers(2) is True
+    assert type(engine.workers).__name__ == "ParallelDrain" and engine.workers.workers == 2
+    assert engine.enable_workers(4) is True  # armed already: unchanged
+    assert engine.workers.workers == 2
     _, single, _ = _engine(1)
     assert single.enable_workers(4) is False
     monkeypatch.setenv("GROVE_TPU_CP_WORKERS", "4")
-    with pytest.raises(NotImplementedError):
-        Engine(Store(Clock(), num_shards=2))
+    armed = Engine(Store(Clock(), num_shards=2))
+    assert armed.workers.workers == 2  # clamped to the shard count
+    armed.close()
     assert Engine(Store(Clock())).workers is None
     engine.close()
     assert engine.workers is None

@@ -266,7 +266,23 @@ Phases (any failure raises and the script exits non-zero):
      of [operator] and [churn]; the other, niced, starts with [scale],
      beside (lambda) and [sims]; [scale] reads their results after
      (lambda).
- 21. prints the kernels line, the card line, and last the ok line.
+ 21. [cluster] (tau) the real-cluster tier (cluster/{manager,apiserver,
+     client,webhook,cert,extscheduler}.py) on the card: start_operator
+     with the HTTP apiserver, TLS admission webhooks (openssl certificates;
+     plain HTTP and a printed note where the machine has no openssl), the
+     authorizer, the HttpStore, the controllers and the card-side
+     GangScheduler on 5,120 nodes under deploy/operator.yaml's
+     configuration; the first CLUSTER_SETS sets of (iota) POSTed as JSON and
+     converged over HTTP (models/scenarios.run_cluster_world); the census
+     by kind, gangs by phase, pods, GET /events records by reason and the
+     bindings' sha256 equal to JAX_CLUSTER_REFERENCE, every binding valid,
+     the first fill calls equal to the plain fill bit for bit; then the
+     external scheduler (cluster/extscheduler.py) in a process of its own on
+     the card against an operator without a scheduler (threaded drain),
+     over the four BASELINE samples, every gang Running, its launches
+     counted. Runs in a process of its own (_PhaseProcess), started with
+     (pi)'s.
+ 22. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -7295,6 +7311,212 @@ def phase_sims(card, device="cuda", reference=None) -> dict:
           f" {launches['drf_merge']} | {card}", flush=True)
     return out
 
+# [cluster] (tau): the first CLUSTER_SETS sets of (iota) over the port's
+# real-cluster tier on 5,120 nodes (models/scenarios.run_cluster_world)
+CLUSTER_FILL_CALLS = 8  # the first fill calls of (tau) held against the plain fill
+CLUSTER_EXT_NODES = 16  # the external scheduler's nodes
+CLUSTER_EXT_TIMEOUT_S = 300.0
+
+# scripts/scheduler_reference.py cluster (PYTHONHASHSEED=0)
+JAX_CLUSTER_REFERENCE = {'bindings_repeat': True,
+                         'bindings_sha256': 'ad974e6072435a1f60f01bec70599d207d2bf630369bb5abdbee469d7bdf955f',
+                         'census': {'ClusterTopology': 1,
+                                    'Event': 253,
+                                    'HorizontalPodAutoscaler': 4,
+                                    'Pod': 152,
+                                    'PodClique': 74,
+                                    'PodCliqueScalingGroup': 4,
+                                    'PodCliqueSet': 32,
+                                    'PodGang': 33,
+                                    'Role': 32,
+                                    'RoleBinding': 32,
+                                    'Secret': 32,
+                                    'Service': 32,
+                                    'ServiceAccount': 32},
+                         'events': {'Pod/PodBound': 152,
+                                    'Pod/PodCreateSuccessful': 152,
+                                    'PodClique/PodCliqueCreateSuccessful': 64,
+                                    'PodCliqueScalingGroup/PCSGCreateSuccessful': 4,
+                                    'PodGang/GangAdmitted': 33,
+                                    'PodGang/PodGangCreateSuccessful': 33},
+                         'gangs': {'Running': 33},
+                         'pods': {'bound': 152, 'ready': 152, 'total': 152},
+                         'world': {'n_nodes': 5120, 'n_sets': 32}}
+
+# the external scheduler's process: run_external_scheduler on the card until
+# SIGTERM, then one line with its kernels' launch counts
+_EXT_SCHEDULER = """
+import json, signal, sys, threading
+from grove_tpu_torch.cluster.extscheduler import run_external_scheduler
+from grove_tpu_torch.ops.fill import fill_batch
+from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+from grove_tpu_torch.sim.cluster import make_nodes
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: stop.set())
+run_external_scheduler(sys.argv[1], make_nodes(int(sys.argv[2])), poll=0.05, stop=stop,
+                       kubelet=True, device=sys.argv[3])
+print("launches " + json.dumps({"fill": fill_batch.launches,
+                                "drf_shares": share_table_cuda.launches,
+                                "drf_merge": merge_cuda.launches}), flush=True)
+"""
+
+
+def _external_scheduler_world(device="cuda") -> dict:
+    """The port's operator without its scheduler (threaded drain, TLS
+    webhooks when openssl is there) and the port's external scheduler in a
+    process of its own on the card (cluster/extscheduler.py, its own CUDA
+    context, the kernels this smoke built): the four BASELINE samples
+    POSTed, every gang Running, every pod Ready and bound. Returns the
+    walls, the census and the external process's launch counts."""
+    import shutil
+    import signal
+    import subprocess
+    import urllib.request
+
+    import yaml
+
+    from grove_tpu_torch.api.pod import is_ready
+    from grove_tpu_torch.cluster.manager import start_operator
+    from grove_tpu_torch.models.scenarios import BASELINE_SAMPLES, SAMPLES_DIR
+
+    t0 = time.perf_counter()
+    rt = start_operator(with_scheduler=False, threaded=True, with_tls=bool(shutil.which("openssl")),
+                        with_authorizer=True, device=device)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _EXT_SCHEDULER, rt.apiserver.address, str(CLUSTER_EXT_NODES),
+         device], cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        text=True)
+    try:
+        base = rt.apiserver.address
+        for filename in BASELINE_SAMPLES.values():
+            doc = yaml.safe_load((SAMPLES_DIR / filename).read_text())
+            req = urllib.request.Request(
+                base + "/apis/grove.io/v1alpha1/namespaces/default/podcliquesets",
+                data=json.dumps(doc).encode(), method="POST",
+                headers={"Content-Type": "application/json"})
+            urllib.request.urlopen(req, timeout=60).read()
+        store, rounds = rt.apiserver.store, 0
+        deadline = time.perf_counter() + CLUSTER_EXT_TIMEOUT_S
+        while True:
+            if proc.poll() is not None:
+                _fail(f"cluster: the external scheduler exited ({proc.returncode})")
+            if time.perf_counter() > deadline:
+                _fail(f"cluster: the external scheduler did not bind every gang within"
+                      f" {CLUSTER_EXT_TIMEOUT_S:.0f} s")
+            rt.converge_once()
+            rounds += 1
+            with rt.apiserver.lock:
+                gangs = list(store.scan("PodGang"))
+                pods = list(store.scan("Pod"))
+            if (len(gangs) >= len(BASELINE_SAMPLES) and pods
+                    and all(g.status.phase == "Running" for g in gangs)
+                    and all(is_ready(p) and p.status.node_name for p in pods)):
+                break
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        rt.shutdown()
+    line = [ln for ln in out.splitlines() if ln.startswith("launches ")]
+    if not line:
+        _fail("cluster: the external scheduler printed no launch counts")
+    launches = json.loads(line[-1][len("launches "):])
+    if device != "cpu" and not launches["fill"]:
+        _fail(f"cluster: the external scheduler did not launch the fill kernel: {launches}")
+    return {"wall_s": wall, "rounds": rounds, "gangs": len(gangs), "pods": len(pods),
+            "launches": launches}
+
+
+def phase_cluster(card, device="cuda", n_sets=None, n_nodes=None, reference=None) -> dict:
+    """[cluster] (tau): the port's real-cluster tier on the card
+    (models/scenarios.run_cluster_world): cluster/manager.start_operator
+    (the HTTP apiserver, the admission webhooks over TLS with certificates
+    from openssl, the authorizer, the HttpStore, the engine, the
+    controllers, the card-side GangScheduler with its node monitor, broker,
+    drainer and explain engine) on 5,120 nodes under deploy/operator.yaml's
+    configuration; the first CLUSTER_SETS sets of (iota) POSTed as JSON and
+    converged with converge_once until every gang is Running and every pod
+    Ready. The census by kind, the gangs by phase, the pods, the GET
+    /events records by reason and (when the JAX runs repeated it) the
+    bindings' sha256 equal to JAX_CLUSTER_REFERENCE; every binding valid
+    (check_world_valid on the apiserver's store); the fill must launch and
+    its first calls equal the plain fill bit for bit. Then the external
+    scheduler in a process of its own on the card against an operator
+    without a scheduler, over the four BASELINE samples
+    (_external_scheduler_world). Prints the apply and converge walls, the
+    rounds, the µs a reconcile, the schedule passes' share of the wall and
+    the launches."""
+    import shutil
+
+    from grove_tpu_torch.models.scenarios import port_names, run_cluster_world
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+
+    ref = JAX_CLUSTER_REFERENCE if reference is None else reference
+    if ref is None:
+        _fail("cluster: JAX_CLUSTER_REFERENCE is missing")
+    tls = shutil.which("openssl") is not None
+    t_phase = time.perf_counter()
+
+    def after_round(index, wall_s, work):
+        print(f"[cluster] round {index}: {wall_s:.3f} s, work {work}", flush=True)
+
+    def inspect(rt):
+        with rt.apiserver.lock:
+            check_world_valid("cluster", rt.apiserver.store, rt.cluster)
+        return True
+
+    fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+    with _RecordedKernelFills(CLUSTER_FILL_CALLS) as recorded:
+        got = run_cluster_world(port_names(device), n_sets, n_nodes, device=device,
+                                with_tls=tls, after_round=after_round, inspect=inspect)
+    launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                "drf_merge": merge_cuda.launches}
+    walls = got.pop("walls")
+    got.pop("inspect")
+    for key in ("world", "census", "gangs", "pods", "events"):
+        _check_same(f"cluster {key}", got[key], ref[key])
+    if ref.get("bindings_repeat"):
+        _check_same("cluster bindings", got["bindings_sha256"], ref["bindings_sha256"])
+    if got["pods"]["ready"] != got["pods"]["total"]:
+        _fail(f"cluster: not every pod Ready: {got['pods']}")
+    if device != "cpu" and not launches["fill"]:
+        _fail(f"cluster: (tau) did not launch the fill kernel: {launches}")
+    fill_err = check_recorded_fills(recorded, "cluster", device)
+    ext = _external_scheduler_world(device)
+    out = {
+        "sets": got["world"]["n_sets"], "nodes": got["world"]["n_nodes"], "tls": tls,
+        **walls, "pods": got["pods"]["total"], "gangs": sum(got["gangs"].values()),
+        "bindings_sha256": got["bindings_sha256"],
+        "bindings_held": bool(ref.get("bindings_repeat")),
+        **{f"{k}_launches": v for k, v in launches.items()},
+        "fill_calls_checked": len(recorded.calls), "fill_max_abs_err": fill_err,
+        "external": ext,
+        "ext_fill_launches": ext["launches"]["fill"],
+        "ext_drf_shares_launches": ext["launches"]["drf_shares"],
+        "ext_drf_merge_launches": ext["launches"]["drf_merge"],
+        "wall_s": time.perf_counter() - t_phase,
+    }
+    print(f"[cluster] (tau) {out['sets']} sets on {out['nodes']} nodes over HTTP (TLS webhooks"
+          f" {'on' if tls else 'off: no openssl'}, authorizer on), {out['pods']} pods all Ready,"
+          f" {out['gangs']} gangs Running, census, events and"
+          f" {'bindings' if out['bindings_held'] else 'counts'} equal to the JAX package's:"
+          f" apply {walls['apply_s']:.3f} s, converge {walls['converge_s']:.3f} s in"
+          f" {walls['rounds']} rounds ({walls['reconciles']:.0f} reconciles,"
+          f" {walls['us_per_reconcile']:.1f} us each), schedule passes"
+          f" {walls['schedule_s']:.3f} s (share {walls['schedule_share']:.4f}, solver"
+          f" {walls['solver_s']:.3f} s); launches fill {launches['fill']}, DRF"
+          f" {launches['drf_shares']} + {launches['drf_merge']}; {len(recorded.calls)} fill calls"
+          f" equal to the plain fill bit for bit; the external scheduler on the card bound the"
+          f" four BASELINE samples ({ext['gangs']} gangs, {ext['pods']} pods) in"
+          f" {ext['wall_s']:.3f} s, {ext['rounds']} operator rounds, launches"
+          f" {ext['launches']} | {card}", flush=True)
+    return out
+
 
 def _is_float(text: str) -> bool:
     try:
@@ -7336,18 +7558,26 @@ def main() -> int:
     # sets [scale]'s wall, so its process starts as soon as [sharded]'s rank
     # worlds have ended, beside the rest of [operator] and [churn]; the
     # other starts with [scale] and yields the cores (PARALLEL_NICE)
-    parts = []
+    # [cluster] (tau) runs in a third process, started with (pi)'s: the
+    # real-cluster tier is host Python over HTTP on one core, beside
+    # [operator], [churn], (lambda) and [sims], which time no kernel
+    parts, cluster_part = [], []
+
+    def after_ranks():
+        parts.append(_PhaseProcess(card, {"phase_scale_parallel": {}}))
+        cluster_part.append(_PhaseProcess(card, {"phase_cluster": {}}))
+
     try:
         # [sharded]'s ranks run beside [operator] and [churn], which time no
         # kernel
         sharded = _timed(phase_sharded, lambda: _timed(
             phase_operator, card, "cuda", None, None, None, None,
-            lambda harness: phase_churn(harness, card)),
-            lambda: parts.append(_PhaseProcess(card, {"phase_scale_parallel": {}})))
+            lambda harness: phase_churn(harness, card)), after_ranks)
         operator = sharded.pop("alongside")
         churn = operator.pop("then")
-        if len(parts) != 1:
-            _fail("[scale] (pi): its process did not start after [sharded]'s rank worlds")
+        if len(parts) != 1 or len(cluster_part) != 1:
+            _fail("[scale] (pi), [cluster]: their processes did not start after [sharded]'s"
+                  " rank worlds")
         parts.append(_PhaseProcess(card, {"phase_parallel": {}, "phase_scale_codec": {}},
                                    nice=PARALLEL_NICE))
         scale = _timed(phase_scale, card, "cuda", None, None, None, None, None, parts)
@@ -7355,8 +7585,11 @@ def main() -> int:
         parallel = parts[1].result()["phase_parallel"]
         print(f"[smoke] phase_parallel: {parallel['wall_s']:.1f} s in its own process, started"
               f" with [scale]", flush=True)
+        cluster = cluster_part[0].result()["phase_cluster"]
+        print(f"[smoke] phase_cluster: {cluster['wall_s']:.1f} s in its own process, started"
+              f" with (pi)'s", flush=True)
     finally:
-        for part in parts:
+        for part in parts + cluster_part:
             part.kill()
     kernel = {
         "name": "fill_batch",
@@ -7371,7 +7604,7 @@ def main() -> int:
         + slo["fill_launches"] + disruption["fill_launches"]
         + operator["fill_launches"] + operator["samples_fill_launches"]
         + churn["fill_launches"] + scale["fill_launches"] + sims["fill_launches"]
-        + parallel["fill_launches"],
+        + parallel["fill_launches"] + cluster["fill_launches"] + cluster["ext_fill_launches"],
         "sidecar_launches": sidecar.get("a", {}).get("fill_launches", 0)
         + sidecar.get("q", {}).get("fill_launches", 0),
         "slo_launches": slo["fill_launches"],
@@ -7381,12 +7614,14 @@ def main() -> int:
         "scale_launches": scale["fill_launches"],
         "sims_launches": sims["fill_launches"],
         "parallel_launches": parallel["fill_launches"],
+        "cluster_launches": cluster["fill_launches"] + cluster["ext_fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
         "explain_launches": observe["explain_fill_launches"],
         "sharded_rank_launches": sharded["fill_launches"],
         "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"],
                             operator["fill_max_abs_err"], churn["fill_max_abs_err"],
-                            scale["fill_max_abs_err"], parallel["fill_max_abs_err"]]
+                            scale["fill_max_abs_err"], parallel["fill_max_abs_err"],
+                            cluster["fill_max_abs_err"]]
                            + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -7408,7 +7643,8 @@ def main() -> int:
             + sidecar.get("q", {}).get(f"drf_{phase}_launches", 0) + slo[f"drf_{phase}_launches"]
             + disruption[f"drf_{phase}_launches"] + operator[f"drf_{phase}_launches"]
             + operator[f"samples_drf_{phase}_launches"] + churn[f"drf_{phase}_launches"]
-            + sims[f"drf_{phase}_launches"],
+            + sims[f"drf_{phase}_launches"] + cluster[f"drf_{phase}_launches"]
+            + cluster[f"ext_drf_{phase}_launches"],
             "sidecar_launches": sidecar.get("q", {}).get(f"drf_{phase}_launches", 0),
             "slo_launches": slo[f"drf_{phase}_launches"],
             "disruption_launches": disruption[f"drf_{phase}_launches"],
@@ -7419,6 +7655,9 @@ def main() -> int:
             "scale_launches": 0,  # (lambda) and (pi) have no Queue CR
             "sims_launches": sims[f"drf_{phase}_launches"],
             "parallel_launches": 0,  # nor the parallel-drain scenarios
+            # (tau) and the BASELINE samples have no Queue CR either
+            "cluster_launches": cluster[f"drf_{phase}_launches"]
+            + cluster[f"ext_drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
             "plain_ms": drf[f"plain_{phase}_ms"],
@@ -7441,7 +7680,8 @@ def main() -> int:
                       "frontier_rounds": front["rounds"], "sharded": sharded,
                       "observe": observe, "sidecar": sidecar, "slo": slo,
                       "disruption": disruption, "operator": operator, "churn": churn,
-                      "scale": scale, "sims": sims, "parallel": parallel}))
+                      "scale": scale, "sims": sims, "parallel": parallel,
+                      "cluster": cluster}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,12 @@ the sharded converge at (λ)'s frontier shape through the process drain with
 a per-shard WAL, then its crash, recovery and cold restart;
 ``run_parallel_suite``, the parallel drain's serial-twin A/Bs, worker
 crash, boundary faults, worker sweeps and durability report.
+
+``run_cluster_world`` (τ) boots either package's real-cluster operator
+(``cluster/manager.start_operator``: the HTTP apiserver, TLS webhooks, the
+``HttpStore``, controllers and scheduler), POSTs (ι)'s first K sets to it
+as JSON and converges it; ``cluster_summary`` reads the result the same way
+on either side.
 """
 
 from __future__ import annotations
@@ -1466,7 +1472,8 @@ def operator_summary(pkg, harness) -> dict:
 def package_names(module: Callable[[str], object], demo_text: Callable[[str], str],
                   root: str) -> types.SimpleNamespace:
     """The names ``run_operator_world``, ``run_samples_world``,
-    ``run_churn_world``, ``run_scale_world`` and ``run_sims_world`` read
+    ``run_churn_world``, ``run_scale_world``, ``run_sims_world`` and
+    ``run_cluster_world`` read
     from one package: ``module(path)`` imports ``<package>.<path>``,
     ``demo_text(manifest_text)`` is what the package's demo prints for a
     manifest, ``root`` the package's name."""
@@ -1499,6 +1506,9 @@ def package_names(module: Callable[[str], object], demo_text: Callable[[str], st
         multitenant=module("sim.multitenant"),
         voluntary=module("sim.voluntary"),
         demo_text=demo_text,
+        make_nodes=module("sim.cluster").make_nodes,
+        load_operator_configuration=module("config.operator").load_operator_configuration,
+        start_operator=module("cluster.manager").start_operator,
     )
 
 
@@ -1651,6 +1661,178 @@ def run_samples_world(pkg, device=None) -> dict:
     finally:
         _reset_singletons(pkg)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The real-cluster world (tau): (iota)'s population applied over HTTP to the
+# operator that start_operator boots (apiserver, TLS webhooks, HttpStore,
+# controllers, scheduler)
+# ---------------------------------------------------------------------------
+
+# K, the first K sets of (iota)'s population: halved from 1,024 until the
+# smoke's [cluster] process fits the card smoke's time limit (PERF.md
+# section 4)
+CLUSTER_SETS = 32
+CLUSTER_NODES = OPERATOR_NODES
+# deploy/operator.yaml's operator configuration (the ConfigMap's config.yaml)
+CLUSTER_CONFIG_YAML = """
+logLevel: info
+controllers:
+  podCliqueSet: { concurrentSyncs: 2 }
+  podClique: { concurrentSyncs: 2 }
+  podCliqueScalingGroup: { concurrentSyncs: 2 }
+solver:
+  chunkSize: 64
+  maxWaves: 16
+"""
+CLUSTER_MAX_ROUNDS = 400
+CLUSTER_SETTLE_S = 0.2  # a quiet round is read again after this long
+_PCS_PATH = "/apis/grove.io/v1alpha1/namespaces/default/podcliquesets"
+
+
+def cluster_world(n_sets: Optional[int] = None, n_nodes: Optional[int] = None) -> dict:
+    """(tau) as wire documents: the first ``n_sets`` sets of (iota)'s
+    population (``operator_template(i)``, named ``svc-%05d``) as the JSON a
+    client POSTs, on ``n_nodes`` nodes of the harness's ``make_nodes``."""
+    import yaml
+
+    n_sets = CLUSTER_SETS if n_sets is None else n_sets
+    world = operator_world(n_sets, CLUSTER_NODES if n_nodes is None else n_nodes)
+    bases = {name: yaml.safe_load(text) for name, text in world["texts"].items()}
+    docs = []
+    for i in range(n_sets):
+        doc = json.loads(json.dumps(bases[operator_template(i)]))
+        doc["metadata"]["name"] = f"svc-{i:05d}"
+        docs.append(doc)
+    return {"n_sets": n_sets, "n_nodes": world["n_nodes"], "docs": docs}
+
+
+def _http_json(method: str, url: str, doc=None, timeout: float = 60.0):
+    import urllib.request
+
+    data = json.dumps(doc).encode() if doc is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def cluster_converged(pkg, store, n_sets: int) -> bool:
+    """Every set stored, at least one PodGang a set, every PodGang Running
+    and every pod Ready (``store``: the apiserver's own store)."""
+    if sum(1 for _ in store.scan("PodCliqueSet")) != n_sets:
+        return False
+    gangs = list(store.scan("PodGang"))
+    if len(gangs) < n_sets or any(g.status.phase != "Running" for g in gangs):
+        return False
+    pods = list(store.scan("Pod"))
+    return bool(pods) and all(pkg.is_ready(p) for p in pods)
+
+
+def cluster_summary(pkg, rt) -> dict:
+    """The converged world, read the same way from either package: the
+    apiserver store's census by kind (counts), gangs by phase, pods (bound,
+    Ready), the ``GET /events`` records by ``kind/reason`` and the sha256
+    of the operator's bindings."""
+    store = rt.apiserver.store
+    with rt.apiserver.lock:
+        census = {kind: sum(1 for _ in store.scan(kind)) for kind in sorted(store.kinds())}
+        gangs = Counter(g.status.phase for g in store.scan("PodGang"))
+        pods = list(store.scan("Pod"))
+    events = _http_json("GET", rt.apiserver.address + "/events")["items"]
+    by_reason = Counter(f"{e['involvedObject']['kind']}/{e['reason']}" for e in events)
+    return {
+        "census": census,
+        "gangs": dict(sorted(gangs.items())),
+        "pods": {"total": len(pods), "bound": sum(1 for p in pods if p.status.node_name),
+                 "ready": sum(1 for p in pods if pkg.is_ready(p))},
+        "events": dict(sorted(by_reason.items())),
+        "bindings_sha256": _bindings_sha256(rt.cluster),
+    }
+
+
+def run_cluster_world(pkg, n_sets: Optional[int] = None, n_nodes: Optional[int] = None,
+                      device=None, with_tls: bool = True, after_round=None,
+                      inspect=None) -> dict:
+    """Run (tau) through ``pkg``'s real-cluster tier (either package;
+    ``pkg`` as for ``run_operator_world`` plus ``start_operator``,
+    ``make_nodes`` and ``load_operator_configuration``): boot
+    ``start_operator`` with the TLS webhooks (unless ``with_tls`` is False)
+    and the authorizer on ``n_nodes`` nodes under ``CLUSTER_CONFIG_YAML``
+    (the serial drain: the order of commits is the serial one), POST every
+    set as JSON to the apiserver, then call ``converge_once``
+    until ``cluster_converged`` holds after a quiet round (none of work,
+    then again after ``CLUSTER_SETTLE_S``). ``after_round(index, wall_s,
+    work)`` sees every round; ``inspect(rt)`` runs on the converged
+    operator before it shuts down (its value lands under ``"inspect"``).
+    ``device`` goes to the port's ``start_operator`` (None for the JAX
+    one). Returns ``cluster_summary`` and, under ``"walls"``, the host
+    times (apply, converge, the schedule passes' share, µs a reconcile),
+    left out of any comparison."""
+    world = cluster_world(n_sets, n_nodes)
+    pkg.reset_uid_namespace()
+    pkg.METRICS.reset()
+    pkg.EVENTS.reset()
+    kwargs = {} if device is None else {"device": device}
+    rt = pkg.start_operator(
+        nodes=pkg.make_nodes(world["n_nodes"]),
+        config=pkg.load_operator_configuration(CLUSTER_CONFIG_YAML),
+        with_tls=with_tls, with_authorizer=True, threaded=False, **kwargs)
+    record: Dict[str, object] = {"world": {k: world[k] for k in ("n_sets", "n_nodes")}}
+    walls: Dict[str, object] = {}
+    try:
+        t0 = time.perf_counter()
+        for doc in world["docs"]:
+            _http_json("POST", rt.apiserver.address + _PCS_PATH, doc)
+        walls["apply_s"] = time.perf_counter() - t0
+        schedule_s = [0.0]
+        schedule = rt.scheduler.schedule_pending
+
+        def timed_schedule():
+            t = time.perf_counter()
+            try:
+                return schedule()
+            finally:
+                schedule_s[0] += time.perf_counter() - t
+
+        rt.scheduler.schedule_pending = timed_schedule
+        solve0 = pkg.METRICS.hist_sum.get("gang_solve_seconds", 0.0)
+        rounds, quiet = 0, False
+        t0 = time.perf_counter()
+        while True:
+            if rounds >= CLUSTER_MAX_ROUNDS:
+                raise RuntimeError(f"(tau) did not converge within {CLUSTER_MAX_ROUNDS} rounds")
+            t = time.perf_counter()
+            work = rt.converge_once()
+            rounds += 1
+            if after_round is not None:
+                after_round(rounds, time.perf_counter() - t, work)
+            if work:
+                quiet = False
+                continue
+            with rt.apiserver.lock:
+                done = cluster_converged(pkg, rt.apiserver.store, world["n_sets"])
+            if done and quiet:
+                break
+            quiet = done
+            time.sleep(CLUSTER_SETTLE_S)
+        wall = time.perf_counter() - t0
+        reconciles = sum(v for k, v in pkg.METRICS.counters.items()
+                         if k.startswith("reconcile_total/"))
+        walls.update({
+            "converge_s": wall, "rounds": rounds, "reconciles": reconciles,
+            "us_per_reconcile": 1e6 * wall / max(reconciles, 1),
+            "schedule_s": schedule_s[0], "schedule_share": schedule_s[0] / wall,
+            "solver_s": pkg.METRICS.hist_sum.get("gang_solve_seconds", 0.0) - solve0,
+        })
+        record.update(cluster_summary(pkg, rt))
+        if inspect is not None:
+            record["inspect"] = inspect(rt)
+    finally:
+        rt.shutdown()
+        _reset_singletons(pkg)
+    record["walls"] = walls
+    return record
 
 
 # ---------------------------------------------------------------------------

@@ -96,6 +96,23 @@ class EventRecord:
     # keyspace shard of the object's namespace: 0 on an unsharded store
     shard: int = 0
 
+    def as_dict(self) -> dict:
+        """The record as ``GET /events`` serves it (a k8s Event's shape)."""
+        return {
+            "involvedObject": {
+                "kind": self.kind,
+                "namespace": self.namespace,
+                "name": self.name,
+            },
+            "type": self.type,
+            "reason": self.reason,
+            "message": self.message,
+            "count": self.count,
+            "firstTimestamp": self.first_timestamp,
+            "lastTimestamp": self.last_timestamp,
+            "shard": self.shard,
+        }
+
 
 class EventRecorder:
     def __init__(self, max_events: int = 8192, clock=None) -> None:

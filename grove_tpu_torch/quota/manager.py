@@ -54,11 +54,14 @@ class QuotaManager:
         self.default_queue = default_queue
         self.device = device  # where the ordering scan runs
         self.accountant = QuotaAccountant(default_queue)
-        # a sharded store delivers per shard: a pod's events never
-        # straddle shards, so the per-queue fold stays exact
-        if getattr(store, "num_shards", 1) > 1:
+        # the in-memory Store folds usage from its commit-time events (a
+        # sharded one per shard: a pod's events never straddle shards, so
+        # the per-queue fold stays exact); an HttpStore has no synchronous
+        # events, so usage is rebuilt every round
+        self._incremental = getattr(store, "subscribe_system", None) is not None
+        if self._incremental and getattr(store, "num_shards", 1) > 1:
             store.subscribe_system_per_shard(self.accountant.on_event)
-        else:
+        elif self._incremental:
             store.subscribe_system(self.accountant.on_event)
         # last ordering pass's per-queue rows (status writes)
         self.last_rows: List[dict] = []
@@ -78,7 +81,10 @@ class QuotaManager:
         return False
 
     def _usage_snapshot(self) -> Dict[str, Dict[str, float]]:
-        self.accountant.ensure_built(self.store)
+        if self._incremental:
+            self.accountant.ensure_built(self.store)
+        else:
+            self.accountant.rebuild(self.store.scan("Pod"))
         return self.accountant.snapshot()
 
     def warm(self, n_queues: int, n_gangs: int, n_resources: int = 1) -> None:

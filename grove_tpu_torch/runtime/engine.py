@@ -31,6 +31,11 @@ unsharded store arming is a no-op. ``overlap_hook`` (the scheduler's
 ``speculate_encode``) is called only by the process drain, between a
 round's dispatch and its replies; ``round_hook`` marks each routing for
 the process drain's cache watermark.
+
+``drain_concurrent`` is the real-cluster tier's threaded drain
+(``cluster/manager`` with ``threaded=True``, over the thread-safe
+``HttpStore``): up to ``concurrent_syncs`` reconciles of a controller at once
+on an engine-lifetime thread pool, never two of one key.
 """
 
 from __future__ import annotations
@@ -76,6 +81,8 @@ class Controller:
     # keys processed per round in the reference's threaded drain; the
     # serial drain batches every ready key of a round
     concurrent_syncs: int = 1
+    # keys in flight on a reconcile thread (drain_concurrent)
+    busy: set = field(default_factory=set)
     # called once per drain round with the controller's coalesced ready
     # keys before any of them reconciles (per-batch memo builds)
     batch_hook: Optional[Callable[[List[Key]], None]] = None
@@ -98,6 +105,8 @@ class Engine:
         # parallel drain's coordinator); a second one fails loudly
         self._router_lock = threading.Lock()
         self.workers = None
+        # drain_concurrent's thread pool, made at its first use
+        self._pool = None
         # set by the harness; only a process drain calls it (between a
         # round's dispatch and its replies), so the serial drain never does
         self.overlap_hook = None
@@ -398,12 +407,83 @@ class Engine:
             return NO_SHARD
         return self._shard_index(key[1])
 
+    def _ensure_pool(self):
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            size = max(sum(max(c.concurrent_syncs, 1) for c in self.controllers), 1)
+            self._pool = ThreadPoolExecutor(max_workers=size, thread_name_prefix="reconcile")
+        return self._pool
+
     def close(self) -> None:
-        """Release the parallel drain's executor (its threads, or its live
-        worker generation) and disarm it."""
+        """Release drain_concurrent's thread pool and the parallel drain's
+        executor (its threads, or its live worker generation), and disarm
+        it."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=False, cancel_futures=True)
+            self._pool = None
         if self.workers is not None:
             self.workers.close()
             self.workers = None
+
+    def drain_concurrent(self, max_iterations: int = 100_000) -> int:
+        """Threaded drain: each controller runs up to ``concurrent_syncs``
+        reconciles at once on real threads (the reference's
+        MaxConcurrentReconciles), for real-cluster mode over a thread-safe
+        store (``HttpStore`` and the locked apiserver); the sim keeps the
+        deterministic ``drain``.
+
+        Slots refill as reconciles finish, with no barrier between rounds.
+        A key already in flight is popped, seen busy and queued again to
+        run after the reconcile in flight ends, never beside it (client-go
+        work-queue semantics). The pool lives as long as the engine
+        (``close()`` releases it)."""
+        from concurrent.futures import FIRST_COMPLETED, wait
+
+        pool = self._ensure_pool()
+        executed = 0
+        futures = {}  # future -> (controller, key)
+        for _ in range(max_iterations):
+            now = self.clock.now()
+            self._route_events()
+            for ctrl in self.controllers:
+                slots = max(ctrl.concurrent_syncs, 1) - sum(
+                    1 for (c, _k) in futures.values() if c is ctrl
+                )
+                for _slot in range(slots):
+                    key = ctrl.queue.pop(now)
+                    if key is None:
+                        break
+                    if key in ctrl.busy:
+                        # in flight on another thread: after it, not beside it
+                        ctrl.queue.add(key)  # no backoff: not a failure
+                        break
+                    ctrl.busy.add(key)
+                    executed += 1
+                    METRICS.inc(f"reconcile_total/{ctrl.name}")
+                    futures[pool.submit(self._timed, ctrl, key)] = (ctrl, key)
+            if not futures:
+                self._route_events()
+                if all(c.queue.empty(self.clock.now()) for c in self.controllers):
+                    return executed
+                continue
+            done, _pending = wait(futures, return_when=FIRST_COMPLETED)
+            now = self.clock.now()
+            for fut in done:
+                ctrl, key = futures.pop(fut)
+                result = error = None
+                try:
+                    result = fut.result()
+                except Exception as e:
+                    error = e
+                self._complete(ctrl, key, result, error, now)
+                ctrl.busy.discard(key)
+            for ctrl in self.controllers:
+                METRICS.set(f"workqueue_depth/{ctrl.name}", len(ctrl.queue))
+        raise RuntimeError(
+            f"engine did not quiesce within {max_iterations} iterations "
+            "(reconcile livelock?)"
+        )
 
     def advance(self, seconds: float) -> None:
         self.clock.advance(seconds)  # type: ignore[attr-defined]

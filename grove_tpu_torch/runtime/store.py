@@ -129,22 +129,50 @@ def obj_key(obj) -> str:
 
 def commit_status(store, view, status):
     """Status write against a readonly ``view`` through the store's
-    copy-on-write commit. Returns the committed object."""
-    return store.commit_cow(view, status=status)
+    copy-on-write commit, or, on a store without one (``HttpStore``), a
+    mutable re-get and ``update_status``. Returns the committed object, or
+    None when it disappeared."""
+    cow = getattr(store, "commit_cow", None)
+    if cow is not None:
+        return cow(view, status=status)
+    fresh = store.get(view.kind, view.metadata.namespace, view.metadata.name)
+    if fresh is None:
+        return None
+    fresh.status = status
+    return store.update_status(fresh)
 
 
 def commit_finalizer_add(store, view, finalizer: str):
     """Finalizer add (a metadata write, no generation bump) against a
-    readonly ``view``. Returns the committed object."""
-    meta = _copy.copy(view.metadata)
-    meta.finalizers = list(view.metadata.finalizers)
-    meta.finalizers.append(finalizer)
-    return store.commit_cow(view, metadata=meta)
+    readonly ``view``, copy-on-write where the store has it. Returns the
+    committed object, or None when it disappeared (``HttpStore``)."""
+    cow = getattr(store, "commit_cow", None)
+    if cow is not None:
+        meta = _copy.copy(view.metadata)
+        meta.finalizers = list(view.metadata.finalizers)
+        meta.finalizers.append(finalizer)
+        return cow(view, metadata=meta)
+    fresh = store.get(view.kind, view.metadata.namespace, view.metadata.name)
+    if fresh is None:
+        return None
+    if finalizer not in fresh.metadata.finalizers:
+        fresh.metadata.finalizers.append(finalizer)
+        return store.update(fresh, bump_generation=False)
+    return fresh
 
 
 def commit_spec(store, view, spec):
-    """Spec write (no generation bump) against a readonly ``view``."""
-    return store.commit_cow(view, spec=spec)
+    """Spec write (no generation bump) against a readonly ``view``,
+    copy-on-write where the store has it, else a mutable re-get and
+    update."""
+    cow = getattr(store, "commit_cow", None)
+    if cow is not None:
+        return cow(view, spec=spec)
+    fresh = store.get(view.kind, view.metadata.namespace, view.metadata.name)
+    if fresh is None:
+        return None
+    fresh.spec = spec
+    return store.update(fresh, bump_generation=False)
 
 
 def _index_insert(index: Dict[tuple, set], obj) -> None:

@@ -33,7 +33,7 @@ from grove_tpu_torch.api.pod import (
     is_terminating,
 )
 from grove_tpu_torch.initc.waiter import is_ready_to_start
-from grove_tpu_torch.runtime.store import commit_status
+from grove_tpu_torch.runtime.store import Store, commit_status
 
 
 # node lifecycle states (docs/robustness.md): Ready nodes heartbeat and
@@ -170,7 +170,11 @@ class SimCluster:
         # fail-slow fault registry: node name -> (seed, lag_min, lag_max,
         # start_penalty); only inject_failslow / heal_failslow write it
         self._failslow: Dict[str, tuple] = {}
-        self.store.subscribe_system(self._track_pod_event)
+        # the in-memory Store only: its events fire at commit, so the set
+        # stays exact; an HttpStore's arrive on watch threads and lag live
+        # reads, so there the kubelet scans every pod
+        if isinstance(self.store, Store):
+            self.store.subscribe_system(self._track_pod_event)
 
     def _track_pod_event(self, ev) -> None:
         if ev.kind != "Pod":
@@ -187,7 +191,11 @@ class SimCluster:
             self._not_ready.add(key)
 
     def _not_ready_pods(self, namespace: Optional[str]):
-        """Readonly views of the not-Ready working set."""
+        """Readonly views of the not-Ready working set (every pod over an
+        HttpStore)."""
+        if not isinstance(self.store, Store):
+            yield from self.store.scan("Pod", namespace)
+            return
         if self._not_ready is None:
             self._not_ready = {
                 (p.metadata.namespace, p.metadata.name)
@@ -219,8 +227,9 @@ class SimCluster:
 
     def _gc_bindings(self) -> None:
         """Drop bindings whose pod is gone or no longer scheduled; skipped
-        while no pod was deleted since the last pass."""
-        if not self._deleted_since_gc:
+        while no pod was deleted since the last pass (an HttpStore, which
+        sends no synchronous Deleted events, runs it every time)."""
+        if isinstance(self.store, Store) and not self._deleted_since_gc:
             return
         self._deleted_since_gc = False
         stale = []
@@ -248,13 +257,23 @@ class SimCluster:
     def _used_by_node(self) -> Dict[str, Dict[str, float]]:
         """Committed usage per node in one pass over the bindings."""
         used: Dict[str, Dict[str, float]] = {}
+        live_uids = set()
         for (ns, pod_name), node_name in self.bindings.items():
             pod = self.store.get("Pod", ns, pod_name, readonly=True)
             if pod is None or is_terminating(pod):
                 continue
+            live_uids.add(pod.metadata.uid)
             u = used.setdefault(node_name, {})
             for k, v in self._pod_requests(pod).items():
                 u[k] = u.get(k, 0.0) + v
+        if not isinstance(self.store, Store) and len(self._requests_by_uid) > (
+            64 + 2 * len(live_uids)
+        ):
+            # an HttpStore sends no Deleted events to evict dead uids: prune
+            # the memo to the live set whenever it doubles it
+            self._requests_by_uid = {
+                u: r for u, r in self._requests_by_uid.items() if u in live_uids
+            }
         return used
 
     def node_free_all(self, nodes: List[Node]) -> Dict[str, Dict[str, float]]:

@@ -13,7 +13,7 @@ admitted gangs per queue and event counts by reason. ``chip_smoke.py``
 holds the port's rounds on the card against these numbers (its
 ``JAX_SCHEDULER_REFERENCE``). Run on the CPU, one world at a time or all:
 
-    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo] [disruption] [operator] [churn] [scale] [sims] [durability] [parallel]
+    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo] [disruption] [operator] [churn] [scale] [sims] [durability] [parallel] [cluster]
 
 ``delta`` is the churn world: (q)'s round, then its churn ticks
 (``scheduler_world("delta")``, ``apply_tick`` with the JAX decoder), through
@@ -122,8 +122,20 @@ sweeps (``--sweep-counts``) and ``durability_artifact``, each less its
 times. ``chip_smoke.py`` holds the port's ``[scale]`` and ``[parallel]`` to
 them (``JAX_PARALLEL_REFERENCE``).
 
-``operator``, ``churn``, ``scale``, ``sims``, ``durability`` and
-``parallel`` re-run the script under ``PYTHONHASHSEED=0`` unless that is
+``cluster`` is the real-cluster world (``run_cluster_world``, (tau)): the
+JAX ``cluster/manager.start_operator`` with its TLS webhooks and the
+authorizer on 5,120 nodes (``--nodes`` cuts them) under deploy/operator.yaml's
+configuration, the first ``--sets`` sets of (iota)'s population (the
+world's K, ``CLUSTER_SETS``, by default) POSTed to its apiserver as JSON and
+converged over HTTP. It runs the world twice and prints, from the first
+run, the census by kind, the gangs by phase, the pods, the ``GET /events``
+records by reason and the bindings' sha256, and whether the second run's
+bindings repeated it (``bindings_repeat``); its CPU walls go to stderr.
+``chip_smoke.py``'s ``[cluster]`` holds the port to it
+(``JAX_CLUSTER_REFERENCE``).
+
+``operator``, ``churn``, ``scale``, ``sims``, ``durability``, ``parallel``
+and ``cluster`` re-run the script under ``PYTHONHASHSEED=0`` unless that is
 set. A world can be cut for a quick
 look: ``--nodes N --gangs G`` (and ``--ticks T --seed S`` for ``delta``).
 """
@@ -194,6 +206,7 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     run_parallel_world,
     run_samples_world,
     run_churn_world,
+    run_cluster_world,
     run_scale_world,
     run_sims_world,
     run_slo_world,
@@ -330,7 +343,7 @@ def run_disruption(n_nodes=None, n_gangs=None, seed=0) -> dict:
     return out
 
 
-HASHED_WORLDS = ("operator", "churn", "scale", "sims", "durability", "parallel")
+HASHED_WORLDS = ("operator", "churn", "scale", "sims", "durability", "parallel", "cluster")
 
 
 def name_needs_seed() -> bool:
@@ -433,6 +446,28 @@ def run_parallel(sweep_counts=PARALLEL_SWEEP_COUNTS) -> dict:
     return out
 
 
+def run_cluster(n_sets=None, n_nodes=None) -> dict:
+    side = sim_side("grove_tpu")
+    runs = []
+    for attempt in (1, 2):
+        def after(index, wall_s, work, attempt=attempt):
+            print(f"[cluster] run {attempt} round {index} ({wall_s:.3f} s): work {work}",
+                  file=sys.stderr, flush=True)
+
+        t0 = time.perf_counter()
+        out = run_cluster_world(side, n_sets, n_nodes, after_round=after)
+        walls = out.pop("walls")
+        print(f"[cluster] run {attempt}: CPU wall {time.perf_counter() - t0:.1f} s,"
+              f" walls {json.dumps(walls)}", file=sys.stderr, flush=True)
+        assert out["pods"]["ready"] == out["pods"]["total"] > 0, out["pods"]
+        runs.append(out)
+    first, second = runs
+    assert {k: v for k, v in first.items() if k != "bindings_sha256"} == {
+        k: v for k, v in second.items() if k != "bindings_sha256"}, "the two runs differ"
+    first["bindings_repeat"] = first["bindings_sha256"] == second["bindings_sha256"]
+    return first
+
+
 def main() -> int:
     if name_needs_seed():
         os.execve(sys.executable, [sys.executable] + sys.argv,
@@ -467,6 +502,8 @@ def main() -> int:
             out[name] = run_durability(args.frontier_shape, args.shards)
         elif name == "parallel":
             out[name] = run_parallel(args.sweep_counts)
+        elif name == "cluster":
+            out[name] = run_cluster(args.sets, args.nodes)
         elif name == "observe":
             out[name] = run_observe(args.nodes, args.gangs)
         elif name == "slo":

@@ -495,3 +495,115 @@ def test_template_hashes_of_every_sample_match_jax():
                 )
         out.append(rows)
     assert out[1] == out[0] and len(out[1]) == 10
+
+
+# -- the threaded drain (drain_concurrent), the cases of
+# tests/test_concurrent_engine.py on both packages -------------------------
+
+
+def _service(p, side, name, rep):
+    return side.mod("api.types").GenericObject(
+        kind="Service", metadata=p["ObjectMeta"](name=name, namespace="default"),
+        spec={"rep": rep})
+
+
+def _overlaps(a, b) -> bool:
+    return a[1] < b[2] and b[1] < a[2]
+
+
+def _threaded_intervals(side, p, n_keys, bumps, concurrent_syncs, work_s=0.02):
+    """Reconcile ``n_keys`` Services through ``drain_concurrent``; each
+    reconcile bumps its own object until ``rep == bumps``, so its key comes
+    back while it is still in flight. Returns the (key, start, end)
+    intervals and the final reps."""
+    import threading
+    import time
+
+    store = p["Store"](p["VirtualClock"]())
+    store_lock, ivl_lock = threading.Lock(), threading.Lock()
+    engine = p["Engine"](store, store.clock)
+    intervals = []
+
+    def reconcile(key):
+        start = time.monotonic()
+        _kind, ns, name = key
+        with store_lock:  # the in-memory store is not thread-safe
+            obj = store.get("Service", ns, name)
+            if obj is not None and obj.spec.get("rep", 0) < bumps:
+                obj.spec = {"rep": obj.spec.get("rep", 0) + 1}
+                store.update(obj)
+        time.sleep(work_s)
+        with ivl_lock:
+            intervals.append((key, start, time.monotonic()))
+        return p["flow"].continue_reconcile()
+
+    engine.register(p["Controller"](name="test", kind="Service", reconcile=reconcile,
+                                    concurrent_syncs=concurrent_syncs))
+    with store_lock:
+        for i in range(n_keys):
+            store.create(_service(p, side, f"svc-{i}", 0))
+    try:
+        executed = engine.drain_concurrent()
+        assert engine._ensure_pool() is engine._pool  # one pool for the engine's life
+    finally:
+        engine.close()
+    assert engine._pool is None
+    reps = {o.metadata.name: o.spec["rep"] for o in store.list("Service")}
+    return intervals, reps, executed
+
+
+@pytest.mark.parametrize("side_i", [0, 1], ids=["jax", "port"])
+def test_drain_concurrent_runs_distinct_keys_in_parallel(side_i):
+    side = SIDES[side_i]
+    intervals, reps, executed = _threaded_intervals(side, parts(side), 4, 0, 4, work_s=0.03)
+    assert len(intervals) == executed == 4
+    assert reps == {f"svc-{i}": 0 for i in range(4)}
+    cross = sum(1 for i in range(4) for j in range(i + 1, 4)
+                if _overlaps(intervals[i], intervals[j]))
+    assert cross > 0, "no two distinct keys ever ran at once"
+
+
+@pytest.mark.parametrize("side_i", [0, 1], ids=["jax", "port"])
+def test_drain_concurrent_never_overlaps_one_key(side_i):
+    side = SIDES[side_i]
+    bumps = 4
+    intervals, reps, _ = _threaded_intervals(side, parts(side), 3, bumps, 4)
+    assert reps == {f"svc-{i}": bumps for i in range(3)}
+    by_key = {}
+    for iv in intervals:
+        by_key.setdefault(iv[0], []).append(iv)
+    assert all(len(v) >= bumps for v in by_key.values())
+    for key, ivs in by_key.items():
+        ivs.sort(key=lambda iv: iv[1])
+        for a, b in zip(ivs, ivs[1:]):
+            assert not _overlaps(a, b), f"{key} reconciled twice at once"
+
+
+def test_drain_concurrent_quiesces_like_jax():
+    """One thread a controller: the threaded drain runs one key at a time
+    in pop order, so both packages reconcile the same keys in the same
+    order and end at the same store."""
+    def run(side, p):
+        store = p["Store"](p["VirtualClock"]())
+        engine = p["Engine"](store, store.clock)
+        seen = []
+
+        def reconcile(key):
+            seen.append(key[2])
+            obj = store.get("Service", key[1], key[2])
+            if obj.spec["rep"] < 2:
+                obj.spec = {"rep": obj.spec["rep"] + 1}
+                store.update(obj)
+            return p["flow"].continue_reconcile()
+
+        engine.register(p["Controller"](name="one", kind="Service", reconcile=reconcile))
+        for i in range(5):
+            store.create(_service(p, side, f"svc-{i}", 0))
+        try:
+            executed = engine.drain_concurrent()
+        finally:
+            engine.close()
+        return executed, seen, store.resource_version
+
+    executed, seen, _rv = both(run)
+    assert executed == len(seen) == 15

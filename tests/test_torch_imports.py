@@ -54,7 +54,9 @@ def test_port_modules_import_with_jax_and_grove_tpu_blocked():
                  "controller.podcliquescalinggroup.reconciler", "utils.concurrent",
                  "initc.waiter", "sim.harness", "sim.deltachurn", "sim.scale",
                  "sim.multitenant", "sim.voluntary", "sim.demo", "sim.recovery",
-                 "solver.oracle"):
+                 "solver.oracle", "cluster.cert", "cluster.lease", "cluster.crdgen",
+                 "cluster.autotopo", "cluster.client", "cluster.apidocs", "cluster.apiserver",
+                 "cluster.webhook", "cluster.extscheduler", "cluster.manager"):
         assert f"grove_tpu_torch.{name}" in mods
     script = textwrap.dedent(
         f"""

@@ -282,7 +282,28 @@ Phases (any failure raises and the script exits non-zero):
      over the four BASELINE samples, every gang Running, its launches
      counted. Runs in a process of its own (_PhaseProcess), started with
      (pi)'s.
- 22. prints the kernels line, the card line, and last the ok line.
+ 22. [federation] the serving, chaos and federation worlds
+     (sim/{traffic,remediation,chaos}.py, federation/{quota,router}.py,
+     analysis/sanitize.py) on the card: (mu) serving_artifact(2026, 2, 16,
+     900) and remediation_artifact(2026, 3, 24, 1200), the bench's shapes
+     (models/scenarios.run_serving_world), printing the card's admission
+     p99 through the flash crowd (the serving gate, p99 < 1 s); (chi) the
+     chaos matrix (run_chaos_matrix: seeds 1234, 7 with the control-plane
+     crash, 42 under the sanitizer, 99 with the remediator, 2026 with
+     fail-slow, seed 7 on a 3-shard store, seed 1234 on 3 shards through 2
+     process workers, the federation and partition chaos of seed 4242,
+     federation_artifact(2026, 3, 8)), every verdict ok; (psi) three
+     regions of 5,120 nodes with (q)'s eight tenant Queues
+     (run_federation_world): a crash and rejoin of "us", then an overflow
+     whose pending gangs spill in global DRF order over the level-3 fold.
+     Every report less its wall fields equal to JAX_FEDERATION_REFERENCE
+     (scripts/scheduler_reference.py federation); stage 2 must spill; (psi)
+     must launch the fill and both DRF kernels, its first fill calls equal
+     the plain fill and its first global-usage DRF passes the plain order
+     twin, bit for bit. Prints each step's walls, counters, ledger length,
+     fold and launches. Runs in a process of its own (_PhaseProcess, niced),
+     started right after [frontier]: no later phase times a kernel.
+ 23. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -7518,6 +7539,1230 @@ def phase_cluster(card, device="cuda", n_sets=None, n_nodes=None, reference=None
     return out
 
 
+FEDERATION_FILL_CALLS = 8  # the first fill calls of (psi) held against the plain fill
+FEDERATION_DRF_CALLS = 4  # and its first global-usage DRF passes against the plain twin
+JAX_FEDERATION_REFERENCE = {'mu': {'serving': {'seed': 2026,
+                    'tenants': 2,
+                    'duration_vt_s': 900.0,
+                    'flash_crowds': 2,
+                    'fault_injected': True,
+                    'objectives': {'admission_latency_vt': {'attainment': 1.0,
+                                                            'budget_remaining': 1.0,
+                                                            'state': 'ok',
+                                                            'breaches': 0,
+                                                            'recoveries': 0},
+                                   'ready_fraction': {'attainment': 0.6666666666666666,
+                                                      'budget_remaining': 0.0,
+                                                      'state': 'breached',
+                                                      'breaches': 1,
+                                                      'recoveries': 0},
+                                   'scaleup_latency_vt': {'attainment': 1.0,
+                                                          'budget_remaining': 1.0,
+                                                          'state': 'ok',
+                                                          'breaches': 0,
+                                                          'recoveries': 0}},
+                    'breaches': 1,
+                    'recoveries': 0,
+                    'scale_ups': 79,
+                    'scale_downs': 44,
+                    'scaleup_latency_vt': {'n': 19, 'p50_s': 10.0, 'p99_s': 33.001},
+                    'time_under_min_vt_s': 0.0,
+                    'queue_wait_vt': {'tenant-0': {'mean_s': 0.0, 'max_s': 0.0},
+                                      'tenant-1': {'mean_s': 0.043, 'max_s': 1.0}}},
+        'remediation': {'seed': 2026,
+                        'duration_vt_s': 1200.0,
+                        'actions_by_kind': {'scale-up': {'skipped': 12, 'executed': 21}},
+                        'executed': 21,
+                        'skipped': 12,
+                        'flip_confirmed_rate': None,
+                        'mean_budget_delta': 0.15789473684210525,
+                        'forecast_skill_mean': 1.1565,
+                        'forecast_beats_naive': True,
+                        'budget_remaining_on': 1.0,
+                        'budget_remaining_off': 0.0,
+                        'budget_recovery_ratio': 1000000001.0,
+                        'disruption_budget_violations': 0,
+                        'objectives_on': {'admission_latency_vt': {'attainment': None,
+                                                                   'budget_remaining': None,
+                                                                   'state': 'ok',
+                                                                   'breaches': 0,
+                                                                   'recoveries': 0},
+                                          'ready_fraction': {'attainment': 1.0,
+                                                             'budget_remaining': 1.0,
+                                                             'state': 'ok',
+                                                             'breaches': 1,
+                                                             'recoveries': 1},
+                                          'scaleup_latency_vt': {'attainment': 1.0,
+                                                                 'budget_remaining': 1.0,
+                                                                 'state': 'ok',
+                                                                 'breaches': 0,
+                                                                 'recoveries': 0}},
+                        'objectives_off': {'admission_latency_vt': {'attainment': None,
+                                                                    'budget_remaining': None,
+                                                                    'state': 'ok',
+                                                                    'breaches': 0,
+                                                                    'recoveries': 0},
+                                           'ready_fraction': {'attainment': 0.7058823529411765,
+                                                              'budget_remaining': 0.0,
+                                                              'state': 'breached',
+                                                              'breaches': 2,
+                                                              'recoveries': 1},
+                                           'scaleup_latency_vt': {'attainment': 1.0,
+                                                                  'budget_remaining': 1.0,
+                                                                  'state': 'ok',
+                                                                  'breaches': 0,
+                                                                  'recoveries': 0}}}},
+ 'chi': {'1234': {'seed': 1234,
+                  'ticks': 35,
+                  'faults': [{'at': 2.93,
+                              'kind': 'crash',
+                              'target': 'node-0',
+                              'note': 'loss→rescue (packed)'},
+                             {'at': 4.88,
+                              'kind': 'crash',
+                              'target': 'node-5',
+                              'note': 'loss→requeue (strict)'},
+                             {'at': 7.01,
+                              'kind': 'crash',
+                              'target': 'node-13',
+                              'note': 'flap begin'},
+                             {'at': 13.76,
+                              'kind': 'outage_begin',
+                              'target': '',
+                              'note': 'store outage'},
+                             {'at': 16.92, 'kind': 'outage_end', 'target': '', 'note': ''},
+                             {'at': 19.17,
+                              'kind': 'drain',
+                              'target': 'node-3',
+                              'note': 'voluntary drain (budgeted)'},
+                             {'at': 19.39,
+                              'kind': 'restart',
+                              'target': 'node-13',
+                              'note': 'flap end (inside grace)'},
+                             {'at': 19.76,
+                              'kind': 'leader_crash',
+                              'target': '',
+                              'note': 'failover mid-drain'},
+                             {'at': 23.3,
+                              'kind': 'restart',
+                              'target': 'node-0',
+                              'note': 'capacity returns'},
+                             {'at': 23.71,
+                              'kind': 'restart',
+                              'target': 'node-5',
+                              'note': 'capacity returns'},
+                             {'at': 27.06,
+                              'kind': 'uncordon',
+                              'target': 'node-3',
+                              'note': 'drained node returns to service'}],
+                  'node_losses': 2,
+                  'flaps': 1,
+                  'rescues': 1,
+                  'pin_verified_rescues': 1,
+                  'requeues': 1,
+                  'drain_evictions': 1,
+                  'drains_completed': 1,
+                  'failovers': 1,
+                  'recoveries': 0,
+                  'replayed_records': 0,
+                  'torn_tails': 0,
+                  'lost_unacked_records': 0,
+                  'scheduler_errors': 0,
+                  'invariant_violations': [],
+                  'flight_bundles': [],
+                  'remediator_armed': False,
+                  'remediations_executed': 0,
+                  'remediations_skipped': 0,
+                  'worker_crashes': 0,
+                  'failslow_degraded': 0,
+                  'failslow_recovered': 0,
+                  'converged': True,
+                  'signature_matches_fault_free': True,
+                  'ok': True,
+                  'sanitized': False},
+         '7 controlplane_crash': {'seed': 7,
+                                  'ticks': 35,
+                                  'faults': [{'at': 1.65,
+                                              'kind': 'crash',
+                                              'target': 'node-0',
+                                              'note': 'loss→rescue (packed)'},
+                                             {'at': 4.3,
+                                              'kind': 'crash',
+                                              'target': 'node-5',
+                                              'note': 'loss→requeue (strict)'},
+                                             {'at': 8.3,
+                                              'kind': 'crash',
+                                              'target': 'node-13',
+                                              'note': 'flap begin'},
+                                             {'at': 12.14,
+                                              'kind': 'outage_begin',
+                                              'target': '',
+                                              'note': 'store outage'},
+                                             {'at': 14.81,
+                                              'kind': 'restart',
+                                              'target': 'node-13',
+                                              'note': 'flap end (inside grace)'},
+                                             {'at': 14.87,
+                                              'kind': 'outage_end',
+                                              'target': '',
+                                              'note': ''},
+                                             {'at': 18.56,
+                                              'kind': 'drain',
+                                              'target': 'node-3',
+                                              'note': 'voluntary drain (budgeted)'},
+                                             {'at': 19.57,
+                                              'kind': 'leader_crash',
+                                              'target': '',
+                                              'note': 'failover mid-drain'},
+                                             {'at': 21.11,
+                                              'kind': 'restart',
+                                              'target': 'node-0',
+                                              'note': 'capacity returns'},
+                                             {'at': 24.3,
+                                              'kind': 'restart',
+                                              'target': 'node-5',
+                                              'note': 'capacity returns'},
+                                             {'at': 26.24,
+                                              'kind': 'controlplane_crash',
+                                              'target': '',
+                                              'note': 'store+engine crash, recover from disk'},
+                                             {'at': 27.18,
+                                              'kind': 'uncordon',
+                                              'target': 'node-3',
+                                              'note': 'drained node returns to service'}],
+                                  'node_losses': 2,
+                                  'flaps': 1,
+                                  'rescues': 1,
+                                  'pin_verified_rescues': 1,
+                                  'requeues': 1,
+                                  'drain_evictions': 1,
+                                  'drains_completed': 1,
+                                  'failovers': 1,
+                                  'recoveries': 1,
+                                  'replayed_records': 111,
+                                  'torn_tails': 1,
+                                  'lost_unacked_records': 0,
+                                  'scheduler_errors': 0,
+                                  'invariant_violations': [],
+                                  'flight_bundles': [],
+                                  'remediator_armed': False,
+                                  'remediations_executed': 0,
+                                  'remediations_skipped': 0,
+                                  'worker_crashes': 0,
+                                  'failslow_degraded': 0,
+                                  'failslow_recovered': 0,
+                                  'converged': True,
+                                  'signature_matches_fault_free': True,
+                                  'ok': True,
+                                  'sanitized': False},
+         '42 sanitized': {'seed': 42,
+                          'ticks': 37,
+                          'faults': [{'at': 2.28,
+                                      'kind': 'crash',
+                                      'target': 'node-0',
+                                      'note': 'loss→rescue (packed)'},
+                                     {'at': 4.05,
+                                      'kind': 'crash',
+                                      'target': 'node-5',
+                                      'note': 'loss→requeue (strict)'},
+                                     {'at': 7.55,
+                                      'kind': 'crash',
+                                      'target': 'node-13',
+                                      'note': 'flap begin'},
+                                     {'at': 12.95,
+                                      'kind': 'outage_begin',
+                                      'target': '',
+                                      'note': 'store outage'},
+                                     {'at': 15.11,
+                                      'kind': 'restart',
+                                      'target': 'node-13',
+                                      'note': 'flap end (inside grace)'},
+                                     {'at': 16.3, 'kind': 'outage_end', 'target': '', 'note': ''},
+                                     {'at': 19.39,
+                                      'kind': 'drain',
+                                      'target': 'node-3',
+                                      'note': 'voluntary drain (budgeted)'},
+                                     {'at': 19.98,
+                                      'kind': 'leader_crash',
+                                      'target': '',
+                                      'note': 'failover mid-drain'},
+                                     {'at': 22.27,
+                                      'kind': 'restart',
+                                      'target': 'node-0',
+                                      'note': 'capacity returns'},
+                                     {'at': 23.09,
+                                      'kind': 'restart',
+                                      'target': 'node-5',
+                                      'note': 'capacity returns'},
+                                     {'at': 27.44,
+                                      'kind': 'uncordon',
+                                      'target': 'node-3',
+                                      'note': 'drained node returns to service'}],
+                          'node_losses': 2,
+                          'flaps': 1,
+                          'rescues': 1,
+                          'pin_verified_rescues': 1,
+                          'requeues': 1,
+                          'drain_evictions': 1,
+                          'drains_completed': 1,
+                          'failovers': 1,
+                          'recoveries': 0,
+                          'replayed_records': 0,
+                          'torn_tails': 0,
+                          'lost_unacked_records': 0,
+                          'scheduler_errors': 0,
+                          'invariant_violations': [],
+                          'flight_bundles': [],
+                          'remediator_armed': False,
+                          'remediations_executed': 0,
+                          'remediations_skipped': 0,
+                          'worker_crashes': 0,
+                          'failslow_degraded': 0,
+                          'failslow_recovered': 0,
+                          'converged': True,
+                          'signature_matches_fault_free': True,
+                          'ok': True,
+                          'sanitized': True},
+         '99 remediator': {'seed': 99,
+                           'ticks': 36,
+                           'faults': [{'at': 1.81,
+                                       'kind': 'crash',
+                                       'target': 'node-0',
+                                       'note': 'loss→rescue (packed)'},
+                                      {'at': 4.4,
+                                       'kind': 'crash',
+                                       'target': 'node-5',
+                                       'note': 'loss→requeue (strict)'},
+                                      {'at': 7.36,
+                                       'kind': 'crash',
+                                       'target': 'node-13',
+                                       'note': 'flap begin'},
+                                      {'at': 13.04,
+                                       'kind': 'outage_begin',
+                                       'target': '',
+                                       'note': 'store outage'},
+                                      {'at': 15.1,
+                                       'kind': 'restart',
+                                       'target': 'node-13',
+                                       'note': 'flap end (inside grace)'},
+                                      {'at': 15.54, 'kind': 'outage_end', 'target': '', 'note': ''},
+                                      {'at': 18.88,
+                                       'kind': 'drain',
+                                       'target': 'node-3',
+                                       'note': 'voluntary drain (budgeted)'},
+                                      {'at': 20.07,
+                                       'kind': 'leader_crash',
+                                       'target': '',
+                                       'note': 'failover mid-drain'},
+                                      {'at': 22.62,
+                                       'kind': 'restart',
+                                       'target': 'node-0',
+                                       'note': 'capacity returns'},
+                                      {'at': 25.82,
+                                       'kind': 'restart',
+                                       'target': 'node-5',
+                                       'note': 'capacity returns'},
+                                      {'at': 27.98,
+                                       'kind': 'uncordon',
+                                       'target': 'node-3',
+                                       'note': 'drained node returns to service'}],
+                           'node_losses': 2,
+                           'flaps': 1,
+                           'rescues': 1,
+                           'pin_verified_rescues': 1,
+                           'requeues': 1,
+                           'drain_evictions': 1,
+                           'drains_completed': 1,
+                           'failovers': 1,
+                           'recoveries': 0,
+                           'replayed_records': 0,
+                           'torn_tails': 0,
+                           'lost_unacked_records': 0,
+                           'scheduler_errors': 0,
+                           'invariant_violations': [],
+                           'flight_bundles': [],
+                           'remediator_armed': True,
+                           'remediations_executed': 0,
+                           'remediations_skipped': 0,
+                           'worker_crashes': 0,
+                           'failslow_degraded': 0,
+                           'failslow_recovered': 0,
+                           'converged': True,
+                           'signature_matches_fault_free': True,
+                           'ok': True,
+                           'sanitized': False},
+         '2026 failslow': {'seed': 2026,
+                           'ticks': 64,
+                           'faults': [{'at': 1.24,
+                                       'kind': 'crash',
+                                       'target': 'node-0',
+                                       'note': 'loss→rescue (packed)'},
+                                      {'at': 5.01,
+                                       'kind': 'crash',
+                                       'target': 'node-5',
+                                       'note': 'loss→requeue (strict)'},
+                                      {'at': 8.02,
+                                       'kind': 'crash',
+                                       'target': 'node-13',
+                                       'note': 'flap begin'},
+                                      {'at': 10.41,
+                                       'kind': 'outage_begin',
+                                       'target': '',
+                                       'note': 'store outage'},
+                                      {'at': 12.54,
+                                       'kind': 'failslow_begin',
+                                       'target': 'node-1',
+                                       'note': 'gray failure: heartbeats late, below binary grace'},
+                                      {'at': 12.86, 'kind': 'outage_end', 'target': '', 'note': ''},
+                                      {'at': 19.1,
+                                       'kind': 'drain',
+                                       'target': 'node-3',
+                                       'note': 'voluntary drain (budgeted)'},
+                                      {'at': 20.04,
+                                       'kind': 'restart',
+                                       'target': 'node-13',
+                                       'note': 'flap end (inside grace)'},
+                                      {'at': 20.16,
+                                       'kind': 'leader_crash',
+                                       'target': '',
+                                       'note': 'failover mid-drain'},
+                                      {'at': 23.35,
+                                       'kind': 'restart',
+                                       'target': 'node-0',
+                                       'note': 'capacity returns'},
+                                      {'at': 24.64,
+                                       'kind': 'restart',
+                                       'target': 'node-5',
+                                       'note': 'capacity returns'},
+                                      {'at': 28.46,
+                                       'kind': 'uncordon',
+                                       'target': 'node-3',
+                                       'note': 'drained node returns to service'},
+                                      {'at': 30.75,
+                                       'kind': 'failslow_end',
+                                       'target': 'node-1',
+                                       'note': 'fail-slow healed (suspicion must decay to Ready)'}],
+                           'node_losses': 2,
+                           'flaps': 1,
+                           'rescues': 1,
+                           'pin_verified_rescues': 1,
+                           'requeues': 1,
+                           'drain_evictions': 1,
+                           'drains_completed': 1,
+                           'failovers': 1,
+                           'recoveries': 0,
+                           'replayed_records': 0,
+                           'torn_tails': 0,
+                           'lost_unacked_records': 0,
+                           'scheduler_errors': 0,
+                           'invariant_violations': [],
+                           'flight_bundles': [],
+                           'remediator_armed': False,
+                           'remediations_executed': 0,
+                           'remediations_skipped': 0,
+                           'worker_crashes': 0,
+                           'failslow_degraded': 2,
+                           'failslow_recovered': 2,
+                           'converged': True,
+                           'signature_matches_fault_free': True,
+                           'ok': True,
+                           'sanitized': False},
+         '7 controlplane_crash 3 shards': {'seed': 7,
+                                           'ticks': 35,
+                                           'faults': [{'at': 1.65,
+                                                       'kind': 'crash',
+                                                       'target': 'node-0',
+                                                       'note': 'loss→rescue (packed)'},
+                                                      {'at': 4.3,
+                                                       'kind': 'crash',
+                                                       'target': 'node-5',
+                                                       'note': 'loss→requeue (strict)'},
+                                                      {'at': 8.3,
+                                                       'kind': 'crash',
+                                                       'target': 'node-13',
+                                                       'note': 'flap begin'},
+                                                      {'at': 12.14,
+                                                       'kind': 'outage_begin',
+                                                       'target': '',
+                                                       'note': 'store outage'},
+                                                      {'at': 14.81,
+                                                       'kind': 'restart',
+                                                       'target': 'node-13',
+                                                       'note': 'flap end (inside grace)'},
+                                                      {'at': 14.87,
+                                                       'kind': 'outage_end',
+                                                       'target': '',
+                                                       'note': ''},
+                                                      {'at': 18.56,
+                                                       'kind': 'drain',
+                                                       'target': 'node-3',
+                                                       'note': 'voluntary drain (budgeted)'},
+                                                      {'at': 19.57,
+                                                       'kind': 'leader_crash',
+                                                       'target': '',
+                                                       'note': 'failover mid-drain'},
+                                                      {'at': 21.11,
+                                                       'kind': 'restart',
+                                                       'target': 'node-0',
+                                                       'note': 'capacity returns'},
+                                                      {'at': 24.3,
+                                                       'kind': 'restart',
+                                                       'target': 'node-5',
+                                                       'note': 'capacity returns'},
+                                                      {'at': 26.24,
+                                                       'kind': 'controlplane_crash',
+                                                       'target': '',
+                                                       'note': 'store+engine crash, recover from '
+                                                               'disk'},
+                                                      {'at': 27.18,
+                                                       'kind': 'uncordon',
+                                                       'target': 'node-3',
+                                                       'note': 'drained node returns to service'}],
+                                           'node_losses': 2,
+                                           'flaps': 1,
+                                           'rescues': 1,
+                                           'pin_verified_rescues': 1,
+                                           'requeues': 1,
+                                           'drain_evictions': 1,
+                                           'drains_completed': 1,
+                                           'failovers': 1,
+                                           'recoveries': 1,
+                                           'replayed_records': 111,
+                                           'torn_tails': 1,
+                                           'lost_unacked_records': 0,
+                                           'scheduler_errors': 0,
+                                           'invariant_violations': [],
+                                           'flight_bundles': [],
+                                           'remediator_armed': False,
+                                           'remediations_executed': 0,
+                                           'remediations_skipped': 0,
+                                           'worker_crashes': 0,
+                                           'failslow_degraded': 0,
+                                           'failslow_recovered': 0,
+                                           'converged': True,
+                                           'signature_matches_fault_free': True,
+                                           'ok': True,
+                                           'sanitized': False},
+         '1234 3 shards 2 process workers': {'seed': 1234,
+                                             'ticks': 37,
+                                             'faults': [{'at': 2.93,
+                                                         'kind': 'crash',
+                                                         'target': 'node-0',
+                                                         'note': 'loss→rescue (packed)'},
+                                                        {'at': 4.88,
+                                                         'kind': 'crash',
+                                                         'target': 'node-5',
+                                                         'note': 'loss→requeue (strict)'},
+                                                        {'at': 7.01,
+                                                         'kind': 'crash',
+                                                         'target': 'node-13',
+                                                         'note': 'flap begin'},
+                                                        {'at': 13.76,
+                                                         'kind': 'outage_begin',
+                                                         'target': '',
+                                                         'note': 'store outage'},
+                                                        {'at': 16.92,
+                                                         'kind': 'outage_end',
+                                                         'target': '',
+                                                         'note': ''},
+                                                        {'at': 19.17,
+                                                         'kind': 'drain',
+                                                         'target': 'node-3',
+                                                         'note': 'voluntary drain (budgeted)'},
+                                                        {'at': 19.39,
+                                                         'kind': 'restart',
+                                                         'target': 'node-13',
+                                                         'note': 'flap end (inside grace)'},
+                                                        {'at': 19.76,
+                                                         'kind': 'leader_crash',
+                                                         'target': '',
+                                                         'note': 'failover mid-drain'},
+                                                        {'at': 21.71,
+                                                         'kind': 'restart',
+                                                         'target': 'node-0',
+                                                         'note': 'capacity returns'},
+                                                        {'at': 22.77,
+                                                         'kind': 'worker_crash',
+                                                         'target': '',
+                                                         'note': 'SIGKILL reconcile worker '
+                                                                 'mid-round (process executor); '
+                                                                 'repatriate + inline '
+                                                                 're-execution'},
+                                                        {'at': 23.09,
+                                                         'kind': 'restart',
+                                                         'target': 'node-5',
+                                                         'note': 'capacity returns'},
+                                                        {'at': 28.58,
+                                                         'kind': 'uncordon',
+                                                         'target': 'node-3',
+                                                         'note': 'drained node returns to '
+                                                                 'service'}],
+                                             'node_losses': 2,
+                                             'flaps': 1,
+                                             'rescues': 1,
+                                             'pin_verified_rescues': 1,
+                                             'requeues': 1,
+                                             'drain_evictions': 1,
+                                             'drains_completed': 1,
+                                             'failovers': 1,
+                                             'recoveries': 0,
+                                             'replayed_records': 0,
+                                             'torn_tails': 0,
+                                             'lost_unacked_records': 0,
+                                             'scheduler_errors': 0,
+                                             'invariant_violations': [],
+                                             'flight_bundles': [],
+                                             'remediator_armed': False,
+                                             'remediations_executed': 0,
+                                             'remediations_skipped': 0,
+                                             'worker_crashes': 1,
+                                             'failslow_degraded': 0,
+                                             'failslow_recovered': 0,
+                                             'converged': True,
+                                             'signature_matches_fault_free': True,
+                                             'ok': True,
+                                             'sanitized': False},
+         'federation 4242': {'seed': 4242,
+                             'regions': 3,
+                             'ticks': 22,
+                             'faults': [{'at': 6.0,
+                                         'kind': 'cluster_crash',
+                                         'target': 'region-0',
+                                         'note': '6 placements'},
+                                        {'at': 16.0,
+                                         'kind': 'cluster_rejoin',
+                                         'target': 'region-0',
+                                         'note': ''}],
+                             'applied': 18,
+                             'cluster_crashes': 1,
+                             'rejoins': 1,
+                             'reroutes': 6,
+                             'spillovers': 2,
+                             'stranded': 0,
+                             'invariant_checks': 4,
+                             'invariant_violations': [],
+                             'converged': True,
+                             'ok': True},
+         'partition 4242': {'seed': 4242,
+                            'regions': 3,
+                            'ticks': 33,
+                            'faults': [{'at': 3.0,
+                                        'kind': 'cluster_partition',
+                                        'target': 'region-1',
+                                        'note': '4 placements, 4 Scheduled inside'},
+                                       {'at': 11.0,
+                                        'kind': 'cluster_heal',
+                                        'target': 'region-1',
+                                        'note': ''}],
+                            'applied': 18,
+                            'partitions': 1,
+                            'heals': 1,
+                            'partition_spills': 3,
+                            'placements_kept': 4,
+                            'placements_in_partition': 4,
+                            'invariant_checks': 9,
+                            'invariant_violations': [],
+                            'converged': True,
+                            'ok': True},
+         'federation_artifact': {'seed': 2026,
+                                 'regions': 3,
+                                 'nodes_per_region': 8,
+                                 'applied': 9,
+                                 'spillovers': 0,
+                                 'reroutes': 2,
+                                 'decisions': 12,
+                                 'fold_depth_histogram': [3, 1],
+                                 'crash': {'victims': 2, 'rerouted': 2, 'stranded': 0}}},
+ 'psi': {'world': {'regions': ['us', 'eu', 'ap'],
+                   'nodes_per_region': 5120,
+                   'stage1_each': 64,
+                   'stage2_each': 2048,
+                   'stage2_ticks': 10},
+         'setup queues': {'spillovers': 0,
+                          'reroutes': 0,
+                          'decisions': 0,
+                          'decisions_by_kind': {},
+                          'decisions_sha256': '4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945',
+                          'foldDepthHistogram': [3, 1],
+                          'foldDepth': 2,
+                          'globalUsage': {},
+                          'clusters': [{'region': 'us',
+                                        'state': 'Ready',
+                                        'phaseOffset': 0.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 0,
+                                        'nodes': 5120,
+                                        'resourceVersion': 9,
+                                        'pendingGangs': 0},
+                                       {'region': 'eu',
+                                        'state': 'Ready',
+                                        'phaseOffset': 200.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 0,
+                                        'nodes': 5120,
+                                        'resourceVersion': 9,
+                                        'pendingGangs': 0},
+                                       {'region': 'ap',
+                                        'state': 'Ready',
+                                        'phaseOffset': 400.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 0,
+                                        'nodes': 5120,
+                                        'resourceVersion': 9,
+                                        'pendingGangs': 0}]},
+         'stage1 apply': {'spillovers': 0,
+                          'reroutes': 0,
+                          'decisions': 192,
+                          'decisions_by_kind': {'place': 192},
+                          'decisions_sha256': '9a7c9c6c326b1d3b9090863d9fdcafaa11062cd3d4c151f55526971dd36ec6c8',
+                          'foldDepthHistogram': [3, 1],
+                          'foldDepth': 2,
+                          'globalUsage': {},
+                          'clusters': [{'region': 'us',
+                                        'state': 'Ready',
+                                        'phaseOffset': 0.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 132,
+                                        'nodes': 5120,
+                                        'resourceVersion': 141,
+                                        'pendingGangs': 0},
+                                       {'region': 'eu',
+                                        'state': 'Ready',
+                                        'phaseOffset': 200.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 31,
+                                        'nodes': 5120,
+                                        'resourceVersion': 40,
+                                        'pendingGangs': 0},
+                                       {'region': 'ap',
+                                        'state': 'Ready',
+                                        'phaseOffset': 400.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 29,
+                                        'nodes': 5120,
+                                        'resourceVersion': 38,
+                                        'pendingGangs': 0}]},
+         'stage1 converge': {'spillovers': 0,
+                             'reroutes': 0,
+                             'decisions': 192,
+                             'decisions_by_kind': {'place': 192},
+                             'decisions_sha256': '9a7c9c6c326b1d3b9090863d9fdcafaa11062cd3d4c151f55526971dd36ec6c8',
+                             'foldDepthHistogram': [3, 1],
+                             'foldDepth': 2,
+                             'globalUsage': {'tenant-0': {'cpu': 216.0},
+                                             'tenant-1': {'cpu': 216.0},
+                                             'tenant-2': {'cpu': 216.0},
+                                             'tenant-3': {'cpu': 216.0},
+                                             'tenant-4': {'cpu': 216.0},
+                                             'tenant-5': {'cpu': 216.0},
+                                             'tenant-6': {'cpu': 216.0},
+                                             'tenant-7': {'cpu': 216.0}},
+                             'clusters': [{'region': 'us',
+                                           'state': 'Ready',
+                                           'phaseOffset': 0.0,
+                                           'crashes': 0,
+                                           'reachable': True,
+                                           'partitions': 0,
+                                           'placements': 132,
+                                           'nodes': 5120,
+                                           'resourceVersion': 5222,
+                                           'pendingGangs': 0},
+                                          {'region': 'eu',
+                                           'state': 'Ready',
+                                           'phaseOffset': 200.0,
+                                           'crashes': 0,
+                                           'reachable': True,
+                                           'partitions': 0,
+                                           'placements': 31,
+                                           'nodes': 5120,
+                                           'resourceVersion': 1241,
+                                           'pendingGangs': 0},
+                                          {'region': 'ap',
+                                           'state': 'Ready',
+                                           'phaseOffset': 400.0,
+                                           'crashes': 0,
+                                           'reachable': True,
+                                           'partitions': 0,
+                                           'placements': 29,
+                                           'nodes': 5120,
+                                           'resourceVersion': 1164,
+                                           'pendingGangs': 0}]},
+         'stage1 crash': {'spillovers': 0,
+                          'reroutes': 132,
+                          'decisions': 324,
+                          'decisions_by_kind': {'place': 192, 'reroute': 132},
+                          'decisions_sha256': '6f1a401144f52637ce65773ceb0712b23e8fe3921ac21f3c74fdd8e7e2ac22f9',
+                          'foldDepthHistogram': [3, 1],
+                          'foldDepth': 2,
+                          'globalUsage': {'tenant-0': {'cpu': 54.0},
+                                          'tenant-1': {'cpu': 87.0},
+                                          'tenant-2': {'cpu': 63.0},
+                                          'tenant-3': {'cpu': 126.0},
+                                          'tenant-4': {'cpu': 75.0},
+                                          'tenant-5': {'cpu': 30.0},
+                                          'tenant-6': {'cpu': 60.0},
+                                          'tenant-7': {'cpu': 36.0}},
+                          'clusters': [{'region': 'us',
+                                        'state': 'Lost',
+                                        'phaseOffset': 0.0,
+                                        'crashes': 1,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 0,
+                                        'lostAt': 3.0},
+                                       {'region': 'eu',
+                                        'state': 'Ready',
+                                        'phaseOffset': 200.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 31,
+                                        'nodes': 5120,
+                                        'resourceVersion': 1241,
+                                        'pendingGangs': 0},
+                                       {'region': 'ap',
+                                        'state': 'Ready',
+                                        'phaseOffset': 400.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 161,
+                                        'nodes': 5120,
+                                        'resourceVersion': 1296,
+                                        'pendingGangs': 0}]},
+         'stage1 crash result': {'victims': 132, 'rerouted': 132, 'stranded': 0},
+         'stage1 reconverge': {'spillovers': 0,
+                               'reroutes': 132,
+                               'decisions': 324,
+                               'decisions_by_kind': {'place': 192, 'reroute': 132},
+                               'decisions_sha256': '6f1a401144f52637ce65773ceb0712b23e8fe3921ac21f3c74fdd8e7e2ac22f9',
+                               'foldDepthHistogram': [3, 1],
+                               'foldDepth': 2,
+                               'globalUsage': {'tenant-0': {'cpu': 216.0},
+                                               'tenant-1': {'cpu': 216.0},
+                                               'tenant-2': {'cpu': 216.0},
+                                               'tenant-3': {'cpu': 216.0},
+                                               'tenant-4': {'cpu': 216.0},
+                                               'tenant-5': {'cpu': 216.0},
+                                               'tenant-6': {'cpu': 216.0},
+                                               'tenant-7': {'cpu': 216.0}},
+                               'clusters': [{'region': 'us',
+                                             'state': 'Lost',
+                                             'phaseOffset': 0.0,
+                                             'crashes': 1,
+                                             'reachable': True,
+                                             'partitions': 0,
+                                             'placements': 0,
+                                             'lostAt': 3.0},
+                                            {'region': 'eu',
+                                             'state': 'Ready',
+                                             'phaseOffset': 200.0,
+                                             'crashes': 0,
+                                             'reachable': True,
+                                             'partitions': 0,
+                                             'placements': 31,
+                                             'nodes': 5120,
+                                             'resourceVersion': 1241,
+                                             'pendingGangs': 0},
+                                            {'region': 'ap',
+                                             'state': 'Ready',
+                                             'phaseOffset': 400.0,
+                                             'crashes': 0,
+                                             'reachable': True,
+                                             'partitions': 0,
+                                             'placements': 161,
+                                             'nodes': 5120,
+                                             'resourceVersion': 6377,
+                                             'pendingGangs': 0}]},
+         'stage1 rejoin': {'spillovers': 0,
+                           'reroutes': 132,
+                           'decisions': 325,
+                           'decisions_by_kind': {'place': 192, 'rejoin': 1, 'reroute': 132},
+                           'decisions_sha256': '719a0820582c24aec9ce01b8443fc05b07ae9b981d47cde3aad49542dcc2f0e3',
+                           'foldDepthHistogram': [3, 1],
+                           'foldDepth': 2,
+                           'globalUsage': {'tenant-0': {'cpu': 216.0},
+                                           'tenant-1': {'cpu': 216.0},
+                                           'tenant-2': {'cpu': 216.0},
+                                           'tenant-3': {'cpu': 216.0},
+                                           'tenant-4': {'cpu': 216.0},
+                                           'tenant-5': {'cpu': 216.0},
+                                           'tenant-6': {'cpu': 216.0},
+                                           'tenant-7': {'cpu': 216.0}},
+                           'clusters': [{'region': 'us',
+                                         'state': 'Ready',
+                                         'phaseOffset': 0.0,
+                                         'crashes': 1,
+                                         'reachable': True,
+                                         'partitions': 0,
+                                         'placements': 0,
+                                         'nodes': 5120,
+                                         'resourceVersion': 9,
+                                         'pendingGangs': 0},
+                                        {'region': 'eu',
+                                         'state': 'Ready',
+                                         'phaseOffset': 200.0,
+                                         'crashes': 0,
+                                         'reachable': True,
+                                         'partitions': 0,
+                                         'placements': 31,
+                                         'nodes': 5120,
+                                         'resourceVersion': 1241,
+                                         'pendingGangs': 0},
+                                        {'region': 'ap',
+                                         'state': 'Ready',
+                                         'phaseOffset': 400.0,
+                                         'crashes': 0,
+                                         'reachable': True,
+                                         'partitions': 0,
+                                         'placements': 161,
+                                         'nodes': 5120,
+                                         'resourceVersion': 6377,
+                                         'pendingGangs': 0}]},
+         'stage1 rejoin converge': {'spillovers': 0,
+                                    'reroutes': 132,
+                                    'decisions': 325,
+                                    'decisions_by_kind': {'place': 192,
+                                                          'rejoin': 1,
+                                                          'reroute': 132},
+                                    'decisions_sha256': '719a0820582c24aec9ce01b8443fc05b07ae9b981d47cde3aad49542dcc2f0e3',
+                                    'foldDepthHistogram': [3, 1],
+                                    'foldDepth': 2,
+                                    'globalUsage': {'tenant-0': {'cpu': 216.0},
+                                                    'tenant-1': {'cpu': 216.0},
+                                                    'tenant-2': {'cpu': 216.0},
+                                                    'tenant-3': {'cpu': 216.0},
+                                                    'tenant-4': {'cpu': 216.0},
+                                                    'tenant-5': {'cpu': 216.0},
+                                                    'tenant-6': {'cpu': 216.0},
+                                                    'tenant-7': {'cpu': 216.0}},
+                                    'clusters': [{'region': 'us',
+                                                  'state': 'Ready',
+                                                  'phaseOffset': 0.0,
+                                                  'crashes': 1,
+                                                  'reachable': True,
+                                                  'partitions': 0,
+                                                  'placements': 0,
+                                                  'nodes': 5120,
+                                                  'resourceVersion': 9,
+                                                  'pendingGangs': 0},
+                                                 {'region': 'eu',
+                                                  'state': 'Ready',
+                                                  'phaseOffset': 200.0,
+                                                  'crashes': 0,
+                                                  'reachable': True,
+                                                  'partitions': 0,
+                                                  'placements': 31,
+                                                  'nodes': 5120,
+                                                  'resourceVersion': 1241,
+                                                  'pendingGangs': 0},
+                                                 {'region': 'ap',
+                                                  'state': 'Ready',
+                                                  'phaseOffset': 400.0,
+                                                  'crashes': 0,
+                                                  'reachable': True,
+                                                  'partitions': 0,
+                                                  'placements': 161,
+                                                  'nodes': 5120,
+                                                  'resourceVersion': 6377,
+                                                  'pendingGangs': 0}]},
+         'stage2 apply': {'spillovers': 0,
+                          'reroutes': 132,
+                          'decisions': 6469,
+                          'decisions_by_kind': {'place': 6336, 'rejoin': 1, 'reroute': 132},
+                          'decisions_sha256': '57cf6eb9489218b5c5587fc8072a772d36dab0e7154e6225297b323054adf05a',
+                          'foldDepthHistogram': [3, 1],
+                          'foldDepth': 2,
+                          'globalUsage': {'tenant-0': {'cpu': 216.0},
+                                          'tenant-1': {'cpu': 216.0},
+                                          'tenant-2': {'cpu': 216.0},
+                                          'tenant-3': {'cpu': 216.0},
+                                          'tenant-4': {'cpu': 216.0},
+                                          'tenant-5': {'cpu': 216.0},
+                                          'tenant-6': {'cpu': 216.0},
+                                          'tenant-7': {'cpu': 216.0}},
+                          'clusters': [{'region': 'us',
+                                        'state': 'Ready',
+                                        'phaseOffset': 0.0,
+                                        'crashes': 1,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 4359,
+                                        'nodes': 5120,
+                                        'resourceVersion': 4368,
+                                        'pendingGangs': 0},
+                                       {'region': 'eu',
+                                        'state': 'Ready',
+                                        'phaseOffset': 200.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 920,
+                                        'nodes': 5120,
+                                        'resourceVersion': 2130,
+                                        'pendingGangs': 0},
+                                       {'region': 'ap',
+                                        'state': 'Ready',
+                                        'phaseOffset': 400.0,
+                                        'crashes': 0,
+                                        'reachable': True,
+                                        'partitions': 0,
+                                        'placements': 1057,
+                                        'nodes': 5120,
+                                        'resourceVersion': 7273,
+                                        'pendingGangs': 0}]},
+         'stage2 converge': {'spillovers': 6,
+                             'reroutes': 132,
+                             'decisions': 6475,
+                             'decisions_by_kind': {'place': 6336,
+                                                   'rejoin': 1,
+                                                   'reroute': 132,
+                                                   'spill': 6},
+                             'decisions_sha256': '8aab96b0b320f6680ffddf9b23cba354f1286b38f26474ff0695592ab389d426',
+                             'foldDepthHistogram': [3, 1],
+                             'foldDepth': 2,
+                             'globalUsage': {'tenant-0': {'cpu': 6723.0},
+                                             'tenant-1': {'cpu': 6768.0},
+                                             'tenant-2': {'cpu': 6933.0},
+                                             'tenant-3': {'cpu': 6858.0},
+                                             'tenant-4': {'cpu': 6768.0},
+                                             'tenant-5': {'cpu': 6798.0},
+                                             'tenant-6': {'cpu': 6723.0},
+                                             'tenant-7': {'cpu': 6768.0}},
+                             'clusters': [{'region': 'us',
+                                           'state': 'Ready',
+                                           'phaseOffset': 0.0,
+                                           'crashes': 1,
+                                           'reachable': True,
+                                           'partitions': 0,
+                                           'placements': 4353,
+                                           'nodes': 5120,
+                                           'resourceVersion': 170958,
+                                           'pendingGangs': 179},
+                                          {'region': 'eu',
+                                           'state': 'Ready',
+                                           'phaseOffset': 200.0,
+                                           'crashes': 0,
+                                           'reachable': True,
+                                           'partitions': 0,
+                                           'placements': 920,
+                                           'nodes': 5120,
+                                           'resourceVersion': 36186,
+                                           'pendingGangs': 0},
+                                          {'region': 'ap',
+                                           'state': 'Ready',
+                                           'phaseOffset': 400.0,
+                                           'crashes': 0,
+                                           'reachable': True,
+                                           'partitions': 0,
+                                           'placements': 1063,
+                                           'nodes': 5120,
+                                           'resourceVersion': 41843,
+                                           'pendingGangs': 0}]},
+         'stage2 ticks': 10}}
+
+
+class _RecordedDrfOrders:
+    """While active, keeps the inputs of the first ``first`` DRF ordering
+    passes made by an order view with a usage override. In (psi) only the
+    federation router's spill pass gives one: the global order over the
+    level-3 fold."""
+
+    def __init__(self, first):
+        self.first, self.calls, self._usage = first, [], [False]
+
+    def __enter__(self):
+        from grove_tpu_torch.quota import manager
+        from grove_tpu_torch.solver import introspect
+
+        self._saved = [(manager, "fair_order", manager.fair_order),
+                       (introspect, "order_view", introspect.order_view)]
+        order, view = (fn for _, _, fn in self._saved)
+
+        def record(deserved, usage, demand, counts, device=None):
+            if self._usage[-1] and len(self.calls) < self.first:
+                self.calls.append(tuple(np.array(a) for a in (deserved, usage, demand, counts)))
+            return order(deserved, usage, demand, counts, device=device)
+
+        def order_view(scheduler, specs, queue_crs=None, usage=None):
+            self._usage.append(usage is not None)
+            try:
+                return view(scheduler, specs, queue_crs=queue_crs, usage=usage)
+            finally:
+                self._usage.pop()
+
+        manager.fair_order = record
+        introspect.order_view = order_view
+        return self
+
+    def __exit__(self, *exc):
+        for holder, name, fn in self._saved:
+            setattr(holder, name, fn)
+        return False
+
+
+def check_recorded_orders(recorded, phase, device="cuda") -> int:
+    """Each recorded DRF pass through the kernels and through the plain
+    order twin on the CPU, equal bit for bit. The launches made here are
+    not counted (the counters are restored)."""
+    from grove_tpu_torch.quota.ordering import fair_order, merge_cuda, share_table_cuda
+
+    if not recorded.calls:
+        _fail(f"{phase}: no global-usage DRF pass was recorded")
+    if device == "cpu":
+        return 0
+    counts = share_table_cuda.launches, merge_cuda.launches
+    for i, inputs in enumerate(recorded.calls):
+        got = fair_order(*inputs, device="cuda")
+        want = fair_order(*inputs, device="cpu")
+        if not np.array_equal(got, want):
+            _fail(f"{phase}: DRF pass {i} on the card != the plain order twin")
+        q, g, r = inputs[2].shape
+        print(f"[{phase}] DRF pass {i} (global usage): Q={q} G={g} R={r}, {len(got)} rows:"
+              f" kernels == plain twin bit for bit", flush=True)
+    share_table_cuda.launches, merge_cuda.launches = counts
+    return len(recorded.calls)
+
+
+def phase_federation(card, device="cuda", reference=None, worlds=("mu", "chi", "psi"),
+                     n_nodes=None, stage1_each=None, stage2_each=None) -> dict:
+    """[federation] (mu), (chi) and (psi) through the port on the card (see
+    the module docstring, item 22), each held to JAX_FEDERATION_REFERENCE
+    (``reference`` replaces it; a CPU rehearsal passes a cut's). Launch
+    counts are set to 0 just before each world and read just after it, and
+    for (psi) at each step."""
+    from grove_tpu_torch.models.scenarios import (
+        FEDERATION_STAGE1_EACH,
+        FEDERATION_STAGE2_EACH,
+        chaos_missing,
+        port_names,
+        run_chaos_matrix,
+        run_federation_world,
+        run_serving_world,
+    )
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+
+    ref = JAX_FEDERATION_REFERENCE if reference is None else reference
+    if ref is None:
+        _fail("federation: JAX_FEDERATION_REFERENCE is missing")
+    pkg = port_names(device)
+    t_phase = time.perf_counter()
+    out = {}
+
+    def zero():
+        fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+
+    def launches():
+        return {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                "drf_merge": merge_cuda.launches}
+
+    if "mu" in worlds:
+        zero()
+        got = run_serving_world(pkg, device=device)
+        walls = got.pop("walls")
+        n = launches()
+        for key in ("serving", "remediation"):
+            _check_same(f"federation (mu) {key}", got[key], ref["mu"][key])
+        out["mu"] = {**walls, **{f"{k}_launches": v for k, v in n.items()}}
+        # the p99 is a log bucket's midpoint, 1.5 * 2**k µs, of the bucket
+        # [2**k, 2**(k+1)) µs (observability/timeseries.bucket_value)
+        p99 = walls["admission_p99_s"]
+        print(f"[federation] (mu) serving_artifact(2026, 2, 16, 900) and"
+              f" remediation_artifact(2026, 3, 24, 1200) equal to the JAX package's less their"
+              f" wall fields: serving {walls['serving_s']:.3f} s, admission p99 through the flash"
+              f" crowd in [{p99 / 1.5 * 1e3:.3f}, {p99 / 0.75 * 1e3:.3f}) ms (bucket value"
+              f" {p99:.6f} s; p99 < 1 s: {walls['p99_lt_1s']}),"
+              f" remediation (OFF and ON days) {walls['remediation_s']:.3f} s; launches fill"
+              f" {n['fill']}, DRF {n['drf_shares']} + {n['drf_merge']} | {card}", flush=True)
+    if "chi" in worlds:
+        def after_run(name, wall_s):
+            print(f"[federation] (chi) {name}: {wall_s:.3f} s", flush=True)
+
+        zero()
+        got = run_chaos_matrix(pkg, device=device, after_run=after_run)
+        walls = got.pop("walls")
+        n = launches()
+        missing = chaos_missing(got)
+        if missing:
+            _fail(f"federation (chi): verdicts not ok: {missing}")
+        _check_same("federation (chi) runs", sorted(got), sorted(ref["chi"]))
+        for name in got:
+            _check_same(f"federation (chi) {name}", got[name], ref["chi"][name])
+        out["chi"] = {"walls": walls, **{f"{k}_launches": v for k, v in n.items()}}
+        print(f"[federation] (chi) {len(got)} chaos runs equal to the JAX package's less their"
+              f" wall fields, every verdict ok, in {sum(walls.values()):.3f} s; launches fill"
+              f" {n['fill']}, DRF {n['drf_shares']} + {n['drf_merge']} | {card}", flush=True)
+    if "psi" in worlds:
+        steps = {}
+        last = {"fill": 0, "drf_shares": 0, "drf_merge": 0}
+
+        def after_step(stage, name, wall_s):
+            now = launches()
+            steps[f"{stage} {name}"] = {k: now[k] - last[k] for k in now}
+            last.update(now)
+
+        zero()
+        with _RecordedKernelFills(FEDERATION_FILL_CALLS) as fills, \
+                _RecordedDrfOrders(FEDERATION_DRF_CALLS) as orders:
+            got = run_federation_world(
+                pkg, n_nodes=n_nodes or ref["psi"]["world"]["nodes_per_region"],
+                stage1_each=stage1_each or FEDERATION_STAGE1_EACH,
+                stage2_each=stage2_each or FEDERATION_STAGE2_EACH, device=device,
+                after_step=after_step)
+        walls = got.pop("walls")
+        n = launches()
+        _check_same("federation (psi) steps", sorted(got), sorted(ref["psi"]))
+        for key in got:
+            _check_same(f"federation (psi) {key}", got[key], ref["psi"][key])
+        for key, summary in got.items():
+            if key in ("world", "stage1 crash result", "stage2 ticks"):
+                continue
+            print(f"[federation] (psi) {key}: {walls[key]:.3f} s; spillovers"
+                  f" {summary['spillovers']}, re-routes {summary['reroutes']}, ledger"
+                  f" {summary['decisions']} {summary['decisions_by_kind']}, fold"
+                  f" {summary['foldDepthHistogram']}; regions"
+                  f" {[(c['region'], c['state'], c['placements'], c.get('pendingGangs')) for c in summary['clusters']]};"
+                  f" launches {steps[key]}", flush=True)
+        spilled = got["stage2 converge"]["spillovers"] - got["stage2 apply"]["spillovers"]
+        if spilled < 1:
+            _fail("federation (psi): stage 2 did not spill")
+        if device != "cpu" and not all(n.values()):
+            _fail(f"federation (psi): the fill and both DRF kernels must launch: {n}")
+        fill_err = check_recorded_fills(fills, "federation", device)
+        drf_checked = check_recorded_orders(orders, "federation", device)
+        out["psi"] = {"world": got["world"], "walls": walls, "steps": steps,
+                      "crash": got["stage1 crash result"], "stage2_spills": spilled,
+                      "stage2_ticks": got["stage2 ticks"],
+                      **{f"{k}_launches": v for k, v in n.items()},
+                      "fill_calls_checked": len(fills.calls), "fill_max_abs_err": fill_err,
+                      "drf_passes_checked": drf_checked}
+        print(f"[federation] (psi) {got['world']['nodes_per_region']} nodes a region x 3, stage 1"
+              f" {3 * got['world']['stage1_each']} sets (crash of us: {got['stage1 crash result']}),"
+              f" stage 2 {3 * got['world']['stage2_each']} sets, {got['stage2 ticks']} ticks,"
+              f" {spilled} spills: every step equal to the JAX package's; launches fill"
+              f" {n['fill']}, DRF {n['drf_shares']} + {n['drf_merge']}; {len(fills.calls)} fill"
+              f" calls and {drf_checked} global-usage DRF passes equal to their plain twins bit"
+              f" for bit | {card}", flush=True)
+    worlds_out = list(out.values())
+    for key in ("fill", "drf_shares", "drf_merge"):
+        out[f"{key}_launches"] = sum(w.get(f"{key}_launches", 0) for w in worlds_out)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _is_float(text: str) -> bool:
     try:
         float(text)
@@ -7548,10 +8793,11 @@ def main() -> int:
     drf = _timed(phase_drf, sched["q_order_inputs"])
     delta = _timed(phase_delta)
     front = _timed(phase_frontier, delta["rounds"][0])
-    observe = _timed(phase_observe, sched["rounds"]["q1"]["wall_s"], card)
-    sidecar = _timed(phase_sidecar, main_path, card)
-    slo = _timed(phase_slo, delta, card)
-    disruption = _timed(phase_disruption, card)
+    # [federation] runs in a process of its own from here on: every phase
+    # after [frontier] times no kernel, and the serving, chaos and
+    # federation worlds are host Python on one core; niced, it yields the
+    # cores to the phases that set the smoke's wall
+    federation_part = _PhaseProcess(card, {"phase_federation": {}}, nice=PARALLEL_NICE)
     # (pi) and [parallel] with [scale]'s codec A/B, whose process drains
     # fork, run in processes of their own (fork and exec: none inherits a
     # thread of this one), the smoke's time limit holds them only so. (pi)
@@ -7568,6 +8814,10 @@ def main() -> int:
         cluster_part.append(_PhaseProcess(card, {"phase_cluster": {}}))
 
     try:
+        observe = _timed(phase_observe, sched["rounds"]["q1"]["wall_s"], card)
+        sidecar = _timed(phase_sidecar, main_path, card)
+        slo = _timed(phase_slo, delta, card)
+        disruption = _timed(phase_disruption, card)
         # [sharded]'s ranks run beside [operator] and [churn], which time no
         # kernel
         sharded = _timed(phase_sharded, lambda: _timed(
@@ -7588,8 +8838,11 @@ def main() -> int:
         cluster = cluster_part[0].result()["phase_cluster"]
         print(f"[smoke] phase_cluster: {cluster['wall_s']:.1f} s in its own process, started"
               f" with (pi)'s", flush=True)
+        federation = federation_part.result()["phase_federation"]
+        print(f"[smoke] phase_federation: {federation['wall_s']:.1f} s in its own process,"
+              f" started after [frontier]", flush=True)
     finally:
-        for part in parts + cluster_part:
+        for part in [federation_part] + parts + cluster_part:
             part.kill()
     kernel = {
         "name": "fill_batch",
@@ -7604,7 +8857,8 @@ def main() -> int:
         + slo["fill_launches"] + disruption["fill_launches"]
         + operator["fill_launches"] + operator["samples_fill_launches"]
         + churn["fill_launches"] + scale["fill_launches"] + sims["fill_launches"]
-        + parallel["fill_launches"] + cluster["fill_launches"] + cluster["ext_fill_launches"],
+        + parallel["fill_launches"] + cluster["fill_launches"] + cluster["ext_fill_launches"]
+        + federation["fill_launches"],
         "sidecar_launches": sidecar.get("a", {}).get("fill_launches", 0)
         + sidecar.get("q", {}).get("fill_launches", 0),
         "slo_launches": slo["fill_launches"],
@@ -7615,13 +8869,14 @@ def main() -> int:
         "sims_launches": sims["fill_launches"],
         "parallel_launches": parallel["fill_launches"],
         "cluster_launches": cluster["fill_launches"] + cluster["ext_fill_launches"],
+        "federation_launches": federation["fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
         "explain_launches": observe["explain_fill_launches"],
         "sharded_rank_launches": sharded["fill_launches"],
         "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"],
                             operator["fill_max_abs_err"], churn["fill_max_abs_err"],
                             scale["fill_max_abs_err"], parallel["fill_max_abs_err"],
-                            cluster["fill_max_abs_err"]]
+                            cluster["fill_max_abs_err"], federation["psi"]["fill_max_abs_err"]]
                            + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -7644,7 +8899,7 @@ def main() -> int:
             + disruption[f"drf_{phase}_launches"] + operator[f"drf_{phase}_launches"]
             + operator[f"samples_drf_{phase}_launches"] + churn[f"drf_{phase}_launches"]
             + sims[f"drf_{phase}_launches"] + cluster[f"drf_{phase}_launches"]
-            + cluster[f"ext_drf_{phase}_launches"],
+            + cluster[f"ext_drf_{phase}_launches"] + federation[f"drf_{phase}_launches"],
             "sidecar_launches": sidecar.get("q", {}).get(f"drf_{phase}_launches", 0),
             "slo_launches": slo[f"drf_{phase}_launches"],
             "disruption_launches": disruption[f"drf_{phase}_launches"],
@@ -7658,6 +8913,8 @@ def main() -> int:
             # (tau) and the BASELINE samples have no Queue CR either
             "cluster_launches": cluster[f"drf_{phase}_launches"]
             + cluster[f"ext_drf_{phase}_launches"],
+            # (mu)'s quota churn, (chi) and (psi)'s global order over the fold
+            "federation_launches": federation[f"drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
             "plain_ms": drf[f"plain_{phase}_ms"],
@@ -7681,7 +8938,7 @@ def main() -> int:
                       "observe": observe, "sidecar": sidecar, "slo": slo,
                       "disruption": disruption, "operator": operator, "churn": churn,
                       "scale": scale, "sims": sims, "parallel": parallel,
-                      "cluster": cluster}))
+                      "cluster": cluster, "federation": federation}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,14 @@ crash, boundary faults, worker sweeps and durability report.
 ``HttpStore``, controllers and scheduler), POSTs (ι)'s first K sets to it
 as JSON and converges it; ``cluster_summary`` reads the result the same way
 on either side.
+
+The serving, chaos and federation worlds run either package's
+``sim/{traffic,remediation,chaos}`` and ``federation/router``:
+``run_serving_world`` (mu), the JAX bench's serving and remediation days;
+``run_chaos_matrix`` (chi), the chaos matrix's arms and the federation and
+partition chaos; ``run_federation_world`` (psi), three regions of (iota)'s
+5,120 nodes with (q)'s tenant Queues, a crash and rejoin, then an overflow
+that spills in global DRF order (``federation_summary`` reads each step).
 """
 
 from __future__ import annotations
@@ -1498,9 +1506,7 @@ def package_names(module: Callable[[str], object], demo_text: Callable[[str], st
         parallel=module("sim.parallel"),
         recovery=module("sim.recovery"),
         store_dump=module("sim.recovery").store_dump,
-        # the port keeps it in sim/recovery; the JAX package in sim/chaos
-        resource_signature=getattr(module("sim.recovery"), "resource_signature", None)
-        or module("sim.chaos").resource_signature,
+        resource_signature=module("sim.chaos").resource_signature,
         recover_store=module("durability").recover_store,
         verify_acked_prefix=module("durability").verify_acked_prefix,
         multitenant=module("sim.multitenant"),
@@ -1509,6 +1515,15 @@ def package_names(module: Callable[[str], object], demo_text: Callable[[str], st
         make_nodes=module("sim.cluster").make_nodes,
         load_operator_configuration=module("config.operator").load_operator_configuration,
         start_operator=module("cluster.manager").start_operator,
+        traffic=module("sim.traffic"),
+        remediation=module("sim.remediation"),
+        chaos=module("sim.chaos"),
+        sanitize=module("analysis.sanitize"),
+        router=module("federation.router"),
+        introspect=module("solver.introspect"),
+        ObjectMeta=module("api.meta").ObjectMeta,
+        Queue=module("api.types").Queue,
+        QueueSpec=module("api.types").QueueSpec,
     )
 
 
@@ -2405,3 +2420,265 @@ def parallel_missing(suite: dict) -> List[str]:
     if not (dur["recovery_ok"] and dur["inert_ab_identical"]):
         missing.append(f"durability: {dur}")
     return missing
+
+
+# ---------------------------------------------------------------------------
+# The serving, chaos and federation worlds: (mu) the serving and remediation
+# days, (chi) the chaos matrix, (psi) three regions at full width
+# ---------------------------------------------------------------------------
+
+# the wall-clock fields of the serving, remediation, chaos and federation
+# reports: measured, never compared
+WALL_FIELDS = ("admission_p99_s", "p99_lt_1s", "wall_s", "recovery_wall_seconds")
+SERVING_SHAPE = (2026, 2, 16, 900.0)  # serving_artifact(seed, tenants, nodes, duration)
+REMEDIATION_SHAPE = (2026, 3, 24, 1200.0)  # remediation_artifact(seed, tenants, nodes, duration)
+# (name, seed, run_chaos flags, store shards, process workers): the chaos
+# matrix's five seeds with their arms, seed 7 again on a 3-shard store and
+# seed 1234 on 3 shards through 2 process workers
+CHAOS_ARMS = (
+    ("1234", 1234, {}, 1, 0),
+    ("7 controlplane_crash", 7, {"controlplane_crash": True}, 1, 0),
+    ("42 sanitized", 42, {"sanitize": True}, 1, 0),
+    ("99 remediator", 99, {"remediator": True}, 1, 0),
+    ("2026 failslow", 2026, {"failslow": True}, 1, 0),
+    ("7 controlplane_crash 3 shards", 7, {"controlplane_crash": True}, 3, 0),
+    ("1234 3 shards 2 process workers", 1234, {}, 3, 2),
+)
+FEDERATION_CHAOS_SEED = 4242
+FEDERATION_ARTIFACT_SHAPE = (2026, 3, 8)  # federation_artifact(seed, regions, nodes)
+FEDERATION_REGIONS = ("us", "eu", "ap")
+FEDERATION_NODES = OPERATOR_NODES  # (iota)'s 5,120-node harness in every region
+FEDERATION_OFFSETS = (0.0, 200.0, 400.0)
+FEDERATION_SPILL_AFTER = 5.0
+FEDERATION_HOME_SEED = 2026
+FEDERATION_HOME_SHARE = 0.7  # of the sets homed on the first region
+FEDERATION_QUEUES = 8  # (q)'s tenants, each deserving 1/8 of a region
+FEDERATION_STAGE1_EACH = 64  # chaos_workload(n_each): 3 sets a unit
+FEDERATION_STAGE2_EACH = 2048
+FEDERATION_STAGE2_TICKS = 10  # cut from 40: see PERF.md section 4
+
+
+def _without_walls(doc):
+    """A report less its wall-clock fields (``WALL_FIELDS``), at every
+    depth."""
+    if isinstance(doc, dict):
+        return {k: _without_walls(v) for k, v in doc.items() if k not in WALL_FIELDS}
+    if isinstance(doc, list):
+        return [_without_walls(v) for v in doc]
+    return doc
+
+
+def _device_kw(device) -> dict:
+    return {} if device is None else {"device": device}
+
+
+def run_serving_world(pkg, device=None) -> dict:
+    """(mu): ``serving_artifact(*SERVING_SHAPE)`` and ``remediation_artifact(*
+    REMEDIATION_SHAPE)`` through ``pkg``'s sim modules (either package; the port's
+    on ``device``). Returns both reports less their wall fields, and under
+    ``"walls"`` the serving day's admission p99 (the metrics registry's
+    admission histogram, wall seconds) and each run's wall."""
+    kw = _device_kw(device)
+    pkg.reset_uid_namespace()
+    walls = {}
+    t0 = time.perf_counter()
+    serving_doc = pkg.traffic.serving_artifact(*SERVING_SHAPE, **kw)
+    walls["serving_s"] = time.perf_counter() - t0
+    walls["admission_p99_s"] = serving_doc["admission_p99_s"]
+    walls["p99_lt_1s"] = serving_doc["p99_lt_1s"]
+    t0 = time.perf_counter()
+    remediation_doc = pkg.remediation.remediation_artifact(*REMEDIATION_SHAPE, **kw)
+    walls["remediation_s"] = time.perf_counter() - t0
+    _reset_singletons(pkg)
+    return {"serving": _without_walls(serving_doc),
+            "remediation": _without_walls(remediation_doc), "walls": walls}
+
+
+def _set_env(values: Dict[str, Optional[str]]) -> Dict[str, Optional[str]]:
+    """Set (or, for None, unset) each variable; returns the values before."""
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return saved
+
+
+def _chaos_arm(pkg, seed: int, flags: dict, shards: int, workers: int, kw: dict) -> dict:
+    saved = _set_env({"GROVE_TPU_STORE_SHARDS": str(shards) if shards > 1 else None,
+                      "GROVE_TPU_CP_WORKERS": str(workers) if workers else None,
+                      "GROVE_TPU_CP_BACKEND": "process" if workers else None})
+    flags = dict(flags)
+    sanitized = flags.pop("sanitize", False)
+    if sanitized:
+        pkg.sanitize.install()
+    try:
+        report = pkg.chaos.run_chaos(seed=seed, **flags, **kw)
+    finally:
+        if sanitized:
+            pkg.sanitize.uninstall()
+        _set_env(saved)
+    return dict(report.as_dict(), sanitized=sanitized)
+
+
+def run_chaos_matrix(pkg, device=None, after_run=None) -> dict:
+    """(chi): the chaos matrix through ``pkg``'s ``sim/chaos`` (either
+    package): every arm of ``CHAOS_ARMS`` (seed 42 under the installed
+    sanitizer, shards and process workers through the store and engine
+    env), then ``run_federation_chaos`` and ``run_partition_chaos`` of
+    ``FEDERATION_CHAOS_SEED`` and ``federation_artifact(*
+    FEDERATION_ARTIFACT_SHAPE)``. Returns
+    each report's ``as_dict()`` less its wall fields by run name, and under
+    ``"walls"`` each run's wall; ``after_run(name, wall_s)`` sees each."""
+    kw = _device_kw(device)
+    out: Dict[str, object] = {}
+    walls: Dict[str, float] = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        doc = fn()
+        walls[name] = time.perf_counter() - t0
+        out[name] = _without_walls(doc)
+        if after_run is not None:
+            after_run(name, walls[name])
+
+    try:
+        for name, seed, flags, shards, workers in CHAOS_ARMS:
+            step(name, lambda: _chaos_arm(pkg, seed, flags, shards, workers, kw))
+        seed = FEDERATION_CHAOS_SEED
+        step(f"federation {seed}", lambda: pkg.chaos.run_federation_chaos(seed, **kw).as_dict())
+        step(f"partition {seed}", lambda: pkg.chaos.run_partition_chaos(seed, **kw).as_dict())
+        step("federation_artifact",
+             lambda: pkg.router.federation_artifact(*FEDERATION_ARTIFACT_SHAPE, **kw))
+    finally:
+        _reset_singletons(pkg)
+    out["walls"] = walls
+    return out
+
+
+def chaos_missing(matrix: dict) -> List[str]:
+    """The runs of a chaos matrix whose verdict is not ok."""
+    return [name for name, doc in matrix.items()
+            if name not in ("walls", "federation_artifact") and not doc.get("ok")]
+
+
+def _federation_queues(pkg, n_nodes: int) -> list:
+    capacity = make_nodes(1)[0].capacity
+    share = {r: v * n_nodes / FEDERATION_QUEUES for r, v in capacity.items()}
+    return [pkg.Queue(metadata=pkg.ObjectMeta(name=f"tenant-{k}", namespace=""),
+                      spec=pkg.QueueSpec(deserved=dict(share)))
+            for k in range(FEDERATION_QUEUES)]
+
+
+def _federation_sets(pkg, n_each: int, suffix: str, first: int, rng: random.Random) -> list:
+    """``chaos_workload(n_each)`` named with ``suffix``; set i (counted from
+    ``first`` over the whole population) in namespace and queue
+    tenant-(i % 8), homed by ``rng``: the first region with probability
+    ``FEDERATION_HOME_SHARE``, the rest split evenly."""
+    regions = FEDERATION_REGIONS
+    rest = (1.0 - FEDERATION_HOME_SHARE) / (len(regions) - 1)
+    out = []
+    for i, pcs in enumerate(pkg.chaos.chaos_workload(n_each=n_each), start=first):
+        tenant = f"tenant-{i % FEDERATION_QUEUES}"
+        pcs.metadata.name = f"{pcs.metadata.name}{suffix}"
+        pcs.metadata.namespace = tenant
+        pcs.metadata.labels[namegen.LABEL_QUEUE] = tenant
+        x = rng.random()
+        home = regions[0] if x < FEDERATION_HOME_SHARE else regions[
+            min(len(regions) - 1, 1 + int((x - FEDERATION_HOME_SHARE) / rest))]
+        pcs.metadata.labels[namegen.LABEL_FEDERATION_HOME] = home
+        out.append(pcs)
+    return out
+
+
+def federation_summary(router) -> dict:
+    """What (psi) compares after a step: the counters, the routing ledger
+    (its length, its decisions by kind and the sha256 of the whole ledger
+    as sorted JSON), the fold, the global usage and each region's row of
+    ``status()``."""
+    status = router.status()
+    decisions = router.decisions()
+    return {
+        "spillovers": router.spillovers,
+        "reroutes": router.reroutes,
+        "decisions": len(decisions),
+        "decisions_by_kind": dict(sorted(Counter(d["kind"] for d in decisions).items())),
+        "decisions_sha256": hashlib.sha256(
+            json.dumps(decisions, sort_keys=True).encode()).hexdigest(),
+        "foldDepthHistogram": status["foldDepthHistogram"],
+        "foldDepth": router.fold.depth,
+        "globalUsage": status["globalUsage"],
+        "clusters": status["clusters"],
+    }
+
+
+def run_federation_world(pkg, n_nodes: int = FEDERATION_NODES,
+                         stage1_each: int = FEDERATION_STAGE1_EACH,
+                         stage2_each: int = FEDERATION_STAGE2_EACH, device=None,
+                         after_step=None) -> dict:
+    """(psi) through ``pkg``'s ``FederationRouter`` (either package; the
+    port's regions on ``device``): three regions of ``n_nodes`` nodes
+    (``FEDERATION_REGIONS``, phase offsets 0, 200 and 400 s, spill after
+    5 s); (q)'s eight tenant Queues, each deserving 1/8 of a region,
+    applied through ``router.apply``. Stage 1: ``chaos_workload(
+    stage1_each)`` homed by ``random.Random(2026)`` (70 % on "us"),
+    converge(40), crash "us", converge(40), rejoin "us", converge(20).
+    Stage 2: ``chaos_workload(stage2_each)`` more, homed by the same
+    generator, converge(``FEDERATION_STAGE2_TICKS``): pending gangs spill
+    in global DRF order over the fold, at most one a tick. No crash follows a spill
+    (ROADMAP C.7). ``after_step(stage, step, wall_s)`` sees each step.
+    Returns ``federation_summary`` after each step and the crash's
+    victims, re-routes and strandings, and under ``"walls"`` each step's
+    wall."""
+    kw = _device_kw(device)
+    pkg.reset_uid_namespace()
+    rng = random.Random(FEDERATION_HOME_SEED)
+    record: Dict[str, object] = {"world": {
+        "regions": list(FEDERATION_REGIONS), "nodes_per_region": n_nodes,
+        "stage1_each": stage1_each, "stage2_each": stage2_each,
+        "stage2_ticks": FEDERATION_STAGE2_TICKS}}
+    walls: Dict[str, float] = {}
+    t0 = time.perf_counter()
+    router = pkg.router.FederationRouter(
+        list(FEDERATION_REGIONS), num_nodes=n_nodes, phase_offsets=list(FEDERATION_OFFSETS),
+        spill_after=FEDERATION_SPILL_AFTER, **kw)
+    walls["build_s"] = time.perf_counter() - t0
+    home = FEDERATION_REGIONS[0]
+
+    def step(stage, name, fn):
+        t = time.perf_counter()
+        value = fn()
+        walls[f"{stage} {name}"] = time.perf_counter() - t
+        record[f"{stage} {name}"] = federation_summary(router)
+        if after_step is not None:
+            after_step(stage, name, walls[f"{stage} {name}"])
+        return value
+
+    def apply(sets):
+        for obj in sets:
+            router.apply(obj)
+        return len(sets)
+
+    try:
+        step("setup", "queues", lambda: apply(_federation_queues(pkg, n_nodes)))
+        stage1 = _federation_sets(pkg, stage1_each, "", 0, rng)
+        step("stage1", "apply", lambda: apply(stage1))
+        step("stage1", "converge", lambda: router.converge(max_ticks=40))
+        crash = step("stage1", "crash", lambda: router.crash_cluster(home))
+        record["stage1 crash result"] = {k: len(crash[k])
+                                         for k in ("victims", "rerouted", "stranded")}
+        step("stage1", "reconverge", lambda: router.converge(max_ticks=40))
+        step("stage1", "rejoin", lambda: router.rejoin_cluster(home))
+        step("stage1", "rejoin converge", lambda: router.converge(max_ticks=20))
+        stage2 = _federation_sets(pkg, stage2_each, "-b", len(stage1), rng)
+        step("stage2", "apply", lambda: apply(stage2))
+        record["stage2 ticks"] = step("stage2", "converge",
+                                      lambda: router.converge(max_ticks=FEDERATION_STAGE2_TICKS))
+    finally:
+        for cl in router.clusters():
+            if cl.harness is not None:
+                cl.harness.engine.close()
+        _reset_singletons(pkg)
+    record["walls"] = walls
+    return record

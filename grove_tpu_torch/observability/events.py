@@ -2,8 +2,8 @@
 
 Counterpart of ``grove_tpu/observability/events.py``, cut to the reasons
 the scheduler round, the SLO observatory, the flight recorder, the decision
-ledger, the node-health monitor, the disruption layer and the durability
-layer record, and the deferral details the round and the explain
+ledger, the node-health monitor, the disruption layer, the durability
+layer and the federation router record, and the deferral details the round and the explain
 engine cite. ``record`` dedups on (kind, namespace, name, type, reason),
 bumps ``count`` and keeps the latest message; the oldest groups drop past
 ``max_events``. Each updated record goes to ``sink`` when one is installed
@@ -69,6 +69,14 @@ REASON_RECOVERY_COMPLETED = "RecoveryCompleted"
 REASON_WAL_TORN_TAIL = "WalTornTail"
 REASON_WAL_DEGRADED = "WalDegraded"
 REASON_WAL_RECOVERED = "WalRecovered"
+# federation router: a gang moved off its home region because the home
+# explain verdict said it cannot admit now; a region lost and rejoined; a
+# region suspected partitioned (alive but unreachable) and healed
+REASON_GANG_SPILLED = "GangSpilled"
+REASON_CLUSTER_LOST = "ClusterLost"
+REASON_CLUSTER_REJOINED = "ClusterRejoined"
+REASON_CLUSTER_PARTITIONED = "ClusterPartitioned"
+REASON_CLUSTER_HEALED = "ClusterHealed"
 
 # deferral-detail slugs: GangDeferred / QueuePending messages start with one
 DETAIL_NO_NODES = "no-schedulable-nodes"

@@ -25,8 +25,9 @@ per-thread shard context the engine sets around each reconcile of a
 keyspace-sharded store: every span opened inside carries it as its
 ``shard`` attribute (the Chrome export's ``shard`` column; -1 when unset);
 ``set_worker`` is the parallel drain's per-thread worker stamp, carried as
-the ``worker`` attribute. Waiting for a module the port does not have yet:
-the sanitizer's span hook (``SPAN_HOOK``).
+the ``worker`` attribute. ``SPAN_HOOK`` is the runtime sanitizer's
+(``analysis/sanitize.py``) leaked-span ledger, told of every span's open and
+close while it is installed.
 """
 
 from __future__ import annotations
@@ -60,6 +61,11 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+# Sanitizer hook (analysis/sanitize.py): an object with span_opened(span) /
+# span_closed(span), installed only under GROVE_TPU_SANITIZE=1 for leaked-span
+# detection. One global load a span while tracing is on.
+SPAN_HOOK = None
+
 # Flight-recorder sink (observability/flightrec.py): an object with
 # note_span(span), installed by FLIGHTREC.enable() so finished spans land in
 # its postmortem rings. One global load a span while tracing is on.
@@ -90,6 +96,8 @@ class Span:
             if worker is not None:
                 attrs["worker"] = worker
         self._done = False
+        if SPAN_HOOK is not None:
+            SPAN_HOOK.span_opened(self)
         self._t0 = time.perf_counter()
         self.ts_us = int((self._t0 - tracer._origin) * 1e6)
         self.dur_us = 0
@@ -101,6 +109,8 @@ class Span:
         if self._done:
             return
         self._done = True
+        if SPAN_HOOK is not None:
+            SPAN_HOOK.span_closed(self)
         self.dur_us = int((time.perf_counter() - self._t0) * 1e6)
         if FLIGHT_SINK is not None:
             FLIGHT_SINK.note_span(self)

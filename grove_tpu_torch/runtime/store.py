@@ -77,7 +77,7 @@ from grove_tpu_torch.runtime.errors import (
     GroveError,
 )
 from grove_tpu_torch.runtime.shards import ShardSummaryTree, StoreShard, shard_of
-from grove_tpu_torch.utils.sanitize import store_guard_enabled
+from grove_tpu_torch.analysis.sanitize import store_guard_enabled
 
 ADDED = "Added"
 MODIFIED = "Modified"

@@ -143,7 +143,7 @@ class SimHarness:
         # so sanitized chaos runs pin the equivalence continuously.
         import os as _os
 
-        from grove_tpu_torch.utils.sanitize import enabled as _sanitize_enabled
+        from grove_tpu_torch.analysis.sanitize import enabled as _sanitize_enabled
 
         if _os.environ.get("GROVE_TPU_NO_DELTA", "") not in ("1", "true"):
             self.scheduler.enable_delta()
@@ -395,7 +395,7 @@ class SimHarness:
                     continue
                 break
             self.clock.advance(tick_seconds)
-        from grove_tpu_torch.utils.sanitize import store_guard_enabled
+        from grove_tpu_torch.analysis.sanitize import store_guard_enabled
 
         if store_guard_enabled():
             # test-mode write barrier: a reconciler that mutated a zero-copy

@@ -12,10 +12,9 @@ Counterpart of ``grove_tpu/sim/recovery.py``:
 - ``recovery_scenario``: converge a durable population around a snapshot,
   crash with a torn tail, recover, audit the acked prefix, cold-restart
   and reconverge to the pre-crash resource tree;
-- ``durability_artifact``: both, as one report;
-- ``resource_signature``: the placement-free shape of a converged tree
-  (the JAX package keeps it in ``sim/chaos.py``, whose chaos runner the port
-  does not have).
+- ``durability_artifact``: both, as one report.
+
+The round trip judges the recovered tree by ``sim/chaos.resource_signature``.
 
 The harnesses solve on ``device`` (the card unless the caller passes
 ``device="cpu"``).
@@ -111,25 +110,6 @@ def store_dump(
     return out
 
 
-def resource_signature(store) -> List[tuple]:
-    """Placement-free shape of the converged resource tree: gangs with
-    phase and per-group (size, floor), cliques with replica and ready
-    counts. Node assignments are left out: a run after a failure may
-    place elsewhere; the tree itself must match."""
-    sig: List[tuple] = []
-    for gang in sorted(store.scan("PodGang"),
-                       key=lambda g: (g.metadata.namespace, g.metadata.name)):
-        groups = tuple(sorted((g.name, len(g.pod_references), g.min_replicas)
-                              for g in gang.spec.pod_groups))
-        sig.append(("pg", gang.metadata.namespace, gang.metadata.name, gang.status.phase,
-                    groups))
-    for pclq in sorted(store.scan("PodClique"),
-                       key=lambda c: (c.metadata.namespace, c.metadata.name)):
-        sig.append(("pclq", pclq.metadata.namespace, pclq.metadata.name,
-                    pclq.status.replicas, pclq.status.ready_replicas))
-    return sig
-
-
 def _converged_run(
     n_sets: int, num_nodes: int, durability_dir: Optional[str], device=None
 ) -> tuple:
@@ -209,6 +189,7 @@ def recovery_scenario(
     audit the acked prefix, cold-boot a control plane over the recovered
     store, and require it to converge back to the pre-crash tree."""
     from grove_tpu_torch.durability import recover_store, verify_acked_prefix
+    from grove_tpu_torch.sim.chaos import resource_signature
     wal_dir = tempfile.mkdtemp(prefix="grove-recovery-")
     problems: List[str] = []
     try:

@@ -44,7 +44,7 @@ from grove_tpu_torch.api import names as namegen
 from grove_tpu_torch.api.pod import is_schedule_gated, is_scheduled, is_terminating
 from grove_tpu_torch.observability.metrics import METRICS
 from grove_tpu_torch.solver.encode import NodeEncoding, build_problem_cached
-from grove_tpu_torch.utils.sanitize import enabled as sanitize_enabled
+from grove_tpu_torch.analysis.sanitize import enabled as sanitize_enabled
 
 _PROBLEM_TENSORS = (
     "capacity", "topo", "seg_starts", "seg_ends", "demand", "count",

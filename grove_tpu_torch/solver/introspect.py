@@ -21,8 +21,8 @@ cites the same slug, so the two never disagree.
 The fragmentation statistic (``fragmentation_stats``) at topology level l,
 resource r: ``frag(l, r) = 1 - (largest one-domain free at l) / (total
 free)``, the share of free capacity no single domain slab holds.
-
-Waiting for the federation tier: ``federation_score_inputs``.
+``federation_score_inputs`` reads one capacity report for the federation
+router's ranking of target regions.
 """
 
 from __future__ import annotations
@@ -340,6 +340,68 @@ def capacity_report(
 def fragmentation_stats(report: dict) -> Dict[str, Dict[str, float]]:
     """level key -> resource -> fragmentation, from a :func:`capacity_report`."""
     return {lvl["key"]: dict(lvl["fragmentation"]) for lvl in report["levels"]}
+
+
+def federation_score_inputs(
+    scheduler, floor: Dict[str, float]
+) -> Dict[str, float]:
+    """Per-cluster routing-score inputs for the federation tier
+    (federation/router.py): for the gang floor's BINDING
+    resource (largest floor share of this cluster's total free),
+    headroom = total free − floor, and the pack-into-largest
+    fragmentation delta at the super-domain level — frag(l, r)
+    recomputed after hypothetically landing the floor in the largest
+    free domain (the solver's contiguous-pack heuristic). Read-only:
+    one :func:`capacity_report`, no solve, no store touch — the router
+    ranks candidate clusters on (frag_delta, −headroom, region) so
+    spillover prefers the cluster it fragments least."""
+    report = capacity_report(scheduler)
+    total_free = report["totalFree"]
+    binding, ratio = None, -1.0
+    for r in sorted(floor):
+        q = floor[r]
+        if q <= 0:
+            continue
+        tot = total_free.get(r, 0.0)
+        share = q / tot if tot > 0 else float("inf")
+        if share > ratio:
+            binding, ratio = r, share
+    if binding is None:
+        # zero-demand floor: every cluster scores identically
+        return {
+            "resource": None,
+            "headroom": round(sum(total_free.values()), 6),
+            "frag_before": 0.0,
+            "frag_after": 0.0,
+            "frag_delta": 0.0,
+        }
+    need = floor[binding]
+    tot = total_free.get(binding, 0.0)
+    frag_before = frag_after = 0.0
+    super_key = report["superDomainLevel"]
+    for lvl in report["levels"]:
+        if lvl["key"] != super_key:
+            continue
+        rows = sorted(
+            (d["free"].get(binding, 0.0) for d in lvl.get("domains", [])),
+            reverse=True,
+        )
+        largest = rows[0] if rows else 0.0
+        second = rows[1] if len(rows) > 1 else 0.0
+        frag_before = 1.0 - largest / tot if tot > 0 else 0.0
+        after_total = tot - need
+        after_largest = max(largest - need, second)
+        frag_after = (
+            1.0 - after_largest / after_total if after_total > 0 else 0.0
+        )
+        break
+    return {
+        "resource": binding,
+        "headroom": round(tot - need, 6),
+        "frag_before": round(frag_before, 4),
+        "frag_after": round(frag_after, 4),
+        "frag_delta": round(frag_after - frag_before, 4),
+    }
 
 
 # -- rejection classification -------------------------------------------------

@@ -187,6 +187,11 @@ class GangScheduler:
         # delta A/B then pins the encode only, and the frontier self-check
         # owns the solve comparison
         self._frontier_solved = False
+        # partition admission fence (federation/router.py): set by the
+        # federation router when this region's lease expires mid-partition;
+        # schedule_pending returns 0 while set. False (always, outside
+        # federation faults) leaves the round as it was
+        self.admission_fenced = False
         # disruption broker (disruption/broker.py): preemption and quota
         # reclaim must be granted their victim sets before evicting. None:
         # ungated; an un-armed broker (no budgets, no drains) is inert
@@ -485,6 +490,12 @@ class GangScheduler:
         """Schedule pending work. namespace=None covers every namespace with
         pending pods in one priority-ordered global solve (nodes are shared
         cluster-wide)."""
+        if self.admission_fenced:
+            # partition fence: a region cut off from the federation admits no
+            # new gang while its lease is expired; running pods are untouched,
+            # and no PodGang flips to Scheduled in two regions across a
+            # partition and heal (the router's invariant F3)
+            return 0
         # wall attribution: everything below lands under controller
         # "scheduler"; this phase's self time is the ordering, quota,
         # preemption and reclaim glue between its child phases

@@ -13,7 +13,7 @@ admitted gangs per queue and event counts by reason. ``chip_smoke.py``
 holds the port's rounds on the card against these numbers (its
 ``JAX_SCHEDULER_REFERENCE``). Run on the CPU, one world at a time or all:
 
-    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo] [disruption] [operator] [churn] [scale] [sims] [durability] [parallel] [cluster]
+    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo] [disruption] [operator] [churn] [scale] [sims] [durability] [parallel] [cluster] [federation]
 
 ``delta`` is the churn world: (q)'s round, then its churn ticks
 (``scheduler_world("delta")``, ``apply_tick`` with the JAX decoder), through
@@ -134,8 +134,25 @@ bindings repeated it (``bindings_repeat``); its CPU walls go to stderr.
 ``chip_smoke.py``'s ``[cluster]`` holds the port to it
 (``JAX_CLUSTER_REFERENCE``).
 
-``operator``, ``churn``, ``scale``, ``sims``, ``durability``, ``parallel``
-and ``cluster`` re-run the script under ``PYTHONHASHSEED=0`` unless that is
+``federation`` is the serving, chaos and federation worlds through the JAX
+package's ``sim/traffic``, ``sim/remediation``, ``sim/chaos`` and
+``federation/router``: (mu) ``run_serving_world`` (``serving_artifact`` at
+the bench's shape (2026, 2, 16, 900) and ``remediation_artifact`` at (2026,
+3, 24, 1200)), (chi) ``run_chaos_matrix`` (seeds 1234, 7 with the
+control-plane crash, 42 sanitized, 99 with the remediator, 2026 with
+fail-slow, seed 7 again on a 3-shard store, seed 1234 on 3 shards through 2
+process workers, the federation and partition chaos of seed 4242 and
+``federation_artifact(2026, 3, 8)``) and (psi) ``run_federation_world``
+(three regions of ``--nodes`` nodes, 5,120 by default, stage 1
+``--stage1-each`` and stage 2 ``--stage2-each`` sets a shape, stage 2
+converged for ``models/scenarios.FEDERATION_STAGE2_TICKS`` ticks).
+``--federation-worlds`` picks among ``mu chi psi``. It asserts that every
+chaos verdict is ok and that stage 2 spilled, prints each world's CPU wall
+to stderr, and prints the reports less their walls; ``chip_smoke.py``'s ``[federation]`` holds the
+port to them (``JAX_FEDERATION_REFERENCE``).
+
+``operator``, ``churn``, ``scale``, ``sims``, ``durability``, ``parallel``,
+``cluster`` and ``federation`` re-run the script under ``PYTHONHASHSEED=0`` unless that is
 set. A world can be cut for a quick
 look: ``--nodes N --gangs G`` (and ``--ticks T --seed S`` for ``delta``).
 """
@@ -185,6 +202,8 @@ from tests.torch_sim_sides import sim_side  # noqa: E402
 from grove_tpu_torch.models.scenarios import (  # noqa: E402
     CHURN_FULLPATH_TICKS,
     CHURN_TICKS,
+    FEDERATION_STAGE1_EACH,
+    FEDERATION_STAGE2_EACH,
     SCALE_FRONTIER_SHAPE,
     SCALE_INERT_SHAPE,
     SCALE_SHARDS,
@@ -206,12 +225,16 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     run_parallel_world,
     run_samples_world,
     run_churn_world,
+    run_chaos_matrix,
     run_cluster_world,
+    run_federation_world,
     run_scale_world,
+    run_serving_world,
     run_sims_world,
     run_slo_world,
     scheduler_world,
     sims_missing,
+    chaos_missing,
 )
 
 
@@ -343,7 +366,8 @@ def run_disruption(n_nodes=None, n_gangs=None, seed=0) -> dict:
     return out
 
 
-HASHED_WORLDS = ("operator", "churn", "scale", "sims", "durability", "parallel", "cluster")
+HASHED_WORLDS = ("operator", "churn", "scale", "sims", "durability", "parallel", "cluster",
+                 "federation")
 
 
 def name_needs_seed() -> bool:
@@ -468,6 +492,42 @@ def run_cluster(n_sets=None, n_nodes=None) -> dict:
     return first
 
 
+def run_federation(worlds=("mu", "chi", "psi"), n_nodes=None, stage1_each=FEDERATION_STAGE1_EACH,
+                   stage2_each=FEDERATION_STAGE2_EACH) -> dict:
+    side = sim_side("grove_tpu")
+    out = {}
+    if "mu" in worlds:
+        t0 = time.perf_counter()
+        out["mu"] = run_serving_world(side)
+        print(f"[federation] (mu) CPU wall {time.perf_counter() - t0:.1f} s, walls"
+              f" {json.dumps(out['mu'].pop('walls'))}", file=sys.stderr, flush=True)
+    if "chi" in worlds:
+        def after(name, wall_s):
+            print(f"[federation] (chi) {name}: {wall_s:.3f} s", file=sys.stderr, flush=True)
+
+        t0 = time.perf_counter()
+        out["chi"] = run_chaos_matrix(side, after_run=after)
+        out["chi"].pop("walls")
+        print(f"[federation] (chi) CPU wall {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+              flush=True)
+        missing = chaos_missing(out["chi"])
+        assert not missing, f"chaos verdicts not ok: {missing}"
+    if "psi" in worlds:
+        def step(stage, name, wall_s):
+            print(f"[federation] (psi) {stage} {name}: {wall_s:.3f} s", file=sys.stderr,
+                  flush=True)
+
+        t0 = time.perf_counter()
+        kw = {} if n_nodes is None else {"n_nodes": n_nodes}
+        out["psi"] = run_federation_world(side, stage1_each=stage1_each, stage2_each=stage2_each,
+                                          after_step=step, **kw)
+        print(f"[federation] (psi) CPU wall {time.perf_counter() - t0:.1f} s, walls"
+              f" {json.dumps(out['psi'].pop('walls'))}", file=sys.stderr, flush=True)
+        assert out["psi"]["stage2 converge"]["spillovers"] > out["psi"]["stage2 apply"][
+            "spillovers"], "stage 2 did not spill"
+    return out
+
+
 def main() -> int:
     if name_needs_seed():
         os.execve(sys.executable, [sys.executable] + sys.argv,
@@ -486,6 +546,9 @@ def main() -> int:
     parser.add_argument("--inert-shape", type=int, nargs=2, default=SCALE_INERT_SHAPE)
     parser.add_argument("--shards", type=int, default=SCALE_SHARDS)
     parser.add_argument("--sweep-counts", type=int, nargs="+", default=PARALLEL_SWEEP_COUNTS)
+    parser.add_argument("--federation-worlds", nargs="+", default=["mu", "chi", "psi"])
+    parser.add_argument("--stage1-each", type=int, default=FEDERATION_STAGE1_EACH)
+    parser.add_argument("--stage2-each", type=int, default=FEDERATION_STAGE2_EACH)
     args = parser.parse_args()
     out = {"jax": jax.__version__, "backend": jax.default_backend()}
     for name in args.worlds:
@@ -504,6 +567,9 @@ def main() -> int:
             out[name] = run_parallel(args.sweep_counts)
         elif name == "cluster":
             out[name] = run_cluster(args.sets, args.nodes)
+        elif name == "federation":
+            out[name] = run_federation(args.federation_worlds, args.nodes, args.stage1_each,
+                                       args.stage2_each)
         elif name == "observe":
             out[name] = run_observe(args.nodes, args.gangs)
         elif name == "slo":

@@ -119,7 +119,12 @@ def converge(rt, predicate, timeout: float = 60.0, dump=None) -> int:
 def _fresh():
     for root in ROOTS:
         mod(root, "observability.metrics").METRICS.reset()
-        mod(root, "observability.events").EVENTS.reset()
+        events = mod(root, "observability.events").EVENTS
+        events.reset()
+        # what an earlier test on this worker may leave behind: its spans
+        # (GET /debug/traces) and a sharded store's shard stamp on events
+        events.shard_fn = None
+        mod(root, "observability.tracing").TRACER.reset()
         mod(root, "api.meta").reset_uid_namespace()
     yield
     for root in ROOTS:

@@ -61,7 +61,7 @@ from grove_tpu_torch.runtime.store import Store
 from grove_tpu_torch.sim.cluster import SimCluster, make_nodes
 from grove_tpu_torch.solver import deltastate, encode
 from grove_tpu_torch.solver.scheduler import GangScheduler
-from grove_tpu_torch.utils import sanitize
+from grove_tpu_torch.analysis import sanitize
 
 from tests.test_torch_scheduler import (
     KINDS,

@@ -56,7 +56,9 @@ def test_port_modules_import_with_jax_and_grove_tpu_blocked():
                  "sim.multitenant", "sim.voluntary", "sim.demo", "sim.recovery",
                  "solver.oracle", "cluster.cert", "cluster.lease", "cluster.crdgen",
                  "cluster.autotopo", "cluster.client", "cluster.apidocs", "cluster.apiserver",
-                 "cluster.webhook", "cluster.extscheduler", "cluster.manager"):
+                 "cluster.webhook", "cluster.extscheduler", "cluster.manager",
+                 "analysis", "analysis.sanitize", "sim.traffic", "sim.remediation",
+                 "sim.chaos", "federation", "federation.quota", "federation.router"):
         assert f"grove_tpu_torch.{name}" in mods
     script = textwrap.dedent(
         f"""

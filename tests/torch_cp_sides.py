@@ -4,8 +4,8 @@ tests that run the same scenario through both packages.
 ``cp_side("grove_tpu")`` and ``cp_side("grove_tpu_torch")`` give the same
 names from either package: the store, clock, engine, API types, durability
 layer, ``sim/recovery``, ``sim/parallel``, ``sim/scale``, the metrics and
-events singletons and ``resource_signature`` (the JAX package's in
-``sim/chaos``, the port's in ``sim/recovery``). ``harness(**kw)`` and
+events singletons and ``resource_signature`` (``sim/chaos`` in both
+packages). ``harness(**kw)`` and
 ``kw`` give the side's ``SimHarness`` and the keyword arguments its sim
 functions need (``device="cpu"`` on the port's side).
 """
@@ -53,8 +53,7 @@ def cp_side(root: str) -> types.SimpleNamespace:
         snapshot=module("durability.snapshot"),
         recovery=recovery,
         store_dump=recovery.store_dump,
-        resource_signature=recovery.resource_signature if port
-        else module("sim.chaos").resource_signature,
+        resource_signature=module("sim.chaos").resource_signature,
         parallel=module("sim.parallel"),
         scale=module("sim.scale"),
         METRICS=module("observability.metrics").METRICS,

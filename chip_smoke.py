@@ -123,9 +123,11 @@ Phases (any failure raises and the script exits non-zero):
      kernel (its own count, zeroed just before its solve). Prints each
      world's solve time beside the single-device one, collectives per
      wave and fill launches per rank; the ranks share one card, so no
-     multi-GPU speed is implied. Runs after [disruption]: the rank
-     worlds run in their own processes while [operator] and [churn] (16
-     and 17), which time no kernel, run in this one.
+     multi-GPU speed is implied. The rank worlds run in their own
+     processes while [operator] and [churn] (16 and 17), which time no
+     kernel, run in the process of the chain [sharded] ... [sims]
+     (phase_operator_chain, 11 and 16-21), started once [stats] (5) is
+     done.
  12. [observe] the glass-box layer (observability/{tracing,metrics,journey,
      profile,explain}.py) on (q) at full width: the tracer, the gang
      journeys and the wall profiler on before the world loads, then round
@@ -180,6 +182,8 @@ Phases (any failure raises and the script exits non-zero):
      what-if trials must launch the fill kernel and the phase both DRF
      kernels. Prints each round's walls and launches, the trials by kind
      and the grants, denials, breaker flips, rescues, requeues and drains.
+     Runs in a process of its own (_PhaseProcess), started once [stats]
+     (5) is done.
  16. [operator] the operator (runtime/engine.py, the PodCliqueSet,
      PodCliqueScalingGroup and PodClique controllers with the rolling
      update, admission, the store's lagged cache, the kubelet) through the
@@ -302,8 +306,28 @@ Phases (any failure raises and the script exits non-zero):
      the plain fill and its first global-usage DRF passes the plain order
      twin, bit for bit. Prints each step's walls, counters, ledger length,
      fold and launches. Runs in a process of its own (_PhaseProcess, niced),
-     started right after [frontier]: no later phase times a kernel.
- 23. prints the kernels line, the card line, and last the ok line.
+     started once the fill's timings (3 and 3b) are taken.
+ 23. [cli] the entry points (cli.py, __main__.py, initc/__main__.py) as users
+     run them, each command a process of its own: every sim-backed
+     subcommand at 5,120 nodes (`python -m grove_tpu_torch <sub> ...
+     --nodes 5120` over samples/; queues over multitenant-queues.yaml's two
+     Queue CRs) and the host-only ones (validate, config-check of
+     deploy/operator.yaml's configuration, crds, api-docs,
+     detect-topology); then live mode: `run --nodes 5120 --tls
+     --authorizer` as a child, apply, get, tree, describe, scale, nodes,
+     drain, uncordon, queues, explain, whatif, capacity, trace, profile,
+     journey and delete with --apiserver, the initc waiter for the gang
+     simple1-0 (exit 0 once its parents are Ready) and SIGINT (exit 0).
+     Every exit code, and the stdout of every sim-mode command and of the
+     live ones the converged state alone sets (less the uid's token, the
+     apiserver's address and the durations of trace, profile and
+     journey), equal to JAX_CLI_REFERENCE
+     (scripts/scheduler_reference.py cli); cli.main in-process for apply
+     and queues must launch the fill and both DRF kernels, their first
+     calls equal to the plain versions bit for bit; scripts/torch_lint.py
+     --json exits 0 with 0 violations and 9 suppressions. Runs in a process
+     of its own (_PhaseProcess, niced), started once [frontier] is done.
+ 24. prints the kernels line, the card line, and last the ok line.
 
 Imports neither JAX nor the JAX package.
 """
@@ -7090,12 +7114,13 @@ class _PhaseProcess:
     """One phase in a python process of its own, started now beside this
     one's (its own CUDA context on the same card; its lines go to this
     process's output): ``phases`` maps each phase function's name, called in
-    turn with ``card``, to its keyword arguments (JSON). The results come
-    back as one JSON object by function name, through a file. The process is
-    started with fork and exec, so it inherits no thread of this one; with
-    ``nice`` > 0 it lowers its own scheduling priority first (its workers
-    inherit it), so a process whose work has slack yields the cores to the
-    one that sets the phase's wall."""
+    turn with ``card``, to its keyword arguments (JSON). The process prints
+    each phase's wall as a ``[smoke]`` line. The results come back as one
+    JSON object by function name, through a file. The process is started
+    with fork and exec, so it inherits no thread of this one; with ``nice``
+    > 0 it lowers its own scheduling priority first (its workers inherit
+    it), so a process whose work has slack yields the cores to the one that
+    sets the phase's wall."""
 
     def __init__(self, card: str, phases: dict, nice: int = 0) -> None:
         import subprocess
@@ -7104,10 +7129,14 @@ class _PhaseProcess:
         os.close(fd)
         self.name = "+".join(phases)
         self._result = None
-        code = ("import json, os, sys, chip_smoke as c; os.nice(int(sys.argv[4]));"
-                " phases = json.loads(sys.argv[2]);"
-                " r = {n: getattr(c, n)(sys.argv[1], **kw) for n, kw in phases.items()};"
-                " json.dump(r, open(sys.argv[3], 'w'), default=str)")
+        code = ("import json, os, sys, time, chip_smoke as c; os.nice(int(sys.argv[4]))\n"
+                "r = {}\n"
+                "for n, kw in json.loads(sys.argv[2]).items():\n"
+                "    t0 = time.perf_counter()\n"
+                "    r[n] = getattr(c, n)(sys.argv[1], **kw)\n"
+                "    print(f'[smoke] {n}: {time.perf_counter() - t0:.1f} s in its own process',"
+                " flush=True)\n"
+                "json.dump(r, open(sys.argv[3], 'w'), default=str)")
         self.proc = subprocess.Popen(
             [sys.executable, "-c", code, card, json.dumps(phases), self.path, str(nice)],
             cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -7133,9 +7162,30 @@ class _PhaseProcess:
         return self._result
 
     def kill(self) -> None:
+        """Kills the process and every process it started (rank worlds,
+        workers, phase processes of its own) that is still running."""
         if self.proc.poll() is None:
+            tree = _descendants(self.proc.pid)
             self.proc.kill()
             self.proc.wait()
+            for pid in tree:
+                with contextlib.suppress(OSError):
+                    os.kill(pid, 9)  # SIGKILL
+
+
+def _descendants(pid: int) -> list:
+    """The pids of every live descendant of ``pid`` (Linux /proc)."""
+    out, todo = [], [pid]
+    while todo:
+        parent = todo.pop()
+        with contextlib.suppress(OSError):
+            for task in os.listdir(f"/proc/{parent}/task"):
+                with contextlib.suppress(OSError), open(
+                        f"/proc/{parent}/task/{task}/children") as f:
+                    kids = [int(k) for k in f.read().split()]
+                    out += kids
+                    todo += kids
+    return out
 
 
 PARALLEL_FILL_CALLS = 2  # per solve kind ([parallel] holds them against the plain fill)
@@ -8576,12 +8626,12 @@ JAX_FEDERATION_REFERENCE = {'mu': {'serving': {'seed': 2026,
 
 class _RecordedDrfOrders:
     """While active, keeps the inputs of the first ``first`` DRF ordering
-    passes made by an order view with a usage override. In (psi) only the
-    federation router's spill pass gives one: the global order over the
-    level-3 fold."""
+    passes made by an order view with a usage override (``every``: of any
+    pass). In (psi) only the federation router's spill pass gives one: the
+    global order over the level-3 fold."""
 
-    def __init__(self, first):
-        self.first, self.calls, self._usage = first, [], [False]
+    def __init__(self, first, every=False):
+        self.first, self.calls, self._usage, self.every = first, [], [False], every
 
     def __enter__(self):
         from grove_tpu_torch.quota import manager
@@ -8592,7 +8642,7 @@ class _RecordedDrfOrders:
         order, view = (fn for _, _, fn in self._saved)
 
         def record(deserved, usage, demand, counts, device=None):
-            if self._usage[-1] and len(self.calls) < self.first:
+            if (self.every or self._usage[-1]) and len(self.calls) < self.first:
                 self.calls.append(tuple(np.array(a) for a in (deserved, usage, demand, counts)))
             return order(deserved, usage, demand, counts, device=device)
 
@@ -8620,7 +8670,7 @@ def check_recorded_orders(recorded, phase, device="cuda") -> int:
     from grove_tpu_torch.quota.ordering import fair_order, merge_cuda, share_table_cuda
 
     if not recorded.calls:
-        _fail(f"{phase}: no global-usage DRF pass was recorded")
+        _fail(f"{phase}: no DRF pass was recorded")
     if device == "cpu":
         return 0
     counts = share_table_cuda.launches, merge_cuda.launches
@@ -8630,7 +8680,7 @@ def check_recorded_orders(recorded, phase, device="cuda") -> int:
         if not np.array_equal(got, want):
             _fail(f"{phase}: DRF pass {i} on the card != the plain order twin")
         q, g, r = inputs[2].shape
-        print(f"[{phase}] DRF pass {i} (global usage): Q={q} G={g} R={r}, {len(got)} rows:"
+        print(f"[{phase}] DRF pass {i}: Q={q} G={g} R={r}, {len(got)} rows:"
               f" kernels == plain twin bit for bit", flush=True)
     share_table_cuda.launches, merge_cuda.launches = counts
     return len(recorded.calls)
@@ -8763,6 +8813,306 @@ def phase_federation(card, device="cuda", reference=None, worlds=("mu", "chi", "
     return out
 
 
+# [cli]: the port's entry points as users run them, each command a process of
+# its own (models/scenarios.run_cli_sim, run_cli_live)
+CLI_FILL_CALLS = 4  # the in-process apply's first fill calls held against the plain fill
+CLI_DRF_CALLS = 2  # and the in-process queues' first DRF passes against the plain twin
+CLI_PARALLEL = 6  # sim-mode commands at a time
+CLI_LINT_SUPPRESSIONS = 9  # the JAX package's grovelint pragmas, restored at the port's sites
+
+# scripts/scheduler_reference.py cli (PYTHONHASHSEED=0)
+JAX_CLI_REFERENCE = {'live': {'apply': {'lines': 1,
+                                        'rc': 0,
+                                        'sha256': 'df611c1e62b3414241a373c76d941769cb7765a6f99517ee5d7cf6236a6f129e'},
+                              'capacity': {'lines': 8,
+                                           'rc': 0,
+                                           'sha256': 'db90f5e25d6a93204cce88468160e797e5ffc550125bea523c4d7f2c19d2cc4a'},
+                              'delete': {'lines': 1,
+                                         'rc': 0,
+                                         'sha256': '275e906a10823346a959a644cf6508d687eed9dbec66594760fc06f9ae664892'},
+                              'describe': {'lines': 23,
+                                           'rc': 0,
+                                           'sha256': 'f5db73d11541124b4bbfa218f3543ffb962cf6244868dd3558348d030b434a2e'},
+                              'drain': {'lines': 1,
+                                        'rc': 0,
+                                        'sha256': 'd54efb9d98243499d6dbc0bd986be81c9eec253e915c787dc5d19472ce734ee2'},
+                              'explain': {'lines': 1,
+                                          'rc': 0,
+                                          'sha256': 'af580fb463810e63cceb9af16554f16deff06c2e1409e92359c524f5918a8623'},
+                              'get': {'lines': 63,
+                                      'rc': 0,
+                                      'sha256': '05e5bcbee9f277f0030307bc349966236802df03a2230cf98cdf75d7b2326c4e'},
+                              'initc': {'lines': 1,
+                                        'rc': 0,
+                                        'sha256': '4280c666460ce8d1d218eef8896f4e378214b66f35d24ba55a2da5954dee0a1f'},
+                              'journey': {'rc': 0},
+                              'nodes': {'rc': 0},
+                              'profile': {'rc': 0},
+                              'queues': {'lines': 2,
+                                         'rc': 0,
+                                         'sha256': 'c3ffce84ab581774e281e9cb7fa0925a86ca49c3f5f6c01314eaae76009efd96'},
+                              'run': {'rc': 0},
+                              'scale': {'lines': 1,
+                                        'rc': 0,
+                                        'sha256': 'c02567046bc66a14ca9ff34cb264c650addb6da81402da84121d9ad3611f7b70'},
+                              'trace': {'rc': 0},
+                              'tree': {'lines': 16,
+                                       'rc': 0,
+                                       'sha256': '7c988802358934518bbd16650ee2717317187d38aae7bdfde4ad1a130b1c149a'},
+                              'tree scaled': {'lines': 31,
+                                              'rc': 0,
+                                              'sha256': '8e7732370b10f7dffb77483c759c8a9a667a53a515805f1f5600d7385a753316'},
+                              'uncordon': {'lines': 1,
+                                           'rc': 0,
+                                           'sha256': '563d2ffdd1ee8d0caa9289c9dddf211df6c01f50b16ee89c61aa266d162ccac0'},
+                              'whatif': {'lines': 3,
+                                         'rc': 0,
+                                         'sha256': '63eb9151a1944d1254e3be9f9821767e894e3481c7533946791ed81a016985c7'}},
+                     'sim': {'api-docs': {'lines': 575,
+                                          'rc': 0,
+                                          'sha256': 'a17144515013fa96145ef4d632460dc5c6871efa3e02bdf8b5f3d3622160874b'},
+                             'apply': {'lines': 19,
+                                       'rc': 0,
+                                       'sha256': 'f652388dc44ec7a2318db60d30acfa212b77c9cfe09677288716923455738645'},
+                             'capacity': {'lines': 8,
+                                          'rc': 0,
+                                          'sha256': 'cec99af05ef5e621131b594606c5a173ad518bb543535e40caa3e700e4d4d73b'},
+                             'config-check': {'lines': 1,
+                                              'rc': 0,
+                                              'sha256': '128d73ccb206d92ef72474f4615f4bf466d917f99ee627e39ae0f22203414fc0'},
+                             'crds': {'lines': 861,
+                                      'rc': 0,
+                                      'sha256': '5b6c962b7dee1870a4a9b55413e51ddd573560e9af1a180eafb5a528e426c1aa'},
+                             'describe': {'lines': 23,
+                                          'rc': 0,
+                                          'sha256': '3e78d233290c6232e8527e556b93a1d2b0f63c5db8b796c53fbfbdc7dc10dfbf'},
+                             'detect-topology': {'lines': 17,
+                                                 'rc': 0,
+                                                 'sha256': '753a88091e1928c91c7c6a7157d35ffaeca9a8c1c102837b24b9a31e19937c89'},
+                             'explain': {'lines': 1,
+                                         'rc': 0,
+                                         'sha256': 'af580fb463810e63cceb9af16554f16deff06c2e1409e92359c524f5918a8623'},
+                             'get': {'lines': 63,
+                                     'rc': 0,
+                                     'sha256': 'ca05e00c047dc1b9ce181fc58cd62850a4f5c2817e54b2267a686e3667e6a59a'},
+                             'journey': {'lines': 12,
+                                         'rc': 0,
+                                         'sha256': '0bd55037c1a96fe093f08b6d8e75df9b96a95537c96d34039d9dfe61902c8e98'},
+                             'nodes': {'lines': 5121,
+                                       'rc': 0,
+                                       'sha256': 'dcbc6a7e8c7aa54f79c8736bb84366a6095a0b3de55760eb441435a753b94200'},
+                             'profile': {'lines': 35,
+                                         'rc': 0,
+                                         'sha256': '44965c79b1c0bcce11528bbe0d067bdc91af6fbaa50b676bdd589f4b3013140e'},
+                             'queues': {'lines': 3,
+                                        'rc': 0,
+                                        'sha256': 'c13f745013bc331dc95973445f264e27a89f13c807199f36621e48fc79029257'},
+                             'trace': {'lines': 95,
+                                       'rc': 0,
+                                       'sha256': '27068e9f347cf74dd3fb9df9c6060adc5bff6ff9f2c4c5a2e0d340ec951cdf9c'},
+                             'tree': {'lines': 30,
+                                      'rc': 0,
+                                      'sha256': '96fc2af6adf3dd817047dec4944cff366ba77327bac8fc95e672973e1d23f149'},
+                             'validate': {'lines': 13,
+                                          'rc': 0,
+                                          'sha256': 'ef64f2a168e83d14fc4d7ecfc169f3136f27ad75464ca48fd0c2ab134fc3225a'},
+                             'whatif': {'lines': 3,
+                                        'rc': 0,
+                                        'sha256': '63eb9151a1944d1254e3be9f9821767e894e3481c7533946791ed81a016985c7'}},
+                     'world': {'nodes': 5120}}
+
+
+def phase_cli(card, device="cuda", reference=None) -> dict:
+    """[cli] the port's entry points (grove_tpu_torch/cli.py, __main__.py,
+    initc/__main__.py) as users run them, held to JAX_CLI_REFERENCE. Sim
+    mode: every sim-backed subcommand at full width (``python -m
+    grove_tpu_torch <sub> ... --nodes 5120`` over samples/, CLI_PARALLEL at
+    a time) and the host-only ones. Live mode: ``run --tls --authorizer``
+    on 5,120 nodes as a child, the commands against its apiserver, the
+    initc waiter for the gang simple1-0 (exit 0 once its parents are
+    Ready) and SIGINT (exit 0). Each command's exit code equals the JAX
+    CLI's, and so does its stdout (less the uid's token, the apiserver's
+    address and, in trace, profile and journey, the durations) for every
+    sim-mode command and the live ones of CLI_LIVE_STDOUT, whose output
+    the converged state alone sets (the JAX runs must have repeated it).
+    Then ``cli.main`` in this process for apply and queues
+    (queues' two Queue CRs run the DRF order), their fill and DRF launches
+    counted and their first calls held against the plain versions bit for
+    bit; beside it all, ``scripts/torch_lint.py --json`` exits 0 with no
+    violation and CLI_LINT_SUPPRESSIONS suppressions. On the card the CLI
+    runs on its default device (no ``--device``)."""
+    import io
+    import pathlib
+    import shutil
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    from grove_tpu_torch import cli as port_cli
+    from grove_tpu_torch.models.scenarios import (
+        CLI_LIVE_STDOUT,
+        CLI_QUEUE_SAMPLE,
+        CLI_SAMPLE,
+        CLUSTER_CONFIG_YAML,
+        cli_digest,
+        cli_sim_commands,
+        mask_cli_stdout,
+        run_cli_live,
+        run_cli_sim,
+    )
+    from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.quota.ordering import merge_cuda, share_table_cuda
+
+    ref = JAX_CLI_REFERENCE if reference is None else reference
+    if ref is None:
+        _fail("cli: JAX_CLI_REFERENCE is missing")
+    n = ref["world"]["nodes"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONHASHSEED="0")
+    dev_args = [] if device == "cuda" else ["--device", str(device)]
+    cli = [sys.executable, "-m", "grove_tpu_torch"] + dev_args
+    initc = [sys.executable, "-m", "grove_tpu_torch.initc"]
+    t_phase = time.perf_counter()
+    walls, wrong = {}, []
+
+    def check(mode, name, res, want, apiserver=None):
+        got = cli_digest(name, res["rc"], res["stdout"], apiserver)
+        held = "sha256" in want
+        same = got == want if held else got["rc"] == want["rc"]
+        walls[f"{mode} {name}"] = res["wall_s"]
+        print(f"[cli] {mode} {name}: {res['wall_s']:.3f} s, exit {res['rc']},"
+              f" {'stdout' if held else 'exit code'} {'==' if same else '!='} JAX's", flush=True)
+        if not same:
+            wrong.append(f"{mode} {name}")
+            head = mask_cli_stdout(name, res["stdout"], apiserver).splitlines()[:20]
+            print("\n".join(["[cli]   stdout (masked) begins:", *head,
+                             "[cli]   stderr ends:", *res.get("stderr", "").splitlines()[-20:]]),
+                  flush=True)
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        return fn(*args, **kw), time.perf_counter() - t0
+
+    tmp = tempfile.mkdtemp(prefix="grove-cli-")
+    config = os.path.join(tmp, "operator-config.yaml")
+    with open(config, "w") as f:
+        f.write(CLUSTER_CONFIG_YAML)
+    # sim mode, live mode and the in-process commands at once: each command
+    # pays a process start, `import torch`, the card's probe child and a
+    # CUDA context, which overlap
+    pool = ThreadPoolExecutor(max_workers=2)
+    lint = subprocess.Popen([sys.executable, "scripts/torch_lint.py", "--json"], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        sim_f = pool.submit(timed, run_cli_sim, cli,
+                            cli_sim_commands(n, config, pathlib.Path(root)), root, env,
+                            parallel=CLI_PARALLEL)
+        live_f = pool.submit(timed, run_cli_live, cli, initc, n, root, env)
+        fill_batch.launches = share_table_cuda.launches = merge_cuda.launches = 0
+        in_process = {}
+        with _RecordedKernelFills(CLI_FILL_CALLS) as fills, \
+                _RecordedDrfOrders(CLI_DRF_CALLS, every=True) as orders:
+            for name, argv in (("apply", ["apply", CLI_SAMPLE]),
+                               ("queues", ["queues", CLI_QUEUE_SAMPLE])):
+                buf, t0 = io.StringIO(), time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = port_cli.main(dev_args + argv + ["--nodes", str(n)])
+                in_process[name] = {"rc": rc, "stdout": buf.getvalue(),
+                                    "wall_s": time.perf_counter() - t0}
+        launches = {"fill": fill_batch.launches, "drf_shares": share_table_cuda.launches,
+                    "drf_merge": merge_cuda.launches}
+        (sim, sim_s), (live, live_s) = sim_f.result(), live_f.result()
+        stdout, stderr = lint.communicate(timeout=PHASE_PROCESS_TIMEOUT_S)
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+    _check_same("cli sim commands", sorted(sim), sorted(ref["sim"]))
+    for name, res in sim.items():
+        check("sim", name, res, ref["sim"][name])
+    url = live.pop("apiserver")
+    walls["live boot"] = live.pop("boot")["wall_s"]
+    _check_same("cli live commands", sorted(live), sorted(ref["live"]))
+    for name, res in live.items():
+        check("live", name, res, ref["live"][name], url)
+    for name in CLI_LIVE_STDOUT:
+        if "sha256" not in ref["live"][name]:
+            _fail(f"cli: the JAX live runs did not repeat {name}'s stdout")
+    for name, res in in_process.items():
+        check("in-process", name, res, ref["sim"][name])
+    if device != "cpu" and not all(launches.values()):
+        _fail(f"cli: the CLI's apply and queues must launch the fill and both DRF kernels:"
+              f" {launches}")
+    fill_err = check_recorded_fills(fills, "cli", device)
+    drf_checked = check_recorded_orders(orders, "cli", device)
+    if lint.returncode != 0:
+        _fail(f"cli: scripts/torch_lint.py --json exited {lint.returncode}:\n{stdout[-3000:]}"
+              f"{stderr[-3000:]}")
+    doc = json.loads(stdout)
+    lint_out = {"files": doc["files_scanned"], "violations": len(doc["violations"]),
+                "suppressions": doc["suppression_count"], "drift": doc["drift"]}
+    if lint_out["violations"] or lint_out["suppressions"] != CLI_LINT_SUPPRESSIONS or doc["drift"]:
+        _fail(f"cli: grovelint over the port: {lint_out}")
+    if wrong:
+        _fail(f"cli: {len(wrong)} commands differ from the JAX CLI's: {wrong}")
+    out = {"nodes": n, "sim_s": sim_s, "live_s": live_s, "walls": walls,
+           **{f"{k}_launches": v for k, v in launches.items()},
+           "fill_calls_checked": len(fills.calls), "fill_max_abs_err": fill_err,
+           "drf_passes_checked": drf_checked, "lint": lint_out,
+           "wall_s": time.perf_counter() - t_phase}
+    print(f"[cli] {len(sim)} commands in sim mode at {n} nodes ({sim_s:.3f} s, {CLI_PARALLEL} at a"
+          f" time) and {len(live)} in live mode against a `run` child ({live_s:.3f} s), every exit"
+          f" code and every stdout held equal to the JAX CLI's; initc exit"
+          f" {live['initc']['rc']}, the operator's exit on SIGINT {live['run']['rc']}; in-process"
+          f" apply and queues: launches fill {launches['fill']}, DRF {launches['drf_shares']} +"
+          f" {launches['drf_merge']}, {len(fills.calls)} fill calls and {drf_checked} DRF passes"
+          f" equal to their plain twins bit for bit; grovelint {lint_out['files']} files,"
+          f" {lint_out['violations']} violations, {lint_out['suppressions']} suppressions, drift"
+          f" {len(lint_out['drift'])} | {card}", flush=True)
+    return out
+
+
+def phase_operator_chain(card) -> dict:
+    """[sharded] with [operator] and [churn] beside its rank worlds, then
+    [scale] and [sims], with (pi), [cluster] and [parallel] in processes of
+    their own, as one chain in main()'s process for it. (pi) sets [scale]'s
+    wall, so its process starts as soon as [sharded]'s rank worlds have
+    ended, beside the rest of [operator] and [churn]; (tau) ([cluster]) is
+    host Python over HTTP on one core and starts with it; [parallel] with
+    [scale]'s codec A/B, whose process drains fork, starts with [scale] and
+    yields the cores (PARALLEL_NICE). Those processes are fork and exec,
+    so none inherits a thread of this one. Returns each phase's record."""
+    parts, cluster_part = [], []
+
+    def after_ranks():
+        parts.append(_PhaseProcess(card, {"phase_scale_parallel": {}}))
+        cluster_part.append(_PhaseProcess(card, {"phase_cluster": {}}))
+
+    try:
+        # [sharded]'s ranks run beside [operator] and [churn], which time no
+        # kernel
+        sharded = _timed(phase_sharded, lambda: _timed(
+            phase_operator, card, "cuda", None, None, None, None,
+            lambda harness: phase_churn(harness, card)), after_ranks)
+        operator = sharded.pop("alongside")
+        churn = operator.pop("then")
+        if len(parts) != 1 or len(cluster_part) != 1:
+            _fail("[scale] (pi), [cluster]: their processes did not start after [sharded]'s"
+                  " rank worlds")
+        parts.append(_PhaseProcess(card, {"phase_parallel": {}, "phase_scale_codec": {}},
+                                   nice=PARALLEL_NICE))
+        scale = _timed(phase_scale, card, "cuda", None, None, None, None, None, parts)
+        sims = _timed(phase_sims, card)
+        parallel = parts[1].result()["phase_parallel"]
+        cluster = cluster_part[0].result()["phase_cluster"]
+    finally:
+        for part in parts + cluster_part:
+            part.kill()
+    return {"sharded": sharded, "operator": operator, "churn": churn, "scale": scale,
+            "sims": sims, "parallel": parallel, "cluster": cluster}
+
+
 def _is_float(text: str) -> bool:
     try:
         float(text)
@@ -8786,64 +9136,40 @@ def main() -> int:
     _timed(phase_build)
     timing = _timed(phase_kernel_vs_plain)
     cases = _timed(phase_path_shapes)
-    main_path = _timed(phase_main_path)
-    stats = _timed(phase_stats_path)
-    _timed(phase_path_kernel_vs_plain)
-    sched = _timed(phase_scheduler)
-    drf = _timed(phase_drf, sched["q_order_inputs"])
-    delta = _timed(phase_delta)
-    front = _timed(phase_frontier, delta["rounds"][0])
-    # [federation] runs in a process of its own from here on: every phase
-    # after [frontier] times no kernel, and the serving, chaos and
-    # federation worlds are host Python on one core; niced, it yields the
-    # cores to the phases that set the smoke's wall
-    federation_part = _PhaseProcess(card, {"phase_federation": {}}, nice=PARALLEL_NICE)
-    # (pi) and [parallel] with [scale]'s codec A/B, whose process drains
-    # fork, run in processes of their own (fork and exec: none inherits a
-    # thread of this one), the smoke's time limit holds them only so. (pi)
-    # sets [scale]'s wall, so its process starts as soon as [sharded]'s rank
-    # worlds have ended, beside the rest of [operator] and [churn]; the
-    # other starts with [scale] and yields the cores (PARALLEL_NICE)
-    # [cluster] (tau) runs in a third process, started with (pi)'s: the
-    # real-cluster tier is host Python over HTTP on one core, beside
-    # [operator], [churn], (lambda) and [sims], which time no kernel
-    parts, cluster_part = [], []
-
-    def after_ranks():
-        parts.append(_PhaseProcess(card, {"phase_scale_parallel": {}}))
-        cluster_part.append(_PhaseProcess(card, {"phase_cluster": {}}))
-
+    # Every phase that needs nothing of an earlier one runs in a process of
+    # its own (_PhaseProcess) beside this one's chain, started where it slows
+    # that chain least: [federation] (host Python, niced) once the fill's
+    # timings are taken; [disruption] and the chain [sharded] ... [sims]
+    # (phase_operator_chain) once [main] and [stats] have timed their solves
+    # beside it alone; [cli] (niced), whose commands start a CUDA context
+    # each, once [frontier] is done, beside phases that time no solve
+    side = {}
     try:
+        side["federation"] = _PhaseProcess(card, {"phase_federation": {}},
+                                           nice=PARALLEL_NICE)
+        main_path = _timed(phase_main_path)
+        stats = _timed(phase_stats_path)
+        side["operator"] = _PhaseProcess(card, {"phase_operator_chain": {}})
+        side["disruption"] = _PhaseProcess(card, {"phase_disruption": {}})
+        _timed(phase_path_kernel_vs_plain)
+        sched = _timed(phase_scheduler)
+        drf = _timed(phase_drf, sched["q_order_inputs"])
+        delta = _timed(phase_delta)
+        front = _timed(phase_frontier, delta["rounds"][0])
+        side["cli"] = _PhaseProcess(card, {"phase_cli": {}}, nice=PARALLEL_NICE)
         observe = _timed(phase_observe, sched["rounds"]["q1"]["wall_s"], card)
         sidecar = _timed(phase_sidecar, main_path, card)
         slo = _timed(phase_slo, delta, card)
-        disruption = _timed(phase_disruption, card)
-        # [sharded]'s ranks run beside [operator] and [churn], which time no
-        # kernel
-        sharded = _timed(phase_sharded, lambda: _timed(
-            phase_operator, card, "cuda", None, None, None, None,
-            lambda harness: phase_churn(harness, card)), after_ranks)
-        operator = sharded.pop("alongside")
-        churn = operator.pop("then")
-        if len(parts) != 1 or len(cluster_part) != 1:
-            _fail("[scale] (pi), [cluster]: their processes did not start after [sharded]'s"
-                  " rank worlds")
-        parts.append(_PhaseProcess(card, {"phase_parallel": {}, "phase_scale_codec": {}},
-                                   nice=PARALLEL_NICE))
-        scale = _timed(phase_scale, card, "cuda", None, None, None, None, None, parts)
-        sims = _timed(phase_sims, card)
-        parallel = parts[1].result()["phase_parallel"]
-        print(f"[smoke] phase_parallel: {parallel['wall_s']:.1f} s in its own process, started"
-              f" with [scale]", flush=True)
-        cluster = cluster_part[0].result()["phase_cluster"]
-        print(f"[smoke] phase_cluster: {cluster['wall_s']:.1f} s in its own process, started"
-              f" with (pi)'s", flush=True)
-        federation = federation_part.result()["phase_federation"]
-        print(f"[smoke] phase_federation: {federation['wall_s']:.1f} s in its own process,"
-              f" started after [frontier]", flush=True)
+        chain = side["operator"].result()["phase_operator_chain"]
+        disruption = side["disruption"].result()["phase_disruption"]
+        federation = side["federation"].result()["phase_federation"]
+        cli = side["cli"].result()["phase_cli"]
     finally:
-        for part in [federation_part] + parts + cluster_part:
+        for part in side.values():
             part.kill()
+    sharded, operator, churn, scale, sims, parallel, cluster = (
+        chain[k] for k in ("sharded", "operator", "churn", "scale", "sims", "parallel",
+                           "cluster"))
     kernel = {
         "name": "fill_batch",
         "route": "cuda",
@@ -8858,7 +9184,7 @@ def main() -> int:
         + operator["fill_launches"] + operator["samples_fill_launches"]
         + churn["fill_launches"] + scale["fill_launches"] + sims["fill_launches"]
         + parallel["fill_launches"] + cluster["fill_launches"] + cluster["ext_fill_launches"]
-        + federation["fill_launches"],
+        + federation["fill_launches"] + cli["fill_launches"],
         "sidecar_launches": sidecar.get("a", {}).get("fill_launches", 0)
         + sidecar.get("q", {}).get("fill_launches", 0),
         "slo_launches": slo["fill_launches"],
@@ -8870,13 +9196,15 @@ def main() -> int:
         "parallel_launches": parallel["fill_launches"],
         "cluster_launches": cluster["fill_launches"] + cluster["ext_fill_launches"],
         "federation_launches": federation["fill_launches"],
+        "cli_launches": cli["fill_launches"],
         "frontier_stacked_launches": front["stacked_fill_launches"],
         "explain_launches": observe["explain_fill_launches"],
         "sharded_rank_launches": sharded["fill_launches"],
         "max_abs_err": max([timing["max_abs_err"], front["stacked_fill"]["max_abs_err"],
                             operator["fill_max_abs_err"], churn["fill_max_abs_err"],
                             scale["fill_max_abs_err"], parallel["fill_max_abs_err"],
-                            cluster["fill_max_abs_err"], federation["psi"]["fill_max_abs_err"]]
+                            cluster["fill_max_abs_err"], federation["psi"]["fill_max_abs_err"],
+                            cli["fill_max_abs_err"]]
                            + [cs["max_abs_err"] for cs in cases]),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -8899,7 +9227,8 @@ def main() -> int:
             + disruption[f"drf_{phase}_launches"] + operator[f"drf_{phase}_launches"]
             + operator[f"samples_drf_{phase}_launches"] + churn[f"drf_{phase}_launches"]
             + sims[f"drf_{phase}_launches"] + cluster[f"drf_{phase}_launches"]
-            + cluster[f"ext_drf_{phase}_launches"] + federation[f"drf_{phase}_launches"],
+            + cluster[f"ext_drf_{phase}_launches"] + federation[f"drf_{phase}_launches"]
+            + cli[f"drf_{phase}_launches"],
             "sidecar_launches": sidecar.get("q", {}).get(f"drf_{phase}_launches", 0),
             "slo_launches": slo[f"drf_{phase}_launches"],
             "disruption_launches": disruption[f"drf_{phase}_launches"],
@@ -8915,6 +9244,8 @@ def main() -> int:
             + cluster[f"ext_drf_{phase}_launches"],
             # (mu)'s quota churn, (chi) and (psi)'s global order over the fold
             "federation_launches": federation[f"drf_{phase}_launches"],
+            # the CLI's in-process queues over samples/multitenant-queues.yaml
+            "cli_launches": cli[f"drf_{phase}_launches"],
             "max_abs_err": 0.0,  # _fail unless equal bit for bit
             "ms": drf[f"{phase}_ms"],
             "plain_ms": drf[f"plain_{phase}_ms"],
@@ -8938,7 +9269,7 @@ def main() -> int:
                       "observe": observe, "sidecar": sidecar, "slo": slo,
                       "disruption": disruption, "operator": operator, "churn": churn,
                       "scale": scale, "sims": sims, "parallel": parallel,
-                      "cluster": cluster, "federation": federation}))
+                      "cluster": cluster, "federation": federation, "cli": cli}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -20,4 +20,10 @@ and whose pods the simulated kubelet starts.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no card present they raise (never a silent CPU
 fallback). On the CPU every kernel wrapper runs its plain PyTorch version.
+
+The command line is ``python -m grove_tpu_torch`` (``cli.py``, the
+``grove-tpu-torch`` script); the pod-side waiter ``python -m
+grove_tpu_torch.initc`` (``grove-tpu-torch-initc``).
 """
+
+__version__ = "0.1.0"

@@ -1,0 +1,8 @@
+"""`python -m grove_tpu_torch` → the CLI."""
+
+import sys
+
+from grove_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

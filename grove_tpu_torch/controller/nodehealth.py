@@ -510,6 +510,7 @@ class NodeHealthMonitor:
         for ns, pod_name in victims:
             pod = self.store.get("Pod", ns, pod_name, readonly=True)
             if pod is None:
+                # grovelint: disable=GL012 -- the pod's store Deleted event already fired (it is gone from the store), so the delta fold released this charge; only the stale cluster-map entry remains
                 self.cluster.bindings.pop((ns, pod_name), None)
                 continue
             gang_name = pod.metadata.labels.get(namegen.LABEL_PODGANG)
@@ -525,6 +526,7 @@ class NodeHealthMonitor:
             # release the binding only once the pod is actually gone —
             # a kept binding for a live pod stays visible to capacity
             # accounting and survivor counts
+            # grovelint: disable=GL012 -- store.delete above just fired the watch event (or NOT_FOUND: it fired earlier); the event is the registration, this pop only syncs the cluster map
             self.cluster.bindings.pop((ns, pod_name), None)
             evicted += 1
         if evicted:
@@ -636,6 +638,7 @@ class NodeHealthMonitor:
                 except GroveError as e:
                     if e.code != ERR_NOT_FOUND:
                         raise  # tick-level retry re-runs the triage
+                # grovelint: disable=GL012 -- store.delete above fired the Deleted watch event (NOT_FOUND means it fired earlier); the delta fold already released the charge
                 self.cluster.bindings.pop((ref.namespace, ref.name), None)
         breached = {
             g.name: (survivors.get(g.name, 0), g.min_replicas)

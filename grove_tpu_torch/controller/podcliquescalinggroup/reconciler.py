@@ -401,7 +401,7 @@ class PodCliqueScalingGroupReconciler:
             if self._replica_available(pcsg, r):
                 ready_outdated.append(r)
             else:
-                # grant held upstream: the PCS rolling updater cleared the broker for this whole replica before selecting it (components/rollingupdate.py _disruption_granted); an unavailable replica is also excluded from the budget tally by design
+                # grovelint: disable=GL002 -- grant held upstream: the PCS rolling updater cleared the broker for this whole replica before selecting it (components/rollingupdate.py _disruption_granted); an unavailable replica is also excluded from the budget tally by design
                 self._push_template_to_replica(pcsg, pcs, r)
 
         # then one READY replica at a time (:132-260); a freshly-updated
@@ -419,12 +419,12 @@ class PodCliqueScalingGroupReconciler:
             if r not in outdated and not self._replica_available(pcsg, r)
         ]
         if in_flight:
-            # grant held upstream: in-flight replica was broker-cleared by the PCS rolling updater at selection time
+            # grovelint: disable=GL002 -- grant held upstream: in-flight replica was broker-cleared by the PCS rolling updater at selection time
             self._push_template_to_replica(pcsg, pcs, in_flight[0])
         elif ready_outdated and not settling:
             pick = ready_outdated[0]
             progress.ready_replica_indices_selected_to_update.append(pick)
-            # grant held upstream: this PCSG update only starts while the PCS replica is `selected`, which required _disruption_granted in components/rollingupdate.py
+            # grovelint: disable=GL002 -- grant held upstream: this PCSG update only starts while the PCS replica is `selected`, which required _disruption_granted in components/rollingupdate.py
             self._push_template_to_replica(pcsg, pcs, pick)
             self.ctx.record_event(
                 "PodCliqueScalingGroup",

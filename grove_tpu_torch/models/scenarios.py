@@ -47,6 +47,13 @@ The serving, chaos and federation worlds run either package's
 partition chaos; ``run_federation_world`` (psi), three regions of (iota)'s
 5,120 nodes with (q)'s tenant Queues, a crash and rejoin, then an overflow
 that spills in global DRF order (``federation_summary`` reads each step).
+
+The CLI world runs either package's command line as users do, each command
+a process of its own: ``run_cli_sim`` (``cli_sim_commands``: every
+sim-backed subcommand over the repository's samples/, the host-only ones)
+and ``run_cli_live`` (a ``run`` child, the commands against its apiserver,
+the initc waiter, SIGINT); ``cli_digest`` reads a command's exit code and
+stdout the same way on either side (``mask_cli_stdout``).
 """
 
 from __future__ import annotations
@@ -2682,3 +2689,272 @@ def run_federation_world(pkg, n_nodes: int = FEDERATION_NODES,
         _reset_singletons(pkg)
     record["walls"] = walls
     return record
+
+
+# ---------------------------------------------------------------------------
+# The CLI world: either package's command line as users run it, each
+# command a process of its own from the repository root (sim mode over the
+# repository's samples/, then live mode against a `run` child)
+# ---------------------------------------------------------------------------
+
+CLI_NODES = OPERATOR_NODES
+CLI_SAMPLE = "samples/simple1.yaml"
+CLI_QUEUE_SAMPLE = "samples/multitenant-queues.yaml"  # two Queue CRs: the DRF order runs
+# outputs whose numbers and row order follow host time: compared with the
+# durations masked, as sorted lines
+CLI_TIMED = ("trace", "profile", "journey")
+# the live commands whose stdout the converged state alone sets, less its
+# epoch timestamps and resource versions (the store's one counter also
+# counts the lease's renewals, which follow the clock): the messages of the
+# writes, the PodGangs and the describe of simple1, the trees with their
+# bindings, the explain, what-if, capacity and queue views, initc's. The
+# others follow wall clock or watch timing (heartbeat ages, span counts,
+# solve rounds) and are held to their exit codes
+CLI_LIVE_STDOUT = ("apply", "get", "tree", "describe", "scale", "tree scaled", "drain",
+                   "uncordon", "queues", "explain", "whatif", "capacity", "delete", "initc")
+# the glass-box faces the live operator serves (trace, profile, journey)
+CLI_LIVE_ENV = {"GROVE_TPU_TRACE": "1", "GROVE_TPU_PROFILE": "1", "GROVE_TPU_JOURNEY": "1"}
+CLI_TIMEOUT_S = 600.0
+_UID_TOKEN = re.compile(r"\buid-[0-9a-f]{8}-")
+_DURATION = re.compile(r"[+]?\d+\.\d+(?:s|%)?")
+_WALL_CLOCK = re.compile(r"\b1\d{9}(?:\.\d+)?(?!\d)")
+_RESOURCE_VERSION = re.compile(r"\b(resourceVersion: )'?\d+'?")
+
+
+def cli_sim_commands(n_nodes: int = CLI_NODES, config_path: str = "operator-config.yaml",
+                     root: Optional[pathlib.Path] = None) -> Dict[str, List[str]]:
+    """Every sim-backed subcommand over ``samples/`` at ``n_nodes``, then
+    the host-only ones (``config_path`` holds ``CLUSTER_CONFIG_YAML``;
+    ``validate`` takes every sample, paths relative to ``root``)."""
+    n = str(n_nodes)
+    root = root or pathlib.Path(__file__).resolve().parents[2]
+    samples = sorted(p.relative_to(root).as_posix() for p in (root / "samples").glob("*.yaml"))
+    return {
+        "apply": ["apply", CLI_SAMPLE, "--nodes", n],
+        "tree": ["tree", CLI_SAMPLE, "--nodes", n, "--scale", "workers=3"],
+        "get": ["get", CLI_SAMPLE, "--nodes", n],
+        "describe": ["describe", "simple1", CLI_SAMPLE, "--nodes", n],
+        "queues": ["queues", CLI_QUEUE_SAMPLE, "--nodes", n],
+        "nodes": ["nodes", CLI_SAMPLE, "--nodes", n],
+        "trace": ["trace", CLI_SAMPLE, "--nodes", n, "--top", "100000"],
+        "profile": ["profile", CLI_SAMPLE, "--nodes", n, "--top", "100000"],
+        "journey": ["journey", CLI_SAMPLE, "--nodes", n],
+        "explain": ["explain", CLI_SAMPLE, "--nodes", n],
+        "capacity": ["capacity", CLI_SAMPLE, "--nodes", n],
+        "whatif": ["whatif", CLI_SAMPLE, "--nodes", n, "--gang", "simple1-0", "--drain",
+                   "node-0"],
+        "validate": ["validate", *samples],
+        "config-check": ["config-check", config_path],
+        "crds": ["crds"],
+        "api-docs": ["api-docs"],
+        "detect-topology": ["detect-topology", "--sim-nodes", n],
+    }
+
+
+def mask_cli_stdout(name: str, text: str, apiserver: Optional[str] = None) -> str:
+    """A command's stdout less what differs between two runs of the same
+    package: the uid's per-process token, the apiserver's address, the
+    live objects' epoch timestamps and resource versions and, for
+    ``CLI_TIMED``, the durations
+    (each run measures its own), whose values also set the rows' order and
+    the columns' widths: those lines are compared with their spaces
+    collapsed, sorted, less the spans of ``_PROCESS_SPANS``."""
+    text = _UID_TOKEN.sub("uid-*-", text)
+    if apiserver:
+        text = _WALL_CLOCK.sub("<wall>", text.replace(apiserver, "<apiserver>"))
+        text = _RESOURCE_VERSION.sub(r"\1<rv>", text)
+    if name.split()[0] not in CLI_TIMED:
+        return text
+    lines = []
+    for line in text.splitlines():
+        fields = _DURATION.sub("*", line).split()
+        # a span of the process, not of the converge (the JAX package's XLA
+        # compile, the port's first load of a CUDA library)
+        if any(f in _PROCESS_SPANS for f in fields[:2]):
+            continue
+        # the profile table's TOTAL-S, P50-µS and P99-µS columns
+        if len(fields) == 7 and fields[3].isdigit():
+            fields[4:] = ["*"] * 3
+        # the profile's per-controller totals, ordered by their seconds
+        if fields[:2] == ["per", "controller:"]:
+            fields[2:] = sorted(fields[2:])
+        lines.append(" ".join(fields))
+    return "\n".join(sorted(lines)) + "\n"
+
+
+def cli_digest(name: str, rc: int, stdout: str, apiserver: Optional[str] = None) -> dict:
+    masked = mask_cli_stdout(name, stdout, apiserver)
+    return {"rc": rc, "lines": len(masked.splitlines()),
+            "sha256": hashlib.sha256(masked.encode()).hexdigest()}
+
+
+def _run_cli(cmd: List[str], cwd, env) -> dict:
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    return {"rc": proc.returncode, "stdout": proc.stdout, "stderr": proc.stderr,
+            "wall_s": time.perf_counter() - t0}
+
+
+def run_cli_sim(cli: List[str], commands: Dict[str, List[str]], cwd, env=None,
+                parallel: int = 4) -> Dict[str, dict]:
+    """Each command as ``cli + argv`` in a process of its own, ``parallel``
+    at a time: name -> rc, stdout, stderr, wall_s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=parallel) as pool:
+        futures = {name: pool.submit(_run_cli, cli + argv, cwd, env)
+                   for name, argv in commands.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def cli_live_converged(url: str, n_gangs: int) -> bool:
+    """``n_gangs`` PodGangs Running in ``default``, every pod Ready and bound."""
+    gangs = _http_json("GET", f"{url}/apis/scheduler.grove.io/v1alpha1/namespaces/default/podgangs")
+    pods = _http_json("GET", f"{url}/api/v1/namespaces/default/pods")["items"]
+    return (len(gangs["items"]) == n_gangs
+            and all((g.get("status") or {}).get("phase") == "Running" for g in gangs["items"])
+            and bool(pods)
+            and all(_bound_and_ready(p.get("status") or {}) for p in pods))
+
+
+def _bound_and_ready(status: dict) -> bool:
+    return bool(status.get("nodeName")) and any(
+        c.get("type") == "Ready" and c.get("status") == "True"
+        for c in status.get("conditions") or [])
+
+
+def _wait_for(what: str, check, timeout: float = CLI_TIMEOUT_S, poll: float = 0.1) -> float:
+    t0 = time.perf_counter()
+    while not check():
+        if time.perf_counter() - t0 > timeout:
+            raise RuntimeError(f"cli live: {what} not reached within {timeout:.0f} s")
+        time.sleep(poll)
+    return time.perf_counter() - t0
+
+
+def run_cli_live(cli: List[str], initc: List[str], n_nodes: int = CLI_NODES, cwd=None,
+                 env=None, after=None) -> Dict[str, dict]:
+    """Live mode: ``cli run --nodes N [--tls] --authorizer`` as a child
+    (the glass-box faces on, ``CLI_LIVE_ENV``; ``--tls`` where ``openssl``
+    is on the PATH to make its certificates), then each command with
+    ``--apiserver`` in a process of its own: apply ``simple1`` (the initc
+    waiter ``initc`` for its gang ``simple1-0`` starts beside it), get,
+    tree, describe, scale to 2 replicas, tree, nodes, drain and uncordon of
+    the last node (empty: the cluster packs from node-0), queues, explain,
+    whatif, capacity, trace, profile, journey, delete; the operator is
+    converged before each read (every gang Running, every pod Ready and
+    bound, the uncordoned node schedulable again in the scheduler's view). Then SIGINT stops the operator. Returns name -> rc, stdout,
+    stderr, wall_s, with ``"initc"`` and ``"run"`` (the operator's exit)
+    and ``"apiserver"`` (its address); ``after(name, result)`` is called
+    after each command."""
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+    import threading
+
+    tls = shutil.which("openssl") is not None
+    env = dict(os.environ if env is None else env, **CLI_LIVE_ENV)
+    argv = ["run", "--nodes", str(n_nodes), "--authorizer"] + (["--tls"] if tls else [])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli + argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines: List[str] = []
+    ready = threading.Event()
+
+    def read_stdout():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("operator running"):
+                ready.set()
+        ready.set()
+
+    errors: List[str] = []
+    threads = [threading.Thread(target=read_stdout, daemon=True),
+               threading.Thread(target=lambda: errors.extend(proc.stderr), daemon=True)]
+    for t in threads:
+        t.start()
+    out: Dict[str, dict] = {}
+    waiter = None
+    info = tempfile.TemporaryDirectory(prefix="grove-initc-")
+    try:
+        if not ready.wait(CLI_TIMEOUT_S) or proc.poll() is not None:
+            raise RuntimeError("cli live: the operator did not start:\n"
+                               + "".join(lines) + "".join(errors[-40:]))
+        url = next(ln.split()[1] for ln in lines if ln.startswith("apiserver:"))
+        out["apiserver"] = url
+        out["boot"] = {"rc": 0, "stdout": "", "stderr": "",
+                       "wall_s": time.perf_counter() - t0}
+
+        def step(name, *args):
+            res = _run_cli(cli + list(args) + ["--apiserver", url], cwd, env)
+            out[name] = res
+            if after is not None:
+                after(name, res)
+            return res
+
+        def converged(n_gangs):
+            return _wait_for(f"{n_gangs} gangs Running", lambda: cli_live_converged(url, n_gangs))
+
+        step("apply", "apply", CLI_SAMPLE)
+        for key, value in (("namespace", "default"), ("podgang", "simple1-0")):
+            with open(os.path.join(info.name, key), "w") as f:
+                f.write(value + "\n")
+        t_initc = time.perf_counter()
+        waiter = subprocess.Popen(
+            initc + ["--apiserver", url, "--pod-info-dir", info.name, "--poll-interval", "0.2",
+                     "--timeout", str(CLI_TIMEOUT_S), "--podcliques", "simple1-0-frontend:3",
+                     "--podcliques", "simple1-0-workers-0-prefetch:2"],
+            cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        out["apply"]["converge_s"] = converged(1)
+        step("get", "get", "--kind", "PodGang")
+        step("tree", "tree")
+        step("describe", "describe", "simple1")
+        step("scale", "scale", "simple1", "--replicas", "2")
+        out["scale"]["converge_s"] = converged(2)
+        step("tree scaled", "tree")
+        step("nodes", "nodes")
+        last = f"node-{n_nodes - 1}"
+        step("drain", "drain", last)
+
+        def drained():
+            items = _http_json("GET", f"{url}/nodes")["items"]
+            return any(it["name"] == last and it.get("drain") == "Drained" for it in items)
+
+        out["drain"]["drained_s"] = _wait_for(f"{last} Drained", drained)
+        step("uncordon", "uncordon", last)
+
+        def uncordoned():
+            # the scheduler's view, which capacity reads, counts it again
+            return _http_json("GET", f"{url}/debug/capacity")["nodes"] == n_nodes
+
+        out["uncordon"]["uncordoned_s"] = _wait_for(f"{last} schedulable", uncordoned)
+        converged(2)
+        step("queues", "queues")
+        step("explain", "explain", "--gang", "simple1-0")
+        step("whatif", "whatif", "--gang", "simple1-0", "--drain", "node-0")
+        step("capacity", "capacity")
+        step("trace", "trace")
+        step("profile", "profile")
+        step("journey", "journey", "--gang", "simple1-0")
+        step("delete", "delete", "simple1")
+        stdout, stderr = waiter.communicate(timeout=CLI_TIMEOUT_S)
+        out["initc"] = {"rc": waiter.returncode, "stdout": stdout, "stderr": stderr,
+                        "wall_s": time.perf_counter() - t_initc}
+        t_stop = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=CLI_TIMEOUT_S)
+        for t in threads:
+            t.join(timeout=10)
+        out["run"] = {"rc": rc, "stdout": "".join(lines), "stderr": "".join(errors[-40:]),
+                      "wall_s": time.perf_counter() - t_stop}
+    finally:
+        for child in (waiter, proc):
+            if child is not None and child.poll() is None:
+                child.kill()
+                child.wait()
+        info.cleanup()
+    return out

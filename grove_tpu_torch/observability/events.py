@@ -1,10 +1,9 @@
 """Kubernetes-style event recorder with dedup-and-count.
 
-Counterpart of ``grove_tpu/observability/events.py``, cut to the reasons
-the scheduler round, the SLO observatory, the flight recorder, the decision
-ledger, the node-health monitor, the disruption layer, the durability
-layer and the federation router record, and the deferral details the round and the explain
-engine cite. ``record`` dedups on (kind, namespace, name, type, reason),
+Counterpart of ``grove_tpu/observability/events.py``, with its reasons
+(the closed set ``REGISTERED_REASONS`` that grovelint's GL006 holds every
+emitted reason to) and its deferral details (``REGISTERED_DETAILS``), which
+the round and the explain engine cite. ``record`` dedups on (kind, namespace, name, type, reason),
 bumps ``count`` and keeps the latest message; the oldest groups drop past
 ``max_events``. Each updated record goes to ``sink`` when one is installed
 (the flight recorder's ``note_event``).
@@ -16,7 +15,7 @@ import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 TYPE_NORMAL = "Normal"
 TYPE_WARNING = "Warning"
@@ -77,6 +76,29 @@ REASON_CLUSTER_LOST = "ClusterLost"
 REASON_CLUSTER_REJOINED = "ClusterRejoined"
 REASON_CLUSTER_PARTITIONED = "ClusterPartitioned"
 REASON_CLUSTER_HEALED = "ClusterHealed"
+# the operator's components (the PodCliqueSet components, the rolling
+# update, gang termination) emit these as literals at their call sites;
+# registered here so grovelint's GL006 holds every emitted reason to this set
+REASON_ROLLING_UPDATE_STARTED = "RollingUpdateStarted"
+REASON_ROLLING_UPDATE_REPLICA_STARTED = "RollingUpdateReplicaStarted"
+REASON_ROLLING_UPDATE_REPLICA_COMPLETED = "RollingUpdateReplicaCompleted"
+REASON_ROLLING_UPDATE_COMPLETED = "RollingUpdateCompleted"
+REASON_GANG_TERMINATED = "GangTerminated"
+REASON_SCALED_REPLICA_GANG_TERMINATED = "ScaledReplicaGangTerminated"
+REASON_POD_CREATE_SUCCESSFUL = "PodCreateSuccessful"
+REASON_POD_DELETE_SUCCESSFUL = "PodDeleteSuccessful"
+REASON_POD_UPDATE_DELETE_SUCCESSFUL = "PodUpdateDeleteSuccessful"
+REASON_POD_CLIQUE_CREATE_SUCCESSFUL = "PodCliqueCreateSuccessful"
+REASON_POD_CLIQUE_DELETE_SUCCESSFUL = "PodCliqueDeleteSuccessful"
+REASON_PCSG_CREATE_SUCCESSFUL = "PCSGCreateSuccessful"
+REASON_PCSG_DELETE_SUCCESSFUL = "PCSGDeleteSuccessful"
+REASON_PODGANG_CREATE_SUCCESSFUL = "PodGangCreateSuccessful"
+REASON_PODGANG_DELETE_SUCCESSFUL = "PodGangDeleteSuccessful"
+
+# the closed set of reasons the port may emit (grovelint GL006)
+REGISTERED_REASONS = frozenset(
+    v for k, v in list(globals().items()) if k.startswith("REASON_") and isinstance(v, str)
+)
 
 # deferral-detail slugs: GangDeferred / QueuePending messages start with one
 DETAIL_NO_NODES = "no-schedulable-nodes"
@@ -88,6 +110,9 @@ DETAIL_QUOTA_CEILING = "quota-ceiling"
 # explain verdicts only: outcompeted in the solve order, and a monitor hold
 DETAIL_QUEUE_POSITION = "queue-position"
 DETAIL_DISRUPTION_HOLD = "disruption-hold"
+REGISTERED_DETAILS = frozenset(
+    v for k, v in list(globals().items()) if k.startswith("DETAIL_") and isinstance(v, str)
+)
 
 
 @dataclass
@@ -122,6 +147,11 @@ class EventRecord:
         }
 
 
+def ref_of(obj) -> Tuple[str, str, str]:
+    """(kind, namespace, name) of a typed API object."""
+    return (getattr(obj, "kind", type(obj).__name__), obj.metadata.namespace, obj.metadata.name)
+
+
 class EventRecorder:
     def __init__(self, max_events: int = 8192, clock=None) -> None:
         self.max_events = max_events
@@ -141,7 +171,7 @@ class EventRecorder:
     def record(self, obj_ref, type: str, reason: str, message: str) -> EventRecord:
         """obj_ref: a (kind, namespace, name) tuple or a typed API object."""
         if not isinstance(obj_ref, tuple):
-            obj_ref = (obj_ref.kind, obj_ref.metadata.namespace, obj_ref.metadata.name)
+            obj_ref = ref_of(obj_ref)
         kind, namespace, name = obj_ref
         key = (kind, namespace, name, type, reason)
         now = self._now()

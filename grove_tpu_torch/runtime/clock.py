@@ -12,9 +12,11 @@ import time
 
 class Clock:
     def now(self) -> float:
+        # grovelint: disable=GL001 -- this IS the wall-clock injection boundary every other module must go through
         return time.time()
 
     def sleep(self, seconds: float) -> None:
+        # grovelint: disable=GL001 -- the real clock's sleep; virtual-time code gets VirtualClock.sleep via injection
         time.sleep(seconds)
 
 

@@ -741,8 +741,7 @@ class ChaosRunner:
             assert (
                 _time.monotonic() < deadline
             ), "standby never took over the lease"
-            # a real wall-clock wait: the LeaseElector protocol ages the
-            # lease on real time; bounded by the deadline above
+            # grovelint: disable=GL001 -- real wall-clock wait: the LeaseElector protocol ages the lease on real time (cluster/lease.py is wall-clock by design); bounded by the deadline above
             _time.sleep(0.05)
 
         # deposed leader's engine stops draining; the standby builds fresh

@@ -13,7 +13,7 @@ admitted gangs per queue and event counts by reason. ``chip_smoke.py``
 holds the port's rounds on the card against these numbers (its
 ``JAX_SCHEDULER_REFERENCE``). Run on the CPU, one world at a time or all:
 
-    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo] [disruption] [operator] [churn] [scale] [sims] [durability] [parallel] [cluster] [federation]
+    JAX_PLATFORMS=cpu python scripts/scheduler_reference.py [s] [q] [r] [delta] [frontier] [observe] [slo] [disruption] [operator] [churn] [scale] [sims] [durability] [parallel] [cluster] [federation] [cli]
 
 ``delta`` is the churn world: (q)'s round, then its churn ticks
 (``scheduler_world("delta")``, ``apply_tick`` with the JAX decoder), through
@@ -151,9 +151,25 @@ chaos verdict is ok and that stage 2 spilled, prints each world's CPU wall
 to stderr, and prints the reports less their walls; ``chip_smoke.py``'s ``[federation]`` holds the
 port to them (``JAX_FEDERATION_REFERENCE``).
 
+``cli`` is the command line (``models/scenarios.run_cli_sim`` and
+``run_cli_live``): the JAX ``grove_tpu.cli`` as users run it, each command a
+process of its own from the repository root on the CPU, at ``--nodes``
+(5,120 by default, ``CLI_NODES``). Sim mode: every sim-backed subcommand
+over ``samples/`` and the host-only ones (``cli_sim_commands``). Live mode:
+``run --tls --authorizer`` as a child, then apply, get, tree, describe,
+scale, nodes, drain, uncordon, queues, explain, whatif, capacity, trace,
+profile, journey and delete with ``--apiserver``, the initc waiter for the
+gang ``simple1-0`` and SIGINT; live mode runs twice. It asserts that every
+command exits 0 and prints, for each, its exit code and the sha256 and
+line count of its stdout less the uid's token, the apiserver's address and
+(trace, profile, journey) the durations (``cli_digest``); a live command
+keeps its exit code only unless it is one of ``CLI_LIVE_STDOUT`` and the
+second run repeated its digest.
+``chip_smoke.py``'s ``[cli]`` holds the port to it (``JAX_CLI_REFERENCE``).
+
 ``operator``, ``churn``, ``scale``, ``sims``, ``durability``, ``parallel``,
-``cluster`` and ``federation`` re-run the script under ``PYTHONHASHSEED=0`` unless that is
-set. A world can be cut for a quick
+``cluster``, ``federation`` and ``cli`` re-run the script under
+``PYTHONHASHSEED=0`` unless that is set. A world can be cut for a quick
 look: ``--nodes N --gangs G`` (and ``--ticks T --seed S`` for ``delta``).
 """
 
@@ -200,6 +216,9 @@ from grove_tpu.config.operator import OperatorConfiguration  # noqa: E402
 from grove_tpu.sim.harness import SimHarness  # noqa: E402
 from tests.torch_sim_sides import sim_side  # noqa: E402
 from grove_tpu_torch.models.scenarios import (  # noqa: E402
+    CLI_LIVE_STDOUT,
+    CLI_NODES,
+    CLUSTER_CONFIG_YAML,
     CHURN_FULLPATH_TICKS,
     CHURN_TICKS,
     FEDERATION_STAGE1_EACH,
@@ -235,6 +254,10 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     scheduler_world,
     sims_missing,
     chaos_missing,
+    cli_digest,
+    cli_sim_commands,
+    run_cli_live,
+    run_cli_sim,
 )
 
 
@@ -367,7 +390,7 @@ def run_disruption(n_nodes=None, n_gangs=None, seed=0) -> dict:
 
 
 HASHED_WORLDS = ("operator", "churn", "scale", "sims", "durability", "parallel", "cluster",
-                 "federation")
+                 "federation", "cli")
 
 
 def name_needs_seed() -> bool:
@@ -528,6 +551,47 @@ def run_federation(worlds=("mu", "chi", "psi"), n_nodes=None, stage1_each=FEDERA
     return out
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# a JAX CLI process: jax imported first under JAX_PLATFORMS=cpu, so the
+# CLI's backend probe finds the CPU pinned and starts no child
+JAX_CLI = "import sys, jax; from grove_tpu.cli import main; sys.exit(main(sys.argv[1:]))"
+
+
+def run_cli(n_nodes=None) -> dict:
+    n_nodes = n_nodes or CLI_NODES
+    env = dict(os.environ, PYTHONHASHSEED="0", JAX_PLATFORMS="cpu")
+    cli = [sys.executable, "-c", JAX_CLI]
+    initc = [sys.executable, "-m", "grove_tpu.initc"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = os.path.join(tmp, "operator-config.yaml")
+        with open(config, "w") as f:
+            f.write(CLUSTER_CONFIG_YAML)
+        sim = run_cli_sim(cli, cli_sim_commands(n_nodes, config), ROOT, env)
+    print(f"[cli] sim mode: CPU wall {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+          flush=True)
+    out = {"world": {"nodes": n_nodes}, "sim": {}, "live": {}}
+    for name, res in sim.items():
+        assert res["rc"] == 0, (name, res["stderr"][-2000:])
+        out["sim"][name] = cli_digest(name, res["rc"], res["stdout"])
+    runs = []
+    for attempt in (1, 2):
+        def after(name, res, attempt=attempt):
+            print(f"[cli] live run {attempt} {name}: rc {res['rc']}, {res['wall_s']:.3f} s",
+                  file=sys.stderr, flush=True)
+
+        runs.append(run_cli_live(cli, initc, n_nodes, ROOT, env, after=after))
+    first, second = runs
+    for name, res in first.items():
+        if name in ("apiserver", "boot"):
+            continue
+        assert res["rc"] == 0, (name, res["stderr"][-2000:])
+        a = cli_digest(name, res["rc"], res["stdout"], first["apiserver"])
+        b = cli_digest(name, second[name]["rc"], second[name]["stdout"], second["apiserver"])
+        out["live"][name] = a if a == b and name in CLI_LIVE_STDOUT else {"rc": a["rc"]}
+    return out
+
+
 def main() -> int:
     if name_needs_seed():
         os.execve(sys.executable, [sys.executable] + sys.argv,
@@ -567,6 +631,8 @@ def main() -> int:
             out[name] = run_parallel(args.sweep_counts)
         elif name == "cluster":
             out[name] = run_cluster(args.sets, args.nodes)
+        elif name == "cli":
+            out[name] = run_cli(args.nodes)
         elif name == "federation":
             out[name] = run_federation(args.federation_worlds, args.nodes, args.stage1_each,
                                        args.stage2_each)

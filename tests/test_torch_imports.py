@@ -58,7 +58,14 @@ def test_port_modules_import_with_jax_and_grove_tpu_blocked():
                  "cluster.autotopo", "cluster.client", "cluster.apidocs", "cluster.apiserver",
                  "cluster.webhook", "cluster.extscheduler", "cluster.manager",
                  "analysis", "analysis.sanitize", "sim.traffic", "sim.remediation",
-                 "sim.chaos", "federation", "federation.quota", "federation.router"):
+                 "sim.chaos", "federation", "federation.quota", "federation.router",
+                 "version", "cli", "__main__", "initc.__main__", "analysis.engine",
+                 "analysis.inventory", "analysis.rules",
+                 *(f"analysis.rules.{m}" for m in (
+                     "clocks", "scheduling", "storepath", "jaxrules", "observability", "locks",
+                     "apiwire", "dirtymask", "shardrules", "frontierrule", "glassbox",
+                     "explainrule", "slorules", "workerrules", "ledgerrules", "procrules",
+                     "federationrule", "grayfail"))):
         assert f"grove_tpu_torch.{name}" in mods
     script = textwrap.dedent(
         f"""

@@ -6,8 +6,8 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises and the script exits non-zero):
   1. device: CUDA must be available; prints the card's name and power limit.
-  2. build: compiles the kernels (csrc/fill.cu, csrc/drf.cu; sm_90a) from the
-     sources, one nvcc each, all started together.
+  2. build: compiles the kernels (csrc/fill.cu, csrc/drf.cu, csrc/exact.cu;
+     sm_90a) from the sources, one nvcc each, all started together.
   3. kernel vs plain version on the card at the wave solver's fill shape
      (C=32 gangs, P=3 groups, N=5120 nodes, R=2 resources): shared and
      per-gang capacity, masks 0/50/100% dense, zero demands and zero counts;
@@ -21,7 +21,8 @@ Phases (any failure raises and the script exits non-zero):
      shared free, one on per-gang free, an extras fill, the rescue's last
      extras fill without free_after); from the stats path, (a)'s slab fill
      of groups 1..P-1 (per-gang free, no free_after); from the exact solve
-     of (a), the stacked candidates (C = L+1) and the spill fill (C=1);
+     of (a) through the host loop (a recording fill keeps the solve there),
+     the stacked candidates (C = L+1) and the spill fill (C=1);
      each bit for bit against the plain version, then timed beside its
      bound.
   4. main path at full width: five requests through the sidecar's solve
@@ -40,15 +41,22 @@ Phases (any failure raises and the script exits non-zero):
      solve_waves_stats, one warm-up and 10 timed runs (median, p99, min,
      max of solve_seconds), its admitted gangs, pods placed, waves and tail
      size equal to the JAX package's on the CPU and its score sum within
-     1e-5 (JAX_STATS_REFERENCE); then, for quality_vs_exact, the stats
-     and the exact solve (solve) of the first 2,048 gangs, both held
-     against the JAX package's. Launch counts are set to 0 just before
-     each solve and read just after it.
-  6. each solver with the kernel vs the same solver with the plain fill,
+     1e-5 (JAX_STATS_REFERENCE), each run's tail one launch of the exact
+     kernel (csrc/exact.cu); then the exact solve (solve) of all 10,240
+     gangs, one launch of the exact kernel, its admitted gangs equal to
+     the JAX package's and its score sum within 1e-5, and quality_vs_exact
+     over all gangs; then the exact kernel timed at the tail's shape beside
+     its plain version and its bound, and at (a). Launch counts are set to
+     0 just before each solve and read just after it.
+  6. each solver with the kernels vs the same solver with the plain fill,
      on reduced problems (1,024 nodes; stress and non-uniform at 512
      gangs, grouped, pinned and spread at 256): the binding path, the
      stats path and the exact solve (of the first 128 gangs), every result
-     field bit-equal.
+     field bit-equal; the exact solve of stress and non-uniform is one
+     launch of the exact kernel, of grouped, pinned and spread none (the
+     host loop over the fill). Then the exact kernel against its plain
+     version on (a)'s first 256 gangs (with allocations) and first 2,048,
+     bit for bit, both solves timed.
   7. [sched] the scheduler round end to end (solver/scheduler.GangScheduler
      over the port's store and simulated cluster, built from wire documents
      by models/scenarios.scheduler_world) on the card: (s) 10,240 stress
@@ -116,7 +124,10 @@ Phases (any failure raises and the script exits non-zero):
      4 gloo ranks sharing cuda:0. Every rank's admitted, placed, score,
      chosen_level, free_after, pending and waves must equal the
      single-device solve on the card bit for bit and JAX_SHARDED_REFERENCE
-     (scripts/stats_reference.py sharded); at 2 and 4 ranks
+     (scripts/stats_reference.py sharded); at world size 1
+     batch_solve_sharded of 8 scenarios (1,024 nodes, 64 gangs) must be one
+     launch of the exact kernel and equal its plain version bit for bit; at
+     2 and 4 ranks
      domain_aggregates_ring of gang 0 must equal the single-device
      aggregates, and at 2 ranks the sharded fill's identity cases the
      whole-axis kernel and the plain fill. Every rank must launch the fill
@@ -365,7 +376,7 @@ def phase_device() -> str:
     return line
 
 
-KERNEL_SOURCES = ("fill", "drf")  # grove_tpu_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("fill", "drf", "exact")  # grove_tpu_torch/csrc/<name>.cu
 
 
 def phase_build() -> None:
@@ -820,46 +831,81 @@ def phase_main_path() -> dict:
     return summary
 
 
-# The JAX package's results for the stress request (a) and its 2,048-gang
-# cut, from `JAX_PLATFORMS=cpu python scripts/stats_reference.py` (JAX 0.9.0
-# on the CPU): the stats solve's admitted gangs, pods placed, waves, tail
-# size and score sum, and (for the cut) the exact solve's admitted gangs
-# and score sum.
+# The JAX package's results for the stress request (a), from
+# `JAX_PLATFORMS=cpu python scripts/stats_reference.py` (JAX 0.9.0 on the
+# CPU): the stats solve's admitted gangs, pods placed, waves, tail size and
+# score sum, and the exact solve's admitted gangs and score sum.
 JAX_STATS_REFERENCE = {
     10240: {"admitted": 10232, "pods_placed": 34828, "waves": 8, "tail": 8,
-            "score_sum": 10117.439693391323},
-    2048: {"admitted": 2048, "pods_placed": 7048, "waves": 1, "tail": 0,
-           "score_sum": 2030.1599200367928, "exact_admitted": 2048,
-           "exact_score_sum": 2026.494970858097},
+            "score_sum": 10117.439693391323, "exact_admitted": 10239,
+            "exact_score_sum": 10140.724570691586},
 }
 STATS_RUNS = 10  # timed stats solves of (a), after one warm-up
-# gangs of the stress request whose exact solve gives quality_vs_exact: the
-# first 2,048, as the exact solve of all 10,240 took 87.8 s on an H100
-# 80GB HBM3 at 700 W (`scripts/torch_solve_profile.py --path exact` times it)
-EXACT_GANGS = 2048
+# gangs of the stress request whose exact solve gives quality_vs_exact: all
+# of them, as the JAX bench takes it (the exact kernel solves them in well
+# under a second; the host loop over the fill took 87.8 s)
+EXACT_GANGS = 10240
 # gangs of each reduced problem whose exact solve is held against the plain
 # fill (the binding and stats paths take them all): 128, cut with PATH_GANGS
 EXACT_PATH_GANGS = 128
+# the first gangs of (a) on its 5,120 nodes whose exact solve through the
+# kernel is held against the plain version, with allocations; and those
+# whose plain solve is timed beside the kernel's
+EXACT_CHECK_GANGS = 256
+EXACT_PLAIN_GANGS = 2048
 
 
 class _RecordWaveSolve:
     """Keeps the output dict of the stats path's wave solve
-    (``solver.kernel.solve_waves_device``) for reading after the solve."""
+    (``solver.kernel.solve_waves_device``) for reading after the solve, and
+    the arguments of the exact kernel's launch for its tail
+    (``solver.kernel.exact_scan``; None without a tail)."""
 
     def __enter__(self):
         from grove_tpu_torch.solver import kernel
 
-        self.kernel, self.wrapped, self.out = kernel, kernel.solve_waves_device, None
+        self.kernel = kernel
+        self.wrapped = kernel.solve_waves_device, kernel.exact_scan
+        self.out = self.tail_args = None
 
         def record(*args, **kwargs):
-            self.out = self.wrapped(*args, **kwargs)
+            self.out = self.wrapped[0](*args, **kwargs)
             return self.out
 
-        kernel.solve_waves_device = record
+        def record_tail(*args, **kwargs):
+            self.tail_args = (args, kwargs)
+            return self.wrapped[1](*args, **kwargs)
+
+        kernel.solve_waves_device, kernel.exact_scan = record, record_tail
         return self
 
     def __exit__(self, *exc):
-        self.kernel.solve_waves_device = self.wrapped
+        self.kernel.solve_waves_device, self.kernel.exact_scan = self.wrapped
+
+
+def exact_bound(args):
+    """Least time for one launch of the exact kernel at these inputs
+    (``exact_scan``'s nine batch tensors): the bytes of the inputs read
+    once and of the outputs (admitted, placed, score, chosen level,
+    free_after) written once, over HBM bandwidth; the operations over the
+    fp32 rate, counting for each gang with a count the prelude every
+    decision needs: per group and node the capped fit (a divide, floor,
+    min per resource, the cap, the prefix add), per node and resource the
+    capacity prefix's add, per domain of every level the boundary
+    differences and the feasibility tests (P + 2R). The G gangs are a
+    dependent chain: gang g+1 reads the capacity gang g left. Returns
+    (ms, by)."""
+    capacity, topo, seg_starts, seg_ends, demand, count = args[:6]
+    b, g, p, r = demand.shape
+    n, n_levels = topo.shape[1:]
+    read = sum(t.numel() * t.element_size() for t in args)
+    written = b * g * (1 + 4 * p + 4 + 4) + capacity.numel() * 4
+    active = int((count > 0).any(-1).sum())
+    domains = seg_starts.shape[-1] * n_levels
+    ops = active * (p * n * (3 * r + 2) + n * r + domains * (p + 2 * r))
+    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _check_stats(tag, problem, res, ref, waves, tail):
@@ -885,45 +931,63 @@ def _check_stats(tag, problem, res, ref, waves, tail):
 
 def phase_stats_path() -> dict:
     """The headline solve: (a) through solve_waves_stats, one warm-up and
-    STATS_RUNS timed runs, held against the JAX package's results; then the
-    stats and the exact solve of the first EXACT_GANGS gangs for
-    quality_vs_exact."""
+    STATS_RUNS timed runs, held against the JAX package's results, each
+    run's tail one launch of the exact kernel; then the exact solve of all
+    EXACT_GANGS gangs through the kernel for quality_vs_exact; the kernel
+    timed at the tail's shape and at (a) beside the plain version and the
+    bound."""
     from grove_tpu_torch.models.scenarios import build_stress_problem
+    from grove_tpu_torch.ops.exact import exact_scan, exact_scan_ref
     from grove_tpu_torch.ops.fill import fill_batch
+    from grove_tpu_torch.solver import kernel
     from grove_tpu_torch.solver.kernel import solve, solve_waves_stats
 
-    problem = build_stress_problem(5120, 10240)
+    ref = JAX_STATS_REFERENCE[EXACT_GANGS]
+    problem = build_stress_problem(5120, EXACT_GANGS)
     solve_waves_stats(problem, device="cuda")  # warm-up
-    times, launches = [], []
+    times, launches, exact_launches = [], [], []
     for _ in range(STATS_RUNS):
-        fill_batch.launches = 0
+        fill_batch.launches = exact_scan.launches = 0
         with _RecordWaveSolve() as rec:
             res = solve_waves_stats(problem, device="cuda")
         launches.append(fill_batch.launches)
+        exact_launches.append(exact_scan.launches)
         times.append(res.solve_seconds)
         waves, tail = int(rec.out["waves"]), int(rec.out["pending"].sum())
-        _check_stats("stats (a)", problem, res, JAX_STATS_REFERENCE[10240], waves, tail)
+        stats_sum = _check_stats("stats (a)", problem, res, ref, waves, tail)
+        if exact_launches[-1] != (1 if tail else 0):
+            _fail(f"stats path: a tail of {tail} gangs launched the exact kernel"
+                  f" {exact_launches[-1]} times")
     if min(launches) == 0 or len(set(launches)) != 1:
         _fail(f"stats path: fill launches per run {launches}")
-    # quality_vs_exact: the stats and the exact solve of the first
-    # EXACT_GANGS gangs on the same nodes
-    cut_problem = build_stress_problem(5120, EXACT_GANGS)
-    ref = JAX_STATS_REFERENCE[EXACT_GANGS]
-    with _RecordWaveSolve() as rec:
-        cut = solve_waves_stats(cut_problem, device="cuda")
-    cut_sum = _check_stats(f"stats of the first {EXACT_GANGS} gangs", cut_problem, cut, ref,
-                           int(rec.out["waves"]), int(rec.out["pending"].sum()))
-    fill_batch.launches = 0
-    exact = solve(cut_problem, with_alloc=False, device="cuda")
-    exact_launches = fill_batch.launches
+    tail_args, tail_kw = rec.tail_args
+    # quality_vs_exact: the exact solve of all EXACT_GANGS gangs, one launch
+    fill_batch.launches = exact_scan.launches = 0
+    exact = solve(problem, with_alloc=False, device="cuda")
+    full_launches, full_fills = exact_scan.launches, fill_batch.launches
     exact_sum = float(exact.score.astype(np.float64).sum())
     if int(exact.admitted.sum()) != ref["exact_admitted"] or not np.isclose(
             exact_sum, ref["exact_score_sum"], rtol=1e-5, atol=0):
         _fail(f"exact solve: {int(exact.admitted.sum())} admitted, score sum {exact_sum};"
               f" the JAX package's {ref['exact_admitted']}, {ref['exact_score_sum']}")
-    if exact_launches == 0:
-        _fail("the exact solve did not launch the fill kernel")
-    quality = cut_sum / exact_sum
+    if (full_launches, full_fills) != (1, 0):
+        _fail(f"the exact solve made {full_launches} exact and {full_fills} fill launches")
+    if not (np.isfinite(exact.score).all() and (exact.score >= 0).all()
+            and (exact.score <= 1).all()) or (exact.free_after < 0).any():
+        _fail("exact solve: scores outside [0, 1] or capacity below 0")
+    quality = stats_sum / exact_sum
+    # the kernel at the tail's shape (the headline path) and at (a), CUDA
+    # events, beside the plain version and the bound
+    ms = _median_ms(lambda: kernel.exact_scan(*tail_args, **tail_kw), reps=20)
+    # the plain version launches thousands of kernels a call: host clock
+    plain_ms = _host_ms(lambda: exact_scan_ref(*tail_args, **tail_kw))
+    bound_ms, bound_by = exact_bound(tail_args)
+    host = kernel._problem_arrays(problem)
+    full_args = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()[None] for a in host[:9])
+    full_kw = dict(with_alloc=False, uniform=True,
+                   level_widths=kernel.level_widths_of(problem))
+    full_ms = _median_ms(lambda: kernel.exact_scan(*full_args, **full_kw), reps=3, warmup=1)
+    full_bound_ms, full_bound_by = exact_bound(full_args)
     times_sorted = sorted(times)
     out = {
         "median_s": float(np.median(times)), "p99_s": float(np.percentile(times, 99)),
@@ -931,17 +995,29 @@ def phase_stats_path() -> dict:
         "waves": waves, "tail": tail, "admitted": int(res.admitted.sum()),
         "pods_placed": int(res.placed.sum()), "fill_launches": launches[0],
         "quality_vs_exact": quality, "quality_eval_gangs": EXACT_GANGS,
-        "exact_solve_seconds": exact.solve_seconds, "exact_fill_launches": exact_launches,
+        "exact_solve_seconds": exact.solve_seconds, "exact_admitted": int(exact.admitted.sum()),
+        "exact_score_sum": exact_sum,
+        "exact_launches": sum(exact_launches) + full_launches,
+        "exact_kernel": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "rows": int(tail_args[4].shape[1]),
+                         "full_ms": full_ms, "full_bound_ms": full_bound_ms,
+                         "full_bound_by": full_bound_by},
     }
     print(f"[stats] (a) solve_waves_stats 10240 gangs x 5120 nodes, {len(times)} runs after a"
           f" warm-up: median {out['median_s']:.4f} s, p99 {out['p99_s']:.4f} s (linear"
           f" interpolation), min {out['min_s']:.4f} s, max {out['max_s']:.4f} s; waves {waves},"
           f" tail {tail}, admitted {out['admitted']}, pods placed {out['pods_placed']}, fill"
-          f" launches {launches[0]} per solve; equal to the JAX package's counts, score sum"
-          f" within 1e-5", flush=True)
-    print(f"[stats] exact solve of the first {EXACT_GANGS} gangs: {exact.solve_seconds:.3f} s,"
-          f" admitted {int(exact.admitted.sum())}, fill launches {exact_launches};"
-          f" quality_vs_exact {quality:.6f}", flush=True)
+          f" launches {launches[0]} and exact kernel launches {exact_launches[0]} per solve;"
+          f" equal to the JAX package's counts, score sum within 1e-5", flush=True)
+    print(f"[stats] exact solve of all {EXACT_GANGS} gangs through the exact kernel (one"
+          f" launch, no fill): {exact.solve_seconds:.4f} s, admitted {out['exact_admitted']},"
+          f" score sum {exact_sum!r}; equal to the JAX package's, score sum within 1e-5;"
+          f" quality_vs_exact {quality:.6f} over all {EXACT_GANGS} gangs", flush=True)
+    print(f"[stats] exact kernel at the tail's {out['exact_kernel']['rows']} rows: kernel"
+          f" {ms * 1e3:.2f} us (median device time, CUDA event pairs), plain {plain_ms:.2f} ms"
+          f" (host clock), bound {bound_ms * 1e3:.3f} us ({bound_by}); at (a)'s"
+          f" {host[4].shape[0]} rows: kernel {full_ms:.3f} ms, bound {full_bound_ms * 1e3:.3f} us"
+          f" ({full_bound_by}); a chain of dependent gang steps", flush=True)
     return out
 
 
@@ -952,13 +1028,37 @@ def phase_stats_path() -> dict:
 PATH_GANGS = 512
 
 
-def phase_path_kernel_vs_plain() -> None:
-    """Each solver with the kernel against the same solver with the plain
+def _check_same_solve(tag, kern, plain):
+    """Every result field of two PackingResults equal, the floats by their
+    bits (-0.0 and +0.0 differ)."""
+    for field in ("admitted", "placed", "score", "chosen_level", "alloc", "free_after"):
+        a, b = getattr(kern, field), getattr(plain, field)
+        if a is None and b is None:
+            continue
+        if a is None or b is None or a.dtype != b.dtype or not np.array_equal(
+                a.view(np.int32) if a.dtype == np.float32 else a,
+                b.view(np.int32) if b.dtype == np.float32 else b):
+            _fail(f"{tag}: {field} differs")
+
+
+def phase_path_kernel_vs_plain() -> dict:
+    """Each solver with the kernels against the same solver with the plain
     fill, on reduced problems (1,024 nodes): the binding path (with
     allocations), the stats path and the exact solve; every result field
-    bit-equal (capacity by its bits)."""
+    bit-equal (the floats by their bits). The exact solve of the stress and
+    non-uniform problems is one launch of the exact kernel, against its
+    plain version (the host loop with the plain fill); the grouped, pinned
+    and spread problems keep the host loop and launch no exact kernel. Then
+    the exact kernel against its plain version on the first
+    EXACT_CHECK_GANGS gangs of (a) with allocations, and on the first
+    EXACT_PLAIN_GANGS without, both solves timed."""
     from grove_tpu_torch.api.topology import ClusterTopology
-    from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, stress_gang_specs
+    from grove_tpu_torch.models.scenarios import (
+        STRESS_CAPACITY,
+        build_stress_problem,
+        stress_gang_specs,
+    )
+    from grove_tpu_torch.ops.exact import exact_scan
     from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
     from grove_tpu_torch.sim.cluster import make_nodes
     from grove_tpu_torch.solver.encode import build_problem
@@ -967,6 +1067,7 @@ def phase_path_kernel_vs_plain() -> None:
     def exact(problem, **kw):
         return solve(problem, with_alloc=False, **kw)
 
+    out = {"exact_launches": 0}
     nodes = make_nodes(1024, dict(STRESS_CAPACITY), 8, 8)
     for tag, specs in (("stress", stress_gang_specs(PATH_GANGS, seed=3)),
                        ("non-uniform", nonuniform_specs(PATH_GANGS, seed=4)),
@@ -984,20 +1085,36 @@ def phase_path_kernel_vs_plain() -> None:
         for path, run, prob in (("binding", solve_waves, problem),
                                 ("stats", solve_waves_stats, problem),
                                 ("exact", exact, exact_problem)):
+            exact_scan.launches = 0
             kern = run(prob, device="cuda", fill=fill_batch)
+            launched = exact_scan.launches
+            out["exact_launches"] += launched
             plain = run(prob, device="cuda", fill=fill_batch_ref)
-            for field in ("admitted", "placed", "score", "chosen_level", "alloc", "free_after"):
-                a, b = getattr(kern, field), getattr(plain, field)
-                if a is None and b is None:
-                    continue
-                if a is None or b is None or a.dtype != b.dtype or not np.array_equal(
-                        a.view(np.int32) if field == "free_after" else a,
-                        b.view(np.int32) if field == "free_after" else b):
-                    _fail(f"{path} path with kernel != with plain fill ({tag}: {field})")
+            if path == "exact" and launched != (1 if flag is None else 0):
+                _fail(f"exact path ({tag}): {launched} exact kernel launches")
+            _check_same_solve(f"{path} path with kernel != with plain fill ({tag})", kern, plain)
             gangs = len(specs[:EXACT_PATH_GANGS] if path == "exact" else specs)
             print(f"[path] {tag} 1024 nodes x {gangs} gangs, {path}: kernel path == plain"
                   f" path on every field (admitted {int(kern.admitted.sum())}; kernel"
-                  f" {kern.solve_seconds:.3f} s, plain {plain.solve_seconds:.3f} s)", flush=True)
+                  f" {kern.solve_seconds:.3f} s, plain {plain.solve_seconds:.3f} s; exact kernel"
+                  f" launches {launched})", flush=True)
+    for gangs, with_alloc in ((EXACT_CHECK_GANGS, True), (EXACT_PLAIN_GANGS, False)):
+        problem = build_stress_problem(5120, gangs)
+        exact_scan.launches = 0
+        kern = solve(problem, with_alloc=with_alloc, device="cuda")
+        if exact_scan.launches != 1:
+            _fail(f"exact solve of (a)'s first {gangs} gangs: {exact_scan.launches} launches")
+        out["exact_launches"] += 1
+        plain = solve(problem, with_alloc=with_alloc, device="cuda", fill=fill_batch_ref)
+        _check_same_solve(f"exact kernel != plain version on (a)'s first {gangs} gangs",
+                          kern, plain)
+        out[f"a{gangs}"] = {"kernel_s": kern.solve_seconds, "plain_s": plain.solve_seconds}
+        print(f"[path] (a)'s first {gangs} gangs x 5120 nodes, exact"
+              f"{' with allocations' if with_alloc else ''}: the exact kernel == its plain"
+              f" version on every field, bit for bit (admitted {int(kern.admitted.sum())};"
+              f" kernel {kern.solve_seconds:.4f} s, plain {plain.solve_seconds:.3f} s, host"
+              " clock to the first result read)", flush=True)
+    return out
 
 
 # The JAX package's scheduler rounds on the worlds of
@@ -2421,6 +2538,9 @@ JAX_SHARDED_REFERENCE = {
 }
 SHARDED_WORLDS = (1, 2, 4)  # ranks on cuda:0: NCCL at 1, gloo above (they share the card)
 SHARDED_TIMEOUT_S = 300  # per spawn; each collective raises after 120 s
+# batch_solve_sharded's scenarios at world size 1: one launch of the exact
+# kernel, one block a scenario
+SHARDED_BATCH = {"n_scenarios": 8, "n_nodes": 1024, "n_gangs": 64}
 
 
 def _crc(a) -> int:
@@ -2451,6 +2571,8 @@ def _spawn_sharded_worlds(cfg, ref) -> list:
     worlds = []
     for world in SHARDED_WORLDS:
         jobs = [("stress", dict(cfg, warmup=True)), ("cluster", {})]
+        if world == 1:
+            jobs.append(("batch", SHARDED_BATCH))
         if world > 1:
             jobs.append(("ring", {"n_nodes": ref["nodes"], "n_gangs": ref["gangs"], "gang": 0}))
         if world == 2:
@@ -2486,7 +2608,13 @@ def phase_sharded(alongside=None, after_ranks=None) -> dict:
     from grove_tpu_torch.ops.fill import fill_batch
     from grove_tpu_torch.ops.nodeaxis import WHOLE
     from grove_tpu_torch.parallel.ring import domain_aggregates
-    from grove_tpu_torch.parallel.sharded import fill_cases, run_fill_case, solve_stress_single
+    from grove_tpu_torch.ops.exact import exact_scan_ref
+    from grove_tpu_torch.parallel.sharded import (
+        fill_cases,
+        make_example_batch,
+        run_fill_case,
+        solve_stress_single,
+    )
 
     ref = JAX_SHARDED_REFERENCE
     cfg = {k: ref[k] for k in ("chunk_size", "max_waves")}
@@ -2504,12 +2632,15 @@ def phase_sharded(alongside=None, after_ranks=None) -> dict:
                                     device="cuda")
     wholes = {name: (run_fill_case(case, WHOLE, "cuda"), run_fill_case(case, WHOLE, "cpu"))
               for name, case in fill_cases().items()}
+    batch = [torch.from_numpy(a).cuda() for a in make_example_batch(**SHARDED_BATCH)]
+    batch_plain = {k: v.cpu().numpy() for k, v in exact_scan_ref(*batch, with_alloc=False).items()
+                   if v is not None}
     print(f"[sharded] (a) {ref['gangs']} gangs x {ref['nodes']} nodes, chunk {cfg['chunk_size']},"
           f" {cfg['max_waves']} waves: single-device solve {single_s:.3f} s (wall, after a"
           f" warm-up), {single['waves']} waves, admitted {int(single['admitted'].sum())}, fill"
           f" launches {single_launches}; equal to the JAX package's", flush=True)
     out = {"single_s": single_s, "single_fill_launches": single_launches, "waves": single["waves"],
-           "worlds": {}, "fill_launches": 0, "max_abs_err": 0.0}
+           "worlds": {}, "fill_launches": 0, "max_abs_err": 0.0, "batch_exact_launches": 0}
     keys = ("admitted", "placed", "score", "chosen_level", "free_after", "pending")
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(_spawn_sharded_worlds, cfg, ref)
@@ -2540,6 +2671,16 @@ def phase_sharded(alongside=None, after_ranks=None) -> dict:
                 _fail(f"{tag} rank {rank}: the launcher's cluster check failed")
             if res["worker"]["blocked_modules"].size:
                 _fail(f"{tag} rank {rank}: imported {res['worker']['blocked_modules']}")
+            if "batch" in res:
+                if int(res["batch"]["exact_launches"]) != 1:
+                    _fail(f"{tag} rank {rank}: batch_solve_sharded made"
+                          f" {int(res['batch']['exact_launches'])} exact kernel launches")
+                for key, want in batch_plain.items():
+                    got_b = res["batch"][key]
+                    if got_b.dtype != want.dtype or got_b.tobytes() != want.tobytes():
+                        _fail(f"{tag} rank {rank}: batch_solve_sharded {key} != the plain"
+                              " version")
+                out["batch_exact_launches"] += int(res["batch"]["exact_launches"])
             if "ring" in res and (res["ring"]["K"].tobytes() != K.tobytes()
                                   or res["ring"]["free_agg"].tobytes() != free_agg.tobytes()):
                 _fail(f"{tag} rank {rank}: ring aggregates != the single-device aggregates")
@@ -2568,6 +2709,9 @@ def phase_sharded(alongside=None, after_ranks=None) -> dict:
               f" {collectives[0]} collectives a rank, {collectives[0] / single['waves']:.1f} a"
               f" wave; fill launches per rank {launches}; every rank equal to the single-device"
               f" solve bit for bit and to the JAX package's; launcher check passed"
+              + ("; batch_solve_sharded of {n_scenarios} scenarios ({n_nodes} nodes, {n_gangs}"
+                 " gangs) one exact kernel launch, equal to the plain version bit for bit"
+                 .format(**SHARDED_BATCH) if world == 1 else "")
               + ("; ring aggregates equal" if world > 1 else "")
               + ("; sharded fill cases equal" if world == 2 else ""), flush=True)
     print("[sharded] the ranks shared one card: these times say nothing of multi-GPU speed",
@@ -9151,7 +9295,7 @@ def main() -> int:
         stats = _timed(phase_stats_path)
         side["operator"] = _PhaseProcess(card, {"phase_operator_chain": {}})
         side["disruption"] = _PhaseProcess(card, {"phase_disruption": {}})
-        _timed(phase_path_kernel_vs_plain)
+        path = _timed(phase_path_kernel_vs_plain)
         sched = _timed(phase_scheduler)
         drf = _timed(phase_drf, sched["q_order_inputs"])
         delta = _timed(phase_delta)
@@ -9175,8 +9319,8 @@ def main() -> int:
         "route": "cuda",
         "source": "grove_tpu_torch/csrc/fill.cu",
         "replaces": "grove_tpu/ops/pallas_fill.py:69",
-        "launches": main_path["launches"] + stats["fill_launches"] + stats["exact_fill_launches"]
-        + sched["fill_launches"] + delta["fill_launches"] + front["fill_launches"]
+        "launches": main_path["launches"] + stats["fill_launches"] + sched["fill_launches"]
+        + delta["fill_launches"] + front["fill_launches"]
         + sharded["single_fill_launches"] + sharded["fill_launches"]
         + observe["fill_launches"] + observe["explain_fill_launches"]
         + sidecar.get("a", {}).get("fill_launches", 0) + sidecar.get("q", {}).get("fill_launches", 0)
@@ -9255,12 +9399,38 @@ def main() -> int:
         }
         for name, phase in (("drf_shares_kernel", "shares"), ("drf_merge_kernel", "merge"))
     ]
+    exact_timing = stats["exact_kernel"]
+    exact_kernel = {
+        "name": "exact_kernel",
+        "route": "cuda",
+        "source": "grove_tpu_torch/csrc/exact.cu",
+        "replaces": "grove_tpu/ops/packing.py:831",
+        # [stats]' tails and full exact, [path]'s exact and stats arms and
+        # (a)'s cuts, [sharded]'s batch at world size 1
+        "launches": stats["exact_launches"] + path["exact_launches"]
+        + sharded["batch_exact_launches"],
+        "stats_launches": stats["exact_launches"],
+        "path_launches": path["exact_launches"],
+        "sharded_launches": sharded["batch_exact_launches"],
+        "max_abs_err": 0.0,  # _fail unless equal bit for bit
+        "ms": exact_timing["ms"],
+        "plain_ms": exact_timing["plain_ms"],
+        "bound_ms": exact_timing["bound_ms"],
+        "bound_by": exact_timing["bound_by"],
+        "library_ms": None,
+        "rows": exact_timing["rows"],
+        "full_a_ms": exact_timing["full_ms"],
+        "full_a_bound_ms": exact_timing["full_bound_ms"],
+        "full_a_bound_by": exact_timing["full_bound_by"],
+        "first_gangs_of_a_s": {k: v for k, v in path.items() if k != "exact_launches"},
+    }
     drf_pass = {k: drf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "steps",
                                     "merge_past_g_loop_ms", "merge_per_step",
                                     "merge_global_counts")}
     paths = {k: v for k, v in main_path.items() if k not in ("launches", "a_response")}
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [kernel, *drf_kernels], "main_path": paths, "stats_path": stats,
+    print(json.dumps({"kernels": [kernel, *drf_kernels, exact_kernel], "main_path": paths,
+                      "stats_path": stats,
                       "scheduler": sched["rounds"], "drf_pass": drf_pass,
                       "delta": {k: v for k, v in delta.items() if k != "rounds"},
                       "delta_rounds": delta["rounds"],

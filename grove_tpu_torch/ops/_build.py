@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` into ``build/grove_tpu_torch/<name>-<hash>.so`` (the hash
-covers the source and the flags, so an edited source rebuilds) and loaded
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source or header rebuilds) and loaded
 with ``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
 ``load_all`` starts one nvcc per missing source, all together. Nothing is
 built when a module is imported.
@@ -81,7 +82,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
+    """The build of ``csrc/<name>.cu``, keyed by its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    source = b"".join(path.read_bytes() for path in
+                      [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

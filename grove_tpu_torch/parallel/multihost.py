@@ -158,7 +158,8 @@ def _job_ring(device, n_nodes, n_gangs, gang=0, seed=0):
 
 def _job_batch(device, n_scenarios, n_nodes=32, n_gangs=16):
     """``batch_solve_sharded`` on ``make_example_batch`` over the (dp, tp)
-    solver mesh."""
+    solver mesh, with the exact kernel's launches during it."""
+    from grove_tpu_torch.ops.exact import exact_scan
     from grove_tpu_torch.parallel.sharded import (
         batch_solve_sharded,
         make_example_batch,
@@ -166,8 +167,10 @@ def _job_batch(device, n_scenarios, n_nodes=32, n_gangs=16):
     )
 
     mesh = make_solver_mesh()
-    out = batch_solve_sharded(mesh, *make_example_batch(n_scenarios, n_nodes, n_gangs),
-                              device=device)
+    batch = make_example_batch(n_scenarios, n_nodes, n_gangs)
+    exact_scan.launches = 0
+    out = batch_solve_sharded(mesh, *batch, device=device)
+    out["exact_launches"] = exact_scan.launches
     out["mesh"] = np.asarray(mesh.mesh.shape)
     return out
 

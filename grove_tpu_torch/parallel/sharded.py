@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from grove_tpu_torch.ops.exact import check_inputs, exact_scan
 from grove_tpu_torch.ops.fill import _pods_fit_per_node, fill_batch
 from grove_tpu_torch.ops.packing import (
     GangInputs,
@@ -161,12 +162,15 @@ def batch_solve_sharded(
     pref_level: np.ndarray,  # [S, G]
     device=None,
 ) -> dict:
-    """Solve S independent placement scenarios with the exact solve
-    (``solve_packing``, no allocations): scenarios over the mesh's ``dp``
-    ranks, each scenario's node axis over its ``tp`` ranks. Every rank
-    calls it with the whole batch and returns the whole result (numpy
-    admitted, placed, score, chosen_level ``[S, ...]`` and free_after
-    ``[S, N, R]``), gathered over ``dp``. S must divide by dp."""
+    """Solve S independent placement scenarios with the exact solve (no
+    allocations): scenarios over the mesh's ``dp`` ranks, each scenario's
+    node axis over its ``tp`` ranks. On a card with the whole node axis on
+    each rank (tp = 1), a rank's scenarios go to the exact kernel in one
+    launch, one block a scenario (``ops.exact.exact_scan``); else each
+    scenario runs ``solve_packing``'s host loop on the rank's node slab.
+    Every rank calls it with the whole batch and returns the whole result
+    (numpy admitted, placed, score, chosen_level ``[S, ...]`` and
+    free_after ``[S, N, R]``), gathered over ``dp``. S must divide by dp."""
     device = resolve_device(device)
     strict_fp32()
     dp_group = mesh.get_group("dp")
@@ -175,20 +179,28 @@ def batch_solve_sharded(
     if s_total % dp:
         raise ValueError(f"{s_total} scenarios do not divide over dp={dp}")
     axis = node_axis_of(capacity.shape[1], mesh)
-    rows = slice(axis.lo, axis.lo + axis.n_local)
     per = s_total // dp
-    outs = []
-    for s in range(dp_rank * per, (dp_rank + 1) * per):
-        args = (capacity[s][rows], topo[s][rows], seg_starts[s], seg_ends[s], demand[s],
-                count[s], min_count[s], req_level[s], pref_level[s])
-        out = solve_packing(*(_upload(a, device) for a in args), with_alloc=False, axis=axis)
-        out["free_after"] = axis.full(out["free_after"], 0)
-        outs.append(out)
+    mine_rows = slice(dp_rank * per, (dp_rank + 1) * per)
+    batch = (capacity, topo, seg_starts, seg_ends, demand, count, min_count, req_level,
+             pref_level)
+    if axis.size == 1 and device.type == "cuda":
+        check_inputs(count[mine_rows], min_count[mine_rows], pref_level[mine_rows],
+                     demand[mine_rows], topo.shape[2])
+        mine = exact_scan(*(_upload(a[mine_rows], device) for a in batch), with_alloc=False)
+    else:
+        rows = slice(axis.lo, axis.lo + axis.n_local)
+        outs = []
+        for s in range(dp_rank * per, (dp_rank + 1) * per):
+            args = (capacity[s][rows], topo[s][rows]) + tuple(a[s] for a in batch[2:])
+            out = solve_packing(*(_upload(a, device) for a in args), with_alloc=False, axis=axis)
+            out["free_after"] = axis.full(out["free_after"], 0)
+            outs.append(out)
+        mine = {key: torch.stack([o[key] for o in outs])
+                for key in ("admitted", "placed", "score", "chosen_level", "free_after")}
     stage = dist.get_backend(dp_group) == "gloo"
     result = {}
     for key in ("admitted", "placed", "score", "chosen_level", "free_after"):
-        mine = torch.stack([o[key] for o in outs])
-        gathered = all_gather_stack(mine, dp_group, stage)  # [dp, per, ...]
+        gathered = all_gather_stack(mine[key], dp_group, stage)  # [dp, per, ...]
         result[key] = gathered.flatten(0, 1).cpu().numpy()
     return result
 

@@ -8,7 +8,10 @@ Counterpart of ``grove_tpu/solver/kernel.py``:
 - ``solve_waves_stats``: the stats path, ``ops.packing.solve_waves_device``
   (one read per wave), then the exact sequential greedy over the gangs
   still pending (the hybrid tail);
-- ``solve``: the exact sequential greedy, ``ops.packing.solve_packing``;
+- ``solve``: the exact sequential greedy: on the card, for a problem
+  without per-group packs, recovery pins or spreads, one launch of the exact
+  kernel (``ops.exact.exact_scan``); else ``ops.packing.solve_packing``'s
+  host loop over the gangs (``uses_exact_kernel``);
 - ``solve_waves_stacked``: ``solve_waves`` over a stack of same-shape
   subproblems, each (wave, chunk) one ``ops.packing.solve_wave_chunk_stack``
   dispatch over every lane (the partitioned frontier, ``solver/frontier.py``).
@@ -40,6 +43,7 @@ import torch
 from grove_tpu_torch.convert import problem_to_device
 from grove_tpu_torch.observability.metrics import METRICS
 from grove_tpu_torch.observability.tracing import TRACER
+from grove_tpu_torch.ops.exact import check_inputs, exact_scan
 from grove_tpu_torch.ops.fill import fill_batch
 from grove_tpu_torch.ops.packing import (
     solve_packing,
@@ -305,29 +309,51 @@ def solve_waves(
     )
 
 
+def uses_exact_kernel(device: torch.device, fill, grouped: bool, pinned: bool,
+                      spread: bool) -> bool:
+    """Whether :func:`solve` runs the exact kernel (``ops.exact.exact_scan``,
+    one launch for the whole solve): on a CUDA device, with the default
+    fill, for a problem without per-group packs, recovery pins or spreads.
+    Every other solve runs ``ops.packing.solve_packing``'s host loop with
+    `fill` (with ``fill_batch_ref``, the kernel's plain version)."""
+    return device.type == "cuda" and fill is fill_batch and not (grouped or pinned or spread)
+
+
 def solve(
     problem: PackingProblem,
     with_alloc: bool = True,
     device: Optional[Union[str, torch.device]] = None,
     fill=fill_batch,
 ) -> PackingResult:
-    """The exact sequential greedy (``ops.packing.solve_packing``): gangs in
-    order, each against the capacity the earlier ones left, every level and
-    cluster-wide tried. Runs on ``device`` (default: the card; raises
-    without one); `fill` as in ``solve_waves``. ``solve_seconds`` is the
-    solve after the upload, ending when `admitted` is on the host."""
+    """The exact sequential greedy: gangs in order, each against the
+    capacity the earlier ones left, every level and cluster-wide tried; the
+    exact kernel or the host loop (:func:`uses_exact_kernel`). Runs on
+    ``device`` (default: the card; raises without one); `fill` as in
+    ``solve_waves``. ``solve_seconds`` is the solve after the upload,
+    ending when `admitted` is on the host."""
     device = resolve_device(device)
     strict_fp32()
     host = _problem_arrays(problem)
-    args = tuple(_upload(a, device) for a in host)
     grouped, pinned, spread, uniform = _flags(host)
+    kernel = uses_exact_kernel(device, fill, grouped, pinned, spread)
+    if kernel:
+        check_inputs(problem.count, problem.min_count, problem.pref_level, problem.demand,
+                     problem.num_levels)
+    args = tuple(_upload(a, device) for a in host)
     _sync(device)
     t0 = time.perf_counter()
     with TRACER.span("solver.execute", kernel="solve_packing", gangs=problem.num_gangs):
-        out = solve_packing(
-            *args, with_alloc=with_alloc, grouped=grouped, pinned=pinned, spread=spread,
-            uniform=uniform, level_widths=level_widths_of(problem), fill=fill,
-        )
+        if kernel:
+            out = exact_scan(
+                *(a.unsqueeze(0) for a in args[:9]), with_alloc=with_alloc, uniform=uniform,
+                level_widths=level_widths_of(problem),
+            )
+            out = {k: None if v is None else v[0] for k, v in out.items()}
+        else:
+            out = solve_packing(
+                *args, with_alloc=with_alloc, grouped=grouped, pinned=pinned, spread=spread,
+                uniform=uniform, level_widths=level_widths_of(problem), fill=fill,
+            )
         admitted = out["admitted"].cpu().numpy()  # waits for the device
     elapsed = time.perf_counter() - t0
     return PackingResult(

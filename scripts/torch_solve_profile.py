@@ -16,7 +16,8 @@ Solves once unprofiled (solve_seconds), then once under ``torch.profiler``
 device time of all kernels, the device busy share (device time / profiled
 wall), the number of device events (kernels and copies) in all and per
 chunk-wave (per wave on the stats path, per gang on the exact path), fill
-launches and their device time, the device time of the spread fill and of
+launches and their device time, the exact kernel's launches
+(``csrc/exact.cu``) and device time, the device time of the spread fill and of
 its quota (kernels launched inside them, by profiler range), and the top
 kernels by device time. On the stats path it also gives the waves, the
 tail's size, and the host time of the wave loop and of the tail.
@@ -54,6 +55,7 @@ from grove_tpu_torch.models.scenarios import (  # noqa: E402
     stress_gang_specs,
 )
 from grove_tpu_torch.ops import packing  # noqa: E402
+from grove_tpu_torch.ops.exact import exact_scan  # noqa: E402
 from grove_tpu_torch.ops.fill import fill_batch  # noqa: E402
 from grove_tpu_torch.sim.cluster import make_nodes  # noqa: E402
 from grove_tpu_torch.solver import kernel  # noqa: E402
@@ -206,9 +208,9 @@ def main() -> int:
 
     chunk_waves = instrument()
     parts = StatsParts() if args.path == "stats" else None
-    fill_batch.launches = 0
+    fill_batch.launches = exact_scan.launches = 0
     plain = run(problem)
-    fills = fill_batch.launches
+    fills, exacts = fill_batch.launches, exact_scan.launches
     waves = chunk_waves[0]
     stats_parts = None if parts is None else {
         "waves": parts.waves, "tail_gangs": parts.tail, "wave_loop_s": parts.wave_s,
@@ -272,6 +274,8 @@ def main() -> int:
         "fill_launches": fills,
         "profiled_fill_launches": window_fills,
         "fill_device_s": sum(us for k, us, _ in device if "fill_kernel" in k) / 1e6,
+        "exact_launches": exacts,
+        "exact_device_s": sum(us for k, us, _ in device if "exact_kernel" in k) / 1e6,
         **{f"{label}_device_s": range_device_s(events, label) for label in RANGES},
         "top_kernels": [
             {"name": k[:80], "device_s": us / 1e6, "count": n} for k, us, n in device[:12]

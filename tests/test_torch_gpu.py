@@ -7,8 +7,9 @@ only PyTorch is installed:
 
 The CUDA fill kernel is held bit for bit against its plain PyTorch version,
 alone and inside the solvers (the binding path, the stats path and the
-exact kernel); each solver on the card is also held against the same solver
-on the CPU (which the CPU tests hold against the JAX package).
+exact solve's host loop), and the exact kernel (``csrc/exact.cu``) against
+its plain version; each solver on the card is also held against the same
+solver on the CPU (which the CPU tests hold against the JAX package).
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from chip_smoke import nonuniform_specs
 from grove_tpu_torch.api.topology import ClusterTopology
 from grove_tpu_torch.models.scenarios import STRESS_CAPACITY, build_stress_problem
 from grove_tpu_torch.ops import packing
+from grove_tpu_torch.ops.exact import exact_scan, exact_scan_ref, launch_plan
 from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
 from grove_tpu_torch.sim.cluster import make_nodes
 from grove_tpu_torch.solver.dedup import dedup_extra_args, level_widths_of
@@ -31,6 +33,7 @@ from grove_tpu_torch.solver.kernel import (
     solve_waves,
     solve_waves_stats,
 )
+from exact_scan_cases import EXACT_CASES, batch_arrays, scenario_batch, stress_problem
 
 FIELDS = ("admitted", "placed", "score", "chosen_level", "alloc", "free_after")
 
@@ -267,14 +270,22 @@ def _assert_same(got, want):
 @pytest.mark.parametrize("path", ["stats", "exact"])
 @pytest.mark.parametrize("kind", ["stress", "nonuniform", "grouped", "pinned", "spread"])
 def test_cuda_stats_and_exact_match_plain_fill_and_cpu(cuda, kind, path):
-    """solve_waves_stats and solve (no allocations) with the kernel equal
-    the same solve with the plain fill on the card and on the CPU."""
+    """solve_waves_stats and solve (no allocations) with the kernels equal
+    the same solve with the plain fill on the card and on the CPU. The
+    exact solve of a stress or non-uniform problem is one launch of the
+    exact kernel and no fill; a grouped, pinned or spread one is the host
+    loop over the fill kernel."""
     run = (solve_waves_stats if path == "stats"
            else lambda p, **kw: solve(p, with_alloc=False, **kw))
     problem = _stats_problem(kind)
-    before = fill_batch.launches
+    before, exact_before = fill_batch.launches, exact_scan.launches
     kern = run(problem, device=cuda)
-    assert fill_batch.launches > before
+    if path == "exact" and kind in ("stress", "nonuniform"):
+        assert (fill_batch.launches, exact_scan.launches) == (before, exact_before + 1)
+    else:
+        assert fill_batch.launches > before
+        if path == "exact":
+            assert exact_scan.launches == exact_before
     plain = run(problem, device=cuda, fill=fill_batch_ref)
     cpu = run(problem, device="cpu")
     assert 0 < kern.admitted.sum() < len(problem.gang_names)
@@ -1102,3 +1113,97 @@ def test_cuda_process_drain_forks_after_the_fill(cuda, monkeypatch):
     ref = fill_batch_ref(free, mask, demand, count)
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+
+
+# -- the exact kernel (csrc/exact.cu) -----------------------------------------
+
+
+def _exact_vs_plain(problems, with_alloc, device, level_widths):
+    """One launch of the exact kernel over the problems' batch against its
+    plain version (the host loop with the plain fill) on the card: every
+    field bit for bit, the score and free by their bits."""
+    batch = [torch.from_numpy(a).to(device) for a in batch_arrays(problems)]
+    uniform = all(bool((p.min_count == p.count).all()) for p in problems)
+    before, fills = exact_scan.launches, fill_batch.launches
+    kern = exact_scan(*batch, with_alloc=with_alloc, uniform=uniform, level_widths=level_widths)
+    torch.cuda.synchronize()
+    assert (exact_scan.launches, fill_batch.launches) == (before + 1, fills)
+    plain = exact_scan_ref(*batch, with_alloc=with_alloc, uniform=uniform,
+                           level_widths=level_widths)
+    assert set(kern) == set(plain)
+    for name in FIELDS:
+        a, b = kern[name], plain[name]
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype == torch.float32:  # by the bits: -0.0 and +0.0 differ
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+    return kern
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_alloc", [True, False], ids=["alloc", "stats"])
+@pytest.mark.parametrize("case", list(EXACT_CASES))
+def test_cuda_exact_kernel_matches_plain_version(cuda, case, with_alloc):
+    """The random problems (seeds 0-3, without their per-group packs), the
+    byte-scale memory problem, a non-uniform one, the signed-zero problem,
+    ragged levels (100 nodes), N = 999 (not a multiple of the block, one
+    scan segment) and permuted nodes (level masks that are not the boundary
+    ranges)."""
+    problem = EXACT_CASES[case]()
+    out = _exact_vs_plain([problem], with_alloc, cuda, level_widths_of(problem))
+    assert bool(out["admitted"].any())
+
+
+@pytest.mark.gpu
+def test_cuda_exact_kernel_padded_level_scan(cuda):
+    """Without level widths every level scans the padded tables' D domains."""
+    _exact_vs_plain([stress_problem(100, 96, seed=4)], True, cuda, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_alloc", [True, False], ids=["alloc", "stats"])
+def test_cuda_exact_kernel_scenario_batch(cuda, with_alloc):
+    """B = 3 independent scenarios in one launch, one block each."""
+    problems = scenario_batch()
+    out = _exact_vs_plain(problems, with_alloc, cuda, level_widths_of(problems[0]))
+    admitted = out["admitted"].sum(1).tolist()
+    assert len(set(admitted)) > 1 and min(admitted) > 0  # the scenarios differ
+
+
+@pytest.mark.gpu
+def test_cuda_exact_kernel_global_scratch(cuda):
+    """A problem past one block's shared memory (12,288 nodes) keeps its
+    arrays in the global scratch buffer."""
+    problem = stress_problem(12288, 64, seed=7)
+    assert not launch_plan(12288, problem.max_groups, 2)["use_smem"]
+    _exact_vs_plain([problem], True, cuda, level_widths_of(problem))
+
+
+@pytest.mark.gpu
+def test_cuda_exact_kernel_first_gangs_of_a(cuda):
+    """The first 256 gangs of the stress request (a) on its 5,120 nodes."""
+    problem = build_stress_problem(5120, 256)
+    _exact_vs_plain([problem], False, cuda, level_widths_of(problem))
+
+
+@pytest.mark.gpu
+def test_cuda_exact_scan_never_syncs(cuda):
+    """The exact kernel's wrapper reads nothing back and waits for nothing:
+    not one device sync from its packing to the launch."""
+    from grove_tpu_torch.solver import kernel as tk
+
+    problem = _stats_problem("stress")
+    host = tk._problem_arrays(problem)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in host]
+    exact_scan(*(a.unsqueeze(0) for a in args[:9]), with_alloc=False)  # builds, loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = exact_scan(*(a.unsqueeze(0) for a in args[:9]), with_alloc=False, uniform=True,
+                         level_widths=level_widths_of(problem))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out["admitted"].sum()) > 0

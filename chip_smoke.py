@@ -52,11 +52,18 @@ Phases (any failure raises and the script exits non-zero):
      on reduced problems (1,024 nodes; stress and non-uniform at 512
      gangs, grouped, pinned and spread at 256): the binding path, the
      stats path and the exact solve (of the first 128 gangs), every result
-     field bit-equal; the exact solve of stress and non-uniform is one
-     launch of the exact kernel, of grouped, pinned and spread none (the
-     host loop over the fill). Then the exact kernel against its plain
-     version on (a)'s first 256 gangs (with allocations) and first 2,048,
-     bit for bit, both solves timed.
+     field bit-equal; the exact solve of every one is one launch of the
+     exact kernel and no fill (timed beside its bound), the stats solve
+     one exact launch exactly when it has a tail. Then the exact kernel
+     against its plain version on (a)'s first 256 gangs (with allocations)
+     and first 2,048, bit for bit, both solves timed; then the flagged
+     exact solves at full width, (d) (4,096 gangs) and (e) (3,072) on
+     5,120 nodes, one launch each with allocations, held to the JAX
+     package's admitted gangs, pods placed and score sum
+     (JAX_FLAGGED_EXACT_REFERENCE) and checked valid, the kernel timed,
+     and the first 256 gangs of each (with allocations; (e)'s spread
+     arrays in the global scratch buffer) against the plain version bit
+     for bit, both solves timed.
   7. [sched] the scheduler round end to end (solver/scheduler.GangScheduler
      over the port's store and simulated cluster, built from wire documents
      by models/scenarios.scheduler_world) on the card: (s) 10,240 stress
@@ -389,7 +396,10 @@ def phase_build() -> None:
     for name in KERNEL_SOURCES:
         log = _build.BUILD_LOGS.get(name, "(prebuilt library reused)")
         for ln in log.strip().splitlines():
-            if "registers" in ln or "spill" in ln:
+            entry = re.search(r"Compiling entry function '([^']+)'", ln)
+            if entry:  # ptxas reports each kernel (a template's instance) after this line
+                print(f"[build]   {name}: entry {entry.group(1)}", flush=True)
+            elif "registers" in ln or "spill" in ln:
                 print(f"[build]   {name}: {ln.strip()}", flush=True)
 
 
@@ -718,6 +728,31 @@ def spread_recovery_specs(n_gangs: int, seed: int, n_nodes: int,
     return specs
 
 
+# the full-width flagged exact solves of [path]: (d) and (e) on (a)'s nodes,
+# (e) at 3,072 gangs (the sidecar's [main] request takes its first 2,048)
+FLAGGED_EXACT_NODES = 5120
+
+
+def flagged_exact_specs(tag: str):
+    """The gang specs of [path]'s full-width flagged exact solve `tag` (d or
+    e); scripts/stats_reference.py builds the JAX package's side from them."""
+    if tag == "d":
+        return disagg_specs(4096, seed=5)
+    return spread_recovery_specs(3072, seed=6, n_nodes=FLAGGED_EXACT_NODES)
+
+
+# The JAX package's exact solve of flagged_exact_specs("d") and ("e") on
+# FLAGGED_EXACT_NODES nodes, from `JAX_PLATFORMS=cpu python
+# scripts/stats_reference.py flagged` (JAX 0.9.0 on the CPU): gangs,
+# admitted gangs, the score sum and the pods placed.
+JAX_FLAGGED_EXACT_REFERENCE = {
+    "d": {"gangs": 4096, "admitted": 2694, "score_sum": 2374.9144936800003,
+          "pods_placed": 27350},
+    "e": {"gangs": 3072, "admitted": 2068, "score_sum": 1958.5589967668056,
+          "pods_placed": 11918},
+}
+
+
 def _one_domain(tag, what, labels, nodes_used, key, pin=None):
     domains = {labels[node][key] for node in nodes_used}
     if len(domains) > 1:
@@ -883,22 +918,29 @@ class _RecordWaveSolve:
         self.kernel.solve_waves_device, self.kernel.exact_scan = self.wrapped
 
 
-def exact_bound(args):
+def exact_bound(args, kw=None):
     """Least time for one launch of the exact kernel at these inputs
-    (``exact_scan``'s nine batch tensors): the bytes of the inputs read
-    once and of the outputs (admitted, placed, score, chosen level,
-    free_after) written once, over HBM bandwidth; the operations over the
-    fp32 rate, counting for each gang with a count the prelude every
-    decision needs: per group and node the capped fit (a divide, floor,
-    min per resource, the cap, the prefix add), per node and resource the
-    capacity prefix's add, per domain of every level the boundary
-    differences and the feasibility tests (P + 2R). The G gangs are a
-    dependent chain: gang g+1 reads the capacity gang g left. Returns
-    (ms, by)."""
+    (``exact_scan``'s positional tensors, its keywords `kw`): the bytes of
+    the inputs it reads once (the nine arrays of every problem, the group
+    packs, which the spill reads, and the constraint arrays the flags of
+    `kw` turn on) and of the outputs (admitted, placed, score, chosen
+    level, free_after) written once, over HBM bandwidth; the operations
+    over the fp32 rate, counting for each gang with a count the prelude
+    every decision needs: per group and node the capped fit (a divide,
+    floor, min per resource, the cap, the prefix add), per node and
+    resource the capacity prefix's add, per domain of every level the
+    boundary differences and the feasibility tests (P + 2R). The G gangs
+    are a dependent chain: gang g+1 reads the capacity gang g left.
+    Returns (ms, by)."""
+    kw = kw or {}
     capacity, topo, seg_starts, seg_ends, demand, count = args[:6]
     b, g, p, r = demand.shape
     n, n_levels = topo.shape[1:]
-    read = sum(t.numel() * t.element_size() for t in args)
+    read_arrays = list(args[:10])
+    for flag, lo, hi in (("grouped", 10, 11), ("pinned", 11, 12), ("spread", 12, 16)):
+        if kw.get(flag):
+            read_arrays += args[lo:hi]
+    read = sum(t.numel() * t.element_size() for t in read_arrays if t is not None)
     written = b * g * (1 + 4 * p + 4 + 4) + capacity.numel() * 4
     active = int((count > 0).any(-1).sum())
     domains = seg_starts.shape[-1] * n_levels
@@ -981,7 +1023,7 @@ def phase_stats_path() -> dict:
     ms = _median_ms(lambda: kernel.exact_scan(*tail_args, **tail_kw), reps=20)
     # the plain version launches thousands of kernels a call: host clock
     plain_ms = _host_ms(lambda: exact_scan_ref(*tail_args, **tail_kw))
-    bound_ms, bound_by = exact_bound(tail_args)
+    bound_ms, bound_by = exact_bound(tail_args, tail_kw)
     host = kernel._problem_arrays(problem)
     full_args = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()[None] for a in host[:9])
     full_kw = dict(with_alloc=False, uniform=True,
@@ -1041,17 +1083,103 @@ def _check_same_solve(tag, kern, plain):
             _fail(f"{tag}: {field} differs")
 
 
+def _flagged_exact_full() -> dict:
+    """The flagged exact solves at full width: (d) and (e) on 5,120 nodes,
+    one launch of the exact kernel each and no fill, with allocations;
+    admitted gangs and pods placed equal to the JAX package's, the score
+    sum within 1e-5, the placements valid (packs, pins, spreads, usage <=
+    capacity); the kernel timed (CUDA events) beside its bound. Then the
+    first EXACT_CHECK_GANGS gangs of each on the same nodes, with
+    allocations, through the kernel against its plain version (the host
+    loop with the plain fill) bit for bit, both timed (host clock): at
+    (e)'s width the spread's arrays lie in the global scratch buffer."""
+    from grove_tpu_torch.api.topology import ClusterTopology
+    from grove_tpu_torch.cluster.grpcsolver import placements_of
+    from grove_tpu_torch.models.scenarios import STRESS_CAPACITY
+    from grove_tpu_torch.ops.exact import ARRAYS, exact_scan, launch_plan
+    from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
+    from grove_tpu_torch.sim.cluster import make_nodes
+    from grove_tpu_torch.solver import kernel
+    from grove_tpu_torch.solver.encode import build_problem
+
+    topology = ClusterTopology()
+    nodes = make_nodes(FLAGGED_EXACT_NODES, dict(STRESS_CAPACITY), 8, 8)
+    capacity = {nd.name: dict(nd.capacity) for nd in nodes}
+    out = {}
+    for tag in ("d", "e"):
+        ref = JAX_FLAGGED_EXACT_REFERENCE[tag]
+        specs = flagged_exact_specs(tag)
+        problem = build_problem(nodes, specs, topology)
+        exact_scan.launches = fill_batch.launches = 0
+        with _RecordWaveSolve() as rec:
+            res = kernel.solve(problem, device="cuda")
+        if (exact_scan.launches, fill_batch.launches) != (1, 0):
+            _fail(f"flagged exact ({tag}): {exact_scan.launches} exact and"
+                  f" {fill_batch.launches} fill launches")
+        got = {"gangs": len(specs), "admitted": int(res.admitted.sum()),
+               "pods_placed": int(res.placed.sum())}
+        score_sum = float(res.score.astype(np.float64).sum())
+        if {k: ref[k] for k in got} != got or not np.isclose(score_sum, ref["score_sum"],
+                                                             rtol=1e-5, atol=0):
+            _fail(f"flagged exact ({tag}): {got}, score sum {score_sum}; the JAX package's {ref}")
+        check_valid(f"flagged exact ({tag})", nodes, specs, capacity,
+                    {"placements": placements_of(problem, specs, res, topology)})
+        args, kw = rec.tail_args
+        kw = dict(kw, with_alloc=False)
+        ms = _median_ms(lambda: kernel.exact_scan(*args, **kw), reps=3, warmup=1)
+        bound_ms, bound_by = exact_bound(args, kw)
+        out[tag] = {**got, "score_sum": score_sum, "solve_s": res.solve_seconds, "ms": ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "launches": 1}
+        print(f"[path] flagged exact ({tag}) {len(specs)} gangs x {FLAGGED_EXACT_NODES} nodes:"
+              f" one exact kernel launch, no fill; admitted {got['admitted']}, pods placed"
+              f" {got['pods_placed']}, score sum {score_sum!r}: equal to the JAX package's"
+              f" (score sum within 1e-5), valid; solve {res.solve_seconds:.3f} s with"
+              f" allocations, kernel {ms:.3f} ms (median of 3, CUDA events, no allocations),"
+              f" bound {bound_ms * 1e3:.3f} us ({bound_by})", flush=True)
+        # the first gangs against the plain version, bit for bit
+        first = build_problem(nodes, specs[:EXACT_CHECK_GANGS], topology)
+        grouped, pinned, spread, _ = kernel._flags(kernel._problem_arrays(first))
+        if not (grouped or pinned or spread):
+            _fail(f"flagged exact ({tag}): its first {EXACT_CHECK_GANGS} gangs set no flag")
+        plan = launch_plan(first.capacity.shape[0], first.max_groups, first.capacity.shape[1],
+                           first.seg_starts.shape[1], grouped, spread)
+        in_scratch = [a for i, a in enumerate(ARRAYS)
+                      if plan["sizes"][i] and not plan["smem_mask"] >> i & 1]
+        if tag == "e" and not in_scratch:
+            _fail("flagged exact (e): no array of its first gangs in the global scratch buffer")
+        exact_scan.launches = fill_batch.launches = 0
+        kern = kernel.solve(first, device="cuda")
+        if (exact_scan.launches, fill_batch.launches) != (1, 0):
+            _fail(f"flagged exact ({tag}), first {EXACT_CHECK_GANGS} gangs:"
+                  f" {exact_scan.launches} exact and {fill_batch.launches} fill launches")
+        plain = kernel.solve(first, device="cuda", fill=fill_batch_ref)
+        _check_same_solve(f"exact kernel != plain version on ({tag})'s first"
+                          f" {EXACT_CHECK_GANGS} gangs", kern, plain)
+        out[tag].update(launches=2, check_gangs=EXACT_CHECK_GANGS,
+                        check_kernel_s=kern.solve_seconds, check_plain_s=plain.solve_seconds,
+                        check_flags=[grouped, pinned, spread], check_in_scratch=in_scratch)
+        print(f"[path] ({tag})'s first {EXACT_CHECK_GANGS} gangs x {FLAGGED_EXACT_NODES} nodes,"
+              f" exact with allocations (grouped {grouped}, pinned {pinned}, spread {spread};"
+              f" in the global scratch buffer: {', '.join(in_scratch) or 'none'}): the exact"
+              f" kernel == its plain version on every field, bit for bit (admitted"
+              f" {int(kern.admitted.sum())}; kernel {kern.solve_seconds:.4f} s, plain"
+              f" {plain.solve_seconds:.3f} s, host clock to the first result read)", flush=True)
+    return out
+
+
 def phase_path_kernel_vs_plain() -> dict:
     """Each solver with the kernels against the same solver with the plain
     fill, on reduced problems (1,024 nodes): the binding path (with
     allocations), the stats path and the exact solve; every result field
-    bit-equal (the floats by their bits). The exact solve of the stress and
-    non-uniform problems is one launch of the exact kernel, against its
-    plain version (the host loop with the plain fill); the grouped, pinned
-    and spread problems keep the host loop and launch no exact kernel. Then
-    the exact kernel against its plain version on the first
-    EXACT_CHECK_GANGS gangs of (a) with allocations, and on the first
-    EXACT_PLAIN_GANGS without, both solves timed."""
+    bit-equal (the floats by their bits). The exact solve of every problem
+    (stress, non-uniform, grouped, pinned, spread) is one launch of the
+    exact kernel and no fill, against its plain version (the host loop with
+    the plain fill), both timed; the stats solve launches the exact kernel
+    once exactly when it has a tail. Then the exact kernel against its
+    plain version on the first EXACT_CHECK_GANGS gangs of (a) with
+    allocations, and on the first EXACT_PLAIN_GANGS without, both solves
+    timed; then the flagged exact solves of (d) and (e) at full width, and
+    their first EXACT_CHECK_GANGS gangs against the plain version."""
     from grove_tpu_torch.api.topology import ClusterTopology
     from grove_tpu_torch.models.scenarios import (
         STRESS_CAPACITY,
@@ -1061,13 +1189,14 @@ def phase_path_kernel_vs_plain() -> dict:
     from grove_tpu_torch.ops.exact import exact_scan
     from grove_tpu_torch.ops.fill import fill_batch, fill_batch_ref
     from grove_tpu_torch.sim.cluster import make_nodes
+    from grove_tpu_torch.solver import kernel
     from grove_tpu_torch.solver.encode import build_problem
     from grove_tpu_torch.solver.kernel import solve, solve_waves, solve_waves_stats
 
     def exact(problem, **kw):
         return solve(problem, with_alloc=False, **kw)
 
-    out = {"exact_launches": 0}
+    out = {"exact_launches": 0, "arms": {}}
     nodes = make_nodes(1024, dict(STRESS_CAPACITY), 8, 8)
     for tag, specs in (("stress", stress_gang_specs(PATH_GANGS, seed=3)),
                        ("non-uniform", nonuniform_specs(PATH_GANGS, seed=4)),
@@ -1085,19 +1214,33 @@ def phase_path_kernel_vs_plain() -> dict:
         for path, run, prob in (("binding", solve_waves, problem),
                                 ("stats", solve_waves_stats, problem),
                                 ("exact", exact, exact_problem)):
-            exact_scan.launches = 0
-            kern = run(prob, device="cuda", fill=fill_batch)
-            launched = exact_scan.launches
+            exact_scan.launches = fill_batch.launches = 0
+            with _RecordWaveSolve() as rec:
+                kern = run(prob, device="cuda", fill=fill_batch)
+            launched, fills = exact_scan.launches, fill_batch.launches
             out["exact_launches"] += launched
             plain = run(prob, device="cuda", fill=fill_batch_ref)
-            if path == "exact" and launched != (1 if flag is None else 0):
-                _fail(f"exact path ({tag}): {launched} exact kernel launches")
+            tail = int(rec.out["pending"].sum()) if path == "stats" else None
+            want = {"binding": 0, "stats": 1 if tail else 0, "exact": 1}[path]
+            if launched != want or (path == "exact" and fills != 0):
+                _fail(f"{path} path ({tag}): {launched} exact kernel and {fills} fill launches")
             _check_same_solve(f"{path} path with kernel != with plain fill ({tag})", kern, plain)
             gangs = len(specs[:EXACT_PATH_GANGS] if path == "exact" else specs)
+            timed = ""
+            if path == "exact":
+                args, kw = rec.tail_args
+                ms = _median_ms(lambda: kernel.exact_scan(*args, **kw), reps=5, warmup=1)
+                bound_ms, bound_by = exact_bound(args, kw)
+                out["arms"][tag] = {"gangs": gangs, "nodes": 1024, "ms": ms,
+                                    "plain_ms": plain.solve_seconds * 1e3, "bound_ms": bound_ms,
+                                    "bound_by": bound_by, "kernel_s": kern.solve_seconds}
+                timed = (f"; the exact kernel {ms:.3f} ms (median of 5, CUDA events), bound"
+                         f" {bound_ms * 1e3:.3f} us ({bound_by})")
             print(f"[path] {tag} 1024 nodes x {gangs} gangs, {path}: kernel path == plain"
                   f" path on every field (admitted {int(kern.admitted.sum())}; kernel"
                   f" {kern.solve_seconds:.3f} s, plain {plain.solve_seconds:.3f} s; exact kernel"
-                  f" launches {launched})", flush=True)
+                  f" launches {launched}{'' if tail is None else f', tail {tail}'}{timed})",
+                  flush=True)
     for gangs, with_alloc in ((EXACT_CHECK_GANGS, True), (EXACT_PLAIN_GANGS, False)):
         problem = build_stress_problem(5120, gangs)
         exact_scan.launches = 0
@@ -1114,6 +1257,8 @@ def phase_path_kernel_vs_plain() -> dict:
               f" version on every field, bit for bit (admitted {int(kern.admitted.sum())};"
               f" kernel {kern.solve_seconds:.4f} s, plain {plain.solve_seconds:.3f} s, host"
               " clock to the first result read)", flush=True)
+    out["flagged_full"] = _flagged_exact_full()
+    out["exact_launches"] += sum(v["launches"] for v in out["flagged_full"].values())
     return out
 
 
@@ -9422,7 +9567,12 @@ def main() -> int:
         "full_a_ms": exact_timing["full_ms"],
         "full_a_bound_ms": exact_timing["full_bound_ms"],
         "full_a_bound_by": exact_timing["full_bound_by"],
-        "first_gangs_of_a_s": {k: v for k, v in path.items() if k != "exact_launches"},
+        "first_gangs_of_a_s": {k: path[k] for k in (f"a{EXACT_CHECK_GANGS}",
+                                                    f"a{EXACT_PLAIN_GANGS}")},
+        # the exact arms of [path] on 1,024 nodes (plain_ms: the host loop
+        # with the plain fill, host clock) and (d), (e) at full width
+        "path_arms": path["arms"],
+        "flagged_full": path["flagged_full"],
     }
     drf_pass = {k: drf[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "steps",
                                     "merge_past_g_loop_ms", "merge_per_step",

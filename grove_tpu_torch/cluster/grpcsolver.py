@@ -182,7 +182,15 @@ def solve_decoded(
     if max_waves:
         solve_kwargs["max_waves"] = max_waves
     result = solve_waves(problem, **solve_kwargs)
+    return {"solve_seconds": result.solve_seconds,
+            "placements": placements_of(problem, gang_specs, result, topology)}
 
+
+def placements_of(problem, gang_specs: List[dict], result, topology: ClusterTopology) -> list:
+    """A solve's result as the response's placements, in request order:
+    ``[{"gang", "admitted", "placement_score", "chosen_level_key",
+    "assignments": [(group, node, count), ...]}, ...]`` (assignments from
+    the result's allocations, when it has them)."""
     level_keys = [lvl.key for lvl in topology.spec.levels]
     placements = []
     for gi, spec in enumerate(gang_specs):
@@ -207,7 +215,7 @@ def solve_decoded(
                 "assignments": assignments,
             }
         )
-    return {"solve_seconds": result.solve_seconds, "placements": placements}
+    return placements
 
 
 def solve_request(request, device: Optional[Union[str, torch.device]] = None):

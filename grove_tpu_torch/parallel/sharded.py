@@ -167,7 +167,10 @@ def batch_solve_sharded(
     node axis over its ``tp`` ranks. On a card with the whole node axis on
     each rank (tp = 1), a rank's scenarios go to the exact kernel in one
     launch, one block a scenario (``ops.exact.exact_scan``); else each
-    scenario runs ``solve_packing``'s host loop on the rank's node slab.
+    scenario runs ``solve_packing``'s host loop on the rank's node slab:
+    the kernel walks a scenario's gangs in one block, which cannot wait on
+    the node axis' collectives every phase of a gang step needs. Like the
+    JAX function, it takes no per-group packs, pins or spreads.
     Every rank calls it with the whole batch and returns the whole result
     (numpy admitted, placed, score, chosen_level ``[S, ...]`` and
     free_after ``[S, N, R]``), gathered over ``dp``. S must divide by dp."""

@@ -8,10 +8,10 @@ Counterpart of ``grove_tpu/solver/kernel.py``:
 - ``solve_waves_stats``: the stats path, ``ops.packing.solve_waves_device``
   (one read per wave), then the exact sequential greedy over the gangs
   still pending (the hybrid tail);
-- ``solve``: the exact sequential greedy: on the card, for a problem
-  without per-group packs, recovery pins or spreads, one launch of the exact
-  kernel (``ops.exact.exact_scan``); else ``ops.packing.solve_packing``'s
-  host loop over the gangs (``uses_exact_kernel``);
+- ``solve``: the exact sequential greedy: on the card with the default
+  fill, one launch of the exact kernel (``ops.exact.exact_scan``) for any
+  flag set; else ``ops.packing.solve_packing``'s host loop over the gangs
+  (``uses_exact_kernel``);
 - ``solve_waves_stacked``: ``solve_waves`` over a stack of same-shape
   subproblems, each (wave, chunk) one ``ops.packing.solve_wave_chunk_stack``
   dispatch over every lane (the partitioned frontier, ``solver/frontier.py``).
@@ -309,14 +309,13 @@ def solve_waves(
     )
 
 
-def uses_exact_kernel(device: torch.device, fill, grouped: bool, pinned: bool,
-                      spread: bool) -> bool:
+def uses_exact_kernel(device: torch.device, fill) -> bool:
     """Whether :func:`solve` runs the exact kernel (``ops.exact.exact_scan``,
-    one launch for the whole solve): on a CUDA device, with the default
-    fill, for a problem without per-group packs, recovery pins or spreads.
+    one launch for the whole solve): on a CUDA device with the default
+    fill, whatever the problem's flag set (the kernel takes every one).
     Every other solve runs ``ops.packing.solve_packing``'s host loop with
     `fill` (with ``fill_batch_ref``, the kernel's plain version)."""
-    return device.type == "cuda" and fill is fill_batch and not (grouped or pinned or spread)
+    return device.type == "cuda" and fill is fill_batch
 
 
 def solve(
@@ -335,25 +334,24 @@ def solve(
     strict_fp32()
     host = _problem_arrays(problem)
     grouped, pinned, spread, uniform = _flags(host)
-    kernel = uses_exact_kernel(device, fill, grouped, pinned, spread)
+    kernel = uses_exact_kernel(device, fill)
     if kernel:
-        check_inputs(problem.count, problem.min_count, problem.pref_level, problem.demand,
-                     problem.num_levels)
+        gang = dict(zip(_GANG_FIELDS, host[4:]))
+        check_inputs(gang["count"], gang["min_count"], gang["pref_level"], gang["demand"],
+                     problem.num_levels, group_req=gang["group_req"],
+                     spread_level=gang["spread_level"], spread_seed=gang["spread_seed"],
+                     n_domains=problem.seg_starts.shape[1])
     args = tuple(_upload(a, device) for a in host)
     _sync(device)
     t0 = time.perf_counter()
+    flags = dict(with_alloc=with_alloc, grouped=grouped, pinned=pinned, spread=spread,
+                 uniform=uniform, level_widths=level_widths_of(problem))
     with TRACER.span("solver.execute", kernel="solve_packing", gangs=problem.num_gangs):
         if kernel:
-            out = exact_scan(
-                *(a.unsqueeze(0) for a in args[:9]), with_alloc=with_alloc, uniform=uniform,
-                level_widths=level_widths_of(problem),
-            )
+            out = exact_scan(*(a.unsqueeze(0) for a in args), **flags)
             out = {k: None if v is None else v[0] for k, v in out.items()}
         else:
-            out = solve_packing(
-                *args, with_alloc=with_alloc, grouped=grouped, pinned=pinned, spread=spread,
-                uniform=uniform, level_widths=level_widths_of(problem), fill=fill,
-            )
+            out = solve_packing(*args, **flags, fill=fill)
         admitted = out["admitted"].cpu().numpy()  # waits for the device
     elapsed = time.perf_counter() - t0
     return PackingResult(

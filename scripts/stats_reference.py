@@ -21,6 +21,17 @@ bytes (and of the score's, which the port does not match bit for bit:
 XLA's CPU backend fuses the score's multiply-add):
 
     JAX_PLATFORMS=cpu python scripts/stats_reference.py sharded
+
+With ``flagged`` it prints the numbers of the full-width flagged exact
+solves (``chip_smoke.JAX_FLAGGED_EXACT_REFERENCE``): the JAX package's
+exact ``solve`` of the disaggregated request (d) (4,096 gangs, a pack per
+group) and of the spread + recovery request (e) (3,072 gangs: spreads,
+survivor seeds, gang and group pins) on (a)'s 5,120 nodes, the specs
+from ``chip_smoke.flagged_exact_specs`` (one definition for both sides)
+— admitted gangs, the score sum and the pods placed (a few minutes on
+the CPU):
+
+    JAX_PLATFORMS=cpu python scripts/stats_reference.py flagged
 """
 
 from __future__ import annotations
@@ -77,7 +88,34 @@ def sharded_reference(n_nodes: int = 5120, n_gangs: int = 10240, chunk_size: int
     }
 
 
+def flagged_reference() -> dict:
+    """The JAX package's exact solve of chip_smoke's full-width (d) and (e)."""
+    from chip_smoke import FLAGGED_EXACT_NODES, flagged_exact_specs
+    from grove_tpu.api.topology import ClusterTopology
+    from grove_tpu.sim.cluster import make_nodes
+    from grove_tpu.solver.encode import build_problem
+
+    # (a)'s nodes: grove_tpu.models.build_stress_problem's capacity, ici-blocks
+    # of 8 hosts, slices of 8 blocks
+    nodes = make_nodes(FLAGGED_EXACT_NODES, {"cpu": 128.0, "tpu": 8.0}, 8, 8)
+    out = {}
+    for tag in ("d", "e"):
+        specs = flagged_exact_specs(tag)
+        exact = solve(build_problem(nodes, specs, ClusterTopology()), with_alloc=False)
+        out[tag] = {
+            "gangs": len(specs),
+            "admitted": int(exact.admitted.sum()),
+            "score_sum": float(exact.score.astype(np.float64).sum()),
+            "pods_placed": int(exact.placed.sum()),
+        }
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:] == ["flagged"]:
+        print(json.dumps({"jax": jax.__version__, "backend": jax.default_backend(),
+                          **flagged_reference()}))
+        return 0
     if sys.argv[1:] == ["sharded"]:
         print(json.dumps({"jax": jax.__version__, "backend": jax.default_backend(),
                           **sharded_reference()}))

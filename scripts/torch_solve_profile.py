@@ -25,9 +25,12 @@ tail's size, and the host time of the wave loop and of the tail.
 With --chunk-waves K the profiled binding solve stops after its first K
 chunk-waves (the profiler's own cost grows with the events it holds: a
 whole solve of (e) does not finish in 15 minutes); with --window-gangs K
-(exact path, default 512) the profiled solve is that of the first K gangs;
-every profiled figure is then that window's. With --out, the full
-profiler table is written to that file.
+(exact path) the profiled solve is that of the first K gangs; every
+profiled figure is then that window's. The exact path solves (e) at 3,072
+gangs, [path]'s full-width flagged exact solve
+(``chip_smoke.flagged_exact_specs``), and every exact solve is one launch
+of the exact kernel, so its profile takes the whole solve by default.
+With --out, the full profiler table is written to that file.
 
     python3 scripts/torch_solve_profile.py [--path binding|stats|exact|stacked] [--request a|d|e]
         [--gangs N] [--nodes 5120] [--chunk-waves K] [--window-gangs K] [--out FILE]
@@ -188,14 +191,15 @@ def main() -> int:
     ap.add_argument("--gangs", type=int, default=None)
     ap.add_argument("--nodes", type=int, default=5120)
     ap.add_argument("--chunk-waves", type=int, default=None)
-    ap.add_argument("--window-gangs", type=int, default=512)
+    ap.add_argument("--window-gangs", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
     card = ", ".join(card_info())
-    gangs = args.gangs or DEFAULT_GANGS[args.request]
+    gangs = args.gangs or (3072 if (args.path, args.request) == ("exact", "e")
+                           else DEFAULT_GANGS[args.request])
     make = Stacked if args.path == "stacked" else build
     problem = make(args.request, gangs, args.nodes)
     run = {
@@ -220,7 +224,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     window_problem = problem
-    if args.path == "exact" and args.window_gangs < gangs:
+    if args.path == "exact" and args.window_gangs and args.window_gangs < gangs:
         window_problem = build(args.request, args.window_gangs, args.nodes)
     if args.path in ("binding", "stacked"):
         chunk_waves[:] = [0, args.chunk_waves]

@@ -3,8 +3,10 @@
 Imports neither JAX nor the JAX package, so the card-only tests
 (``tests/test_torch_gpu.py``) use them too; the CPU tests
 (``tests/test_torch_exact_scan.py``) hand the same arrays to the JAX
-package. Every problem has no per-group pack, recovery pin or spread: the
-flag set ``csrc/exact.cu`` runs.
+package. ``EXACT_CASES`` have no per-group pack, recovery pin or spread;
+``FLAGGED_CASES`` carry them, on 96 nodes (two slices, the second short)
+with the group axis padded to 4, so that the cases of one flag set share
+their shapes.
 """
 
 import numpy as np
@@ -115,12 +117,84 @@ def shuffled(problem, seed=0):
     return problem
 
 
-def batch_arrays(problems):
+FLAGGED_NODES = 96
+FLAGGED_GANGS = 40
+
+
+def _flagged_nodes():
+    return make_nodes(FLAGGED_NODES, dict(STRESS_CAPACITY), 8, 8)
+
+
+def flagged_specs(kind, seed):
+    """Gang specs of one flag set, drawn as the smoke's requests draw them:
+    ``grouped`` (d)'s disaggregated gangs (an ici-block pack per group,
+    half of them also a slice pack); ``pinned`` (e)'s recovery gangs (gang
+    pins at the slice level, group pins at the ici-block level);
+    ``spread`` (e)'s hard spreads over ici-blocks (survivor seeds on one
+    in four) and soft spreads over hosts; ``mixed`` all of (e)'s kinds
+    beside (d)'s gangs."""
+    from chip_smoke import disagg_specs, spread_recovery_specs
+
+    n, g = FLAGGED_NODES, FLAGGED_GANGS
+    if kind == "grouped":
+        return disagg_specs(g, seed)
+    if kind == "pinned":
+        return spread_recovery_specs(g, seed, n, kinds=("recovery",))
+    if kind == "spread":
+        return spread_recovery_specs(g, seed, n, kinds=("spread", "soft"))
+    return spread_recovery_specs(g - g // 4, seed, n) + disagg_specs(g // 4, seed + 1)
+
+
+def flagged_problem(kind, seed, capacity_cut=0):
+    """``flagged_specs(kind, seed)`` on the 96 nodes, the first
+    ``capacity_cut`` of them with no capacity left (contention)."""
+    problem = build_problem(_flagged_nodes(), flagged_specs(kind, seed), ClusterTopology(),
+                            pad_groups=4)
+    problem.capacity[:capacity_cut] = 0.0
+    return problem
+
+
+def flagged_signed_zero_problem():
+    """The mixed flag set with signed zeros: groups of one resource (their
+    other demand -0.0) in grouped and spread gangs, and every fifth node's
+    cpu -0.0; the first 40 nodes with no capacity left."""
+    specs = flagged_specs("mixed", 5)
+    for i, spec in enumerate(specs):
+        for q, grp in enumerate(spec["groups"]):
+            if (i + q) % 3 == 0:
+                grp["demand"] = {"tpu": grp["demand"]["tpu"]}
+    problem = build_problem(_flagged_nodes(), specs, ClusterTopology(), pad_groups=4)
+    real = problem.count > 0
+    zero = (problem.demand == 0) & real[..., None]
+    problem.demand[zero] = -0.0
+    problem.capacity[:40] = 0.0
+    problem.capacity[::5, problem.resource_names.index("cpu")] = -0.0
+    assert np.signbit(problem.demand[zero]).all() and zero.any()
+    return problem
+
+
+GANG_ARRAYS = ("capacity", "topo", "seg_starts", "seg_ends", "demand", "count", "min_count",
+               "req_level", "pref_level")
+CONSTRAINT_ARRAYS = ("group_req", "group_pin", "gang_pin", "spread_level", "spread_min",
+                     "spread_required", "spread_seed")
+
+
+def batch_arrays(problems, constraints=False):
     """The nine positional arrays of ``ops.exact.exact_scan`` stacked over
-    problems of one shape."""
-    names = ("capacity", "topo", "seg_starts", "seg_ends", "demand", "count", "min_count",
-             "req_level", "pref_level")
-    return tuple(np.stack([getattr(p, n) for p in problems]) for n in names)
+    problems of one shape; with `constraints`, the seven constraint arrays
+    after them (the solver's sentinels where a problem leaves one unset)."""
+    from grove_tpu_torch.solver.kernel import _problem_arrays
+
+    n = len(GANG_ARRAYS) + (len(CONSTRAINT_ARRAYS) if constraints else 0)
+    return tuple(np.stack(arrays) for arrays in zip(*(_problem_arrays(p)[:n] for p in problems)))
+
+
+def flags_of(problem):
+    """The solver's static flags of a problem, as keywords of ``exact_scan``
+    and ``solve_packing``: grouped, pinned, spread, uniform."""
+    from grove_tpu_torch.solver.kernel import _flags, _problem_arrays
+
+    return dict(zip(("grouped", "pinned", "spread", "uniform"), _flags(_problem_arrays(problem))))
 
 
 def scenario_batch(n_scenarios=3, n_nodes=64, n_gangs=96):
@@ -146,3 +220,13 @@ EXACT_CASES = {
 }
 """Every case the kernel is held to, by id: a function that builds it (so a
 test file that only names the ids builds nothing while it is imported)."""
+
+FLAGGED_CASES = {
+    "grouped": lambda: flagged_problem("grouped", 1, capacity_cut=32),
+    "pinned": lambda: flagged_problem("pinned", 2, capacity_cut=40),
+    "spread": lambda: flagged_problem("spread", 3, capacity_cut=40),
+    "mixed": lambda: flagged_problem("mixed", 4, capacity_cut=48),
+    "mixed_signed_zero": flagged_signed_zero_problem,
+    "mixed_shuffled": lambda: shuffled(flagged_problem("mixed", 6, capacity_cut=48), seed=3),
+}
+"""The cases with per-group packs, recovery pins and spreads, by id."""

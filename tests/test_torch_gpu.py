@@ -8,8 +8,9 @@ only PyTorch is installed:
 The CUDA fill kernel is held bit for bit against its plain PyTorch version,
 alone and inside the solvers (the binding path, the stats path and the
 exact solve's host loop), and the exact kernel (``csrc/exact.cu``) against
-its plain version; each solver on the card is also held against the same
-solver on the CPU (which the CPU tests hold against the JAX package).
+its plain version on every flag set; each solver on the card is also held
+against the same solver on the CPU (which the CPU tests hold against the
+JAX package).
 """
 
 import numpy as np
@@ -33,7 +34,15 @@ from grove_tpu_torch.solver.kernel import (
     solve_waves,
     solve_waves_stats,
 )
-from exact_scan_cases import EXACT_CASES, batch_arrays, scenario_batch, stress_problem
+from exact_scan_cases import (
+    EXACT_CASES,
+    FLAGGED_CASES,
+    batch_arrays,
+    flagged_problem,
+    flags_of,
+    scenario_batch,
+    stress_problem,
+)
 
 FIELDS = ("admitted", "placed", "score", "chosen_level", "alloc", "free_after")
 
@@ -269,23 +278,27 @@ def _assert_same(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("path", ["stats", "exact"])
 @pytest.mark.parametrize("kind", ["stress", "nonuniform", "grouped", "pinned", "spread"])
-def test_cuda_stats_and_exact_match_plain_fill_and_cpu(cuda, kind, path):
+def test_cuda_stats_and_exact_match_plain_fill_and_cpu(cuda, kind, path, monkeypatch):
     """solve_waves_stats and solve (no allocations) with the kernels equal
     the same solve with the plain fill on the card and on the CPU. The
-    exact solve of a stress or non-uniform problem is one launch of the
-    exact kernel and no fill; a grouped, pinned or spread one is the host
-    loop over the fill kernel."""
+    exact solve of any flag set is one launch of the exact kernel and no
+    fill; the stats solve launches the fill, and the exact kernel once for
+    its tail when it has one."""
+    from grove_tpu_torch.solver import kernel
+
+    tails = []
+    exact_solve = kernel.solve
+    monkeypatch.setattr(kernel, "solve", lambda *a, **kw: tails.append(1) or exact_solve(*a, **kw))
     run = (solve_waves_stats if path == "stats"
            else lambda p, **kw: solve(p, with_alloc=False, **kw))
     problem = _stats_problem(kind)
     before, exact_before = fill_batch.launches, exact_scan.launches
     kern = run(problem, device=cuda)
-    if path == "exact" and kind in ("stress", "nonuniform"):
+    if path == "exact":
         assert (fill_batch.launches, exact_scan.launches) == (before, exact_before + 1)
     else:
         assert fill_batch.launches > before
-        if path == "exact":
-            assert exact_scan.launches == exact_before
+        assert exact_scan.launches == exact_before + len(tails)
     plain = run(problem, device=cuda, fill=fill_batch_ref)
     cpu = run(problem, device="cpu")
     assert 0 < kern.admitted.sum() < len(problem.gang_names)
@@ -1118,18 +1131,25 @@ def test_cuda_process_drain_forks_after_the_fill(cuda, monkeypatch):
 # -- the exact kernel (csrc/exact.cu) -----------------------------------------
 
 
-def _exact_vs_plain(problems, with_alloc, device, level_widths):
+def _exact_vs_plain(problems, with_alloc, device, level_widths, constraints=False, flags=None):
     """One launch of the exact kernel over the problems' batch against its
     plain version (the host loop with the plain fill) on the card: every
-    field bit for bit, the score and free by their bits."""
-    batch = [torch.from_numpy(a).to(device) for a in batch_arrays(problems)]
+    field bit for bit, the score and free by their bits. With
+    `constraints`, the seven constraint arrays and the flags too (the
+    problems' own, or `flags`)."""
+    batch = [torch.from_numpy(a).to(device) for a in batch_arrays(problems, constraints)]
+    if flags is None:
+        flags = {k: any(flags_of(p)[k] for p in problems) for k in ("grouped", "pinned", "spread")}
+    if not constraints:
+        flags = {}
     uniform = all(bool((p.min_count == p.count).all()) for p in problems)
     before, fills = exact_scan.launches, fill_batch.launches
-    kern = exact_scan(*batch, with_alloc=with_alloc, uniform=uniform, level_widths=level_widths)
+    kern = exact_scan(*batch, with_alloc=with_alloc, uniform=uniform, level_widths=level_widths,
+                      **flags)
     torch.cuda.synchronize()
     assert (exact_scan.launches, fill_batch.launches) == (before + 1, fills)
     plain = exact_scan_ref(*batch, with_alloc=with_alloc, uniform=uniform,
-                           level_widths=level_widths)
+                           level_widths=level_widths, **flags)
     assert set(kern) == set(plain)
     for name in FIELDS:
         a, b = kern[name], plain[name]
@@ -1207,3 +1227,62 @@ def test_cuda_exact_scan_never_syncs(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(out["admitted"].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_alloc", [True, False], ids=["alloc", "stats"])
+@pytest.mark.parametrize("case", list(FLAGGED_CASES))
+def test_cuda_exact_kernel_matches_plain_version_with_flags(cuda, case, with_alloc):
+    """Per-group packs (with and without a gang pack), gang and group pins,
+    hard spreads with survivor seeds and soft spreads, spread beside other
+    gangs, their signed zeros and permuted nodes (column masks)."""
+    problem = FLAGGED_CASES[case]()
+    out = _exact_vs_plain([problem], with_alloc, cuda, level_widths_of(problem), True)
+    assert 0 < int(out["admitted"].sum()) < int((problem.count > 0).any(1).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grouped,pinned,spread", [
+    (g, p, s) for g in (False, True) for p in (False, True) for s in (False, True)
+], ids=lambda flag: "on" if flag else "off")
+def test_cuda_exact_kernel_every_flag_set(cuda, grouped, pinned, spread):
+    """Each of the kernel's eight instantiations (one per flag set) on the
+    mixed problem, which has group packs, pins and spreads: with a flag off
+    both the kernel and its plain version leave that constraint's arrays
+    unread, so they agree for every flag set, not only the problem's own."""
+    problem = FLAGGED_CASES["mixed"]()
+    flags = dict(grouped=grouped, pinned=pinned, spread=spread)
+    out = _exact_vs_plain([problem], True, cuda, level_widths_of(problem), True, flags)
+    assert int(out["admitted"].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_alloc", [True, False], ids=["alloc", "stats"])
+def test_cuda_exact_kernel_flagged_batch(cuda, with_alloc):
+    """B = 3 mixed problems (every flag) in one launch, one block each, their
+    capacity cut more in each."""
+    problems = [flagged_problem("mixed", 4, capacity_cut=cut) for cut in (0, 32, 64)]
+    out = _exact_vs_plain(problems, with_alloc, cuda, level_widths_of(problems[0]), True)
+    admitted = out["admitted"].sum(1).tolist()
+    assert admitted[0] > admitted[1] > admitted[2] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes,in_smem", [
+    (5120, ("capacity", "work", "cs_k", "cs_free", "pods", "kq")),
+    (12288, ("gk", "tk", "kq", "load")),
+])
+def test_cuda_exact_kernel_spread_in_global_scratch(cuda, n_nodes, in_smem):
+    """Spread problems past shared memory: at (e)'s 5,120 nodes the spread's
+    load and both prefix tables are in the global scratch buffer, at 12,288
+    the capacity and its tables."""
+    from chip_smoke import spread_recovery_specs
+
+    nodes = make_nodes(n_nodes, dict(STRESS_CAPACITY), 8, 8)
+    specs = spread_recovery_specs(48, 11, n_nodes, kinds=("spread", "soft"))
+    problem = build_problem(nodes, specs, ClusterTopology())
+    plan = launch_plan(n_nodes, problem.max_groups, 2, problem.seg_starts.shape[1], spread=True)
+    names = ("capacity", "work", "cs_k", "cs_free", "pods", "gk", "tk", "kq", "load")
+    assert tuple(a for i, a in enumerate(names)
+                 if plan["smem_mask"] >> i & 1 and plan["sizes"][i]) == in_smem
+    _exact_vs_plain([problem], True, cuda, level_widths_of(problem), True)
